@@ -1,0 +1,160 @@
+"""Public wrappers around the four CUDA decode kernels.
+
+A wrapper checks its inputs, then:
+
+* for tensors on the CPU, runs the plain PyTorch version (``ref``) —
+  that is how the CPU tests reach the code around the kernels;
+* for tensors on a CUDA device, launches the hand-written kernel on the
+  current stream and raises if the launch fails. There is no fallback:
+  a CUDA tensor reaches the kernel or the call raises.
+
+Every kernel launch adds one to ``LAUNCHES[<kernel>]``, and nothing
+else does, so a run can show that its main path went through the
+kernels. No rows are padded to a tile size: the kernels mask the ragged
+edge themselves.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build, ref
+
+#: launches per kernel since the last ``reset_launches``
+LAUNCHES: Dict[str, int] = {name: 0 for name in build.SIGNATURES}
+_launches_lock = threading.Lock()
+
+_IDCT64_T = np.ascontiguousarray(ref.IDCT64.T)   # [k, j] = M[j, k]
+_matrix_on: Dict[torch.device, torch.Tensor] = {}
+
+
+def reset_launches() -> None:
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
+           shape: tuple) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if len(t.shape) != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name} must have shape {shape} (None = any), "
+                         f"got {tuple(t.shape)}")
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True: launch the kernel; False: every tensor is on the CPU."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"inputs on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+    return True
+
+
+def _aligned16(**tensors: torch.Tensor) -> None:
+    """The row kernels read coefficient rows and quant tables as float4."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the CUDA "
+                             f"kernel (a row slice of a contiguous [N, 64] "
+                             f"tensor is)")
+
+
+def _idct_t(device: torch.device) -> torch.Tensor:
+    m = _matrix_on.get(device)
+    if m is None:
+        m = torch.from_numpy(_IDCT64_T).to(device)
+        _matrix_on[device] = m
+    return m
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    fn = build.kernel(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    with _launches_lock:
+        LAUNCHES[name] += 1
+
+
+def idct8x8(x: torch.Tensor) -> torch.Tensor:
+    """[N, 64] f32 dequantized coefficients -> [N, 64] spatial rows."""
+    _check("x", x, torch.float32, (None, 64))
+    if not _on_card(x):
+        return ref.idct8x8(x)
+    _aligned16(x=x)
+    out = torch.empty_like(x)
+    if x.shape[0]:
+        _launch("idct8x8", x.device, x.data_ptr(),
+                _idct_t(x.device).data_ptr(), out.data_ptr(), x.shape[0])
+    return out
+
+
+def dequant_idct(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """[N, 64] raw coefficients + [64] quant row -> clamped pixel rows."""
+    _check("x", x, torch.float32, (None, 64))
+    _check("q", q, torch.float32, (64,))
+    if not _on_card(x, q):
+        return ref.dequant_idct(x, q)
+    _aligned16(x=x, q=q)
+    out = torch.empty_like(x)
+    if x.shape[0]:
+        _launch("dequant_idct", x.device, x.data_ptr(), q.data_ptr(),
+                _idct_t(x.device).data_ptr(), out.data_ptr(), x.shape[0])
+    return out
+
+
+def decode_batch(x: torch.Tensor, qidx: torch.Tensor,
+                 qtables: torch.Tensor) -> torch.Tensor:
+    """Batched fused dequant+IDCT: [N, 64] rows + [N] int32 per-row
+    table index + [T, 64] quant tables -> [N, 64] clamped pixel rows (one
+    launch for a whole micro-batch; rows from different images interleave
+    freely). On the card a row whose index is outside [0, T) comes out
+    NaN; on the CPU the plain version raises IndexError."""
+    _check("x", x, torch.float32, (None, 64))
+    n = x.shape[0]
+    _check("qidx", qidx, torch.int32, (n,))
+    _check("qtables", qtables, torch.float32, (None, 64))
+    if not _on_card(x, qidx, qtables):
+        return ref.decode_batch(x, qidx, qtables)
+    _aligned16(x=x, qtables=qtables)
+    out = torch.empty_like(x)
+    if n:
+        _launch("decode_batch", x.device, x.data_ptr(), qidx.data_ptr(),
+                qtables.data_ptr(), qtables.shape[0],
+                _idct_t(x.device).data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def ycbcr2rgb(y: torch.Tensor, cb: torch.Tensor,
+              cr: torch.Tensor) -> torch.Tensor:
+    """[H, W] f32 planes -> [H, W, 3] f32 RGB (no clamp)."""
+    shape = tuple(y.shape)
+    for name, p in (("y", y), ("cb", cb), ("cr", cr)):
+        _check(name, p, torch.float32, shape)
+    if not _on_card(y, cb, cr):
+        return torch.stack(ref.ycbcr2rgb(y, cb, cr), dim=-1)
+    out = torch.empty(shape + (3,), dtype=torch.float32, device=y.device)
+    if y.numel():
+        _launch("ycbcr2rgb", y.device, y.data_ptr(), cb.data_ptr(),
+                cr.data_ptr(), out.data_ptr(), y.numel())
+    return out

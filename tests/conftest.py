@@ -22,3 +22,9 @@ requires_slow = pytest.mark.skipif(
 @pytest.fixture(scope="session")
 def corpus() -> Corpus:
     return build_corpus(12, seed=7)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skips without one "
+        "(run on the card: python -m pytest -m gpu tests/test_torch_gpu.py)")

@@ -1,0 +1,172 @@
+"""The four CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``gpu``; without a card every test skips (the ``cuda`` fixture
+decides, at run time). On the machine with the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerances are those of tests/test_kernels.py (``rtol=1e-5, atol=1e-3``;
+``1e-6/1e-4`` for the single-table identity). Where the kernels promise
+bit-identity (a row's result does not depend on N or on its position),
+the checks are exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+RTOL, ATOL = 1e-5, 1e-3
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False); run with -m gpu on the machine with the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import build
+    build.load_all()
+    return torch.device("cuda", 0)
+
+
+def _rows(n, seed, ntab=1):
+    """Quantized coefficient rows as a JPEG holds them: the forward DCT
+    of random 8-bit blocks, divided by the row's table and rounded.
+
+    (The raw-integer rows of tests/test_kernels.py dequantize to values
+    far larger than an 8-bit image can give. With them, a 64-term float32
+    sum in another order than cuBLAS's can land outside ``atol=1e-3``
+    after cancellation, which says nothing about the kernel.)"""
+    from repro_torch.jpeg import tables as T
+    rng = np.random.RandomState(seed)
+    c = T.dct_matrix()
+    blocks = rng.uniform(-128, 127, (n, 8, 8))
+    coef = np.einsum("ki,nij,lj->nkl", c, blocks, c).reshape(n, 64)
+    qt = rng.randint(1, 99, size=(ntab, 64)).astype(np.float32)
+    qi = rng.randint(0, ntab, size=n).astype(np.int32)
+    x = np.round(coef / qt[qi]).astype(np.float32)
+    return x, qi, qt
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 777, 20011])
+@pytest.mark.parametrize("scale", [1.0, 100.0])
+def test_idct8x8_matches_plain(cuda, n, scale):
+    from repro_torch.kernels import ops, ref
+    x = torch.from_numpy((np.random.RandomState(n).randn(n, 64) * scale)
+                         .astype(np.float32)).to(cuda)
+    before = ops.LAUNCHES["idct8x8"]
+    got = ops.idct8x8(x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["idct8x8"] == before + 1
+    torch.testing.assert_close(got, ref.idct8x8(x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [1, 65, 777, 20011])
+@pytest.mark.parametrize("ntab", [1, 3, 768])
+def test_decode_batch_matches_plain(cuda, n, ntab):
+    from repro_torch.kernels import ops, ref
+    x, qi, qt = _on(cuda, *_rows(n, n * 31 + ntab, ntab))
+    before = ops.LAUNCHES["decode_batch"]
+    got = ops.decode_batch(x, qi, qt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_batch"] == before + 1
+    torch.testing.assert_close(got, ref.decode_batch(x, qi, qt),
+                               rtol=RTOL, atol=ATOL)
+    assert got.min().item() >= 0.0 and got.max().item() <= 255.0
+
+
+@pytest.mark.parametrize("n", [1, 64, 777, 20011])
+def test_dequant_idct_matches_plain(cuda, n):
+    from repro_torch.kernels import ops, ref
+    x, _, qt = _on(cuda, *_rows(n, n + 99))
+    q = qt[0].contiguous()
+    before = ops.LAUNCHES["dequant_idct"]
+    got = ops.dequant_idct(x, q)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequant_idct"] == before + 1
+    torch.testing.assert_close(got, ref.dequant_idct(x, q),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_decode_batch_single_table_matches_dequant_idct(cuda):
+    from repro_torch.kernels import ops
+    x, _, qt = _on(cuda, *_rows(640, 9))
+    a = ops.decode_batch(x, torch.zeros(640, dtype=torch.int32, device=cuda),
+                         qt)
+    b = ops.dequant_idct(x, qt[0].contiguous())
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-4)
+    assert torch.equal(a, b)        # one device function, one sum order
+
+
+def test_a_rows_result_does_not_depend_on_n_or_position(cuda):
+    """Batched equals serial bit for bit: the kernel's sum order is fixed
+    per output element, whatever the launch's row count or offset."""
+    from repro_torch.kernels import ops
+    x, qi, qt = _on(cuda, *_rows(5000, 17, ntab=6))
+    full = ops.decode_batch(x, qi, qt)
+    for lo, hi in [(0, 1), (1, 70), (63, 64), (1234, 4321), (4999, 5000)]:
+        part = ops.decode_batch(x[lo:hi].contiguous(),
+                                qi[lo:hi].contiguous(), qt)
+        assert torch.equal(part, full[lo:hi]), (lo, hi)
+
+
+def test_out_of_range_table_index_gives_nan_rows(cuda):
+    from repro_torch.kernels import ops
+    x, qi, qt = _on(cuda, *_rows(100, 3, ntab=2))
+    qi[5], qi[70] = 2, -1
+    out = ops.decode_batch(x, qi, qt)
+    bad = torch.isnan(out).all(dim=1)
+    assert bad[5] and bad[70] and int(bad.sum()) == 2
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (17, 23), (375, 500), (500, 333)])
+def test_ycbcr2rgb_matches_plain(cuda, hw):
+    from repro_torch.kernels import ops, ref
+    h, w = hw
+    rng = np.random.RandomState(h * w)
+    y, cb, cr = _on(cuda, *(rng.uniform(-20, 275, (h, w)).astype(np.float32)
+                            for _ in range(3)))
+    before = ops.LAUNCHES["ycbcr2rgb"]
+    got = ops.ycbcr2rgb(y, cb, cr)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ycbcr2rgb"] == before + 1
+    assert got.shape == (h, w, 3)
+    torch.testing.assert_close(got, torch.stack(ref.ycbcr2rgb(y, cb, cr),
+                                                dim=-1),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import ops
+    x = torch.zeros(8, 128, device=cuda)[:, ::2]          # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.idct8x8(x)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.dequant_idct(torch.zeros(4, 64, device=cuda), torch.zeros(64))
+
+
+def test_cuda_batch_on_the_card_matches_its_plain_run(cuda, corpus):
+    from repro_torch.codecs import get_decoder
+    from repro_torch.device import use_device
+    from repro_torch.kernels import ops
+    from repro_torch.jpeg import parser as P
+    path = get_decoder("cuda-batch")
+    files = list(corpus.files)
+    ops.reset_launches()
+    got = path.decode_batch(files)
+    specs = [P.parse(f, headers_only=True) for f in files]
+    groups = {(len(s.components), tuple((c.h, c.v) for c in s.components))
+              for s in specs}
+    assert ops.LAUNCHES["decode_batch"] == len(groups)
+    assert ops.LAUNCHES["ycbcr2rgb"] == sum(len(s.components) == 3
+                                            for s in specs)
+    with use_device("cpu"):
+        plain = path.decode_batch(files)
+    for i, (g, p, f) in enumerate(zip(got, plain, files)):
+        assert int(np.abs(g.astype(int) - p.astype(int)).max()) <= 1, i
+        np.testing.assert_array_equal(g, path.decode(f), err_msg=str(i))

@@ -1,0 +1,170 @@
+"""The port's kernel wrappers and plain versions on CPU tensors, held
+against the reference's Pallas kernels (interpret mode on the CPU) and
+its jnp oracles, at the shapes, seeds and tolerances of
+tests/test_kernels.py. On the CPU a port wrapper runs its plain
+PyTorch version; the CUDA kernels themselves are checked on the card
+(tests/test_torch_gpu.py, chip_smoke.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.jpeg import tables as JT
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.jpeg import tables as T
+from repro_torch.kernels import ops, ref
+
+IMPLS = {"ops": (ops.idct8x8, ops.dequant_idct, ops.decode_batch),
+         "ref": (ref.idct8x8, ref.dequant_idct, ref.decode_batch)}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.numpy()
+
+
+@pytest.mark.parametrize("impl", ["ops", "ref"])
+@pytest.mark.parametrize("n", [64, 512, 1024, 1500])
+@pytest.mark.parametrize("scale", [1.0, 100.0])
+def test_idct8x8_matches_reference(impl, n, scale):
+    rng = np.random.RandomState(n)
+    x = (rng.randn(n, 64) * scale).astype(np.float32)
+    out = _np(IMPLS[impl][0](_t(x)))
+    np.testing.assert_allclose(out, np.asarray(jops.idct8x8(x)),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(out, np.asarray(jref.idct8x8(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_idct8x8_matches_separable_numpy():
+    rng = np.random.RandomState(0)
+    blocks = rng.randn(37, 8, 8).astype(np.float32) * 50
+    c = T.dct_matrix()
+    want = np.einsum("ik,nkl,jl->nij", c.T, blocks.astype(np.float64), c.T)
+    got = _np(ops.idct8x8(_t(blocks.reshape(-1, 64)))).reshape(-1, 8, 8)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("impl", ["ops", "ref"])
+@pytest.mark.parametrize("n", [64, 512, 777])
+@pytest.mark.parametrize("qscale", [1, 16, 99])
+def test_dequant_idct_matches_reference(impl, n, qscale):
+    rng = np.random.RandomState(n + qscale)
+    x = rng.randint(-200, 200, size=(n, 64)).astype(np.float32)
+    q = np.clip(rng.randint(1, qscale + 1, size=64), 1, 255).astype(
+        np.float32)
+    out = _np(IMPLS[impl][1](_t(x), _t(q)))
+    np.testing.assert_allclose(out, np.asarray(jops.dequant_idct(x, q)),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(
+        out, np.asarray(jref.dequant_idct(jnp.asarray(x), jnp.asarray(q))),
+        rtol=1e-5, atol=1e-3)
+    assert out.min() >= 0.0 and out.max() <= 255.0
+
+
+@pytest.mark.parametrize("impl", ["ops", "ref"])
+@pytest.mark.parametrize("n", [64, 512, 777])
+@pytest.mark.parametrize("ntab", [1, 3, 24])
+def test_decode_batch_matches_reference(impl, n, ntab):
+    rng = np.random.RandomState(n * 31 + ntab)
+    x = rng.randint(-200, 200, size=(n, 64)).astype(np.float32)
+    qt = np.clip(rng.randint(1, 99, size=(ntab, 64)), 1, 255).astype(
+        np.float32)
+    qi = rng.randint(0, ntab, size=n).astype(np.int32)
+    out = _np(IMPLS[impl][2](_t(x), _t(qi), _t(qt)))
+    np.testing.assert_allclose(out, np.asarray(jops.decode_batch(x, qi, qt)),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(
+        out, np.asarray(jref.decode_batch(jnp.asarray(x), jnp.asarray(qi),
+                                          jnp.asarray(qt))),
+        rtol=1e-5, atol=1e-3)
+    assert out.min() >= 0.0 and out.max() <= 255.0
+
+
+def test_decode_batch_single_table_matches_dequant_idct():
+    rng = np.random.RandomState(9)
+    x = rng.randint(-200, 200, size=(640, 64)).astype(np.float32)
+    q = rng.randint(1, 64, size=64).astype(np.float32)
+    a = _np(ops.decode_batch(_t(x), torch.zeros(640, dtype=torch.int32),
+                             _t(q[None])))
+    b = _np(ops.dequant_idct(_t(x), _t(q)))
+    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", [(8, 128), (64, 64), (100, 130), (17, 23),
+                                (375, 500)])
+def test_ycbcr2rgb_matches_reference(hw):
+    h, w = hw
+    rng = np.random.RandomState(h * w)
+    y, cb, cr = (rng.uniform(0, 255, (h, w)).astype(np.float32)
+                 for _ in range(3))
+    out = _np(ops.ycbcr2rgb(_t(y), _t(cb), _t(cr)))
+    assert out.shape == (h, w, 3) and out.dtype == np.float32
+    np.testing.assert_allclose(out, np.asarray(jops.ycbcr2rgb(y, cb, cr)),
+                               rtol=1e-5, atol=1e-3)
+    r, g, b = jref.ycbcr2rgb(jnp.asarray(y), jnp.asarray(cb),
+                             jnp.asarray(cr))
+    want = np.stack([np.asarray(r), np.asarray(g), np.asarray(b)], axis=-1)
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-3)
+
+
+def test_idct_roundtrip_with_fdct():
+    rng = np.random.RandomState(3)
+    blocks = rng.uniform(-128, 127, (16, 8, 8))
+    c = T.dct_matrix()
+    coefs = np.einsum("ki,nij,lj->nkl", c, blocks, c)
+    got = _np(ops.idct8x8(_t(coefs.reshape(-1, 64).astype(np.float32))))
+    np.testing.assert_allclose(got.reshape(-1, 8, 8), blocks, atol=5e-3)
+
+
+def test_plain_idct_matrix_is_the_reference_matrix():
+    np.testing.assert_array_equal(ref.IDCT64,
+                                  JT.idct64_matrix().astype(np.float32))
+
+
+def test_cpu_calls_launch_nothing():
+    """The launch counter counts kernel launches only: plain-version
+    calls on the CPU leave it at zero."""
+    ops.reset_launches()
+    x = torch.ones(70, 64)
+    ops.idct8x8(x)
+    ops.dequant_idct(x, torch.ones(64))
+    ops.decode_batch(x, torch.zeros(70, dtype=torch.int32),
+                     torch.ones(2, 64))
+    ops.ycbcr2rgb(torch.ones(3, 5), torch.ones(3, 5), torch.ones(3, 5))
+    assert ops.LAUNCHES == {"decode_batch": 0, "dequant_idct": 0,
+                            "idct8x8": 0, "ycbcr2rgb": 0}
+
+
+@pytest.mark.parametrize("call, exc", [
+    (lambda: ops.idct8x8(torch.ones(4, 64, dtype=torch.float64)), TypeError),
+    (lambda: ops.idct8x8(torch.ones(4, 63)), ValueError),
+    (lambda: ops.dequant_idct(torch.ones(4, 64), torch.ones(63)), ValueError),
+    (lambda: ops.decode_batch(torch.ones(4, 64),
+                              torch.zeros(4, dtype=torch.int64),
+                              torch.ones(1, 64)), TypeError),
+    (lambda: ops.decode_batch(torch.ones(4, 64),
+                              torch.zeros(3, dtype=torch.int32),
+                              torch.ones(1, 64)), ValueError),
+    (lambda: ops.ycbcr2rgb(torch.ones(3, 5), torch.ones(3, 5),
+                           torch.ones(3, 4)), ValueError),
+    (lambda: ops.idct8x8(np.ones((4, 64), np.float32)), TypeError),
+])
+def test_wrappers_reject_bad_inputs(call, exc):
+    with pytest.raises(exc):
+        call()
+
+
+def test_wrappers_have_no_plain_path_off_the_cpu():
+    """A tensor that is not on the CPU reaches a kernel or raises; it
+    never runs the plain version (meta tensors stand in for a device
+    without a kernel)."""
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.idct8x8(x)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.dequant_idct(torch.ones(4, 64), torch.empty(64, device="meta"))
