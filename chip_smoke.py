@@ -29,6 +29,32 @@ and prints no result line:
    plain runs do on the host (within 1 level).
    Each path is driven with the launch counters set to 0 just before it
    and read just after; every kernel must have launched on its path.
+4. Flash attention: the fifth kernel against its plain PyTorch version
+   on the card at the LM prefill's shape (B=4, S=2048, 28 query heads over
+   4 KV heads, head_dim 128, bf16, causal), a ragged S=100, S=1,
+   ``causal=False`` and float32; tolerances those of
+   tests/test_kernels.py (2e-2 in bf16, 2e-5 in f32). Then its time, the
+   plain version's, ``scaled_dot_product_attention``'s (a yardstick the
+   port never calls) and the bound at the bf16 tensor-core rate.
+5. LM serving: ``qwen2-7b`` at full width and depth (28 layers, random
+   weights from a seeded generator, made on the card) through
+   ``repro_torch.serve.engine.generate``: 4 prompts of 2048 tokens, 32
+   greedy new tokens. ``flash_attention`` must launch exactly once per
+   layer (prefill only); the prefill's last-position logits must agree
+   with the same model's prefill through the plain attention loop on the
+   card within 0.02 of the largest logit (tests/test_models.py's bound
+   for qwen2), and the plain loop at two chunkings is compared with
+   itself to show that bound's noise floor. Prints prefill and decode
+   tokens/s and the phase's peak device memory.
+
+Before phases 3, 4 and 5 the script releases cuBLAS's per-stream
+workspaces and the allocator's free blocks, then prints the device
+memory still held and the live CUDA tensors behind it, so that each
+phase's peak is its own.
+
+``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` pass over
+one prefill and a few decode steps of phase 5 (device time by kernel,
+device busy share); the default run does not profile.
 
 The last lines are the ``kernels`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -39,12 +65,17 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+# H100 SXM dense bf16 on the tensor cores (NVIDIA's data sheet, no
+# sparsity): the least time for bf16 attention, whatever a kernel uses
+BF16_FLOPS_PER_S = 989e12
+DEV = "cuda"                  # phases 4 and 5 run here
 SIZES = [(375, 500), (500, 375), (333, 500), (500, 333), (500, 500)]
 N_IMAGES = 33
 RTOL, ATOL = 1e-5, 1e-3
@@ -100,9 +131,9 @@ def cuda_ms(fn, iters=20, warmup=3, graph=True):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS_PER_S
+    t_ops = flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -222,6 +253,33 @@ def phase_kernels(files):
     return results
 
 
+def held_report(label):
+    """Release what is free, then print the device memory still allocated
+    and the live CUDA tensors (found through the garbage collector) that
+    account for it. Returns the bytes held."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    # cuBLAS keeps one workspace per (handle, stream) it has run on, in
+    # the caching allocator, for the life of the process; every stream
+    # that cuda_ms warms up or captures on adds one
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with warnings.catch_warnings():     # deprecated aliases gc walks past
+        warnings.simplefilter("ignore", FutureWarning)
+        live = [o for o in gc.get_objects()
+                if torch.is_tensor(o) and o.is_cuda]
+    live_bytes = sum(t.untyped_storage().nbytes() for t in live)
+    top = sorted(((t.untyped_storage().nbytes(), tuple(t.shape),
+                   str(t.dtype)) for t in live), reverse=True)[:6]
+    print(f"held before {label}: {held} bytes allocated after releasing "
+          f"{before - held} bytes of cuBLAS workspaces; {len(live)} live "
+          f"CUDA tensors found by gc, {live_bytes} bytes; largest: {top}")
+    return held
+
+
 def drive(name, fn):
     """Run one path with the launch counters zeroed just before and
     read just after; returns (result, launches, seconds)."""
@@ -255,12 +313,8 @@ def phase_path(corpus):
     sess = open_decoder("cuda-batch", context=svc)
     sess.warmup(files[:2])
 
-    # phase 2's tensors and graph pools go first, so that the peak is
-    # this call's own
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
+    # what is free goes first, so that the peak is this call's own
+    held = held_report("the cuda-batch call")
     torch.cuda.reset_peak_memory_stats()
     tracer = trace.Tracer()
     with trace.use_tracer(tracer):
@@ -394,6 +448,242 @@ def phase_path(corpus):
             "dequant_idct": f_launches["dequant_idct"]}
 
 
+LM_ARCH = "qwen2-7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_REL_TOL = 0.02       # tests/test_models.py's bound for qwen2
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
+
+
+def _flash_inputs(shape, dtype, seed):
+    import torch
+    B, S, H, KV, D = shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return [(0.5 * torch.randn(B, S, n, D, generator=g, device=DEV))
+            .to(dtype) for n in (H, KV, KV)]
+
+
+def flash_work(B, S, H, KV, D, causal, itemsize):
+    """Bytes (q, k, v read once, out written once) and the FLOPs of the
+    two products over the (query, key) pairs this call needs."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return B * S * (2 * H + 2 * KV) * D * itemsize, 4 * B * H * D * pairs
+
+
+def phase_flash():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    print("== phase 4: flash_attention against its plain version")
+    held_report("phase 4")
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(LM_ARCH)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    path = (LM_BATCH, LM_PROMPT, *heads)
+    cases = [(path, bf16, True), ((LM_BATCH, 100, *heads), bf16, True),
+             ((LM_BATCH, 1, *heads), bf16, True),
+             ((1, LM_PROMPT, *heads), bf16, False),
+             ((1, 512, *heads), f32, True),
+             ((2, 100, *heads), f32, False)]
+    worst = 0.0
+    for i, (shape, dtype, causal) in enumerate(cases):
+        q, k, v = _flash_inputs(shape, dtype, seed=i)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        err = diff.max().item()
+        print(f"flash_attention {shape} {dtype} causal={causal}: "
+              f"max_abs_err {err} (rtol=atol={tol}), {bad} elements over")
+        check(bad == 0 and torch.isfinite(got).all().item(),
+              f"flash_attention {shape} {dtype} causal={causal}: {bad} "
+              f"elements outside rtol=atol={tol} of the plain version")
+        if shape == path and dtype == bf16:
+            worst = err
+        del q, k, v, got, want, diff
+
+    q, k, v = _flash_inputs(path, bf16, seed=0)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kern = lambda: ops.flash_attention(q, k, v, causal=True)
+    plain = lambda: ref.flash_attention(q, k, v, True)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    sdpa_err = (lib().transpose(1, 2).float() - kern().float()).abs().max()
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain, iters=5)
+    library_ms = cuda_ms(lib)
+    eager_ms = cuda_ms(kern, graph=False)
+    nbytes, flops = flash_work(*path, True, 2)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    print(f"flash_attention at {path} bf16 causal: ms {ms} plain_ms "
+          f"{plain_ms} library_ms {library_ms} (SDPA, max diff to the "
+          f"kernel {sdpa_err.item()}) bound_ms {b_ms} ({b_by}: {nbytes} B, "
+          f"{flops} FLOP at {BF16_FLOPS_PER_S:.3g} FLOP/s); "
+          f"{flops / ms / 1e9} TFLOP/s; eager calls {eager_ms} ms each")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:30",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
+def _profile(label, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, launch_calls = [], 0
+    for e in prof.key_averages():
+        if "LaunchKernel" in e.key:
+            launch_calls += e.count
+        if e.device_type != DeviceType.CUDA:
+            continue        # an operator's row repeats its kernels' time
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    groups = {"flash_attention": 0.0, "GEMM/GEMV": 0.0, "other": 0.0}
+    for dev_us, _, key in rows:
+        name = key.lower()
+        group = "flash_attention" if "flash_attention" in name else \
+            "GEMM/GEMV" if any(w in name for w in ("gemm", "gemv", "nvjet",
+                                                    "xmma")) else "other"
+        groups[group] += dev_us / 1e3
+    print(f"profile {label}: wall {wall} s, device busy {busy} s "
+          f"(idle share {1 - busy / wall}); {sum(r[1] for r in rows)} "
+          f"kernels, {launch_calls} launch calls; device ms by group "
+          f"{groups}")
+    for dev_us, count, key in rows[:12]:
+        print(f"  {dev_us / 1e3:.3f} ms  x{count}  {key[:90]}")
+    out_dir = os.path.join(ROOT, "artifacts", "lm_profile")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"{label.replace(' ', '_')}.json"))
+
+
+def phase_lm(profile):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    print(f"== phase 5: {LM_ARCH} serving at full width and depth")
+    held = held_report("phase 5")
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device(DEV)
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in (
+        [params["embed"], params["unembed"], params["final_ln"]] +
+        [t for layer in params["layers"] for part in layer.values()
+         for t in part.values()]))
+    print(f"{LM_ARCH}: {len(params['layers'])} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
+          f"{n_params} parameters ({cfg.param_count()} by param_count, "
+          f"which leaves out biases and the final norm), "
+          f"{torch.cuda.memory_allocated() - held} bytes, made on the card "
+          f"in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    cache_len = LM_PROMPT + LM_NEW
+    ctx = ModelContext()
+    # first calls build cuBLAS handles and load kernels: not measured
+    engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                    cache_len=cache_len)
+    timings = {}
+    out, launches, dt = drive(
+        f"{LM_ARCH} generate", lambda: engine.generate(
+            params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
+            cache_len=cache_len, timings=timings))
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == len(params["layers"]),
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"for {len(params['layers'])} layers: the prefill bypassed it")
+    check(sum(launches.values()) == launches["flash_attention"],
+          f"other kernels launched on the LM path: {launches}")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
+          out.dtype == prompt.dtype, f"generated {tuple(out.shape)} "
+          f"{out.dtype}")
+    check(0 <= out.min().item() and
+          out.max().item() < cfg.padded_vocab_size, "ids out of range")
+    pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
+    n_dec = LM_BATCH * (LM_NEW - 1)
+    print(f"prefill: {LM_BATCH * LM_PROMPT} tokens in {pre_s} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s")
+    print(f"decode: {n_dec} tokens in {dec_s} s ({LM_NEW - 1} steps of "
+          f"{LM_BATCH}), {n_dec / dec_s} tokens/s, "
+          f"{dec_s / (LM_NEW - 1) * 1e3} ms per step")
+    print(f"first generated ids: {out[:, :8].tolist()}")
+
+    prefill = engine.make_prefill_step(cfg, ctx, cache_len)
+    plain_prefill = engine.make_prefill_step(
+        cfg, dataclasses.replace(ctx, flash_kernel=False), cache_len)
+    (_, got), k_launches, k_s = drive(
+        "prefill, kernel path", lambda: prefill(params, prompt))
+    (_, want), p_launches, p_s = drive(
+        "prefill, plain attention", lambda: plain_prefill(params, prompt))
+    check(k_launches["flash_attention"] == len(params["layers"]) and
+          p_launches["flash_attention"] == 0,
+          f"launches {k_launches} / {p_launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite logits")
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    print(f"last-position logits [{LM_BATCH}, {got.shape[1]}]: kernel path "
+          f"vs plain attention max abs diff / max |logit| = {rel} (limit "
+          f"{LM_REL_TOL}; max |logit| {scale}); kernel-path prefill {k_s} s, "
+          f"plain-attention prefill {p_s} s")
+    print(f"  kernel path logits[0, :4] {got[0, :4].tolist()}; plain "
+          f"{want[0, :4].tolist()}")
+    # the plain loop's own spread: the same attention in 512-row chunks
+    # (another rounding point for the bf16 probabilities) against 1024
+    (_, other), _, _ = drive("prefill, plain attention in 512-row chunks",
+                             lambda: engine.make_prefill_step(
+                                 cfg, dataclasses.replace(
+                                     ctx, flash_kernel=False, q_chunk=512,
+                                     k_chunk=512), cache_len)(params, prompt))
+    print(f"plain attention, 512-row vs 1024-row chunks: max abs diff / "
+          f"max |logit| = {(other - want).abs().max().item() / scale}")
+    check(rel < LM_REL_TOL, f"prefill logits differ by {rel} relative")
+    check(torch.equal(out[:, 0], got.argmax(dim=-1)),
+          "generate's first token is not the prefill's argmax")
+    if profile:
+        _profile("prefill", lambda: prefill(params, prompt))
+        caches, logits = prefill(params, prompt)
+        tok = logits.argmax(dim=-1)[:, None]
+        decode = engine.make_decode_step(cfg, ctx)
+
+        def steps():
+            c, t = caches, tok
+            for i in range(8):
+                c, lg = decode(params, c, t, LM_PROMPT + i)
+                t = lg.argmax(dim=-1)[:, None]
+        _profile("decode 8 steps", steps)
+        del caches, logits, tok
+    print(f"peak device memory: {serve_peak} bytes over generate, "
+          f"{torch.cuda.max_memory_allocated()} over the phase ({held} "
+          f"bytes held before it)")
+    return {"flash_attention": launches["flash_attention"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -415,7 +705,10 @@ def main() -> int:
               f"{corpus.rare_index}, built in "
               f"{time.perf_counter() - t0:.1f} s")
         kernels = phase_kernels(corpus.files)
+        held_report("phase 3")
         launches = phase_path(corpus)
+        kernels["flash_attention"] = phase_flash()
+        launches.update(phase_lm(profile="--profile" in sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

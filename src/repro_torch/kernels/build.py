@@ -36,6 +36,7 @@ SIGNATURES: Dict[str, List] = {
     "dequant_idct": [_P, _P, _P, _P, _L, _P],
     "idct8x8": [_P, _P, _P, _L, _P],
     "ycbcr2rgb": [_P, _P, _P, _P, _L, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Public wrappers around the four CUDA decode kernels.
+"""Public wrappers around the five CUDA kernels: the four decode kernels
+and the LM prefill's flash attention.
 
 A wrapper checks its inputs, then:
 
@@ -68,12 +69,12 @@ def _on_card(*tensors: torch.Tensor) -> bool:
 
 
 def _aligned16(**tensors: torch.Tensor) -> None:
-    """The row kernels read coefficient rows and quant tables as float4."""
+    """The kernels read their rows in 16-byte vectors."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the CUDA "
                              f"kernel (a row slice of a contiguous [N, 64] "
-                             f"tensor is)")
+                             f"tensor, or a fresh tensor, is)")
 
 
 def _idct_t(device: torch.device) -> torch.Tensor:
@@ -157,4 +158,40 @@ def ycbcr2rgb(y: torch.Tensor, cb: torch.Tensor,
     if y.numel():
         _launch("ycbcr2rgb", y.device, y.data_ptr(), cb.data_ptr(),
                 cr.data_ptr(), out.data_ptr(), y.numel())
+    return out
+
+
+#: head dims the flash kernel is instantiated for
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Fused attention over a whole sequence: q [B, S, H, D], k and v
+    [B, S, KV, D] (KV divides H; query head h uses KV head h // (H // KV))
+    -> [B, S, H, D] in q's dtype. float32 or bfloat16, the same for all
+    three; D in ``FLASH_HEAD_DIMS``; scale 1/sqrt(D)."""
+    if not isinstance(q, torch.Tensor):
+        raise TypeError(f"q must be a torch.Tensor, got {type(q)}")
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, S, H, D], got {tuple(q.shape)}")
+    B, S, H, D = q.shape
+    _check("k", k, q.dtype, (B, S, None, D))
+    KV = k.shape[2]
+    _check("v", v, q.dtype, (B, S, KV, D))
+    if KV == 0 or H % KV:
+        raise ValueError(f"{KV} KV heads do not divide {H} query heads")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
+    if not _on_card(q, k, v):
+        return ref.flash_attention(q, k, v, causal)
+    _aligned16(q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    if out.numel():
+        _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), B, S, H, KV, D, int(causal),
+                _FLASH_DTYPES[q.dtype])
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four decode kernels.
+"""Plain PyTorch versions of the five kernels.
 
 Same semantics as the reference's oracles (``repro/kernels/ref.py``).
 The ``ops`` wrappers run these for tensors on the CPU; on the card they
@@ -6,6 +6,7 @@ are what each CUDA kernel is held against.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -55,3 +56,23 @@ def ycbcr2rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
     g = y - 0.344136 * (cb - 128.0) - 0.714136 * (cr - 128.0)
     b = y + 1.772 * (cb - 128.0)
     return r, g, b
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """The flash kernel's oracle (reference ``kernels/ref.py:37``) in the
+    wrapper's layout: q [B, S, H, D], k and v [B, S, KV, D] -> [B, S, H, D].
+
+    Query head h attends with KV head h // (H // KV), as the reference's
+    ``jnp.repeat`` of the KV heads gives. Scores, softmax and the PV
+    product run in float32; the output is cast to q's dtype."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, D)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float()) / math.sqrt(D)
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)

@@ -1,0 +1,52 @@
+"""Import the reference package's LM parameters into the port's layout.
+
+The reference keeps each stage's layers stacked along a leading repeat
+axis (``stage0/layer0/{attn,ffn}/<name>`` of shape ``[R, ...]``) with
+``embed [Vp, d]``, ``unembed [d, Vp]`` and ``final_ln [d]`` at the top.
+The port keeps one dict per layer (``params["layers"][i]``). The leaves
+come in as numpy arrays (``np.asarray`` of a JAX array gives one), so
+the port never imports JAX.
+
+A bfloat16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
+``torch.from_numpy`` refuses; it crosses bit for bit as uint16 and is
+viewed as ``torch.bfloat16`` on the other side.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import Params, layer_specs
+
+
+def to_tensor(a: Any, device: Optional[torch.device] = None) -> torch.Tensor:
+    """One parameter leaf (numpy or array-like) -> a tensor with the same
+    dtype and bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device) if device is not None else t
+
+
+def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
+                            device: Optional[torch.device] = None) -> Params:
+    """The reference's parameter pytree -> the port's parameters, so that
+    both compute the same function. Dense family only."""
+    specs = layer_specs(cfg)
+    stage = tree["stage0"]["layer0"]
+    layers = []
+    for i in range(len(specs)):
+        layers.append({
+            part: {name: to_tensor(np.asarray(leaf)[i], device)
+                   for name, leaf in stage[part].items()}
+            for part in ("attn", "ffn")})
+    return {"embed": to_tensor(tree["embed"], device),
+            "unembed": to_tensor(tree["unembed"], device),
+            "final_ln": to_tensor(tree["final_ln"], device),
+            "layers": layers}

@@ -114,3 +114,30 @@ def test_tables_are_identical():
     for name in ("STD_LUMA_Q", "STD_CHROMA_Q", "ZIGZAG"):
         if hasattr(JT, name):
             np.testing.assert_array_equal(getattr(T, name), getattr(JT, name))
+
+
+@pytest.mark.parametrize("name", ["qwen2-7b", "qwen2-7b-smoke"])
+def test_config_copy_matches_the_reference(name):
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+    a, b = get_config(name), jget_config(name)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert [(s.repeat, [dataclasses.asdict(x) for x in s.layers])
+            for s in a.plan()] == \
+        [(s.repeat, [dataclasses.asdict(x) for x in s.layers])
+         for s in b.plan()]
+    assert dataclasses.asdict(a.reduced()) == dataclasses.asdict(b.reduced())
+    assert a.param_count() == b.param_count()
+    assert a.padded_vocab_size == b.padded_vocab_size
+
+
+def test_config_copy_knows_only_what_the_port_runs():
+    from repro_torch.configs import get_config, list_configs
+    assert list_configs() == ["qwen2-7b"]
+    cfg = get_config("qwen2-7b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
+        (28, 3584, 28, 4, 128, 18944, 152064)
+    assert 7.5e9 < cfg.param_count() < 7.7e9
+    with pytest.raises(KeyError):
+        get_config("gemma3-4b")

@@ -170,3 +170,72 @@ def test_cuda_batch_on_the_card_matches_its_plain_run(cuda, corpus):
     for i, (g, p, f) in enumerate(zip(got, plain, files)):
         assert int(np.abs(g.astype(int) - p.astype(int)).max()) <= 1, i
         np.testing.assert_array_equal(g, path.decode(f), err_msg=str(i))
+
+
+FLASH_SHAPES = [       # (B, S, H, KV, D)
+    (1, 1, 4, 2, 16),
+    (2, 7, 4, 2, 32),
+    (2, 64, 4, 2, 16),
+    (1, 100, 28, 4, 128),       # ragged tile, qwen2's GQA rep 7
+    (1, 128, 8, 4, 32),
+    (2, 257, 8, 8, 64),
+    (1, 2048, 28, 4, 128),      # the prefill's shape at B=1
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain(cuda, shape, dtype, causal):
+    """tests/test_kernels.py's tolerances: 2e-2 in bf16, 2e-5 in f32."""
+    from repro_torch.kernels import ops, ref
+    B, S, H, KV, D = shape
+    g = torch.Generator(device=cuda).manual_seed(S * 31 + D)
+    q, k, v = (0.5 * torch.randn(B, S, n, D, generator=g, device=cuda)
+               .to(dtype) for n in (H, KV, KV))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_on_the_card_never_runs_the_plain_version(
+        cuda, monkeypatch):
+    from repro_torch.kernels import ops, ref
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(ref, "flash_attention", refuse)
+    q = torch.randn(1, 33, 4, 32, device=cuda)
+    k = torch.randn(1, 33, 2, 32, device=cuda)
+    out = ops.flash_attention(q, k, k.clone())
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    wide = torch.randn(1, 33, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(wide[:, :, ::2], k, k)     # q not contiguous
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layers_attention_takes_the_kernel_for_prefill(cuda, dtype):
+    """The model's causal prefill attention launches the kernel and agrees
+    with the plain chunked loop on the card; decode (Sq == 1) does not
+    launch it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 96, n, 64, generator=g, device=cuda).to(dtype)
+               for n in (8, 2, 2))
+    ops.reset_launches()
+    got = L.attention(q, k, v, q_chunk=32, k_chunk=32)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = L.attention(q, k, v, q_chunk=32, k_chunk=32, use_kernel=False)
+    L.attention(q[:, :1], k, v, causal=False, kv_len=50)
+    L.attention(q, k, v, window=8, q_chunk=32, k_chunk=32)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)

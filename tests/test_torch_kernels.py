@@ -136,8 +136,11 @@ def test_cpu_calls_launch_nothing():
     ops.decode_batch(x, torch.zeros(70, dtype=torch.int32),
                      torch.ones(2, 64))
     ops.ycbcr2rgb(torch.ones(3, 5), torch.ones(3, 5), torch.ones(3, 5))
+    ops.flash_attention(torch.ones(1, 5, 4, 16), torch.ones(1, 5, 2, 16),
+                        torch.ones(1, 5, 2, 16))
     assert ops.LAUNCHES == {"decode_batch": 0, "dequant_idct": 0,
-                            "idct8x8": 0, "ycbcr2rgb": 0}
+                            "idct8x8": 0, "ycbcr2rgb": 0,
+                            "flash_attention": 0}
 
 
 @pytest.mark.parametrize("call, exc", [
@@ -153,6 +156,24 @@ def test_cpu_calls_launch_nothing():
     (lambda: ops.ycbcr2rgb(torch.ones(3, 5), torch.ones(3, 5),
                            torch.ones(3, 4)), ValueError),
     (lambda: ops.idct8x8(np.ones((4, 64), np.float32)), TypeError),
+    (lambda: ops.flash_attention(torch.ones(1, 4, 2, 16, dtype=torch.float16),
+                                 torch.ones(1, 4, 2, 16, dtype=torch.float16),
+                                 torch.ones(1, 4, 2, 16, dtype=torch.float16)),
+     TypeError),
+    (lambda: ops.flash_attention(torch.ones(1, 4, 2, 16),
+                                 torch.ones(1, 4, 2, 16, dtype=torch.bfloat16),
+                                 torch.ones(1, 4, 2, 16)), TypeError),
+    (lambda: ops.flash_attention(torch.ones(1, 4, 3, 16),
+                                 torch.ones(1, 4, 2, 16),
+                                 torch.ones(1, 4, 2, 16)), ValueError),
+    (lambda: ops.flash_attention(torch.ones(1, 4, 2, 24),
+                                 torch.ones(1, 4, 2, 24),
+                                 torch.ones(1, 4, 2, 24)), ValueError),
+    (lambda: ops.flash_attention(torch.ones(1, 4, 2, 16),
+                                 torch.ones(1, 5, 2, 16),
+                                 torch.ones(1, 5, 2, 16)), ValueError),
+    (lambda: ops.flash_attention(torch.ones(4, 2, 16), torch.ones(4, 2, 16),
+                                 torch.ones(4, 2, 16)), ValueError),
 ])
 def test_wrappers_reject_bad_inputs(call, exc):
     with pytest.raises(exc):
@@ -168,3 +189,58 @@ def test_wrappers_have_no_plain_path_off_the_cpu():
         ops.idct8x8(x)
     with pytest.raises(ValueError, match="several devices"):
         ops.dequant_idct(torch.ones(4, 64), torch.empty(64, device="meta"))
+    q = torch.empty(1, 8, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+def _flash_inputs(shape, dtype):
+    """tests/test_kernels.py's flash inputs: KV = H / 2, seeded by S."""
+    B, S, H, D = shape
+    rng = np.random.RandomState(S)
+    q = rng.randn(B, S, H, D).astype(dtype) * 0.5
+    k = rng.randn(B, S, H // 2, D).astype(dtype) * 0.5
+    v = rng.randn(B, S, H // 2, D).astype(dtype) * 0.5
+    return q, k, v
+
+
+@pytest.mark.parametrize("impl", ["ops", "ref"])
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16), (1, 128, 8, 32),
+                                   (2, 96, 4, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference(impl, shape, dtype, causal):
+    """Against the reference's wrapper, which runs the Pallas kernel in
+    interpret mode on the CPU, at its own shapes and tolerances."""
+    q, k, v = _flash_inputs(shape, dtype)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(
+        getattr(torch, dtype)) for a in (jq, jk, jv))
+    fn = ops.flash_attention if impl == "ops" else \
+        lambda *a, causal: ref.flash_attention(*a, causal)
+    got = fn(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S", [1, 7, 100])
+@pytest.mark.parametrize("rep", [1, 7])
+def test_plain_flash_attention_matches_the_oracle_on_odd_shapes(S, rep):
+    """Sequence lengths no tile divides and the GQA ratio of qwen2
+    (7 query heads per KV head), against the reference's jnp oracle on
+    the repeated KV heads."""
+    B, KV, D = 2, 2, 32
+    H = KV * rep
+    rng = np.random.RandomState(S * 10 + rep)
+    q = rng.randn(B, S, H, D).astype(np.float32)
+    k = rng.randn(B, S, KV, D).astype(np.float32)
+    v = rng.randn(B, S, KV, D).astype(np.float32)
+    kk, vv = np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2)
+    flat = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, S, D))
+    want = np.asarray(jref.flash_attention(flat(q), flat(kk), flat(vv))
+                      ).reshape(B, H, S, D).transpose(0, 2, 1, 3)
+    got = ops.flash_attention(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
