@@ -33,19 +33,21 @@ and prints no result line:
    on the card at the LM prefill's shape (B=4, S=2048, 28 query heads over
    4 KV heads, head_dim 128, bf16, causal), a ragged S=100, S=1,
    ``causal=False`` and float32; tolerances those of
-   tests/test_kernels.py (2e-2 in bf16, 2e-5 in f32). Then its time, the
+   tests/test_kernels.py (2e-2 in bf16, 2e-5 in f32), on inputs drawn so
+   that the output is of the order of 1 (peaked attention). Then its time, the
    plain version's, ``scaled_dot_product_attention``'s (a yardstick the
    port never calls) and the bound at the bf16 tensor-core rate.
 5. LM serving: ``qwen2-7b`` at full width and depth (28 layers, random
    weights from a seeded generator, made on the card) through
    ``repro_torch.serve.engine.generate``: 4 prompts of 2048 tokens, 32
    greedy new tokens. ``flash_attention`` must launch exactly once per
-   layer (prefill only); the prefill's last-position logits must agree
-   with the same model's prefill through the plain attention loop on the
-   card within 0.02 of the largest logit (tests/test_models.py's bound
-   for qwen2), and the plain loop at two chunkings is compared with
-   itself to show that bound's noise floor. Prints prefill and decode
-   tokens/s and the phase's peak device memory.
+   layer (prefill only). The bf16 prefill's last-position logits are
+   printed beside those of the plain attention loop on the card, and the
+   plain loop at two chunkings beside itself (bf16 rounding noise). The
+   check is made in float32 at full width and depth (the same seed, the
+   bf16 weights released first): the kernel path's logits must agree
+   with the plain loop's within 1e-4 of the largest logit. Prints
+   prefill and decode tokens/s and the phase's peak device memory.
 
 Before phases 3, 4 and 5 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
@@ -450,16 +452,23 @@ def phase_path(corpus):
 
 LM_ARCH = "qwen2-7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
-LM_REL_TOL = 0.02       # tests/test_models.py's bound for qwen2
+# the kernel path's float32 prefill logits against the plain loop's, as
+# max abs diff / max |logit|: the port's CPU tests hold float32 logits to
+# 1e-4, far inside tests/test_models.py's bf16 bound for qwen2 (0.02)
+LM_F32_REL_TOL = 1e-4
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
 
 
 def _flash_inputs(shape, dtype, seed):
+    """q and k at std 2, v at std 1: the scores q.k/sqrt(D) then have std
+    4, so each row's softmax is peaked and the output is of the order of
+    v. With flatter scores the output is a mean over many rows of v,
+    far below the absolute tolerance, and the check would have no power."""
     import torch
     B, S, H, KV, D = shape
     g = torch.Generator(device=DEV).manual_seed(seed)
-    return [(0.5 * torch.randn(B, S, n, D, generator=g, device=DEV))
-            .to(dtype) for n in (H, KV, KV)]
+    return [(std * torch.randn(B, S, n, D, generator=g, device=DEV))
+            .to(dtype) for n, std in ((H, 2.0), (KV, 2.0), (KV, 1.0))]
 
 
 def flash_work(B, S, H, KV, D, causal, itemsize):
@@ -495,8 +504,12 @@ def phase_flash():
         diff = (got.float() - want.float()).abs()
         bad = int((diff > tol + tol * want.float().abs()).sum())
         err = diff.max().item()
+        typical = want.float().abs().median().item()
         print(f"flash_attention {shape} {dtype} causal={causal}: "
-              f"max_abs_err {err} (rtol=atol={tol}), {bad} elements over")
+              f"max_abs_err {err} (rtol=atol={tol}; median |out| "
+              f"{typical}), {bad} elements over")
+        check(typical > 10 * tol, f"median |out| {typical} is not well "
+                                  f"above the tolerance {tol}")
         check(bad == 0 and torch.isfinite(got).all().item(),
               f"flash_attention {shape} {dtype} causal={causal}: {bad} "
               f"elements outside rtol=atol={tol} of the plain version")
@@ -647,9 +660,9 @@ def phase_lm(profile):
           "non-finite logits")
     scale = want.abs().max().item()
     rel = (got - want).abs().max().item() / scale
-    print(f"last-position logits [{LM_BATCH}, {got.shape[1]}]: kernel path "
-          f"vs plain attention max abs diff / max |logit| = {rel} (limit "
-          f"{LM_REL_TOL}; max |logit| {scale}); kernel-path prefill {k_s} s, "
+    print(f"bf16 last-position logits [{LM_BATCH}, {got.shape[1]}]: kernel "
+          f"path vs plain attention max abs diff / max |logit| = {rel} "
+          f"(max |logit| {scale}); kernel-path prefill {k_s} s, "
           f"plain-attention prefill {p_s} s")
     print(f"  kernel path logits[0, :4] {got[0, :4].tolist()}; plain "
           f"{want[0, :4].tolist()}")
@@ -660,11 +673,13 @@ def phase_lm(profile):
                                  cfg, dataclasses.replace(
                                      ctx, flash_kernel=False, q_chunk=512,
                                      k_chunk=512), cache_len)(params, prompt))
-    print(f"plain attention, 512-row vs 1024-row chunks: max abs diff / "
-          f"max |logit| = {(other - want).abs().max().item() / scale}")
-    check(rel < LM_REL_TOL, f"prefill logits differ by {rel} relative")
+    print(f"bf16 plain attention, 512-row vs 1024-row chunks: max abs diff / "
+          f"max |logit| = {(other - want).abs().max().item() / scale} (the "
+          f"rounding noise of {len(params['layers'])} bf16 layers, beside "
+          f"the kernel's {rel})")
     check(torch.equal(out[:, 0], got.argmax(dim=-1)),
           "generate's first token is not the prefill's argmax")
+    del got, want, other
     if profile:
         _profile("prefill", lambda: prefill(params, prompt))
         caches, logits = prefill(params, prompt)
@@ -678,9 +693,43 @@ def phase_lm(profile):
                 t = lg.argmax(dim=-1)[:, None]
         _profile("decode 8 steps", steps)
         del caches, logits, tok
+    bf16_peak = torch.cuda.max_memory_allocated()
+
+    # The logits check: the same model in float32 at full width and depth,
+    # where the kernel path and the plain loop part by summation order
+    # alone. In bf16 both round every layer's activations and the
+    # probabilities at different points, and two chunkings of the plain
+    # loop already part by about tests/test_models.py's bound, so a bf16
+    # comparison could not tell a kernel fault from rounding.
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    (_, got), k_launches, k_s = drive(
+        "float32 prefill, kernel path", lambda: engine.make_prefill_step(
+            cfg32, ctx, cache_len)(params, prompt))
+    (_, want), p_launches, p_s = drive(
+        "float32 prefill, plain attention", lambda: engine.make_prefill_step(
+            cfg32, dataclasses.replace(ctx, flash_kernel=False),
+            cache_len)(params, prompt))
+    check(k_launches["flash_attention"] == len(params["layers"]) and
+          p_launches["flash_attention"] == 0,
+          f"float32 launches {k_launches} / {p_launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite float32 logits")
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    print(f"float32 last-position logits: kernel path vs plain attention "
+          f"max abs diff / max |logit| = {rel} (limit {LM_F32_REL_TOL}; "
+          f"max |logit| {scale}); kernel-path prefill {k_s} s, "
+          f"plain-attention prefill {p_s} s")
+    check(rel < LM_F32_REL_TOL,
+          f"float32 prefill logits differ by {rel} relative")
     print(f"peak device memory: {serve_peak} bytes over generate, "
-          f"{torch.cuda.max_memory_allocated()} over the phase ({held} "
-          f"bytes held before it)")
+          f"{bf16_peak} over the bf16 part of the phase, "
+          f"{torch.cuda.max_memory_allocated()} with the float32 check "
+          f"({held} bytes held before the phase)")
     return {"flash_attention": launches["flash_attention"]}
 
 
@@ -705,7 +754,6 @@ def main() -> int:
               f"{corpus.rare_index}, built in "
               f"{time.perf_counter() - t0:.1f} s")
         kernels = phase_kernels(corpus.files)
-        held_report("phase 3")
         launches = phase_path(corpus)
         kernels["flash_attention"] = phase_flash()
         launches.update(phase_lm(profile="--profile" in sys.argv[1:]))

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -301,15 +303,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       sizeof(float) * ((kBlockQ + kBlockK) * kQKStride + kBlockK * D +
                        kBlockQ * kPStride);
   auto* fn = flash_attention_kernel<T, D>;
-  // once per instantiation, at the first (uncaptured) launch: a CUDA graph
-  // capture of later launches then records the launch alone
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmem));
+  // The shared-memory opt-in holds for the current device only: set it once
+  // per device and instantiation, at the first (uncaptured) launch there,
+  // so that a CUDA graph capture of later launches records the launch alone.
+  // Two threads racing here both set the same value, which is harmless.
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmem));
     if (err != cudaSuccess) return err;
-    smem_set = true;
+    smem_set[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   fn<<<grid, kThreads, kSmem, stream>>>(

@@ -187,20 +187,23 @@ FLASH_SHAPES = [       # (B, S, H, KV, D)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_plain(cuda, shape, dtype, causal):
-    """tests/test_kernels.py's tolerances: 2e-2 in bf16, 2e-5 in f32."""
+    """tests/test_kernels.py's tolerances: 2e-2 in bf16, 2e-5 in f32. q and
+    k at std 2 give scores of std 4, so each softmax row is peaked and the
+    output is of the order of v (std 1), well above the tolerance."""
     from repro_torch.kernels import ops, ref
     B, S, H, KV, D = shape
     g = torch.Generator(device=cuda).manual_seed(S * 31 + D)
-    q, k, v = (0.5 * torch.randn(B, S, n, D, generator=g, device=cuda)
-               .to(dtype) for n in (H, KV, KV))
+    q, k, v = (std * torch.randn(B, S, n, D, generator=g, device=cuda)
+               .to(dtype) for n, std in ((H, 2.0), (KV, 2.0), (KV, 1.0)))
     before = ops.LAUNCHES["flash_attention"]
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal),
-                               rtol=tol, atol=tol)
+    want = ref.flash_attention(q, k, v, causal)
+    assert want.float().abs().median().item() > 10 * tol
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 def test_flash_attention_on_the_card_never_runs_the_plain_version(
