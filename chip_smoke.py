@@ -29,25 +29,31 @@ and prints no result line:
    plain runs do on the host (within 1 level).
    Each path is driven with the launch counters set to 0 just before it
    and read just after; every kernel must have launched on its path.
-4. Flash attention: the fifth kernel against its plain PyTorch version
-   on the card at the LM prefill's shape (B=4, S=2048, 28 query heads over
-   4 KV heads, head_dim 128, bf16, causal), a ragged S=100, S=1,
-   ``causal=False`` and float32; tolerances those of
-   tests/test_kernels.py (2e-2 in bf16, 2e-5 in f32), on inputs drawn so
-   that the output is of the order of 1 (peaked attention). Then its time, the
+4. Flash attention, whose two kernels ``ops.flash_kernel_for`` picks by
+   dtype: ``flash_attention_wgmma`` (bf16, tensor cores) at the LM
+   prefill's shape (B=4, S=2048, 28 query heads over 4 KV heads,
+   head_dim 128, causal), ragged S=100 and 129, S=1 and ``causal=False``;
+   ``flash_attention`` (FFMA) at the float32 cases. Each against the
+   plain PyTorch version on the card, with tests/test_kernels.py's
+   tolerances (2e-2 in bf16, 2e-5 in f32), on inputs drawn so that the
+   output is of the order of 1 (peaked attention); each call must move
+   its own kernel's launch count and no other. Then both kernels' times
+   at the prefill's shape (wgmma in bf16, FFMA in float32), beside the
    plain version's, ``scaled_dot_product_attention``'s (a yardstick the
-   port never calls) and the bound at the bf16 tensor-core rate.
+   port never calls) and the bound (bf16 tensor-core rate, FP32 rate).
 5. LM serving: ``qwen2-7b`` at full width and depth (28 layers, random
    weights from a seeded generator, made on the card) through
    ``repro_torch.serve.engine.generate``: 4 prompts of 2048 tokens, 32
-   greedy new tokens. ``flash_attention`` must launch exactly once per
-   layer (prefill only). The bf16 prefill's last-position logits are
-   printed beside those of the plain attention loop on the card, and the
-   plain loop at two chunkings beside itself (bf16 rounding noise). The
-   check is made in float32 at full width and depth (the same seed, the
-   bf16 weights released first): the kernel path's logits must agree
-   with the plain loop's within 1e-4 of the largest logit. Prints
-   prefill and decode tokens/s and the phase's peak device memory.
+   greedy new tokens. ``flash_attention_wgmma`` must launch exactly once
+   per layer (prefill only) and ``flash_attention`` never. The bf16
+   prefill's last-position logits are printed beside those of the plain
+   attention loop on the card, and the plain loop at two chunkings
+   beside itself (bf16 rounding noise). The check is made in float32 at
+   full width and depth (the same seed, the bf16 weights released
+   first), where the FFMA kernel must launch once per layer and the
+   wgmma kernel never: the kernel path's logits must agree with the
+   plain loop's within 1e-4 of the largest logit. Prints prefill and
+   decode tokens/s and the phase's peak device memory.
 
 Before phases 3, 4 and 5 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
@@ -154,7 +160,8 @@ def phase_build():
           f"(nvcc in parallel: {build.BUILD_SECONDS} s)")
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "Used" in line or "error" in line or "warning" in line:
+            if any(w in line for w in ("Used", "spill", "error", "warning",
+                                       "Performance Loss")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -483,64 +490,80 @@ def phase_flash():
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    print("== phase 4: flash_attention against its plain version")
+    print("== phase 4: the flash-attention kernels against their plain "
+          "version")
     held_report("phase 4")
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config(LM_ARCH)
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     path = (LM_BATCH, LM_PROMPT, *heads)
     cases = [(path, bf16, True), ((LM_BATCH, 100, *heads), bf16, True),
+             ((LM_BATCH, 129, *heads), bf16, True),
              ((LM_BATCH, 1, *heads), bf16, True),
              ((1, LM_PROMPT, *heads), bf16, False),
              ((1, 512, *heads), f32, True),
              ((2, 100, *heads), f32, False)]
-    worst = 0.0
+    worst = {}
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = _flash_inputs(shape, dtype, seed=i)
+        kernel = ops.flash_kernel_for(dtype, shape[-1])
+        before = dict(ops.LAUNCHES)
         got = ops.flash_attention(q, k, v, causal=causal)
-        want = ref.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
+        check(ops.LAUNCHES == {**before, kernel: before[kernel] + 1},
+              f"flash_attention {shape} {dtype} launched "
+              f"{ {n: ops.LAUNCHES[n] - before[n] for n in before} }, "
+              f"want one {kernel}")
+        want = ref.flash_attention(q, k, v, causal)
         tol = FLASH_TOL[str(dtype).split(".")[-1]]
         diff = (got.float() - want.float()).abs()
         bad = int((diff > tol + tol * want.float().abs()).sum())
         err = diff.max().item()
         typical = want.float().abs().median().item()
-        print(f"flash_attention {shape} {dtype} causal={causal}: "
+        print(f"{kernel} {shape} {dtype} causal={causal}: "
               f"max_abs_err {err} (rtol=atol={tol}; median |out| "
               f"{typical}), {bad} elements over")
         check(typical > 10 * tol, f"median |out| {typical} is not well "
                                   f"above the tolerance {tol}")
         check(bad == 0 and torch.isfinite(got).all().item(),
-              f"flash_attention {shape} {dtype} causal={causal}: {bad} "
+              f"{kernel} {shape} {dtype} causal={causal}: {bad} "
               f"elements outside rtol=atol={tol} of the plain version")
-        if shape == path and dtype == bf16:
-            worst = err
+        if shape == path or dtype == f32:
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
         del q, k, v, got, want, diff
 
-    q, k, v = _flash_inputs(path, bf16, seed=0)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    kern = lambda: ops.flash_attention(q, k, v, causal=True)
-    plain = lambda: ref.flash_attention(q, k, v, True)
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True)
-    sdpa_err = (lib().transpose(1, 2).float() - kern().float()).abs().max()
-    ms = cuda_ms(kern)
-    plain_ms = cuda_ms(plain, iters=5)
-    library_ms = cuda_ms(lib)
-    eager_ms = cuda_ms(kern, graph=False)
-    nbytes, flops = flash_work(*path, True, 2)
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    print(f"flash_attention at {path} bf16 causal: ms {ms} plain_ms "
-          f"{plain_ms} library_ms {library_ms} (SDPA, max diff to the "
-          f"kernel {sdpa_err.item()}) bound_ms {b_ms} ({b_by}: {nbytes} B, "
-          f"{flops} FLOP at {BF16_FLOPS_PER_S:.3g} FLOP/s); "
-          f"{flops / ms / 1e9} TFLOP/s; eager calls {eager_ms} ms each")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    results = {}
+    for dtype, flops_per_s in ((bf16, BF16_FLOPS_PER_S),
+                               (f32, FP32_FLOPS_PER_S)):
+        name = ops.flash_kernel_for(dtype, cfg.head_dim)
+        q, k, v = _flash_inputs(path, dtype, seed=0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kern = lambda: ops.flash_attention(q, k, v, causal=True)
+        plain = lambda: ref.flash_attention(q, k, v, True)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = (lib().transpose(1, 2).float() -
+                   kern().float()).abs().max()
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=5)
+        library_ms = cuda_ms(lib)
+        eager_ms = cuda_ms(kern, graph=False)
+        nbytes, flops = flash_work(*path, True, q.element_size())
+        b_ms, b_by = bound_ms(nbytes, flops, flops_per_s)
+        print(f"{name} at {path} {dtype} causal: ms {ms} plain_ms "
+              f"{plain_ms} library_ms {library_ms} (SDPA, max diff to the "
+              f"kernel {lib_err.item()}) bound_ms {b_ms} ({b_by}: {nbytes} "
+              f"B, {flops} FLOP at {flops_per_s:.3g} FLOP/s); "
+              f"{flops / ms / 1e9} TFLOP/s; eager calls {eager_ms} ms each")
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": "src/repro/kernels/flash_attention.py:30",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "launches": 0, "max_abs_err": worst[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
+        del q, k, v, qt, kt, vt
+    return results
 
 
 def _profile(label, fn):
@@ -627,11 +650,13 @@ def phase_lm(profile):
             params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
             cache_len=cache_len, timings=timings))
     serve_peak = torch.cuda.max_memory_allocated()
-    check(launches["flash_attention"] == len(params["layers"]),
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"for {len(params['layers'])} layers: the prefill bypassed it")
-    check(sum(launches.values()) == launches["flash_attention"],
-          f"other kernels launched on the LM path: {launches}")
+    n_layers = len(params["layers"])
+    check(launches["flash_attention_wgmma"] == n_layers,
+          f"flash_attention_wgmma launched "
+          f"{launches['flash_attention_wgmma']} times for {n_layers} "
+          f"layers: the bf16 prefill bypassed it")
+    check(sum(launches.values()) == launches["flash_attention_wgmma"],
+          f"other kernels launched on the bf16 LM path: {launches}")
     check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
           out.dtype == prompt.dtype, f"generated {tuple(out.shape)} "
           f"{out.dtype}")
@@ -653,8 +678,9 @@ def phase_lm(profile):
         "prefill, kernel path", lambda: prefill(params, prompt))
     (_, want), p_launches, p_s = drive(
         "prefill, plain attention", lambda: plain_prefill(params, prompt))
-    check(k_launches["flash_attention"] == len(params["layers"]) and
-          p_launches["flash_attention"] == 0,
+    check(k_launches["flash_attention_wgmma"] == n_layers and
+          k_launches["flash_attention"] == 0 and
+          sum(p_launches.values()) == 0,
           f"launches {k_launches} / {p_launches}")
     check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
           "non-finite logits")
@@ -713,8 +739,9 @@ def phase_lm(profile):
         "float32 prefill, plain attention", lambda: engine.make_prefill_step(
             cfg32, dataclasses.replace(ctx, flash_kernel=False),
             cache_len)(params, prompt))
-    check(k_launches["flash_attention"] == len(params["layers"]) and
-          p_launches["flash_attention"] == 0,
+    check(k_launches["flash_attention"] == n_layers and
+          k_launches["flash_attention_wgmma"] == 0 and
+          sum(p_launches.values()) == 0,
           f"float32 launches {k_launches} / {p_launches}")
     check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
           "non-finite float32 logits")
@@ -730,7 +757,8 @@ def phase_lm(profile):
           f"{bf16_peak} over the bf16 part of the phase, "
           f"{torch.cuda.max_memory_allocated()} with the float32 check "
           f"({held} bytes held before the phase)")
-    return {"flash_attention": launches["flash_attention"]}
+    return {"flash_attention_wgmma": launches["flash_attention_wgmma"],
+            "flash_attention": k_launches["flash_attention"]}
 
 
 def main() -> int:
@@ -755,7 +783,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s")
         kernels = phase_kernels(corpus.files)
         launches = phase_path(corpus)
-        kernels["flash_attention"] = phase_flash()
+        kernels.update(phase_flash())
         launches.update(phase_lm(profile="--profile" in sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -8,7 +8,10 @@ never loads a stale library. ``load_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together.
 
 No PyTorch headers are involved (a build that includes them takes
-minutes); pointers and the stream cross as ``c_void_p``.
+minutes); pointers and the stream cross as ``c_void_p``. The driver API
+that ``flash_attention_wgmma.cu`` needs for its TMA tensor maps
+(``cuTensorMapEncodeTiled``) is reached through the runtime's
+``cudaGetDriverEntryPoint``, so nothing links against ``libcuda``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ SIGNATURES: Dict[str, List] = {
     "idct8x8": [_P, _P, _P, _L, _P],
     "ycbcr2rgb": [_P, _P, _P, _P, _L, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

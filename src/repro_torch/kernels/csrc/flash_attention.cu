@@ -18,12 +18,15 @@
 // inputs the rounding is the identity. Every product is a plain FP32 FMA:
 // no TF32, no tensor cores.
 //
+// Which calls reach it: float32 at D in {16, 32, 64, 128}, and bf16 at
+// D in {16, 32} (kernels/ops.py, flash_kernel_for). bf16 at D = 64 or 128
+// runs on the tensor cores in flash_attention_wgmma.cu.
+//
 // What bounds it on an H100: at the prefill's shape (B=4, S=2048, H=28,
-// KV=4, D=128, bf16, causal) the causal work is ~1.2e11 FLOPs against
-// ~134 MB of q, k, v and out: operation-bound by a factor of ~40 even at
-// the bf16 tensor-core rate. This first version runs on the FP32 pipes
-// (67 TFLOP/s peak), so it sits far above that bound; moving the two
-// products to bf16 mma/wgmma is the next step.
+// KV=4, D=128, causal) the causal work is ~1.2e11 FLOPs against ~268 MB
+// of float32 q, k, v and out: operation-bound at the FP32 pipes' 67
+// TFLOP/s, which it runs on so that float32 products stay exact (no
+// TF32).
 //
 // Design, right and simple first:
 //  * The TPU kernel keeps a whole (S, D) K and V slab in VMEM. At S=2048
@@ -343,9 +346,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The wrapper (kernels/ops.py) checks
-// shapes, dtypes, contiguity, 16-byte alignment, D in {16, 32, 64, 128}
-// and H % KV == 0 before it calls this.
+// dtype: 0 = float32 (D in {16, 32, 64, 128}), 1 = bfloat16 (D in {16,
+// 32}). The wrapper (kernels/ops.py) checks shapes, dtypes, contiguity,
+// 16-byte alignment, the route and H % KV == 0 before it calls this.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int H, int KV, int D, int causal,
@@ -356,9 +359,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaError_t err;
   if (dtype == 0) {
     err = launch_d<float>(q, k, v, out, B, S, H, KV, D, causal != 0, st);
-  } else if (dtype == 1) {
-    err = launch_d<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, causal != 0,
-                                  st);
+  } else if (dtype == 1 && D == 16) {
+    err = launch<__nv_bfloat16, 16>(q, k, v, out, B, S, H, KV, causal != 0,
+                                    st);
+  } else if (dtype == 1 && D == 32) {
+    err = launch<__nv_bfloat16, 32>(q, k, v, out, B, S, H, KV, causal != 0,
+                                    st);
   } else {
     err = cudaErrorInvalidValue;
   }

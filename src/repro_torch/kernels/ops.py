@@ -1,5 +1,6 @@
-"""Public wrappers around the five CUDA kernels: the four decode kernels
-and the LM prefill's flash attention.
+"""Public wrappers around the CUDA kernels: the four decode kernels and
+the LM prefill's flash attention, which has two kernels (one per dtype
+route, see ``flash_kernel_for``).
 
 A wrapper checks its inputs, then:
 
@@ -161,9 +162,26 @@ def ycbcr2rgb(y: torch.Tensor, cb: torch.Tensor,
     return out
 
 
-#: head dims the flash kernel is instantiated for
+#: head dims the FFMA flash kernel is instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the bf16 wgmma flash kernel is instantiated for
+WGMMA_HEAD_DIMS = (64, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The one kernel that computes flash attention on the card for this
+    dtype and head dim: bfloat16 at D in ``WGMMA_HEAD_DIMS`` goes to
+    ``flash_attention_wgmma`` (tensor cores); float32, and bfloat16 at the
+    other D of ``FLASH_HEAD_DIMS``, to ``flash_attention`` (FP32 FFMA,
+    exact float32 products)."""
+    if dtype not in _FLASH_DTYPES:
+        raise TypeError(f"no flash kernel for {dtype}")
+    if head_dim not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in {FLASH_HEAD_DIMS}")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -171,7 +189,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Fused attention over a whole sequence: q [B, S, H, D], k and v
     [B, S, KV, D] (KV divides H; query head h uses KV head h // (H // KV))
     -> [B, S, H, D] in q's dtype. float32 or bfloat16, the same for all
-    three; D in ``FLASH_HEAD_DIMS``; scale 1/sqrt(D)."""
+    three; D in ``FLASH_HEAD_DIMS``; scale 1/sqrt(D).
+
+    On the card the call launches exactly one kernel, chosen by
+    ``flash_kernel_for(dtype, D)``: bfloat16 at D = 64 or 128 runs
+    ``flash_attention_wgmma``, everything else ``flash_attention``."""
     if not isinstance(q, torch.Tensor):
         raise TypeError(f"q must be a torch.Tensor, got {type(q)}")
     if q.dtype not in _FLASH_DTYPES:
@@ -191,7 +213,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _aligned16(q=q, k=k, v=v)
     out = torch.empty_like(q)
     if out.numel():
-        _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), B, S, H, KV, D, int(causal),
-                _FLASH_DTYPES[q.dtype])
+        name = flash_kernel_for(q.dtype, D)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, KV, D, int(causal))
+        if name == "flash_attention":
+            args += (_FLASH_DTYPES[q.dtype],)
+        _launch(name, q.device, *args)
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five kernels.
+"""Plain PyTorch versions of the kernels (one for both flash kernels).
 
 Same semantics as the reference's oracles (``repro/kernels/ref.py``).
 The ``ops`` wrappers run these for tensors on the CPU; on the card they

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``gpu``; without a card every test skips (the ``cuda`` fixture
 decides, at run time). On the machine with the card:
@@ -180,6 +180,11 @@ FLASH_SHAPES = [       # (B, S, H, KV, D)
     (1, 128, 8, 4, 32),
     (2, 257, 8, 8, 64),
     (1, 2048, 28, 4, 128),      # the prefill's shape at B=1
+    (1, 1, 4, 2, 64),
+    (1, 1, 14, 2, 128),
+] + [   # around the wgmma kernel's 128-row tiles, KV rep 1 and 7
+    (2, S, 2 * rep, 2, D) for S in (127, 128, 129, 255) for D in (64, 128)
+    for rep in (1, 7)
 ]
 
 
@@ -195,10 +200,13 @@ def test_flash_attention_matches_plain(cuda, shape, dtype, causal):
     g = torch.Generator(device=cuda).manual_seed(S * 31 + D)
     q, k, v = (std * torch.randn(B, S, n, D, generator=g, device=cuda)
                .to(dtype) for n, std in ((H, 2.0), (KV, 2.0), (KV, 1.0)))
-    before = ops.LAUNCHES["flash_attention"]
+    kernel = ops.flash_kernel_for(dtype, D)
+    assert kernel == ("flash_attention_wgmma" if dtype == torch.bfloat16
+                      and D in (64, 128) else "flash_attention")
+    before = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert ops.LAUNCHES == {**before, kernel: before[kernel] + 1}
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     want = ref.flash_attention(q, k, v, causal)
@@ -233,12 +241,36 @@ def test_layers_attention_takes_the_kernel_for_prefill(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(2, 96, n, 64, generator=g, device=cuda).to(dtype)
                for n in (8, 2, 2))
+    kernel = ops.flash_kernel_for(dtype, 64)
     ops.reset_launches()
     got = L.attention(q, k, v, q_chunk=32, k_chunk=32)
-    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES[kernel] == 1
+    assert sum(ops.LAUNCHES.values()) == 1
     want = L.attention(q, k, v, q_chunk=32, k_chunk=32, use_kernel=False)
     L.attention(q[:, :1], k, v, causal=False, kv_len=50)
     L.attention(q, k, v, window=8, q_chunk=32, k_chunk=32)
-    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES[kernel] == 1
+    assert sum(ops.LAUNCHES.values()) == 1
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_bf16_prefill_attention_launches_the_wgmma_kernel_only(cuda):
+    """qwen2's head dim and GQA ratio in bf16: the model's causal prefill
+    attention launches the wgmma kernel once and the FFMA kernel never,
+    and agrees with the plain chunked loop within the bf16 tolerance."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (std * torch.randn(2, 300, n, 128, generator=g, device=cuda)
+               .to(torch.bfloat16) for n, std in ((14, 2.0), (2, 2.0),
+                                                  (2, 1.0)))
+    ops.reset_launches()
+    got = L.attention(q, k, v, q_chunk=128, k_chunk=128)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_wgmma"] == 1
+    assert ops.LAUNCHES["flash_attention"] == 0
+    want = L.attention(q, k, v, q_chunk=128, k_chunk=128, use_kernel=False)
+    assert ops.LAUNCHES["flash_attention_wgmma"] == 1
+    assert want.float().abs().median().item() > 0.2
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)

@@ -140,7 +140,51 @@ def test_cpu_calls_launch_nothing():
                         torch.ones(1, 5, 2, 16))
     assert ops.LAUNCHES == {"decode_batch": 0, "dequant_idct": 0,
                             "idct8x8": 0, "ycbcr2rgb": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0,
+                            "flash_attention_wgmma": 0}
+
+
+@pytest.mark.parametrize("dtype, head_dim, kernel", [
+    (torch.bfloat16, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 16, "flash_attention"),
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.float32, 16, "flash_attention"),
+    (torch.float32, 32, "flash_attention"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+])
+def test_flash_kernel_for_routes_by_dtype_and_head_dim(dtype, head_dim,
+                                                       kernel):
+    """One rule: bf16 at a head dim the wgmma kernel is built for goes to
+    it; float32 (exact FFMA products) and the other bf16 head dims go to
+    the FFMA kernel. Each name is a kernel with its own launch count."""
+    assert ops.flash_kernel_for(dtype, head_dim) == kernel
+    assert kernel in ops.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype, head_dim, exc", [
+    (torch.float16, 128, TypeError),
+    (torch.float64, 64, TypeError),
+    (torch.bfloat16, 24, ValueError),
+    (torch.float32, 256, ValueError),
+])
+def test_flash_kernel_for_rejects_what_no_kernel_takes(dtype, head_dim, exc):
+    with pytest.raises(exc):
+        ops.flash_kernel_for(dtype, head_dim)
+
+
+def test_every_kernel_has_a_launch_count_and_a_c_entry_point():
+    """The wgmma kernel is built from its own source with its own entry
+    point (no dtype argument: bf16 only), and counts its own launches."""
+    from repro_torch.kernels import build
+    assert set(ops.LAUNCHES) == set(build.SIGNATURES)
+    for name in build.SIGNATURES:
+        assert (build.CSRC / f"{name}.cu").is_file(), name
+    src = (build.CSRC / "flash_attention_wgmma.cu").read_text()
+    assert "repro_flash_attention_wgmma(" in src
+    assert len(build.SIGNATURES["flash_attention_wgmma"]) == \
+        len(build.SIGNATURES["flash_attention"]) - 1
 
 
 @pytest.mark.parametrize("call, exc", [
