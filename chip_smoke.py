@@ -14,7 +14,12 @@ and prints no result line:
    phase-3 batch; one 375x500 image for ycbcr2rgb), rtol=1e-5,
    atol=1e-3; then its time (CUDA events), the plain version's time,
    one PyTorch library call computing the same function, and the
-   least time the card could take (``bound_ms``).
+   least time the card could take (``bound_ms``). ``decode_batch``
+   (its own Hopper design) must equal ``dequant_idct`` (the design the
+   row kernels share) bit for bit, table by table, on every row of the
+   batch; it is timed beside a device copy of its input (what the card
+   streams for those bytes) and at the rows of each of phase 3's group
+   launches, beside its bound.
 3. Path: 33 ImageNet-val-sized images (the port's ``build_corpus``,
    including the rare YCCK image) through
    ``open_decoder("cuda-batch", context=SERVICE).decode_batch``, held
@@ -183,6 +188,56 @@ def batch_rows(files):
     return np.concatenate(rows), np.concatenate(ridx), np.stack(qtabs)
 
 
+def structure_groups(files):
+    """Indices of the files of each same-structure group, in the order
+    ``cuda-batch`` launches them (one ``decode_batch`` per group)."""
+    from repro_torch.jpeg import parser as P
+    groups = {}
+    for i, f in enumerate(files):
+        spec = P.parse(f, headers_only=True)
+        key = (len(spec.components),
+               tuple((c.h, c.v) for c in spec.components))
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
+def decode_batch_work(n, t):
+    """Bytes (x, qidx, the tables and M^T read once, out written once) and
+    FLOPs (dequant and the 64-term sums) of one decode_batch call."""
+    f32 = 4
+    return (n * 64 * f32 * 2 + n * 4 + t * 64 * f32 + 64 * 64 * f32,
+            n * (64 + 64 * 64 * 2))
+
+
+def check_decode_batch(files, x, qi, qt):
+    """decode_batch against dequant_idct, table by table (bit for bit);
+    then decode_batch's time at each phase-3 group launch's rows and
+    tables, beside its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    got = ops.decode_batch(x, qi, qt)
+    unequal = []
+    for t in range(qt.shape[0]):
+        rows = qi == t
+        want = ops.dequant_idct(x[rows].contiguous(), qt[t].contiguous())
+        if not torch.equal(got[rows], want):
+            unequal.append(t)
+    torch.cuda.synchronize()
+    check(not unequal, f"decode_batch differs from dequant_idct for "
+                       f"tables {unequal}")
+    print(f"decode_batch == dequant_idct bit for bit, table by table: "
+          f"{qt.shape[0]} tables, {x.shape[0]} rows")
+    for g, idxs in enumerate(structure_groups(files)):
+        xg, qig, qtg = (torch.from_numpy(a).to(x.device) for a in
+                        batch_rows([files[i] for i in idxs]))
+        ms = cuda_ms(lambda: ops.decode_batch(xg, qig, qtg))
+        b_ms, b_by = bound_ms(*decode_batch_work(xg.shape[0],
+                                                 qtg.shape[0]))
+        print(f"decode_batch at group {g} ({len(idxs)} images, "
+              f"{xg.shape[0]} rows, {qtg.shape[0]} tables): ms {ms} "
+              f"bound_ms {b_ms} ({b_by}), {b_ms / ms} of the bound")
+
+
 def phase_kernels(files):
     import numpy as np
     import torch
@@ -216,8 +271,7 @@ def phase_kernels(files):
          lambda: ops.decode_batch(x, qi, qt),
          lambda: ref.decode_batch(x, qi, qt),
          lambda: torch.addmm(bias128, deq, m_t),
-         n * 64 * f32 * 2 + n * 4 + t * 64 * f32 + 64 * 64 * f32,
-         n * (64 + 64 * 64 * 2)),
+         *decode_batch_work(n, t)),
         ("dequant_idct", "src/repro/kernels/dequant_idct.py:19",
          lambda: ops.dequant_idct(x, q0),
          lambda: ref.dequant_idct(x, q0),
@@ -259,6 +313,17 @@ def phase_kernels(files):
         print(f"{name}: max_abs_err {err} ms {ms} plain_ms {plain_ms} "
               f"library_ms {library_ms} bound_ms {b_ms} ({b_by}); "
               f"eager calls {eager_ms} ms each")
+    db = results["decode_batch"]
+    copy_out = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: copy_out.copy_(x))
+    print(f"decode_batch: {db['ms'] / db['library_ms']} of torch.addmm's "
+          f"time, {db['ms'] / results['dequant_idct']['ms']} of "
+          f"dequant_idct's (the row kernels' design, same rows), "
+          f"{db['bound_ms'] / db['ms']} of its bound; a device copy of x "
+          f"into a new tensor (its bytes less qidx and the tables) takes "
+          f"{copy_ms} ms, {db['bound_ms'] / copy_ms} of the same bound")
+    del copy_out
+    check_decode_batch(files, x, qi, qt)
     return results
 
 
@@ -314,10 +379,9 @@ def phase_path(corpus):
     from repro_torch.obs import trace
     print("== phase 3: cuda-batch main path")
     files, rare = corpus.files, corpus.rare_index
-    specs = [P.parse(f, headers_only=True) for f in files]
-    groups = {(len(s.components), tuple((c.h, c.v) for c in s.components))
-              for s in specs}
-    n_color = sum(len(s.components) == 3 for s in specs)
+    groups = structure_groups(files)
+    n_color = sum(len(P.parse(f, headers_only=True).components) == 3
+                  for f in files)
     svc = ExecContext.SERVICE
     sess = open_decoder("cuda-batch", context=svc)
     sess.warmup(files[:2])

@@ -1,18 +1,17 @@
-// Shared body of the three row-IDCT kernels: decode_batch, dequant_idct
-// and idct8x8. Each computes, for every row r of an [N, 64] float32
-// input,
+// Shared body of two row-IDCT kernels: dequant_idct and idct8x8. Each
+// computes, for every row r of an [N, 64] float32 input,
 //
 //     out[r, j] = epilogue( sum_k deq[r, k] * M[j, k] )
 //
 // where M is the [64, 64] Kronecker IDCT matrix, deq[r, :] is x[r, :]
-// times a quant row (none, one table for all rows, or the table that
-// qidx[r] picks), and the epilogue is either nothing or +128 and a clamp
-// to [0, 255].
+// times a quant row (none, or one table for all rows), and the epilogue
+// is either nothing or +128 and a clamp to [0, 255]. decode_batch, the
+// per-row-table form, has its own Hopper design in decode_batch.cu.
 //
-// What bounds it on an H100: per row it reads 256 B (+4 B index), writes
-// 256 B and does 64 x 64 FMAs = 8,192 FLOPs (+64 for the dequant). At
-// 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores) the two bounds are
-// within 25% of each other, so neither can be ignored.
+// What bounds it on an H100: per row it reads 256 B, writes 256 B and
+// does 64 x 64 FMAs = 8,192 FLOPs (+64 for the dequant). At 3.35 TB/s
+// and 67 TFLOP/s (FP32, no tensor cores) the two bounds are within 25%
+// of each other, so neither can be ignored.
 //
 // Design, right and simple first:
 //  * One block of 256 threads owns 64 rows. It stages M^T (16 KB) and its
@@ -25,16 +24,12 @@
 //  * Every output element is one fmaf chain over k = 0..63 in that fixed
 //    order, computed by one thread, with no split-K and no atomics. A
 //    row's result therefore depends only on that row's data, never on N
-//    or on where the row sits: batched output equals serial output bit
-//    for bit, and decode_batch with one table equals dequant_idct.
-//  * The quant table is gathered directly, qtab[qidx[r]], from global
-//    memory (L1/L2 resident; T can be hundreds of tables, so it is not
-//    staged in shared memory). The TPU kernel's one-hot GEMM existed only
-//    because Mosaic wanted it.
+//    or on where the row sits. decode_batch.cu keeps the same arithmetic
+//    (__fmul_rn dequant, the same chain, the same epilogue) in another
+//    design, so decode_batch with table t equals dequant_idct with that
+//    table bit for bit across the two designs.
 //  * The ragged last block is masked: rows >= N load zeros and store
 //    nothing, so callers never pad to a tile size.
-//  * An out-of-range qidx cannot read out of bounds: its row comes out
-//    NaN (the clamp below propagates NaN, as torch.clamp does).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,7 +40,7 @@ constexpr int kRowsPerBlock = 64;
 constexpr int kThreads = 256;      // 16 x 16 threads, a 4 x 4 tile each
 constexpr int kRowStride = 65;     // padded shared row: no bank conflicts
 
-enum class Quant { kNone, kOne, kGather };
+enum class Quant { kNone, kOne };
 
 __device__ __forceinline__ float shift_clamp(float v) {
   v = __fadd_rn(v, 128.0f);
@@ -55,8 +50,7 @@ __device__ __forceinline__ float shift_clamp(float v) {
 
 template <Quant Q, bool kShiftClamp>
 __global__ void __launch_bounds__(kThreads)
-dct_rows_kernel(const float* __restrict__ x, const int* __restrict__ qidx,
-                const float* __restrict__ qtab, int n_tables,
+dct_rows_kernel(const float* __restrict__ x, const float* __restrict__ q,
                 const float* __restrict__ m_t, float* __restrict__ out,
                 long long n) {
   __shared__ float xs[kRowsPerBlock * kRowStride];
@@ -76,20 +70,12 @@ dct_rows_kernel(const float* __restrict__ x, const int* __restrict__ qidx,
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row < n) {
       v = reinterpret_cast<const float4*>(x + row * 64)[c4];
-      if (Q != Quant::kNone) {
-        int t = 0;
-        if (Q == Quant::kGather) t = qidx[row];
-        if (t < 0 || t >= n_tables) {
-          const float nan = __int_as_float(0x7fffffff);
-          v = make_float4(nan, nan, nan, nan);
-        } else {
-          const float4 q = reinterpret_cast<const float4*>(
-              qtab + static_cast<long long>(t) * 64)[c4];
-          v.x = __fmul_rn(v.x, q.x);
-          v.y = __fmul_rn(v.y, q.y);
-          v.z = __fmul_rn(v.z, q.z);
-          v.w = __fmul_rn(v.w, q.w);
-        }
+      if (Q == Quant::kOne) {
+        const float4 qv = reinterpret_cast<const float4*>(q)[c4];
+        v.x = __fmul_rn(v.x, qv.x);
+        v.y = __fmul_rn(v.y, qv.y);
+        v.z = __fmul_rn(v.z, qv.z);
+        v.w = __fmul_rn(v.w, qv.w);
       }
     }
     float* dst = xs + r * kRowStride + c4 * 4;
@@ -139,14 +125,13 @@ dct_rows_kernel(const float* __restrict__ x, const int* __restrict__ qidx,
 }
 
 template <Quant Q, bool kShiftClamp>
-int launch_dct_rows(const float* x, const int* qidx, const float* qtab,
-                    int n_tables, const float* m_t, float* out, long long n,
-                    cudaStream_t stream) {
+int launch_dct_rows(const float* x, const float* q, const float* m_t,
+                    float* out, long long n, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
   dct_rows_kernel<Q, kShiftClamp>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          x, qidx, qtab, n_tables, m_t, out, n);
+          x, q, m_t, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

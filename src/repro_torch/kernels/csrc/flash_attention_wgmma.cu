@@ -60,9 +60,10 @@
 //  * Each consumer issues S_j = Q K_j^T together with O += P_{j-1}
 //    V_{j-1}, and the two consumers take turns to issue (ping-pong named
 //    barriers), so one's softmax runs while the other's products do.
-//  * Barrier waits spin in PTX with no watchdog: a branch to __trap() in
-//    the consumers' code makes ptxas keep them at the launch's 168
-//    registers instead of 240, and serialize their wgmma (C7512).
+//  * Barrier waits spin in PTX with no watchdog (mbarrier.cuh): a branch
+//    to __trap() in the consumers' code makes ptxas keep them at the
+//    launch's 168 registers instead of 240, and serialize their wgmma
+//    (C7512).
 //  * The online softmax works on the accumulator fragments: each row
 //    lives in the 4 lanes that share lane / 4, so the row max is two xor
 //    shuffles; each thread keeps a partial row sum, reduced the same way
@@ -77,6 +78,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -110,42 +113,6 @@ struct Layout {
   static constexpr int kSmem =
       kBar + 8 * (2 * kQBuffers + 4 * kStages) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed (no watchdog: see
-// the note at the top).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,

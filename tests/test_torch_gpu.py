@@ -10,6 +10,9 @@ Tolerances are those of tests/test_kernels.py (``rtol=1e-5, atol=1e-3``;
 bit-identity (a row's result does not depend on N or on its position),
 the checks are exact.
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,12 @@ import torch
 pytestmark = pytest.mark.gpu
 
 RTOL, ATOL = 1e-5, 1e-3
+#: rows of one decode_batch.cu ring tile, a consumer warp's unit of work
+#: (kTileRows = 4 x kRowsPerLane there)
+TILE = 4 * int(re.search(
+    r"constexpr int kRowsPerLane = (\d+);",
+    (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+     "kernels" / "csrc" / "decode_batch.cu").read_text()).group(1))
 
 
 @pytest.fixture(scope="module")
@@ -66,9 +75,12 @@ def test_idct8x8_matches_plain(cuda, n, scale):
     torch.testing.assert_close(got, ref.idct8x8(x), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("n", [1, 65, 777, 20011])
-@pytest.mark.parametrize("ntab", [1, 3, 768])
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 65, 777, 20011,
+                               200_000])
+@pytest.mark.parametrize("ntab", [1, 3, 100, 768])
 def test_decode_batch_matches_plain(cuda, n, ntab):
+    """One row, the ring tile's edges, and more rows than one pass of the
+    persistent grid (132 SMs x 16 warps x 16 rows on an H100)."""
     from repro_torch.kernels import ops, ref
     x, qi, qt = _on(cuda, *_rows(n, n * 31 + ntab, ntab))
     before = ops.LAUNCHES["decode_batch"]
@@ -113,6 +125,35 @@ def test_a_rows_result_does_not_depend_on_n_or_position(cuda):
         part = ops.decode_batch(x[lo:hi].contiguous(),
                                 qi[lo:hi].contiguous(), qt)
         assert torch.equal(part, full[lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("ntab", [3, 100, 768])
+def test_decode_batch_equals_dequant_idct_table_by_table(cuda, ntab):
+    """The two designs share one arithmetic: the rows of table t through
+    dequant_idct(x_t, qt[t]) equal decode_batch's rows bit for bit."""
+    from repro_torch.kernels import ops
+    x, qi, qt = _on(cuda, *_rows(30_000, ntab, ntab))
+    got = ops.decode_batch(x, qi, qt)
+    for t in range(ntab):
+        rows = qi == t
+        want = ops.dequant_idct(x[rows].contiguous(), qt[t].contiguous())
+        assert torch.equal(got[rows], want), t
+
+
+def test_decode_batch_takes_rows_16_but_not_256_byte_aligned(cuda):
+    """x one float4 into a buffer: 16-byte aligned, not 256; the bulk
+    copies take it, and the result is the aligned copy's bit for bit."""
+    from repro_torch.kernels import ops, ref
+    n = 5 * TILE + 3
+    x, qi, qt = _on(cuda, *_rows(n, 23, ntab=4))
+    flat = torch.empty(n * 64 + 4, device=cuda)
+    shifted = flat[4:].view(n, 64)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 0 and shifted.data_ptr() % 256
+    got = ops.decode_batch(shifted, qi, qt)
+    assert torch.equal(got, ops.decode_batch(x, qi, qt))
+    torch.testing.assert_close(got, ref.decode_batch(x, qi, qt),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_out_of_range_table_index_gives_nan_rows(cuda):
