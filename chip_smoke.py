@@ -59,8 +59,32 @@ and prints no result line:
    wgmma kernel never: the kernel path's logits must agree with the
    plain loop's within 1e-4 of the largest logit. Prints prefill and
    decode tokens/s and the phase's peak device memory.
+6. The decode service: ``repro_torch.service.DecodeService`` over
+   ``cuda-batch`` (two workers, micro-batches of up to 8, a 5 ms wait,
+   no cache, ``/metrics`` on an ephemeral loopback port), driven by three
+   closed-loop clients that each send phase 3's 33 images once, in an
+   order shuffled from the client's seed, with at most 8 requests in
+   flight each. Every result must be byte-identical to the serial
+   ``cuda-batch`` decode of its file; no request may be shed or fail;
+   ``ycbcr2rgb`` must launch once per colour request and
+   ``decode_batch`` once per ``jpeg.dequant_idct`` span (a structure
+   group of a micro-batch), at least once per micro-batch; a scrape of
+   ``/metrics`` during the run must show completions. Prints images/s,
+   latency percentiles, micro-batch sizes, stage seconds, the host
+   parse+entropy share, peak device memory and path hits. The same
+   traffic then goes through a one-worker service and through two
+   workers at a 0.5 ms interpreter switch interval, twice each, in the
+   order A B C C B A with the main run as the first A (the host's speed
+   drifts within a call); results are checked the same way, and
+   images/s, latency and stage seconds printed beside the main run's.
+   Then a fallback run over ``strict-cuda`` and ``cuda-batch`` serves the rare
+   YCCK image twice: ``strict-cuda`` must refuse it exactly once (before
+   any launch) and ``cuda-batch`` serve it both times; prints the
+   router's snapshot, best arm and tier. The service's launches are
+   printed on their own line; the ``kernels`` line keeps each kernel's
+   launches on its own path (phases 3 and 5).
 
-Before phases 3, 4 and 5 the script releases cuBLAS's per-stream
+Before phases 3, 4, 5 and 6 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -69,8 +93,9 @@ phase's peak is its own.
 one prefill and a few decode steps of phase 5 (device time by kernel,
 device busy share); the default run does not profile.
 
-The last lines are the ``kernels`` JSON object, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the service's launches (``{"service_launches":
+...}``), the ``kernels`` JSON object, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -521,6 +546,220 @@ def phase_path(corpus):
             "dequant_idct": f_launches["dequant_idct"]}
 
 
+SERVICE_CLIENTS = 3
+SERVICE_WINDOW = 8      # requests in flight per client (closed loop)
+
+
+def _client(svc, files, cid, seed, results, sheds):
+    """Submit every file once, in an order shuffled from ``seed``, keeping
+    at most ``SERVICE_WINDOW`` requests in flight; results[(cid, i)]."""
+    import numpy as np
+    from concurrent.futures import FIRST_COMPLETED, wait
+    from repro_torch.service import ServiceOverloaded
+    pending = {}
+    for i in np.random.RandomState(seed).permutation(len(files)):
+        if len(pending) >= SERVICE_WINDOW:
+            done, _ = wait(pending, return_when=FIRST_COMPLETED)
+            for f in done:
+                results[(cid, pending.pop(f))] = f
+        try:
+            pending[svc.submit(files[i], client=cid)] = int(i)
+        except ServiceOverloaded:
+            sheds.append((cid, int(i)))
+    wait(pending)
+    for f, i in pending.items():
+        results[(cid, i)] = f
+
+
+def _scrape_completed(url):
+    """The service's completion counter as a ``/metrics`` scrape shows it."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        page = r.read().decode()
+    for line in page.splitlines():
+        if line.startswith("service_completed_total "):
+            return float(line.split()[1])
+    return None
+
+
+def _drive_service(svc, files):
+    """Run the clients against a started service; returns the images by
+    (client, file index), the shed requests, the completion count a
+    ``/metrics`` scrape showed during the run (None: no endpoint) and the
+    seconds from the first submit to the last result."""
+    import threading
+    results, sheds, scraped = {}, [], None
+    t0 = time.perf_counter()
+    clients = [threading.Thread(
+        target=_client, args=(svc, files, f"client{k}", k, results, sheds))
+        for k in range(SERVICE_CLIENTS)]
+    for c in clients:
+        c.start()
+    while (svc.telemetry is not None and scraped is None and
+           any(c.is_alive() for c in clients)):
+        if svc.metrics.snapshot()["completed"] > 0:
+            scraped = _scrape_completed(svc.telemetry.url)
+        else:
+            time.sleep(0.01)
+    for c in clients:
+        c.join()
+    images = {key: f.result() for key, f in results.items()}
+    return images, sheds, scraped, time.perf_counter() - t0
+
+
+def _stage_report(label, events, wall, workers, n_req):
+    """Where the workers' time went: stage seconds summed over the
+    workers, parse+entropy per request, the workers' share of time
+    inside ``decode_batch``, and the part of it outside the jpeg spans."""
+    from repro_torch.obs import trace
+    stages = trace.stage_seconds(events)
+    entropy = stages.get("jpeg.entropy", 0.0) + stages.get("jpeg.parse", 0.0)
+    busy = stages.get("service.batch_decode", 0.0)
+    outside = busy - entropy - stages.get("jpeg.dequant_idct", 0.0) - \
+        stages.get("jpeg.assemble", 0.0)
+    print(f"{label}: stage seconds summed over {workers} worker(s) "
+          f"{json.dumps(stages)}")
+    print(f"{label}: host parse+entropy {entropy} s, {entropy / n_req} s "
+          f"per request ({entropy / wall:.3f} of wall, which {workers} "
+          f"worker(s) can pass); workers in decode_batch "
+          f"{busy / (workers * wall):.3f} of their time, {outside} s of "
+          f"it outside the jpeg spans")
+
+
+def phase_service(corpus):
+    import numpy as np
+    import torch
+    from repro_torch.codecs import open_decoder
+    from repro_torch.jpeg import parser as P
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.service import DecodeService, ServiceConfig
+    print("== phase 6: the decode service over cuda-batch")
+    files, rare = corpus.files, corpus.rare_index
+    serial = open_decoder("cuda-batch").decode_batch(files)
+    check(all(o.ok for o in serial), "serial cuda-batch failed items")
+    want = [o.image for o in serial]
+    n_color = sum(len(P.parse(f, headers_only=True).components) == 3
+                  for f in files)
+    held = held_report("phase 6")
+    torch.cuda.reset_peak_memory_stats()
+    svc = DecodeService(ServiceConfig(
+        num_workers=2, max_batch=8, max_wait_ms=5.0, cache_bytes=0,
+        metrics_port=0, seed=0), paths=["cuda-batch"])
+    n_req = SERVICE_CLIENTS * len(files)
+    tracer = trace.Tracer()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with trace.use_tracer(tracer), svc:
+        images, sheds, scraped, wall = _drive_service(svc, files)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    snap = svc.stats()
+    events = tracer.events()
+    spans = [e for e in events if e.get("ph") == "X"]
+    batches = [e["args"]["batch"] for e in spans
+               if e["name"] == "service.batch_decode"]
+    n_idct = sum(e["name"] == "jpeg.dequant_idct" for e in spans)
+    check(not sheds, f"{len(sheds)} requests shed: {sheds[:5]}")
+    check(len(images) == n_req, f"{len(images)} results for {n_req} "
+                                f"requests")
+    for (cid, i), img in sorted(images.items()):
+        check(np.array_equal(img, want[i]), f"{cid} image {i} differs "
+                                            f"from the serial decode")
+    print(f"{n_req} results byte-identical to the serial cuda-batch decode")
+    svc_snap = snap["service"]
+    check(svc_snap["failed"] == 0 and svc_snap["shed"] == 0 and
+          svc_snap["completed"] == n_req, f"service counters {svc_snap}")
+    check(launches["ycbcr2rgb"] == SERVICE_CLIENTS * n_color,
+          f"ycbcr2rgb launched {launches['ycbcr2rgb']} times for "
+          f"{SERVICE_CLIENTS * n_color} 3-component requests")
+    check(launches["decode_batch"] == n_idct,
+          f"decode_batch launched {launches['decode_batch']} times for "
+          f"{n_idct} jpeg.dequant_idct spans")
+    check(launches["decode_batch"] >= len(batches) > 0,
+          f"decode_batch launched {launches['decode_batch']} times for "
+          f"{len(batches)} micro-batches")
+    check(sum(launches.values()) == launches["ycbcr2rgb"] +
+          launches["decode_batch"], f"other kernels launched: {launches}")
+    check(bool(scraped), f"/metrics showed service_completed_total "
+                         f"{scraped} during the run")
+    print(f"/metrics during the run: service_completed_total {scraped}")
+    lat = svc.metrics.registry.get("service_latency_seconds")
+    print(f"images/s: {n_req / wall} ({n_req} requests from "
+          f"{SERVICE_CLIENTS} clients in {wall} s, first submit to last "
+          f"result)")
+    print(f"latency s: p50 {lat.quantile(0.5)} p90 {lat.quantile(0.9)} "
+          f"p99 {lat.quantile(0.99)} (stats(): {svc_snap['latency_s']})")
+    print(f"micro-batches: {len(batches)}, mean size "
+          f"{sum(batches) / len(batches)}, largest {max(batches)}; "
+          f"decode_batch launches {launches['decode_batch']}, ycbcr2rgb "
+          f"{launches['ycbcr2rgb']}")
+    _stage_report("two workers", events, wall, 2, n_req)
+    print(f"peak device memory: {peak} bytes ({held} bytes held before "
+          f"the phase)")
+    print(f"path_hits {svc_snap['path_hits']} path_skips "
+          f"{svc_snap['path_skips']}; router {snap['router']}")
+
+    # The same traffic through one worker, and through two at a 0.5 ms
+    # switch interval: what the second worker costs while the other
+    # holds the interpreter lock in entropy decode (each torch call
+    # releases the lock and may wait up to the interval to get it back).
+    # The host's speed drifts within a call, so the variants run in the
+    # order A B C C B A, the main run being the first A.
+    two, one, fast = ("two workers", 2, None), ("one worker", 1, None), \
+        ("two workers, switch interval 0.5 ms", 2, 0.0005)
+    rates = {two[0]: [n_req / wall]}
+    default_interval = sys.getswitchinterval()
+    for label, workers, interval in (one, fast, fast, one, two):
+        other = DecodeService(ServiceConfig(
+            num_workers=workers, max_batch=8, max_wait_ms=5.0,
+            cache_bytes=0, seed=0), paths=["cuda-batch"])
+        tracer = trace.Tracer()
+        sys.setswitchinterval(interval or default_interval)
+        try:
+            with trace.use_tracer(tracer), other:
+                images_o, sheds_o, _, wall_o = _drive_service(other, files)
+        finally:
+            sys.setswitchinterval(default_interval)
+        check(not sheds_o and len(images_o) == n_req and
+              all(np.array_equal(img, want[i])
+                  for (_, i), img in images_o.items()),
+              f"{label}: shed requests or results unlike the serial decode")
+        rates.setdefault(label, []).append(n_req / wall_o)
+        lat_o = other.metrics.registry.get("service_latency_seconds")
+        print(f"{label}, same traffic: images/s {n_req / wall_o} ({wall_o} "
+              f"s); latency s p50 {lat_o.quantile(0.5)} p90 "
+              f"{lat_o.quantile(0.9)} p99 {lat_o.quantile(0.99)}; "
+              f"{other.batcher.batches_emitted} micro-batches")
+        _stage_report(label, tracer.events(), wall_o, workers, n_req)
+    for label, r in rates.items():
+        print(f"{label}: images/s {r}, mean {sum(r) / len(r)}")
+
+    # the rare image, once through each arm: cold arms are pulled first
+    fb = DecodeService(ServiceConfig(num_workers=1, max_batch=1,
+                                     cache_bytes=0, seed=0),
+                       paths=["strict-cuda", "cuda-batch"])
+    ops.reset_launches()
+    with fb:
+        got = [fb.decode(files[rare]) for _ in range(2)]
+    fb_snap = fb.metrics.snapshot()
+    check(fb_snap["path_skips"] == {"strict-cuda": 1},
+          f"fallback run path_skips {fb_snap['path_skips']}")
+    check(fb_snap["path_hits"] == {"cuda-batch": 2},
+          f"fallback run path_hits {fb_snap['path_hits']}")
+    check(all(np.array_equal(g, want[rare]) for g in got),
+          "the rare image served by the fallback differs from cuda-batch's")
+    check(ops.LAUNCHES["idct8x8"] == 0, "strict-cuda launched idct8x8 "
+                                        "before refusing the rare image")
+    print(f"fallback run: path_skips {fb_snap['path_skips']} path_hits "
+          f"{fb_snap['path_hits']}, both byte-identical to cuda-batch; "
+          f"router snapshot {fb.router.snapshot()} best "
+          f"{fb.router.best()} tier {fb.router.tier()}")
+    return {"decode_batch": launches["decode_batch"],
+            "ycbcr2rgb": launches["ycbcr2rgb"]}
+
+
 LM_ARCH = "qwen2-7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # the kernel path's float32 prefill logits against the plain loop's, as
@@ -849,6 +1088,7 @@ def main() -> int:
         launches = phase_path(corpus)
         kernels.update(phase_flash())
         launches.update(phase_lm(profile="--profile" in sys.argv[1:]))
+        service_launches = phase_service(corpus)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -858,6 +1098,7 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         kernels[name]["launches"] = count
+    print(json.dumps({"service_launches": service_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -41,12 +41,22 @@ def use_device(device: DeviceLike) -> Iterator[torch.device]:
         _SCOPED.reset(token)
 
 
+def selected_device() -> torch.device:
+    """The device the calling context has selected, unchecked: the
+    innermost ``use_device`` scope, else ``set_device``'s, else ``cuda:0``.
+
+    A ``use_device`` scope does not reach threads started inside it (a
+    new thread starts with an empty context), so code that hands work to
+    its own threads reads this once and re-enters it there."""
+    return _SCOPED.get() or _PROCESS_DEVICE or _DEFAULT
+
+
 def current_device() -> torch.device:
     """The device the port's entry points run on.
 
     Raises ``RuntimeError`` when that is a CUDA device and no card is
     visible: the CPU is used only when it was asked for."""
-    dev = _SCOPED.get() or _PROCESS_DEVICE or _DEFAULT
+    dev = selected_device()
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"repro_torch runs on {dev} but no CUDA card is visible "

@@ -213,6 +213,55 @@ def test_cuda_batch_on_the_card_matches_its_plain_run(cuda, corpus):
         np.testing.assert_array_equal(g, path.decode(f), err_msg=str(i))
 
 
+
+def test_service_over_cuda_batch_on_the_card(cuda, corpus):
+    """Two workers serve every file to two clients through ``cuda-batch``:
+    images byte-identical to the serial decode, one ``ycbcr2rgb`` launch
+    per colour request and one ``decode_batch`` launch per
+    ``jpeg.dequant_idct`` span (a structure group of a micro-batch)."""
+    import threading
+    from repro_torch.codecs import get_decoder
+    from repro_torch.jpeg import parser as P
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.service import DecodeService, ServiceConfig
+    files = list(corpus.files)
+    want = get_decoder("cuda-batch").decode_batch(files)
+    svc = DecodeService(ServiceConfig(num_workers=2, max_batch=4,
+                                      max_wait_ms=5.0, cache_bytes=0,
+                                      seed=0), paths=["cuda-batch"])
+    assert svc.device == cuda
+    results = {}
+    tracer = trace.Tracer()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with trace.use_tracer(tracer), svc:
+        def client(cid):
+            futs = [svc.submit(f, client=cid) for f in files]
+            results[cid] = [f.result(timeout=120) for f in futs]
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in ("a", "b")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+    launches = dict(ops.LAUNCHES)
+    for cid, imgs in results.items():
+        for i, (g, w) in enumerate(zip(imgs, want)):
+            np.testing.assert_array_equal(g, w, err_msg=f"{cid}[{i}]")
+    snap = svc.metrics.snapshot()
+    assert snap["completed"] == 2 * len(files)
+    assert snap["failed"] == 0 and snap["shed"] == 0
+    n_color = sum(len(P.parse(f, headers_only=True).components) == 3
+                  for f in files)
+    names = [e["name"] for e in tracer.events() if e.get("ph") == "X"]
+    assert launches["ycbcr2rgb"] == 2 * n_color
+    assert launches["decode_batch"] == names.count("jpeg.dequant_idct")
+    assert launches["decode_batch"] >= names.count("service.batch_decode")
+    assert sum(launches.values()) == launches["ycbcr2rgb"] + \
+        launches["decode_batch"]
+
 FLASH_SHAPES = [       # (B, S, H, KV, D)
     (1, 1, 4, 2, 16),
     (2, 7, 4, 2, 32),

@@ -56,6 +56,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import json, sys\n"
         "import repro_torch.jpeg.paths, repro_torch.codecs\n"
         "import repro_torch.jpeg.corpus, repro_torch.kernels.ops\n"
+        "import repro_torch.service, repro_torch.obs, repro_torch.core\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
