@@ -84,7 +84,30 @@ and prints no result line:
    printed on their own line; the ``kernels`` line keeps each kernel's
    launches on its own path (phases 3 and 5).
 
-Before phases 3, 4, 5 and 6 the script releases cuBLAS's per-stream
+7. The data loader and the paper's protocols: phase 3's 33 images
+   through ``repro_torch.data.DataLoader`` over ``cuda-batch`` (batches
+   of 16, two threads, chunks of 8 decoded by one ``decode_batch`` call
+   each, 224x224 collate), from memory and from a shard directory
+   (``write_corpus_shards`` / ``load_corpus_shards``): every batch must
+   equal ``center_fit`` of the serial ``cuda-batch`` decode byte for
+   byte, labels in order, no skips, ``decode_batch`` launches equal to
+   the ``jpeg.dequant_idct`` spans (at least one per chunk) and
+   ``ycbcr2rgb`` launches equal to the colour images. A ``strict-cuda``
+   loader must skip exactly the rare image. ``prefetch_to_device`` must
+   give ``cuda:0`` tensors equal to their host batches, read at once
+   and after a matmul loop queued on the default stream, and re-raise a
+   producer's error. A process-mode (forked) ``numpy-fast`` loader must
+   deliver all 33 images byte-identical to the serial decode, and a
+   process-mode ``cuda-batch`` loader must be refused. Then the paper's
+   protocols over the 33 images, labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
+   before and after the sweeps) and ``WorkerSweep`` in thread and
+   process mode at workers 0, 2, 4 and 8 (1 repeat), over
+   ``cuda-batch`` and ``numpy-fast``; ``cuda-batch`` must give skip
+   records under the fork harness. Prints every record, the reports, each decoder's rank under
+   each protocol and ``autotune_workers`` over a ``cuda-batch`` loader.
+   A watchdog (``faulthandler``) ends a hung phase with tracebacks.
+
+Before phases 3, 4, 5, 6 and 7 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -94,8 +117,9 @@ one prefill and a few decode steps of phase 5 (device time by kernel,
 device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
-...}``), the ``kernels`` JSON object, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+...}``), the loader's (``{"loader_launches": ...}``), the ``kernels``
+JSON object, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 import gc
 import json
@@ -760,6 +784,365 @@ def phase_service(corpus):
             "ycbcr2rgb": launches["ycbcr2rgb"]}
 
 
+LOADER_BATCH = 16
+LOADER_CHUNK = 8
+LOADER_HW = (224, 224)
+PROTOCOL_WORKERS = (0, 2, 4, 8)
+PHASE7_WATCHDOG_S = 900
+
+
+def _loader_cfg(**kw):
+    from repro_torch.data.loader import LoaderConfig
+    base = dict(batch_size=LOADER_BATCH, num_workers=2, mode="thread",
+                decode_batch=LOADER_CHUNK, target_hw=LOADER_HW)
+    base.update(kw)
+    return LoaderConfig(**base)
+
+
+def _want_batches(images, labels, keep):
+    """The batches a loader must deliver: ``center_fit`` of each kept
+    image, in order, ``LOADER_BATCH`` at a time."""
+    import numpy as np
+    from repro_torch.data.loader import center_fit
+    th, tw = LOADER_HW
+    idx = [i for i in range(len(images)) if keep(i)]
+    out = []
+    for k in range(0, len(idx), LOADER_BATCH):
+        part = idx[k:k + LOADER_BATCH]
+        out.append({"image": np.stack([center_fit(images[i], th, tw)
+                                       for i in part]),
+                    "label": np.asarray([labels[i] for i in part],
+                                        np.int32)})
+    return out
+
+
+def _check_batches(label, got, want):
+    import numpy as np
+    check(len(got) == len(want), f"{label}: {len(got)} batches, want "
+                                 f"{len(want)}")
+    for b, (g, w) in enumerate(zip(got, want)):
+        check(g["image"].shape == w["image"].shape and
+              np.array_equal(g["image"], w["image"]),
+              f"{label}: batch {b} images differ from the serial decode")
+        check(np.array_equal(g["label"], w["label"]),
+              f"{label}: batch {b} labels {g['label']} want {w['label']}")
+
+
+def _drive_loader(label, make):
+    """One epoch of the loader ``make()`` builds, with the launch
+    counters zeroed just before and a tracer installed; returns
+    (loader, batches, launches, spans by name, seconds)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    tracer = trace.Tracer()
+    loader = make()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        batches = list(loader)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    events = tracer.events()
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    n = sum(b["image"].shape[0] for b in batches)
+    print(f"{label}: {n} images in {dt} s, {n / dt} images/s; launches "
+          f"{launches}; jpeg.dequant_idct spans "
+          f"{spans.get('jpeg.dequant_idct', 0)}; stage seconds "
+          f"{json.dumps(trace.stage_seconds(events))}")
+    return loader, batches, launches, spans, dt
+
+
+def _check_loader_launches(label, launches, spans, n_chunks, n_color):
+    check(launches["decode_batch"] == spans.get("jpeg.dequant_idct", 0),
+          f"{label}: decode_batch launched {launches['decode_batch']} "
+          f"times for {spans.get('jpeg.dequant_idct', 0)} "
+          f"jpeg.dequant_idct spans")
+    check(launches["decode_batch"] >= n_chunks,
+          f"{label}: decode_batch launched {launches['decode_batch']} "
+          f"times for {n_chunks} chunks")
+    check(launches["ycbcr2rgb"] == n_color,
+          f"{label}: ycbcr2rgb launched {launches['ycbcr2rgb']} times for "
+          f"{n_color} colour images")
+    check(sum(launches.values()) == launches["decode_batch"] +
+          launches["ycbcr2rgb"], f"{label}: other kernels launched: "
+                                 f"{launches}")
+
+
+def _check_prefetch(batches):
+    """``prefetch_to_device`` over the loader's batches: every item a
+    ``cuda:0`` tensor equal to its host batch, read twice: at once (a
+    missing stream wait reads a copy still in flight, which two 256 MiB
+    items make likely) and after a long matmul loop queued on the
+    default stream, when the producer has gone on to the next copies (a
+    missing ``record_stream`` lets them reuse the memory first)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.loader import prefetch_to_device
+    dev = torch.device("cuda", 0)
+    a = torch.randn(4096, 4096, device=dev)
+    big = [{"image": np.resize(np.arange(251, dtype=np.uint8), 256 << 20)
+            + np.uint8(7 * k + 1)} for k in range(2)]
+    for label, items in (("loader batches", batches), ("256 MiB items",
+                                                       big)):
+        now, later = [], []
+        for item in prefetch_to_device(iter(items), size=2):
+            kinds = [(type(t).__name__, getattr(t, "device", None))
+                     for t in item.values()]
+            check(all(torch.is_tensor(t) and t.device == dev
+                      for t in item.values()),
+                  f"prefetch_to_device gave {kinds}")
+            now.append({k: t.clone() for k, t in item.items()})
+            for _ in range(30):
+                a = a @ a
+                a = a / a.norm()
+            later.append({k: t.clone() for k, t in item.items()})
+        torch.cuda.synchronize()
+        check(len(now) == len(items), f"prefetch gave {len(now)} of "
+                                      f"{len(items)} {label}")
+        for k, (n, l, want) in enumerate(zip(now, later, items)):
+            for key in want:
+                for when, got in (("at once", n), ("after the loop", l)):
+                    check(np.array_equal(got[key].cpu().numpy(), want[key]),
+                          f"prefetch_to_device {label} item {k} {key} "
+                          f"differs from its host copy, read {when}")
+        print(f"prefetch_to_device: {len(items)} {label} on {dev}, equal "
+              f"to their host copies at once and after a matmul loop")
+    del big
+
+    def exploding():
+        yield batches[0]
+        raise RuntimeError("producer failed on purpose")
+    raised = None
+    try:
+        for _ in prefetch_to_device(exploding(), size=1):
+            pass
+    except RuntimeError as e:
+        raised = e
+    check(raised is not None and "on purpose" in str(raised),
+          f"a producer error reached the consumer as {raised!r}")
+    print("prefetch_to_device: a producer error re-raised in the consumer")
+
+
+def _ranks(records, protocol, mode=None):
+    """decoder -> (rank, images/s, workers) under one protocol: the
+    single-thread mean, or the peak over the sweep's measured cells."""
+    from repro_torch.core import stats
+    best = {}
+    for r in records:
+        if r.protocol != protocol or not r.ok or \
+                (mode is not None and r.mode != mode):
+            continue
+        if r.decoder not in best or \
+                r.throughput_mean > best[r.decoder].throughput_mean:
+            best[r.decoder] = r
+    names = sorted(best)
+    ranks = stats.rankdata([best[d].throughput_mean for d in names])
+    return {d: (float(ranks[k]), best[d].throughput_mean,
+                best[d].workers) for k, d in enumerate(names)}
+
+
+def phase_loader(corpus):
+    import faulthandler
+    print("== phase 7: the data loader and the paper's protocols over "
+          "cuda-batch")
+    held_report("phase 7")
+    print(f"host CPUs: os.cpu_count() {os.cpu_count()}, "
+          f"sched_getaffinity {len(os.sched_getaffinity(0))}")
+    # a hang (a forked worker stuck on a lock held at fork) fails the run
+    # with every thread's traceback instead of running out the clock
+    faulthandler.dump_traceback_later(PHASE7_WATCHDOG_S, exit=True)
+    try:
+        return _loader_checks(corpus)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _loader_checks(corpus):
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.codecs import open_decoder
+    from repro_torch.core import decision, protocols, report
+    from repro_torch.data import autotune_workers
+    from repro_torch.data.loader import DataLoader
+    from repro_torch.jpeg import parser as P
+    from repro_torch.jpeg.corpus import (corpus_fingerprint,
+                                         load_corpus_shards,
+                                         write_corpus_shards)
+    t_phase = time.perf_counter()
+    files, labels, rare = corpus.files, corpus.labels, corpus.rare_index
+    n_chunks = -(-len(files) // LOADER_CHUNK)
+    comps = [len(P.parse(f, headers_only=True).components) for f in files]
+    n_color = sum(c == 3 for c in comps)
+    serial = open_decoder("cuda-batch").decode_batch(files)
+    check(all(o.ok for o in serial), "serial cuda-batch failed items")
+    want = _want_batches([o.image for o in serial], labels, lambda i: True)
+
+    # the main path: a chunked thread-mode loader over cuda-batch, one
+    # decode_batch call per chunk of 8 (a launch per structure group)
+    loader, got, launches, spans, dt = _drive_loader(
+        "cuda-batch loader (memory, 2 threads, chunks of 8)",
+        lambda: DataLoader(files, labels, cfg=_loader_cfg(),
+                           path_name="cuda-batch"))
+    _check_batches("cuda-batch loader", got, want)
+    check(loader.ledger.indices() == [], f"cuda-batch loader skipped "
+                                         f"{loader.ledger.state()}")
+    _check_loader_launches("cuda-batch loader", launches, spans, n_chunks,
+                           n_color)
+    check(launches["decode_batch"] >= 1 and launches["ycbcr2rgb"] >= 1,
+          f"the loader's path launched {launches}")
+    print(f"cuda-batch loader: {len(got)} batches byte-identical to the "
+          f"serial decode, labels in order, no skips; decode_batch "
+          f"{launches['decode_batch']} = jpeg.dequant_idct spans "
+          f"(>= {n_chunks} chunks), ycbcr2rgb {launches['ycbcr2rgb']} = "
+          f"colour images; {loader.stats()}")
+    loader_launches = {"decode_batch": launches["decode_batch"],
+                       "ycbcr2rgb": launches["ycbcr2rgb"]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus_shards(corpus, tmp, shard_size=8)
+        src = load_corpus_shards(tmp)
+        check(src.fingerprint == corpus_fingerprint(corpus),
+              "shard fingerprint differs from the corpus's")
+        sloader, sgot, slaunches, sspans, _ = _drive_loader(
+            "cuda-batch loader (shards, 2 threads, chunks of 8)",
+            lambda: DataLoader(src, None, cfg=_loader_cfg(),
+                               path_name="cuda-batch"))
+        _check_batches("cuda-batch shard loader", sgot, got)
+        check(sloader.ledger.indices() == [], "the shard loader skipped")
+        _check_loader_launches("cuda-batch shard loader", slaunches,
+                               sspans, n_chunks, n_color)
+        src.close()
+    print(f"cuda-batch over {-(-len(files) // 8)} shards: batches "
+          f"byte-identical to the in-memory loader's")
+
+    strict, sgot, slaunches, _, _ = _drive_loader(
+        "strict-cuda loader (memory, 2 threads, chunks of 8)",
+        lambda: DataLoader(files, labels, cfg=_loader_cfg(),
+                           path_name="strict-cuda"))
+    check(strict.ledger.indices() == [rare],
+          f"strict-cuda skipped {strict.ledger.indices()}, want [{rare}]")
+    want_idct = sum(c for i, c in enumerate(comps) if i != rare)
+    check(slaunches["idct8x8"] == want_idct and
+          sum(slaunches.values()) == want_idct,
+          f"strict-cuda launches {slaunches}, want idct8x8 {want_idct}")
+    check(sum(b["image"].shape[0] for b in sgot) == len(files) - 1,
+          "strict-cuda delivered the wrong count")
+    print(f"strict-cuda loader skips {strict.ledger.indices()}; idct8x8 "
+          f"launched {slaunches['idct8x8']} times (a component each)")
+
+    _check_prefetch(got)
+
+    # process mode: the fork harness, numpy-fast only
+    np_serial = [open_decoder("numpy-fast").decode(f).unwrap()
+                 for f in files]
+    ploader = DataLoader(files, labels, cfg=_loader_cfg(mode="process",
+                                                        decode_batch=0),
+                         path_name="numpy-fast")
+    t0 = time.perf_counter()
+    pgot = list(ploader)
+    pdt = time.perf_counter() - t0
+    ploader.close()
+    _check_batches("numpy-fast process loader", pgot,
+                   _want_batches(np_serial, labels, lambda i: True))
+    check(sum(b["image"].shape[0] for b in pgot) == len(files),
+          "process loader lost images")
+    print(f"numpy-fast process loader (2 forked workers): {len(files)} "
+          f"images byte-identical to the serial decode in {pdt} s")
+    refused = None
+    try:
+        next(iter(DataLoader(files, labels, cfg=_loader_cfg(
+            mode="process", decode_batch=0), path_name="cuda-batch")))
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "not process-loader eligible" in refused,
+          f"a cuda-batch process loader was not refused: {refused}")
+    print(f"cuda-batch process loader refused: {refused}")
+
+    # the paper's protocols, labelled with the card's name; the
+    # single-thread protocol runs again after the sweeps, because the
+    # host's speed drifts within a call (PERF.md §6)
+    platform = torch.cuda.get_device_name(0)
+    paths = ["cuda-batch", "numpy-fast"]
+    seconds = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[label] = time.perf_counter() - t0
+        return out
+    single = timed("single-thread", lambda: protocols.SingleThreadProtocol(
+        corpus, repeats=2, platform=platform).run(paths))
+    thread = timed("thread sweep", lambda: protocols.WorkerSweep(
+        corpus, repeats=1, mode="thread", platform=platform).run(
+            paths, workers=PROTOCOL_WORKERS))
+    process = timed("process sweep", lambda: protocols.WorkerSweep(
+        corpus, repeats=1, mode="process", platform=platform).run(
+            paths, workers=PROTOCOL_WORKERS))
+    again = timed("single-thread again",
+                  lambda: protocols.SingleThreadProtocol(
+                      corpus, repeats=2, platform=platform).run(paths))
+    print(f"protocol seconds: {seconds}")
+    for first, second in zip(single, again):
+        print(f"single-thread {first.decoder}: {first.samples} before the "
+              f"sweeps, {second.samples} after")
+    records = single + thread + process
+    for r in records:
+        check(r.platform == platform, f"record platform {r.platform}")
+        if r.ok:
+            check(r.throughput_mean > 0 and len(r.samples) >= 1 and
+                  r.skip_indices == [] and r.num_images == len(files) and
+                  r.meta["delivered"] == len(files),
+                  f"record {r.scenario}: {r.to_json()}")
+    check(all(r.ok for r in single + thread + again),
+          "a single-thread or thread cell did not run")
+    for r in process:
+        if r.decoder == "cuda-batch" and r.workers > 0:
+            check(r.status == "skipped" and r.samples == [] and
+                  "CUDA" in r.meta["reason"],
+                  f"process cuda-batch w={r.workers}: {r.to_json()}")
+        else:
+            check(r.ok, f"process {r.decoder} w={r.workers} did not run: "
+                        f"{r.meta}")
+    for r in records:
+        print(json.dumps({"record": r.scenario, "images_s": r.samples,
+                          "mean": r.throughput_mean, "status": r.status,
+                          "skips": r.skip_indices}))
+    print(report.single_thread_report(records))
+    print(report.loader_report(records))
+    print(report.status_report(records))
+    for label, ranks in (("single-thread", _ranks(records, "single_thread")),
+                         ("thread sweep peak",
+                          _ranks(records, "dataloader", "thread")),
+                         ("process sweep peak",
+                          _ranks(records, "dataloader", "process")),
+                         ("loader peak, either mode",
+                          _ranks(records, "dataloader"))):
+        print(f"rank under {label}: " + ", ".join(
+            f"{d} {rank:g} ({rate} images/s at w={w})"
+            for d, (rank, rate, w) in sorted(ranks.items(),
+                                             key=lambda kv: kv[1][0])))
+    rec = decision.recommend(records)
+    print(report.flip_report(rec["protocol_disagreement"]))
+
+    def factory(w):
+        return DataLoader(files, labels, cfg=_loader_cfg(num_workers=w),
+                          path_name="cuda-batch")
+    tuned = autotune_workers(factory, candidates=PROTOCOL_WORKERS,
+                             max_items=16, repeats=1)
+    print(f"autotune_workers (cuda-batch, thread mode, 16 items): best "
+          f"{tuned['best']} peak {tuned['peak_workers']} sweep "
+          f"{tuned['sweep']}")
+    print(f"phase 7: {time.perf_counter() - t_phase} s")
+    return loader_launches
+
+
 LM_ARCH = "qwen2-7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # the kernel path's float32 prefill logits against the plain loop's, as
@@ -1089,6 +1472,7 @@ def main() -> int:
         kernels.update(phase_flash())
         launches.update(phase_lm(profile="--profile" in sys.argv[1:]))
         service_launches = phase_service(corpus)
+        loader_launches = phase_loader(corpus)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1099,6 +1483,7 @@ def main() -> int:
             return 1
         kernels[name]["launches"] = count
     print(json.dumps({"service_launches": service_launches}))
+    print(json.dumps({"loader_launches": loader_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ decoder.
 from __future__ import annotations
 
 import dataclasses
-import sys
+import importlib
+import threading
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -82,24 +83,28 @@ _REGISTRY: Dict[str, DecoderSpec] = {}
 # (paths -> codecs at import time, codecs -> paths at first use); a
 # module already mid-import sits in sys.modules, so no recursion.
 _BUILTIN_MODULES = ("repro_torch.jpeg.paths",)
-_LOADING_BUILTINS = False
+# per thread: a first registry read from a second thread (a loader's or
+# the service's worker) must not take another thread's import in flight
+# for a finished one
+_LOADING = threading.local()
 
 
 def _ensure_builtins() -> None:
     # reentrancy guard: the builtin modules call register_decoder at
     # import, which lands back here — without the guard the first such
     # call would import contrib mid-way through paths' registrations and
-    # scramble registration (= bench emission) order across entry points
-    global _LOADING_BUILTINS
-    if _LOADING_BUILTINS:
+    # scramble registration (= bench emission) order across entry points.
+    # import_module waits for a module another thread is importing (and
+    # returns at once when it is loaded, or mid-import in this thread),
+    # so no thread reads a half-filled registry
+    if getattr(_LOADING, "active", False):
         return
-    _LOADING_BUILTINS = True
+    _LOADING.active = True
     try:
         for mod in _BUILTIN_MODULES:
-            if mod not in sys.modules:
-                __import__(mod)
+            importlib.import_module(mod)
     finally:
-        _LOADING_BUILTINS = False
+        _LOADING.active = False
 
 
 def register_decoder(name: str, fn: Optional[Callable] = None, *,

@@ -16,6 +16,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch.jpeg import encoder
+from repro_torch.store import format as shard_format
+from repro_torch.store.source import ShardSource
 
 RARE_INDEX_IMAGENET = 19876
 IMAGENET_VAL_SIZE = 50000
@@ -144,3 +146,31 @@ def build_corpus(n: int = 200, *, seed: int = 0,
     return Corpus(files=files, labels=labels, rare_index=rare, sizes=dims,
                   progressive_indices=prog_indices)
 
+
+# --------------------------------------------------------- storage backing
+def corpus_fingerprint(corpus: Corpus) -> str:
+    """Order-sensitive content identity of a corpus — equals the
+    ``fingerprint`` a shard ingest of the same corpus records in its
+    manifest, which is how the bench harness proves a storage-backed
+    sweep cell decodes the exact bytes its in-memory twin does."""
+    hashes = (shard_format.content_hash(f) for f in corpus.files)
+    return shard_format.corpus_fingerprint(hashes, corpus.labels)
+
+
+def write_corpus_shards(corpus: Corpus, out_dir: str, *,
+                        shard_size: int = 64) -> str:
+    """Ingest a corpus into a shard directory (see repro_torch.store.format);
+    returns the manifest path. Corpus-level structure (rare index, per
+    image dims) rides in the manifest ``meta`` so a shard directory is
+    self-describing."""
+    meta = {"kind": "synthetic-imagenet-val",
+            "rare_index": corpus.rare_index,
+            "sizes": [list(s) for s in corpus.sizes]}
+    return shard_format.write_shards(
+        zip(corpus.files, (int(l) for l in corpus.labels)),
+        out_dir, shard_size=shard_size, meta=meta)
+
+
+def load_corpus_shards(root: str) -> ShardSource:
+    """Open an ingested corpus as a zero-copy ``ByteSource``."""
+    return ShardSource(root)

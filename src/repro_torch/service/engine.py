@@ -278,6 +278,17 @@ class DecodeService:
         """Blocking convenience wrapper around submit()."""
         return self.submit(data, client).result()
 
+    def submit_source(self, source, index: int,
+                      client: str = "anon") -> Future:
+        """Submit record ``index`` of a ``repro_torch.store.ByteSource``.
+
+        For shard-backed sources the record travels as a ``memoryview``
+        into the source's mmap — storage to decode worker without a
+        single intermediate copy (the destuffing inside entropy decode
+        is the first and only materialization).
+        """
+        return self.submit(source[index], client)
+
     def _on_device(self, fn, *args) -> None:
         """Run ``fn`` under the service's device (thread targets and the
         inline path: a caller's ``use_device`` scope ends at its thread)."""

@@ -262,6 +262,87 @@ def test_service_over_cuda_batch_on_the_card(cuda, corpus):
     assert sum(launches.values()) == launches["ycbcr2rgb"] + \
         launches["decode_batch"]
 
+
+def test_service_submit_source_zero_copy_on_the_card(cuda, corpus,
+                                                     tmp_path):
+    """A shard record reaches the ``cuda-batch`` service as a
+    ``memoryview`` into the shard's mmap and decodes as its bytes do."""
+    from repro_torch.codecs import get_decoder
+    from repro_torch.jpeg.corpus import load_corpus_shards, \
+        write_corpus_shards
+    from repro_torch.service import DecodeService, ServiceConfig
+    write_corpus_shards(corpus, str(tmp_path), shard_size=5)
+    src = load_corpus_shards(str(tmp_path))
+    assert isinstance(src[0], memoryview)
+    with DecodeService(ServiceConfig(num_workers=0, cache_bytes=0),
+                       paths=["cuda-batch"]) as svc:
+        imgs = [svc.submit_source(src, i).result() for i in range(len(src))]
+    want = get_decoder("cuda-batch").decode_batch(list(corpus.files))
+    for i, (g, w) in enumerate(zip(imgs, want)):
+        np.testing.assert_array_equal(g, w, err_msg=str(i))
+    src.close()
+
+
+def test_chunked_cuda_batch_loader_on_the_card(cuda, corpus):
+    """Two loader threads decode chunks of 4 through ``cuda-batch``: the
+    batches equal the serial decode, one ``decode_batch`` launch per
+    ``jpeg.dequant_idct`` span and one ``ycbcr2rgb`` per colour image."""
+    from repro_torch.codecs import get_decoder
+    from repro_torch.data.loader import DataLoader, LoaderConfig, center_fit
+    from repro_torch.jpeg import parser as P
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    files = list(corpus.files)
+    serial = get_decoder("cuda-batch").decode_batch(files)
+    dl = DataLoader(files, corpus.labels, cfg=LoaderConfig(
+        batch_size=5, num_workers=2, decode_batch=4, target_hw=(48, 48)),
+        path_name="cuda-batch")
+    assert dl.device == cuda
+    tracer = trace.Tracer()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with trace.use_tracer(tracer):
+        batches = list(dl)
+    launches = dict(ops.LAUNCHES)
+    got = np.concatenate([b["image"] for b in batches])
+    want = np.stack([center_fit(img, 48, 48) for img in serial])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.concatenate([b["label"] for b in batches]), corpus.labels)
+    assert dl.ledger.indices() == []
+    names = [e["name"] for e in tracer.events() if e.get("ph") == "X"]
+    assert launches["decode_batch"] == names.count("jpeg.dequant_idct") >= \
+        -(-len(files) // 4)
+    assert launches["ycbcr2rgb"] == sum(
+        len(P.parse(f, headers_only=True).components) == 3 for f in files)
+
+
+def test_prefetch_to_device_on_the_card(cuda):
+    """Items arrive as ``cuda:0`` tensors equal to their host arrays,
+    read at once (the consumer's stream waits for the side stream's
+    copy, which a 256 MiB item keeps in flight) and after a matmul loop
+    on the default stream (the allocator does not hand the memory to
+    the next copy while that work is queued)."""
+    from repro_torch.data.loader import prefetch_to_device
+    items = [{"image": np.resize(np.arange(251, dtype=np.uint8), 256 << 20)
+              + np.uint8(k), "label": np.arange(4, dtype=np.int32) + k}
+             for k in range(3)]
+    a = torch.randn(2048, 2048, device=cuda)
+    now, later = [], []
+    for item in prefetch_to_device(iter(items), size=2):
+        assert {t.device for t in item.values()} == {cuda}
+        now.append({k: t.clone() for k, t in item.items()})
+        for _ in range(20):
+            a = a @ a
+            a = a / a.norm()
+        later.append({k: t.clone() for k, t in item.items()})
+    torch.cuda.synchronize()
+    assert len(now) == len(later) == len(items)
+    for n, l, w in zip(now, later, items):
+        for key in w:
+            np.testing.assert_array_equal(n[key].cpu().numpy(), w[key])
+            np.testing.assert_array_equal(l[key].cpu().numpy(), w[key])
+
 FLASH_SHAPES = [       # (B, S, H, KV, D)
     (1, 1, 4, 2, 16),
     (2, 7, 4, 2, 32),
