@@ -106,8 +106,35 @@ and prints no result line:
    records under the fork harness. Prints every record, the reports, each decoder's rank under
    each protocol and ``autotune_workers`` over a ``cuda-batch`` loader.
    A watchdog (``faulthandler``) ends a hung phase with tracebacks.
+8. ViT training fed by the loader (``repro_torch.train.vision_pipeline``):
+   the example's ViT-100m at full width and depth (12 layers, d_model
+   768, 12 heads of 64, d_ff 3072, 10 classes, 113.5 M parameters, random
+   weights from a seed) in float32, on 64x64 images (64 patches of 8x8),
+   batches of 16. First the float32 flash kernel at the ViT's attention
+   shape (B 16, S 64, H = KV = 12, D 64, not causal): its forward, and
+   the dq, dk and dv of its autograd Function, against the plain version
+   (rtol=atol=2e-5); then its time beside the plain version's, SDPA's in
+   float32, the backward's and the bound. One step's loss and every
+   gradient leaf through the kernel route must agree with the plain
+   attention loop's (1e-5 relative; 1e-4 of each leaf's largest |g|),
+   with 12 ``flash_attention`` launches against 0. 20 steps on one batch
+   on the card must bring the mean of the last 5 losses below 0.8x the
+   first 5's (tests/test_system.py's bar). Then the pipeline: phase 3's
+   33 images through ``cuda-batch`` in two loader threads (chunks of 8,
+   shuffled, whole batches) and ``prefetch_to_device`` into
+   ``train`` for 6 steps, with an async save at step 3 and a final one:
+   finite losses, 12 ``flash_attention`` launches a step,
+   ``decode_batch`` launches equal to the ``jpeg.dequant_idct`` spans
+   and ``ycbcr2rgb`` launches equal to the colour images decoded (the
+   loader decodes ahead of the trainer). A restart builds a new loader
+   and state from the latest checkpoint and trains to step 8; every
+   batch's labels must be those of a loader never stopped. Then 4 steps
+   of the same pipeline at a 0.5 ms interpreter switch interval, and 4
+   over ``numpy-fast`` with autotuned workers. Prints the step ms, the
+   data wait and the input-pipeline share of each run. A watchdog ends
+   a hung phase with tracebacks.
 
-Before phases 3, 4, 5, 6 and 7 the script releases cuBLAS's per-stream
+Before phases 3, 4, 5, 6, 7 and 8 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -117,9 +144,11 @@ one prefill and a few decode steps of phase 5 (device time by kernel,
 device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
-...}``), the loader's (``{"loader_launches": ...}``), the ``kernels``
-JSON object, the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+...}``), the loader's (``{"loader_launches": ...}``), the training
+pipeline's (``{"training_launches": ...}``), the ``kernels`` JSON
+object (``flash_attention``'s launches: phase 5's float32 check and
+phase 8's pipeline), the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 import gc
 import json
@@ -137,7 +166,7 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
 # H100 SXM dense bf16 on the tensor cores (NVIDIA's data sheet, no
 # sparsity): the least time for bf16 attention, whatever a kernel uses
 BF16_FLOPS_PER_S = 989e12
-DEV = "cuda"                  # phases 4 and 5 run here
+DEV = "cuda"                  # phases 4, 5 and 8 run here
 SIZES = [(375, 500), (500, 375), (333, 500), (500, 333), (500, 500)]
 N_IMAGES = 33
 RTOL, ATOL = 1e-5, 1e-3
@@ -1447,6 +1476,448 @@ def phase_lm(profile):
             "flash_attention": k_launches["flash_attention"]}
 
 
+VIT_MODEL = "100m"            # the example's ViT-100m, full width and depth
+VIT_BATCH = 16
+VIT_HW = (64, 64)
+VIT_STEPS = 6                 # the pipeline run: async save after step 3
+VIT_SAVE_EVERY = 3
+VIT_RESTART_STEPS = 2
+VIT_LEARN_STEPS = 20
+VIT_SHARE_STEPS = 4
+VIT_WORKERS = 2
+VIT_SWITCH_INTERVAL_S = 5e-4
+VIT_LOSS_RTOL = 1e-5          # kernel route against the plain route
+# the learn check's learning rate: the reference's default (3e-4), with
+# the example's warmup; at the example's 1e-3 ViT-100m's loss on one
+# batch falls in the first steps and then oscillates (PERF.md §6)
+VIT_LEARN_LR = 3e-4
+VIT_GRAD_TOL = 1e-4           # of each gradient leaf's largest |element|
+PHASE8_WATCHDOG_S = 600
+
+
+def phase_training(corpus):
+    import faulthandler
+    print("== phase 8: ViT training fed by the loader")
+    held_report("phase 8")
+    # a hang (a loader or prefetch thread that never ends) fails the run
+    # with every thread's traceback instead of running out the clock
+    faulthandler.dump_traceback_later(PHASE8_WATCHDOG_S, exit=True)
+    try:
+        return _training_checks(corpus)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _vit_attention(cfg):
+    """The float32 flash kernel at the ViT's attention shape: forward and
+    the gradient of its autograd Function against the plain version,
+    then its time beside the plain version's, SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B = VIT_BATCH
+    shape = (B, cfg.num_patches, cfg.num_heads, cfg.num_kv_heads,
+             cfg.head_dim)
+    f32 = torch.float32
+    tol = FLASH_TOL["float32"]
+    q, k, v = _flash_inputs(shape, f32, seed=8)
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == {**before, "flash_attention":
+                           before["flash_attention"] + 1},
+          f"flash_attention at the ViT shape launched "
+          f"{ {n: ops.LAUNCHES[n] - before[n] for n in before} }")
+    want = ref.flash_attention(q, k, v, False)
+    diff = (got - want).abs()
+    err = diff.max().item()
+    typical = want.abs().median().item()
+    bad = int((diff > tol + tol * want.abs()).sum())
+    print(f"flash_attention {shape} float32 full: max_abs_err {err} "
+          f"(rtol=atol={tol}; median |out| {typical}), {bad} over")
+    check(typical > 10 * tol and bad == 0,
+          f"flash_attention at the ViT shape: {bad} elements outside "
+          f"rtol=atol={tol} (median |out| {typical})")
+    g = torch.Generator(device=DEV).manual_seed(9)
+    dout = torch.randn(q.shape, generator=g, device=DEV)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    out = ops.flash_attention(*leaves, causal=False)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["flash_attention"] == 1 and
+          sum(ops.LAUNCHES.values()) == 1,
+          f"the gradient's forward launched {ops.LAUNCHES}")
+    plain = torch.autograd.grad(ref.flash_attention(*leaves, False), leaves,
+                                dout)
+    for name, a, b in zip("qkv", grads, plain):
+        d = (a - b).abs()
+        over = int((d > tol + tol * b.abs()).sum())
+        print(f"  d{name}: max_abs_err {d.max().item()} against autograd "
+              f"through the plain version (max |d{name}| "
+              f"{b.abs().max().item()}), {over} over rtol=atol={tol}")
+        check(over == 0 and b.abs().max().item() > 10 * tol,
+              f"d{name} of the flash Function: {over} elements outside "
+              f"rtol=atol={tol}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False))
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, False), iters=5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    grad_ms = cuda_ms(lambda: ops._flash_attention_grad(q, k, v, dout,
+                                                        False), iters=5)
+    nbytes, flops = flash_work(*shape, False, 4)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    row = {"name": "flash_attention", "shape": list(shape),
+           "dtype": "float32", "causal": False, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms,
+           "backward_plain_ms": grad_ms}
+    print(f"flash_attention at the ViT shape {shape} float32: ms {ms} "
+          f"plain_ms {plain_ms} library_ms {library_ms} (SDPA float32) "
+          f"bound_ms {b_ms} ({b_by}: {nbytes} B, {flops} FLOP); its "
+          f"backward (plain float32 math) {grad_ms} ms")
+    return row
+
+
+def _vit_batch(corpus):
+    """The corpus's first ``VIT_BATCH`` images, decoded by ``cuda-batch``
+    and fitted to the ViT's input, with their labels, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.codecs import open_decoder
+    from repro_torch.data.loader import center_fit
+    files = corpus.files[:VIT_BATCH]
+    outs = open_decoder("cuda-batch").decode_batch(files)
+    check(all(o.ok for o in outs), "cuda-batch failed the ViT batch")
+    images = np.stack([center_fit(o.image, *VIT_HW) for o in outs])
+    return {"image": torch.from_numpy(images).to(DEV),
+            "label": torch.tensor(corpus.labels[:VIT_BATCH],
+                                  dtype=torch.int32, device=DEV)}
+
+
+def _routes_agree(cfg, state, batch):
+    """One train step's loss and gradients through the flash kernel
+    against the plain attention loop, from the same state and batch."""
+    import dataclasses
+    import functools
+    import torch
+    from repro_torch import tree
+    from repro_torch.train import vision_pipeline as vp
+    out = {}
+    for route, ctx in (("kernel", vp.CTX), ("plain", dataclasses.replace(
+            vp.CTX, flash_kernel=False))):
+        (metrics, grads), launches, dt = drive(
+            f"ViT loss and gradients, {route} route",
+            functools.partial(vp.loss_and_grads, state["params"], batch,
+                              cfg, ctx))
+        out[route] = (metrics["loss"].item(), tree.flatten_with_names(grads),
+                      launches, dt)
+    (k_loss, k_grads, k_launches, k_s), (p_loss, p_grads, p_launches, p_s) \
+        = out["kernel"], out["plain"]
+    check(k_launches["flash_attention"] == cfg.num_layers and
+          sum(k_launches.values()) == cfg.num_layers,
+          f"the kernel route launched {k_launches}, want "
+          f"{cfg.num_layers} flash_attention")
+    check(sum(p_launches.values()) == 0,
+          f"the plain route launched {p_launches}")
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    worst, worst_name = 0.0, ""
+    for name, want in p_grads.items():
+        got = k_grads[name]
+        scale = want.abs().max().item()
+        check(scale > 0 and torch.isfinite(got).all().item(),
+              f"gradient {name}: max |g| {scale}")
+        r = (got - want).abs().max().item() / scale
+        if r >= worst:
+            worst, worst_name = r, name
+    print(f"ViT step, kernel route against plain route: loss {k_loss} vs "
+          f"{p_loss} (relative {rel}, limit {VIT_LOSS_RTOL}); worst "
+          f"gradient leaf {worst_name} at {worst} of its max |g| (limit "
+          f"{VIT_GRAD_TOL}) over {len(p_grads)} leaves; forward+backward "
+          f"{k_s} s kernel route, {p_s} s plain route (first calls)")
+    check(rel <= VIT_LOSS_RTOL, f"ViT loss differs by {rel} relative")
+    check(worst <= VIT_GRAD_TOL, f"ViT gradient {worst_name} differs by "
+                                 f"{worst} of its max")
+
+
+def _steps_on_one_batch(cfg, state, batch, opt_cfg):
+    """``VIT_LEARN_STEPS`` train steps on ``batch``: (state, losses,
+    seconds per step, flash_attention launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import vision_pipeline as vp
+    losses, seconds = [], []
+    ops.reset_launches()
+    for _ in range(VIT_LEARN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = vp.train_step(state, batch, cfg, opt_cfg, vp.CTX)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    return state, losses, seconds, ops.LAUNCHES["flash_attention"]
+
+
+def _learns(cfg, state, batch):
+    """``VIT_LEARN_STEPS`` train steps on one batch already on the card:
+    the mean of the last 5 losses must fall below 0.8x the first 5's
+    (tests/test_system.py's bar), at ``VIT_LEARN_LR``. The same steps at
+    the example's ``vp.OPT`` are printed first, unchecked. Then where a
+    step's time goes: forward+backward, then AdamW."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.train import vision_pipeline as vp
+    from repro_torch.train.optimizer import adamw_update
+    runs = ((f"the example's lr {vp.OPT.lr}", vp.OPT, False),
+            (f"lr {VIT_LEARN_LR}",
+             dataclasses.replace(vp.OPT, lr=VIT_LEARN_LR), True))
+    for label, opt_cfg, checked in runs:
+        end, losses, seconds, flash = _steps_on_one_batch(cfg, state, batch,
+                                                          opt_cfg)
+        first = float(np.mean(losses[:5]))
+        last = float(np.mean(losses[-5:]))
+        print(f"{VIT_LEARN_STEPS} steps on one batch at {label} "
+              f"(warmup {opt_cfg.warmup_steps}): losses {losses}; mean of "
+              f"the first 5 {first}, of the last 5 {last}; flash_attention "
+              f"launched {flash} times")
+        check(np.isfinite(losses).all(), f"non-finite loss at {label}")
+        check(flash == VIT_LEARN_STEPS * cfg.num_layers,
+              f"flash_attention launched {flash} times in "
+              f"{VIT_LEARN_STEPS} steps")
+        if checked:
+            check(last < 0.8 * first, f"the ViT did not learn at {label}: "
+                                      f"{first} -> {last} (bar 0.8x)")
+    fb, opt = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, grads = vp.loss_and_grads(end["params"], batch, cfg, vp.CTX)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw_update(grads, end["opt"], end["params"], end["step"], vp.OPT)
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        opt.append(time.perf_counter() - t1)
+        del grads
+    print(f"train step: {float(np.mean(seconds[1:])) * 1e3} ms mean over "
+          f"steps 2-{VIT_LEARN_STEPS} (first {seconds[0] * 1e3} ms); "
+          f"forward+backward {float(np.median(fb)) * 1e3} ms, AdamW "
+          f"{float(np.median(opt)) * 1e3} ms (medians of 3)")
+
+
+def _pipeline_loader(corpus, path, workers, batch_decode_fn=None):
+    from repro_torch.codecs import get_decoder
+    from repro_torch.data.loader import DataLoader, LoaderConfig
+    cfg = LoaderConfig(batch_size=VIT_BATCH, num_workers=workers,
+                       mode="thread",
+                       decode_batch=LOADER_CHUNK if path == "cuda-batch"
+                       else 0, target_hw=VIT_HW, shuffle=True,
+                       drop_remainder=True)
+    if batch_decode_fn is None:
+        return DataLoader(corpus.files, corpus.labels, cfg=cfg,
+                          path_name=path)
+    return DataLoader(corpus.files, corpus.labels, cfg=cfg,
+                      decode_fn=get_decoder(path).fn,
+                      batch_decode_fn=batch_decode_fn)
+
+
+def _quiesce(before, timeout=120.0):
+    """Wait until every thread started since ``before`` has ended: the
+    prefetch producer and the loader's workers run ahead of the trainer
+    and finish their last chunk after it stops."""
+    import threading
+    deadline = time.monotonic() + timeout
+    while True:
+        extra = [t for t in threading.enumerate() if t not in before]
+        if not extra:
+            return
+        check(time.monotonic() < deadline,
+              f"threads still running {timeout} s after training: "
+              f"{[t.name for t in extra]}")
+        gc.collect()
+        time.sleep(0.05)
+
+
+def _share_line(label, rep, steps):
+    print(f"{label}: {steps} steps, step {rep['step_s'] / steps * 1e3} ms "
+          f"mean (synchronised), data wait {rep['data_s']} s, "
+          f"input-pipeline share {rep['share']}; losses {rep['losses']}")
+
+
+def _training_checks(corpus):
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.codecs import get_decoder
+    from repro_torch.data import autotune_workers
+    from repro_torch.data.loader import DataLoader, LoaderConfig
+    from repro_torch.jpeg import parser as P
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.train import vision_pipeline as vp
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device(DEV)
+    cfg = vp.MODELS[VIT_MODEL]
+    state0 = vp.init_state(cfg, 0, dev)
+    n_params = sum(t.numel() for t in tree.leaves(state0["params"]))
+    print(f"ViT-{VIT_MODEL}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.num_patches} patches of {cfg.patch}x"
+          f"{cfg.patch} at {cfg.image_hw}, {cfg.num_classes} classes, "
+          f"{n_params} parameters in float32, batch {VIT_BATCH}")
+
+    row = _vit_attention(cfg)
+    batch = _vit_batch(corpus)
+    _routes_agree(cfg, state0, batch)
+    _learns(cfg, state0, batch)
+    del batch
+
+    # the pipeline: cuda-batch in two loader threads, chunks of 8, through
+    # prefetch_to_device into the trainer, async save after step 3
+    comps = {f: len(P.parse(f, headers_only=True).components)
+             for f in corpus.files}
+    spec = get_decoder("cuda-batch")
+    colour = {"images": 0}
+    lock = threading.Lock()
+
+    def counted(datas):
+        out = spec.decode_batch(datas)
+        with lock:
+            colour["images"] += sum(comps[d] == 3 for d in datas)
+        return out
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mgr = CheckpointManager(tmp.name, keep=2)
+        tracer = trace.Tracer()
+        before = set(threading.enumerate())
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with trace.use_tracer(tracer):
+            state, rep = vp.train(
+                state0, _pipeline_loader(corpus, "cuda-batch", VIT_WORKERS,
+                                         counted),
+                steps=VIT_STEPS, cfg=cfg, mgr=mgr,
+                save_every=VIT_SAVE_EVERY, log_every=1)
+            _quiesce(before)
+        launches = dict(ops.LAUNCHES)
+        spans = sum(e.get("ph") == "X" and e["name"] == "jpeg.dequant_idct"
+                    for e in tracer.events())
+        print(f"pipeline launches {launches}; jpeg.dequant_idct spans "
+              f"{spans}; colour images decoded {colour['images']} (the "
+              f"loader decodes ahead of the trainer)")
+        _share_line("cuda-batch pipeline (2 threads, chunks of 8)", rep,
+                    VIT_STEPS)
+        check(np.isfinite(rep["losses"]).all() and
+              len(rep["losses"]) == VIT_STEPS, f"losses {rep['losses']}")
+        check(int(state["step"]) == VIT_STEPS, "step counter")
+        check(launches["flash_attention"] == VIT_STEPS * cfg.num_layers,
+              f"flash_attention launched {launches['flash_attention']} "
+              f"times in {VIT_STEPS} steps")
+        check(launches["decode_batch"] == spans and spans >= 1,
+              f"decode_batch launched {launches['decode_batch']} times "
+              f"for {spans} jpeg.dequant_idct spans")
+        check(launches["ycbcr2rgb"] == colour["images"] >= 1,
+              f"ycbcr2rgb launched {launches['ycbcr2rgb']} times for "
+              f"{colour['images']} colour images")
+        check(sum(launches.values()) == launches["flash_attention"] +
+              launches["decode_batch"] + launches["ycbcr2rgb"],
+              f"other kernels launched: {launches}")
+        check(mgr.steps() == [VIT_SAVE_EVERY, VIT_STEPS],
+              f"checkpoints {mgr.steps()}")
+
+        # restart: a new loader and state from the latest checkpoint
+        like = vp.init_state(cfg, 1, dev)
+        step, restored, extra = mgr.restore_latest(like=like)
+        del like
+        check(step == VIT_STEPS, f"restored step {step}")
+        for name, t in tree.flatten_with_names(state).items():
+            check(torch.equal(tree.flatten_with_names(restored)[name], t),
+                  f"restored leaf {name} differs from the trained state")
+        loader = _pipeline_loader(corpus, "cuda-batch", VIT_WORKERS)
+        loader.restore(extra["loader"])
+        before = set(threading.enumerate())
+        state2, rep2 = vp.train(restored, loader,
+                                steps=VIT_STEPS + VIT_RESTART_STEPS,
+                                cfg=cfg, mgr=mgr, log_every=1)
+        _quiesce(before)
+        check(int(state2["step"]) == VIT_STEPS + VIT_RESTART_STEPS,
+              f"after the restart the step counter reads "
+              f"{int(state2['step'])}")
+        check(np.isfinite(rep2["losses"]).all(), "non-finite loss after "
+                                                 "the restart")
+        # a loader that was never stopped (same order; images not decoded)
+        steady = DataLoader(corpus.files, corpus.labels,
+                            cfg=LoaderConfig(batch_size=VIT_BATCH,
+                                             target_hw=VIT_HW, shuffle=True,
+                                             drop_remainder=True),
+                            decode_fn=lambda data: np.zeros(
+                                (8, 8, 3), np.uint8))
+        want = []
+        while len(want) < VIT_STEPS + VIT_RESTART_STEPS:
+            want += [b["label"] for b in steady]
+        got = rep["labels"] + rep2["labels"]
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(np.array_equal(g, w), f"batch {i + 1} labels {g}, a loader "
+                                        f"never stopped gives {w}")
+        print(f"restart: resumed at step {step}, trained to "
+              f"{int(state2['step'])}; the {len(got)} batches' labels equal "
+              f"those of a loader never stopped; losses {rep2['losses']}")
+        del state, restored, state2
+    finally:
+        tmp.cleanup()
+
+    # the same pipeline at a 0.5 ms interpreter switch interval: the
+    # eager step needs the interpreter lock for each of its launches
+    # while the loader's threads run the host decode in Python
+    default_interval = sys.getswitchinterval()
+    before = set(threading.enumerate())
+    sys.setswitchinterval(VIT_SWITCH_INTERVAL_S)
+    try:
+        _, rep4 = vp.train(vp.init_state(cfg, 3, dev),
+                           _pipeline_loader(corpus, "cuda-batch",
+                                            VIT_WORKERS),
+                           steps=VIT_SHARE_STEPS, cfg=cfg, log_every=1)
+    finally:
+        sys.setswitchinterval(default_interval)
+    _quiesce(before)
+    check(np.isfinite(rep4["losses"]).all(), "non-finite loss at a short "
+                                             "switch interval")
+    _share_line(f"cuda-batch pipeline at a {VIT_SWITCH_INTERVAL_S * 1e3} ms "
+                f"switch interval (default {default_interval * 1e3} ms)",
+                rep4, VIT_SHARE_STEPS)
+
+    # the share under numpy-fast, autotuned as the trainer does
+    tuned = autotune_workers(
+        lambda w: _pipeline_loader(corpus, "numpy-fast", w),
+        candidates=(0, 2, 4), max_items=VIT_BATCH, repeats=1)
+    print(f"autotune_workers (numpy-fast): best {tuned['best']} sweep "
+          f"{tuned['sweep']}")
+    before = set(threading.enumerate())
+    ops.reset_launches()
+    _, rep3 = vp.train(vp.init_state(cfg, 2, dev),
+                       _pipeline_loader(corpus, "numpy-fast", tuned["best"]),
+                       steps=VIT_SHARE_STEPS, cfg=cfg, log_every=1)
+    _quiesce(before)
+    _share_line(f"numpy-fast pipeline ({tuned['best']} threads)", rep3,
+                VIT_SHARE_STEPS)
+    check(np.isfinite(rep3["losses"]).all(), "non-finite numpy-fast loss")
+    check(ops.LAUNCHES["flash_attention"] == VIT_SHARE_STEPS *
+          cfg.num_layers and ops.LAUNCHES["decode_batch"] == 0,
+          f"numpy-fast pipeline launches {ops.LAUNCHES}")
+    row.update(launches=launches["flash_attention"],
+               launches_per_step=cfg.num_layers)
+    print(json.dumps({"vit_flash_attention": row}))
+    print(f"phase 8: peak device memory {torch.cuda.max_memory_allocated()}"
+          f" bytes; {time.perf_counter() - t_phase} s")
+    return {"flash_attention": launches["flash_attention"],
+            "decode_batch": launches["decode_batch"],
+            "ycbcr2rgb": launches["ycbcr2rgb"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1473,9 +1944,12 @@ def main() -> int:
         launches.update(phase_lm(profile="--profile" in sys.argv[1:]))
         service_launches = phase_service(corpus)
         loader_launches = phase_loader(corpus)
+        training_launches = phase_training(corpus)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # the float32 flash kernel's main path now includes training
+    launches["flash_attention"] += training_launches["flash_attention"]
     for name, count in launches.items():
         if count < 1:
             print(f"chip_smoke: FAILED: {name} never launched on its path",
@@ -1484,6 +1958,7 @@ def main() -> int:
         kernels[name]["launches"] = count
     print(json.dumps({"service_launches": service_launches}))
     print(json.dumps({"loader_launches": loader_launches}))
+    print(json.dumps({"training_launches": training_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,19 @@ Every kernel launch adds one to ``LAUNCHES[<kernel>]``, and nothing
 else does, so a run can show that its main path went through the
 kernels. No rows are padded to a tile size: the kernels mask the ragged
 edge themselves.
+
+``flash_attention`` is differentiable: when grad is enabled and an
+input requires grad, the call goes through ``_FlashAttention``, whose
+forward is the same one launch (or, on the CPU, the plain version) and
+whose backward is the attention gradient in float32 tensor math
+(``_flash_attention_grad``), as XLA derives it for the reference's
+attention. No backward kernel is launched.
 """
 from __future__ import annotations
 
+import math
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -193,7 +201,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card the call launches exactly one kernel, chosen by
     ``flash_kernel_for(dtype, D)``: bfloat16 at D = 64 or 128 runs
-    ``flash_attention_wgmma``, everything else ``flash_attention``."""
+    ``flash_attention_wgmma``, everything else ``flash_attention``.
+    When grad is enabled and an input requires grad, the result carries
+    a ``grad_fn`` whose backward is ``_flash_attention_grad``."""
     if not isinstance(q, torch.Tensor):
         raise TypeError(f"q must be a torch.Tensor, got {type(q)}")
     if q.dtype not in _FLASH_DTYPES:
@@ -208,9 +218,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{KV} KV heads do not divide {H} query heads")
     if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_forward(q, k, v, causal)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal)
     _aligned16(q=q, k=k, v=v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
     out = torch.empty_like(q)
     if out.numel():
         name = flash_kernel_for(q.dtype, D)
@@ -220,3 +240,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             args += (_FLASH_DTYPES[q.dtype],)
         _launch(name, q.device, *args)
     return out
+
+
+def _flash_attention_grad(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, dout: torch.Tensor,
+                          causal: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """dq, dk, dv of softmax(q k^T / sqrt(D)) v for the output gradient
+    ``dout``, in float32 and cast back to the inputs' dtype. P is
+    recomputed (causal mask at -1e30, as the forward); with dP = dO V^T:
+
+        dV = P^T dO,  dS = P * (dP - rowsum(dO * O)),
+        dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),
+
+    where rowsum(dO * O) is taken as rowsum(P * dP), the same sum with
+    O = P V in float32 (not the output rounded to a bf16 q's dtype).
+    Query heads that share a KV head sum their dK and dV."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, S, KV, H // KV, D)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(B, S, KV, H // KV, D)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)                          # [B,KV,r,Sq,Sk]
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", do, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, do)
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf) * scale
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is the wrapper's
+    one launch (the plain version on the CPU), the backward
+    ``_flash_attention_grad``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _flash_attention_grad(q, k, v, dout, ctx.causal)
+        return dq, dk, dv, None

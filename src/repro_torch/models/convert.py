@@ -1,9 +1,11 @@
-"""Import the reference package's LM parameters into the port's layout.
+"""Import the reference package's LM and ViT parameters into the port's
+layout.
 
 The reference keeps each stage's layers stacked along a leading repeat
 axis (``stage0/layer0/{attn,ffn}/<name>`` of shape ``[R, ...]``) with
 ``embed [Vp, d]``, ``unembed [d, Vp]`` and ``final_ln [d]`` at the top.
-The port keeps one dict per layer (``params["layers"][i]``). The leaves
+The port keeps one dict per layer (``params["layers"][i]``). The ViT
+keeps the reference's nested dict as it is. The leaves
 come in as numpy arrays (``np.asarray`` of a JAX array gives one), so
 the port never imports JAX.
 
@@ -50,3 +52,27 @@ def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
             "unembed": to_tensor(tree["unembed"], device),
             "final_ln": to_tensor(tree["final_ln"], device),
             "layers": layers}
+
+
+def import_reference_vit_params(tree: Mapping[str, Any], cfg, *,
+                                device: Optional[torch.device] = None
+                                ) -> Params:
+    """The reference's ViT parameter pytree (``repro.models.vision``,
+    numpy leaves) -> the port's, leaf by leaf: the same nested dict
+    (``patch_proj``, ``pos``, ``final_ln``, ``head``,
+    ``layer{i}/{attn,ffn}/<name>``). ``cfg`` is the port's
+    ``ViTConfig``; a missing or extra top-level key raises."""
+    want = {"patch_proj", "pos", "final_ln", "head"} | {
+        f"layer{i}" for i in range(cfg.num_layers)}
+    if set(tree) != want:
+        raise ValueError(f"ViT tree keys {sorted(tree)}, want "
+                         f"{sorted(want)}")
+    out: Params = {}
+    for name, leaf in tree.items():
+        if name.startswith("layer"):
+            out[name] = {part: {k: to_tensor(a, device)
+                                for k, a in leaf[part].items()}
+                         for part in ("attn", "ffn")}
+        else:
+            out[name] = to_tensor(leaf, device)
+    return out

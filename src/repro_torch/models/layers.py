@@ -20,6 +20,13 @@ as plain dicts of tensors and keep the reference's layouts: activations
 * everything else, and every call on the CPU: the chunked online-softmax
   loop of the reference, which is also the plain version the card run
   holds the kernel path against.
+
+A training call (grad enabled, inputs that require grad) takes the
+same route. On the card its forward is the same one kernel launch and
+its backward the float32 attention gradient of
+``ops._FlashAttention`` (plain tensor math, no kernel); the chunked
+loop is differentiated by autograd, as XLA differentiates the
+reference's.
 """
 from __future__ import annotations
 
@@ -316,6 +323,10 @@ def init_ffn(gen: torch.Generator, cfg,
     }
 
 
-def ffn_block(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def ffn_block(p: Params, x: torch.Tensor, cfg,
+              ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    """Pre-norm SwiGLU residual block. ``ctx`` is the reference's
+    (``models/layers.py:489``), where it only places sharding
+    constraints; on one device the block computes the same either way."""
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     return x + swiglu(xn, p["w1"], p["w3"], p["w2"])

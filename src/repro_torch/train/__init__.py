@@ -1,0 +1,5 @@
+"""Training: the reference's AdamW and the loader-fed ViT trainer."""
+from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
+                                         adamw_update)
+
+__all__ = ["OptimizerConfig", "adamw_init", "adamw_update"]
