@@ -38,7 +38,8 @@ and prints no result line:
    dtype: ``flash_attention_wgmma`` (bf16, tensor cores) at the LM
    prefill's shape (B=4, S=2048, 28 query heads over 4 KV heads,
    head_dim 128, causal), ragged S=100 and 129, S=1 and ``causal=False``;
-   ``flash_attention`` (FFMA) at the float32 cases. Each against the
+   ``flash_attention`` (FFMA) at the float32 cases, head dims 48 and 80
+   included, and bf16 at head dim 48. Each against the
    plain PyTorch version on the card, with tests/test_kernels.py's
    tolerances (2e-2 in bf16, 2e-5 in f32), on inputs drawn so that the
    output is of the order of 1 (peaked attention); each call must move
@@ -46,6 +47,11 @@ and prints no result line:
    at the prefill's shape (wgmma in bf16, FFMA in float32), beside the
    plain version's, ``scaled_dot_product_attention``'s (a yardstick the
    port never calls) and the bound (bf16 tensor-core rate, FP32 rate).
+   With ``--parent DIR`` (a checkout of another commit, such as an
+   unpacked ``git archive`` of the parent), that checkout's
+   ``flash_attention.cu`` is built too and timed in turns with this one
+   at the float32 prefill shape and the ViT-100m shape (phase 8), on
+   lines of their own.
 5. LM serving: ``qwen2-7b`` at full width and depth (28 layers, random
    weights from a seeded generator, made on the card) through
    ``repro_torch.serve.engine.generate``: 4 prompts of 2048 tokens, 32
@@ -117,7 +123,12 @@ and prints no result line:
    float32, the backward's and the bound. One step's loss and every
    gradient leaf through the kernel route must agree with the plain
    attention loop's (1e-5 relative; 1e-4 of each leaf's largest |g|),
-   with 12 ``flash_attention`` launches against 0. 20 steps on one batch
+   with 12 ``flash_attention`` launches against 0. The trainer's default
+   ``small`` ViT (6 layers, 4 heads of 48) gets the same: the kernel at
+   its attention shape (B 16, S 64, H 4, D 48) against the plain version
+   and timed beside SDPA and the bound, one step's loss and every
+   gradient leaf against the plain loop with 6 launches against 0, and 3
+   train steps on one batch with 6 launches each. 20 steps on one batch
    on the card must bring the mean of the last 5 losses below 0.8x the
    first 5's (tests/test_system.py's bar). Then the pipeline: phase 3's
    33 images through ``cuda-batch`` in two loader threads (chunks of 8,
@@ -227,6 +238,58 @@ def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
     t_ops = flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: the parent commit's float32 flash kernel (``--parent DIR``), or None
+PARENT_FLASH = None
+
+
+def load_parent_flash(checkout):
+    """Build ``flash_attention.cu`` of another checkout (for example an
+    unpacked ``git archive`` of the parent commit) into this checkout's
+    build directory and return a function that runs it on the float32
+    route: the "before" kernel, timed in the same process and on the same
+    card as this one. Its C entry point must have this one's signature."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = os.path.join(os.path.abspath(checkout), "src", "repro_torch",
+                       "kernels", "csrc", "flash_attention.cu")
+    out_dir = build.BUILD_ROOT / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = str(out_dir / "libflash_attention_parent.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(lib).repro_flash_attention
+    fn.argtypes = build.SIGNATURES["flash_attention"]
+    fn.restype = ctypes.c_int
+
+    def run(q, k, v, causal):
+        import torch
+        B, S, H, D = q.shape
+        out = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, H, k.shape[2], D, int(causal), 0,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's flash kernel: cudaError {err}")
+        return out
+    return run
+
+
+def parent_lines(label, kern, q, k, v, causal):
+    """The parent's kernel against this one on the same inputs, timed in
+    turns (parent, this, this, parent), on lines of their own."""
+    import torch
+    if PARENT_FLASH is None:
+        return
+    old = lambda: PARENT_FLASH(q, k, v, causal)
+    diff = (old() - kern()).abs().max().item()
+    times = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        times[who].append(cuda_ms(old if who == "parent" else kern))
+    torch.cuda.synchronize()
+    print(f"parent kernel at {label}: parent {times['parent']} ms, this "
+          f"kernel {times['this']} ms (interleaved; max diff {diff}); "
+          f"speedup {min(times['parent']) / min(times['this'])}")
 
 
 def phase_build():
@@ -1217,7 +1280,11 @@ def phase_flash():
              ((LM_BATCH, 1, *heads), bf16, True),
              ((1, LM_PROMPT, *heads), bf16, False),
              ((1, 512, *heads), f32, True),
-             ((2, 100, *heads), f32, False)]
+             ((2, 100, *heads), f32, False),
+             # head dims 48 (the `small` ViT's) and 80 (zamba2's)
+             ((2, 256, 8, 2, 48), f32, True),
+             ((2, 100, 8, 2, 80), f32, False),
+             ((2, 130, 4, 4, 48), bf16, True)]
     worst = {}
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = _flash_inputs(shape, dtype, seed=i)
@@ -1270,6 +1337,8 @@ def phase_flash():
               f"kernel {lib_err.item()}) bound_ms {b_ms} ({b_by}: {nbytes} "
               f"B, {flops} FLOP at {flops_per_s:.3g} FLOP/s); "
               f"{flops / ms / 1e9} TFLOP/s; eager calls {eager_ms} ms each")
+        if dtype == f32:
+            parent_lines(f"{path} float32 causal", kern, q, k, v, True)
         results[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1492,6 +1561,8 @@ VIT_LOSS_RTOL = 1e-5          # kernel route against the plain route
 # batch falls in the first steps and then oscillates (PERF.md §6)
 VIT_LEARN_LR = 3e-4
 VIT_GRAD_TOL = 1e-4           # of each gradient leaf's largest |element|
+VIT_SMALL_MODEL = "small"     # the trainer's default: 6 layers, head dim 48
+VIT_SMALL_STEPS = 3
 PHASE8_WATCHDOG_S = 600
 
 
@@ -1576,6 +1647,44 @@ def _vit_attention(cfg):
           f"plain_ms {plain_ms} library_ms {library_ms} (SDPA float32) "
           f"bound_ms {b_ms} ({b_by}: {nbytes} B, {flops} FLOP); its "
           f"backward (plain float32 math) {grad_ms} ms")
+    if cfg.head_dim in (16, 32, 64, 128):      # the parent's head dims
+        parent_lines(f"the ViT shape {shape} float32 full",
+                     lambda: ops.flash_attention(q, k, v, causal=False),
+                     q, k, v, False)
+    return row
+
+
+def _small_vit(batch):
+    """The trainer's default ViT (``small``: 6 layers, 4 heads of 48) on
+    one batch: the kernel at its attention shape (forward, gradient, time
+    beside SDPA and the bound), one step's loss and gradients through the
+    kernel against the plain loop, and a few train steps, each forward one
+    ``flash_attention`` launch per layer."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import vision_pipeline as vp
+    cfg = vp.MODELS[VIT_SMALL_MODEL]
+    print(f"ViT-{VIT_SMALL_MODEL}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}")
+    row = _vit_attention(cfg)
+    state = vp.init_state(cfg, 5, torch.device(DEV))
+    _routes_agree(cfg, state, batch)
+    losses = []
+    for _ in range(VIT_SMALL_STEPS):
+        ops.reset_launches()
+        state, metrics = vp.train_step(state, batch, cfg, vp.OPT, vp.CTX)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["flash_attention"] == cfg.num_layers and
+              sum(ops.LAUNCHES.values()) == cfg.num_layers,
+              f"a ViT-{VIT_SMALL_MODEL} step launched {ops.LAUNCHES}, want "
+              f"{cfg.num_layers} flash_attention")
+        losses.append(metrics["loss"].item())
+    check(np.isfinite(losses).all(), f"ViT-{VIT_SMALL_MODEL} losses {losses}")
+    print(f"ViT-{VIT_SMALL_MODEL}: {VIT_SMALL_STEPS} steps on one batch, "
+          f"{cfg.num_layers} flash_attention launches each; losses {losses}")
+    row.update(launches_per_step=cfg.num_layers)
     return row
 
 
@@ -1773,6 +1882,7 @@ def _training_checks(corpus):
     batch = _vit_batch(corpus)
     _routes_agree(cfg, state0, batch)
     _learns(cfg, state0, batch)
+    small_row = _small_vit(batch)
     del batch
 
     # the pipeline: cuda-batch in two loader threads, chunks of 8, through
@@ -1910,7 +2020,8 @@ def _training_checks(corpus):
           f"numpy-fast pipeline launches {ops.LAUNCHES}")
     row.update(launches=launches["flash_attention"],
                launches_per_step=cfg.num_layers)
-    print(json.dumps({"vit_flash_attention": row}))
+    print(json.dumps({"vit_flash_attention": row,
+                      "vit_small_flash_attention": small_row}))
     print(f"phase 8: peak device memory {torch.cuda.max_memory_allocated()}"
           f" bytes; {time.perf_counter() - t_phase} s")
     return {"flash_attention": launches["flash_attention"],
@@ -1929,6 +2040,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.jpeg.corpus import build_corpus
+    global PARENT_FLASH
+    args = sys.argv[1:]
+    if "--parent" in args:
+        # time the parent's float32 flash kernel beside this one
+        PARENT_FLASH = load_parent_flash(args[args.index("--parent") + 1])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:

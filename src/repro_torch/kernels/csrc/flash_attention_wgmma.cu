@@ -10,8 +10,9 @@
 // contiguous bfloat16, D in {64, 128}. Query head h reads KV head
 // h / (H / KV) directly; the repeated K/V are never materialised. The
 // wrapper (kernels/ops.py, flash_kernel_for) sends bf16 at these head
-// dims here; float32, and bf16 at D = 16 or 32 (a 64-column swizzle row
-// needs D >= 64), stay on the FFMA kernel in flash_attention.cu.
+// dims here; float32, and bf16 at D = 16, 32, 48 or 80 (a 64-column
+// swizzle row needs D a multiple of 64), stay on the FFMA kernel in
+// flash_attention.cu.
 //
 // Numerics: products of bf16 values are exact in float32, so the two
 // wgmma products with float32 accumulation differ from the plain loop
@@ -80,6 +81,7 @@
 #include <atomic>
 
 #include "mbarrier.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -113,17 +115,6 @@ struct Layout {
   static constexpr int kSmem =
       kBar + 8 * (2 * kQBuffers + 4 * kStages) + 1024;
 };
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
 
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           uint32_t src, int c0, int c1,
@@ -613,52 +604,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A map over a contiguous bf16 [B, S, heads, D] tensor as (D, heads, S, B),
-// in boxes of [rows][64 columns] of one head, 128-byte swizzle, zero fill.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                int B, int S, int heads, int D, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {kSwizzleCols, 1, static_cast<cuuint32_t>(rows),
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int H, int KV, bool causal,
@@ -685,10 +630,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (encode == nullptr) return cudaErrorNotSupported;
   // encoded at each call: the tensors' addresses change
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!encode_map(encode, &tm_q, q, B, S, H, D, kBlockM) ||
-      !encode_map(encode, &tm_k, k, B, S, KV, D, kBlockN) ||
-      !encode_map(encode, &tm_v, v, B, S, KV, D, kBlockN) ||
-      !encode_map(encode, &tm_o, out, B, S, H, D, kBlockM / 2))
+  // bf16 boxes of [rows][64 columns] of one head, 128-byte swizzle
+  const auto map = [&](CUtensorMap* m, const void* ptr, int heads,
+                       int rows) {
+    return encode_map(encode, m, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                      B, S, heads, D, kSwizzleCols, rows,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  if (!map(&tm_q, q, H, kBlockM) || !map(&tm_k, k, KV, kBlockN) ||
+      !map(&tm_v, v, KV, kBlockN) || !map(&tm_o, out, H, kBlockM / 2))
     return cudaErrorInvalidValue;
   const int n_qtiles = (S + kBlockM - 1) / kBlockM;
   const float scale_log2 =

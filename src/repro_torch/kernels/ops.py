@@ -170,8 +170,9 @@ def ycbcr2rgb(y: torch.Tensor, cb: torch.Tensor,
     return out
 
 
-#: head dims the FFMA flash kernel is instantiated for
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the FFMA flash kernel is instantiated for (float32 at all of
+#: them, bfloat16 at those the wgmma kernel does not take)
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 128)
 #: head dims the bf16 wgmma flash kernel is instantiated for
 WGMMA_HEAD_DIMS = (64, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,7 +202,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card the call launches exactly one kernel, chosen by
     ``flash_kernel_for(dtype, D)``: bfloat16 at D = 64 or 128 runs
-    ``flash_attention_wgmma``, everything else ``flash_attention``.
+    ``flash_attention_wgmma``, everything else (float32 at D 16, 32, 48,
+    64, 80 and 128; bfloat16 at D 16, 32, 48 and 80) ``flash_attention``.
     When grad is enabled and an input requires grad, the result carries
     a ``grad_fn`` whose backward is ``_flash_attention_grad``."""
     if not isinstance(q, torch.Tensor):

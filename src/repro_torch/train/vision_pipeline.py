@@ -15,9 +15,9 @@ Run on the card (``--device cpu`` for the CPU):
         [--steps 200] [--model small|100m] [--decoder cuda-batch] \\
         [--decode-batch 8] [--corpus 96] [--ckpt artifacts/...]
 
-On the card ``--model 100m`` (head dim 64) runs every attention through
-the float32 flash kernel, one launch per layer per step; ``small``
-(head dim 48) runs the plain attention loop.
+On the card both models run every attention through the float32 flash
+kernel, one launch per layer per step: ``small`` (head dim 48, the
+default) 6, ``--model 100m`` (head dim 64) 12.
 """
 from __future__ import annotations
 

@@ -353,6 +353,9 @@ FLASH_SHAPES = [       # (B, S, H, KV, D)
     (1, 2048, 28, 4, 128),      # the prefill's shape at B=1
     (1, 1, 4, 2, 64),
     (1, 1, 14, 2, 128),
+    (2, 64, 4, 4, 48),          # the `small` ViT's head dim
+    (1, 100, 8, 2, 80),         # zamba2's head dim, ragged tile
+    (16, 64, 12, 12, 64),       # the ViT-100m attention shape
 ] + [   # around the wgmma kernel's 128-row tiles, KV rep 1 and 7
     (2, S, 2 * rep, 2, D) for S in (127, 128, 129, 255) for D in (64, 128)
     for rep in (1, 7)
@@ -506,19 +509,21 @@ def test_attention_gradient_reaches_wq_on_the_card(cuda):
         assert (got - want).abs().max().item() <= 1e-4 * scale, n
 
 
-def test_vit_train_step_kernel_route_matches_the_plain_route(cuda):
-    """One ViT step at head dim 64 in float32: the kernel route launches
-    the FFMA flash kernel once per layer and agrees with the plain loop
-    (loss within 1e-5 relative, every gradient leaf within 1e-4 of its
-    largest element)."""
+@pytest.mark.parametrize("model", ["head-dim-64", "small"])
+def test_vit_train_step_kernel_route_matches_the_plain_route(cuda, model):
+    """One ViT step in float32, at head dim 64 and with the trainer's
+    default ``small`` model (head dim 48): the kernel route launches the
+    FFMA flash kernel once per layer and nothing else, and agrees with
+    the plain loop (loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest element)."""
     import dataclasses
     from repro_torch import tree
     from repro_torch.kernels import ops
     from repro_torch.models import vision
     from repro_torch.train import vision_pipeline as vp
-    cfg = vision.ViTConfig(d_model=256, num_heads=4, num_kv_heads=4,
-                           head_dim=64, d_ff=512, num_layers=3,
-                           num_classes=10)
+    cfg = vp.MODELS["small"] if model == "small" else vision.ViTConfig(
+        d_model=256, num_heads=4, num_kv_heads=4, head_dim=64, d_ff=512,
+        num_layers=3, num_classes=10)
     state = vp.init_state(cfg, 0, cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     batch = {"image": torch.randint(0, 256, (8, 64, 64, 3), generator=g,
@@ -534,6 +539,7 @@ def test_vit_train_step_kernel_route_matches_the_plain_route(cuda):
         torch.cuda.synchronize()
         out[route] = (metrics["loss"].item(), grads, dict(ops.LAUNCHES))
     assert out["kernel"][2]["flash_attention"] == cfg.num_layers
+    assert sum(out["kernel"][2].values()) == cfg.num_layers
     assert sum(out["plain"][2].values()) == 0
     assert abs(out["kernel"][0] - out["plain"][0]) <= \
         1e-5 * abs(out["plain"][0])

@@ -153,6 +153,9 @@ def test_cpu_calls_launch_nothing():
     (torch.float32, 32, "flash_attention"),
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
+    (torch.float32, 48, "flash_attention"),
+    (torch.bfloat16, 48, "flash_attention"),
+    (torch.float32, 80, "flash_attention"),
 ])
 def test_flash_kernel_for_routes_by_dtype_and_head_dim(dtype, head_dim,
                                                        kernel):
@@ -172,6 +175,18 @@ def test_flash_kernel_for_routes_by_dtype_and_head_dim(dtype, head_dim,
 def test_flash_kernel_for_rejects_what_no_kernel_takes(dtype, head_dim, exc):
     with pytest.raises(exc):
         ops.flash_kernel_for(dtype, head_dim)
+
+
+@pytest.mark.parametrize("model", ["small", "100m"])
+def test_every_trainer_model_takes_the_flash_kernel(model):
+    """Both of the trainer's ViTs have a head dim the float32 kernel is
+    built for, so on the card their attention launches it (the `small`
+    one, the trainer's default, has head dim 48)."""
+    from repro_torch.train import vision_pipeline as vp
+    cfg = vp.MODELS[model]
+    assert cfg.head_dim in ops.FLASH_HEAD_DIMS
+    assert ops.flash_kernel_for(torch.float32, cfg.head_dim) == \
+        "flash_attention"
 
 
 def test_every_kernel_has_a_launch_count_and_a_c_entry_point():
@@ -250,7 +265,8 @@ def _flash_inputs(shape, dtype):
 
 @pytest.mark.parametrize("impl", ["ops", "ref"])
 @pytest.mark.parametrize("shape", [(2, 64, 4, 16), (1, 128, 8, 32),
-                                   (2, 96, 4, 16)])
+                                   (2, 96, 4, 16), (2, 64, 4, 48),
+                                   (1, 64, 4, 80)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_reference(impl, shape, dtype, causal):
