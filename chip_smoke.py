@@ -144,8 +144,36 @@ and prints no result line:
    over ``numpy-fast`` with autotuned workers. Prints the step ms, the
    data wait and the input-pipeline share of each run. A watchdog ends
    a hung phase with tracebacks.
+9. The bench harness: ``repro_torch.bench.run_sweep("smoke", trace=True)``
+   on the card, the paper's protocol matrix over the port's 14 decoders
+   (8 images from the profile's seed; single-thread over every path,
+   ``numpy-fast`` and ``cuda-batch`` loaders at 0 and 2 threads,
+   ``numpy-fast`` forked from memory and from shards, ``cuda-batch``
+   forked, ``batched/cuda-batch``, the service at 2 workers, the entropy
+   and corpus twins). No record may be an error; every ``cuda-*``
+   single-thread cell of the profile runs or is a capability skip with
+   its reason; the forked ``cuda-batch`` cell is the resolver's skip
+   record naming the fork; the shard cell and its memory twin both run
+   over the same images; ``batched/cuda-batch`` runs; each of the four
+   JPEG kernels launches during the sweep; every measured record is
+   labelled with the card's name and carries its stage seconds; the
+   summary's host names the card and its power limit. Then, through
+   ``repro_torch.bench.cli.main``, ``compare`` of the record set against
+   itself, ``history append`` and ``show`` on a temporary store and
+   ``compare --attribute --history`` must each exit 0. Then the sweep's
+   kernels at the sweep's own sizes: the smoke corpus and its mixed and
+   all-progressive variants go through ``cuda-batch``, ``cuda-fused``,
+   ``cuda-idct`` and ``strict-cuda`` on the card, in one batched call
+   and image by image (byte-identical), and must skip the same images
+   as each path's plain versions on the host and come within 1 level of
+   them (and of ``numpy-ref`` as in phase 3); every input those decodes
+   gave a JPEG kernel is then held to the plain version (phase 2's
+   tolerance), so each kernel is checked at those rows and planes. Prints every
+   measured record, the batched/serial ratio, the single-thread and
+   loader reports and the protocol disagreement. A watchdog ends a hung
+   phase with tracebacks.
 
-Before phases 3, 4, 5, 6, 7 and 8 the script releases cuBLAS's per-stream
+Before phases 3, 4, 5, 6, 7, 8 and 9 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -156,7 +184,8 @@ device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
-pipeline's (``{"training_launches": ...}``), the ``kernels`` JSON
+pipeline's (``{"training_launches": ...}``), the bench sweep's
+(``{"bench_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check and
 phase 8's pipeline), the card's name and power limit, and ``{"ok":
 true, "device": {...}}``.
@@ -172,11 +201,6 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
-# H100 SXM dense bf16 on the tensor cores (NVIDIA's data sheet, no
-# sparsity): the least time for bf16 attention, whatever a kernel uses
-BF16_FLOPS_PER_S = 989e12
 DEV = "cuda"                  # phases 4, 5 and 8 run here
 SIZES = [(375, 500), (500, 375), (333, 500), (500, 333), (500, 500)]
 N_IMAGES = 33
@@ -233,11 +257,26 @@ def cuda_ms(fn, iters=20, warmup=3, graph=True):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / flops_per_s
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
+def chip_spec():
+    """The card's published rates (``repro_torch.common.hw.H100_SXM``,
+    NVIDIA's data sheet for the SXM part): HBM bytes/s, FP32 FLOP/s
+    outside the tensor cores, dense bf16 FLOP/s on them (the least time
+    for bf16 attention, whatever a kernel uses)."""
+    from repro_torch.common.hw import H100_SXM
+    return H100_SXM
+
+
+def bound_ms(nbytes, flops, flops_per_s=None):
+    """The least time the card could take: bytes over the HBM rate or
+    FLOPs over ``flops_per_s`` (default: the FP32 rate), the card's
+    roofline with no collective term."""
+    from repro_torch.common.hw import roofline_terms
+    spec = chip_spec()
+    terms = roofline_terms(flops, nbytes, 0.0, chip=spec,
+                           flops_per_s=flops_per_s or spec.peak_fp32_flops)
+    return terms["bound_s"] * 1e3, \
+        ("bytes" if terms["memory_s"] >= terms["compute_s"]
+         else "operations")
 
 
 #: the parent commit's float32 flash kernel (``--parent DIR``), or None
@@ -1315,8 +1354,9 @@ def phase_flash():
         del q, k, v, got, want, diff
 
     results = {}
-    for dtype, flops_per_s in ((bf16, BF16_FLOPS_PER_S),
-                               (f32, FP32_FLOPS_PER_S)):
+    spec = chip_spec()
+    for dtype, flops_per_s in ((bf16, spec.peak_bf16_flops),
+                               (f32, spec.peak_fp32_flops)):
         name = ops.flash_kernel_for(dtype, cfg.head_dim)
         q, k, v = _flash_inputs(path, dtype, seed=0)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2029,6 +2069,270 @@ def _training_checks(corpus):
             "ycbcr2rgb": launches["ycbcr2rgb"]}
 
 
+PHASE9_WATCHDOG_S = 600
+#: the JPEG kernels the sweep's cuda-* cells must launch: cuda-batch ->
+#: decode_batch, cuda-fused -> dequant_idct, cuda-idct and strict-cuda ->
+#: idct8x8, every colour image -> ycbcr2rgb
+BENCH_KERNELS = ("decode_batch", "dequant_idct", "idct8x8", "ycbcr2rgb")
+#: the sweep's cuda-* paths, each held image by image to its own plain
+#: versions on the host over the smoke profile's three corpora
+BENCH_PATHS = ("cuda-batch", "cuda-fused", "cuda-idct", "strict-cuda")
+
+
+def phase_bench():
+    import faulthandler
+    print("== phase 9: the bench harness's smoke sweep on the card")
+    held_report("phase 9")
+    # a hang (a forked loader worker stuck on a lock held at fork) fails
+    # the run with every thread's traceback instead of running out the
+    # clock
+    faulthandler.dump_traceback_later(PHASE9_WATCHDOG_S, exit=True)
+    try:
+        return _bench_checks()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _bench_cli(argv):
+    """``repro_torch.bench.cli.main(argv)`` with its output kept off the
+    log but for its last line; returns (exit code, last line)."""
+    import contextlib
+    import io
+    from repro_torch.bench import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return code, lines[-1] if lines else ""
+
+
+def _bench_checks():
+    import tempfile
+    import torch
+    from repro_torch.bench import PROFILES, build_registry, run_sweep
+    from repro_torch.bench.registry import KIND_SINGLE
+    from repro_torch.core import decision, report
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    power_limit = smi_line().rsplit(",", 1)[1].strip()
+    prof = PROFILES["smoke"]
+    runs = {s.name for s in build_registry() if prof.wants(s)[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench")
+        res, launches, dt = drive(
+            "smoke sweep (python -m repro_torch.bench sweep --smoke "
+            "--trace)", lambda: run_sweep("smoke", out_dir=out, trace=True))
+        by = {r.scenario: r for r in res.records}
+        counts = {}
+        for r in res.records:
+            counts[r.status] = counts.get(r.status, 0) + 1
+        print(f"smoke sweep: {len(res.records)} records {counts}, "
+              f"{len(runs)} cells in the profile, elapsed {res.elapsed_s} "
+              f"s, {len(res.files)} artifacts")
+        errors = [(r.scenario, r.meta.get("reason")) for r in res.records
+                  if r.status == "error"]
+        check(not errors, f"sweep cells failed: {errors}")
+        for r in res.records:
+            if r.ok:
+                check(r.platform == card and r.throughput_mean > 0 and
+                      "stage_s" in r.meta,
+                      f"{r.scenario}: platform {r.platform!r}, "
+                      f"{r.throughput_mean} images/s, traced "
+                      f"{'stage_s' in r.meta}")
+            cuda_single = r.protocol == KIND_SINGLE and \
+                "cuda" in r.decoder and r.scenario in runs
+            if cuda_single and not r.ok:
+                check(r.status == "skipped" and
+                      r.meta.get("eligible") is False and
+                      r.meta.get("reason"),
+                      f"{r.scenario} is neither ok nor a capability skip: "
+                      f"{r.to_json()}")
+        for name in ("cuda-idct", "cuda-fused", "cuda-batch",
+                     "strict-cuda"):
+            check(by[f"single/{name}"].ok, f"single/{name} did not run")
+        check(by["single/cuda-fused/corpus-mixed"].ok,
+              "single/cuda-fused/corpus-mixed did not run")
+        fork = by["loader/cuda-batch/w2/process"]
+        check(fork.status == "skipped" and fork.samples == [] and
+              "fork" in fork.meta.get("reason", ""),
+              f"loader/cuda-batch/w2/process: {fork.to_json()}")
+        shard = by["loader/numpy-fast/w2/process/shard"]
+        mem = by["loader/numpy-fast/w2/process"]
+        check(shard.ok and mem.ok and shard.num_images == mem.num_images
+              == prof.corpus_n and shard.meta["delivered"] ==
+              mem.meta["delivered"] == prof.corpus_n,
+              f"shard cell {shard.to_json()} against its memory twin "
+              f"{mem.to_json()}")
+        batched = by["batched/cuda-batch"]
+        check(batched.ok, f"batched/cuda-batch: {batched.to_json()}")
+        moved = {k: launches[k] for k in BENCH_KERNELS}
+        check(all(n >= 1 for n in moved.values()),
+              f"a JPEG kernel did not launch in the sweep: {moved}")
+        with open(os.path.join(out, "summary_smoke.json")) as f:
+            summary = json.load(f)
+        host = summary["host"]
+        check(host["device"] == card and host["power_limit"] ==
+              power_limit, f"summary host {host}, want {card} at "
+                           f"{power_limit}")
+        print(f"summary host: device {host['device']}, power limit "
+              f"{host['power_limit']}, torch {host['torch']}, CUDA "
+              f"{host['cuda']}, fingerprint {host['fingerprint']}")
+        for r in res.records:
+            if r.ok:
+                print(json.dumps({"record": r.scenario,
+                                  "images_s": r.samples,
+                                  "mean": r.throughput_mean,
+                                  "skips": r.skip_indices}))
+        print(f"batched/cuda-batch: batched {batched.throughput_mean} "
+              f"images/s, serial {batched.meta['serial_ips']}, "
+              f"batched/serial {batched.meta['ratio']} over "
+              f"{batched.meta['n_buckets']} buckets; stage s "
+              f"{batched.meta['stage_s']}")
+        live = res.ok_records()
+        print(report.single_thread_report(live))
+        print(report.loader_report(live))
+        print(report.flip_report(
+            decision.recommend(res.records)["protocol_disagreement"]))
+
+        records = res.files[0]
+        store = os.path.join(tmp, "history.jsonl")
+        for argv in (["compare", records, records],
+                     ["history", "append", records, "--store", store,
+                      "--profile", "smoke"],
+                     ["history", "show", "--store", store],
+                     ["compare", records, records, "--attribute",
+                      "--history", store]):
+            code, last = _bench_cli(argv)
+            check(code == 0, f"bench cli {argv[:2]} exited {code}: {last}")
+            print(f"bench cli {' '.join(argv[:2])}: exit 0; {last}")
+    _bench_kernel_checks(prof)
+    print(f"phase 9: {time.perf_counter() - t_phase} s (sweep {dt} s)")
+    return moved
+
+
+def _smoke_corpora(prof):
+    """The corpora the smoke profile's cells decode: the baseline and
+    the corpus axis's mixed and progressive variants (as the harness
+    builds them)."""
+    from repro_torch.jpeg.corpus import build_corpus
+    dri = list(prof.corpus_dri) or None
+    return {kind: build_corpus(prof.corpus_n, seed=prof.corpus_seed,
+                               restart_intervals=dri, progressive=frac)
+            for kind, frac in (("baseline", 0.0), ("mixed", 0.5),
+                               ("progressive", 1.0))}
+
+
+def _capture_kernel_inputs(calls):
+    """Wrap the JPEG kernels' wrappers (module attributes the paths look
+    up at each call) so every call's inputs are kept in ``calls[name]``;
+    returns a function that puts the wrappers back."""
+    from repro_torch.kernels import ops
+    saved = {name: getattr(ops, name) for name in BENCH_KERNELS}
+
+    def wrap(name):
+        def call(*args):
+            calls[name].append(tuple(a.clone() for a in args))
+            return saved[name](*args)
+        return call
+    for name in BENCH_KERNELS:
+        setattr(ops, name, wrap(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    return restore
+
+
+def _bench_kernel_checks(prof):
+    """The sweep checks statuses, not pixels: hold what its cuda-* paths
+    compute at the smoke size to the plain versions. Each corpus goes
+    through each path on the card (one batched call, then image by
+    image) and the same path on the host; then every kernel wrapper is
+    held to its plain version on the very inputs those decodes gave it."""
+    import numpy as np
+    import torch
+    from repro_torch.codecs import ExecContext, open_decoder
+    from repro_torch.device import use_device
+    from repro_torch.kernels import ops, ref
+    svc = ExecContext.SERVICE
+    ref_sess = open_decoder("numpy-ref", context=svc)
+    calls = {name: [] for name in BENCH_KERNELS}
+    summary = []
+    for kind, corpus in _smoke_corpora(prof).items():
+        files, rare = corpus.files, corpus.rare_index
+        refs = [ref_sess.decode(f) for f in files]
+        for name in BENCH_PATHS:
+            restore = _capture_kernel_inputs(calls)
+            try:
+                sess = open_decoder(name, context=svc)
+                outs = sess.decode_batch(files)
+                serial = [sess.decode(f) for f in files]
+            finally:
+                restore()
+            with use_device("cpu"):
+                plain = open_decoder(name, context=svc).decode_batch(files)
+            worst = 0
+            for i, (o, one, p, want) in enumerate(
+                    zip(outs, serial, plain, refs)):
+                label = f"{name} on the {kind} corpus, image {i}"
+                check(o.kind == one.kind == p.kind,
+                      f"{label}: {o.kind} batched, {one.kind} serial on "
+                      f"the card, {p.kind} on the host ({o.reason})")
+                if not o.ok:
+                    continue
+                check(np.array_equal(o.image, one.image),
+                      f"{label}: batched output differs from serial")
+                check(o.image.shape == p.image.shape and
+                      o.image.dtype == np.uint8,
+                      f"{label}: shape {o.image.shape} dtype "
+                      f"{o.image.dtype}, plain {p.image.shape}")
+                vs_plain = int(np.abs(o.image.astype(int) -
+                                      p.image.astype(int)).max())
+                check(vs_plain <= 1, f"{label}: {vs_plain} levels from "
+                                     f"the plain versions on the host")
+                if want.ok:
+                    err = int(np.abs(o.image.astype(int) -
+                                     want.image.astype(int)).max())
+                    plain_err = int(np.abs(p.image.astype(int) -
+                                           want.image.astype(int)).max())
+                    tol = 16 if i == rare else 4
+                    check(err <= max(tol, plain_err),
+                          f"{label}: {err} levels from numpy-ref (limit "
+                          f"{tol}; the plain versions on the host: "
+                          f"{plain_err})")
+                worst = max(worst, vs_plain)
+            summary.append((kind, name, sum(o.ok for o in outs),
+                            sum(o.kind == "skip" for o in outs), worst))
+    print("smoke corpora on the card vs the same paths' plain versions on "
+          "the host (corpus, path, ok, skipped, max levels): "
+          f"{summary}")
+
+    plain_fns = {
+        "decode_batch": ref.decode_batch,
+        "dequant_idct": ref.dequant_idct,
+        "idct8x8": ref.idct8x8,
+        "ycbcr2rgb": lambda y, cb, cr: torch.stack(
+            ref.ycbcr2rgb(y, cb, cr), dim=-1),
+    }
+    for name in BENCH_KERNELS:
+        seen = calls[name]
+        check(seen, f"{name}: the smoke corpora's decodes never called it")
+        err, shapes = 0.0, set()
+        for args in seen:
+            check(all(a.device.type == DEV for a in args),
+                  f"{name} was called with host tensors on the card path")
+            got = getattr(ops, name)(*args)
+            want = plain_fns[name](*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            err = max(err, (got - want).abs().max().item())
+            shapes.add(tuple(args[0].shape))
+        rows = sorted(sh[0] for sh in shapes)
+        print(f"{name} at the smoke corpora's inputs: {len(seen)} calls, "
+              f"{len(shapes)} shapes (first dim {rows[0]}-{rows[-1]}), "
+              f"max_abs_err {err} (rtol {RTOL}, atol {ATOL})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2061,6 +2365,7 @@ def main() -> int:
         service_launches = phase_service(corpus)
         loader_launches = phase_loader(corpus)
         training_launches = phase_training(corpus)
+        bench_launches = phase_bench()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2075,6 +2380,7 @@ def main() -> int:
     print(json.dumps({"service_launches": service_launches}))
     print(json.dumps({"loader_launches": loader_launches}))
     print(json.dumps({"training_launches": training_launches}))
+    print(json.dumps({"bench_launches": bench_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,8 @@ import sys
 import time
 from typing import Dict, List
 
+from repro_torch.common.hw import host_fingerprint
+
 SCHEMA_VERSION = 2
 
 # The evaluation-protocol vocabulary. "single_thread" and "dataloader" are
@@ -156,12 +158,9 @@ def validate_record(d: dict) -> dict:
 
 
 def host_metadata() -> dict:
-    """The host a record file was written on.
-
-    Unlike the reference's, this carries no ``fingerprint``: the
-    reference takes it from ``repro.common.hw``, which imports jax, and
-    the port has no ``common/hw.py`` of its own yet (it comes with the
-    bench surface and records the card's identity)."""
+    """The host a record file was written on; ``fingerprint`` is
+    ``repro_torch.common.hw.host_fingerprint()``, which names the device
+    the calling context selected (the card, or the CPU when asked for)."""
     import os
     return {
         "python": sys.version.split()[0],
@@ -169,6 +168,7 @@ def host_metadata() -> dict:
         "processor": platform.processor() or "unknown",
         "cpus": os.cpu_count(),
         "time": time.time(),
+        "fingerprint": host_fingerprint(),
     }
 
 
