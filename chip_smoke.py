@@ -172,8 +172,24 @@ and prints no result line:
    measured record, the batched/serial ratio, the single-thread and
    loader reports and the protocol disagreement. A watchdog ends a hung
    phase with tracebacks.
+10. The paper-table views: ``python -m repro_torch.bench tables``
+   (through ``repro_torch.bench.cli.main``) on the card, every line
+   kept. It must exit 0; each of the reference's nine views (table1-5,
+   fig3, kernels, roofline, service) must print a row and none an
+   ``.ERROR`` row; the live views must read the quick sweep's records,
+   labelled with the card's name, and ``table2`` and ``table5`` give
+   live rows; ``roofline`` reports zero cells, and an audit hook shows
+   that nothing under the reference's ``artifacts/dryrun/`` was opened.
+   The kernel view runs with the launch counters zeroed just before it
+   and read just after: each of the four JPEG kernels must launch, every
+   kernel row must be on the card's route within ``ATOL`` of its plain
+   version, and ``decode_batch`` must equal the serial ``dequant_idct``
+   loop bit for bit. Then ``tables --full --only kernels`` holds the same
+   at 8192 rows and 8 x 2048 blocks. Prints every row and the phase's
+   seconds. A watchdog ends a hung phase with tracebacks (the quick sweep
+   forks loader workers beside the CUDA context).
 
-Before phases 3, 4, 5, 6, 7, 8 and 9 the script releases cuBLAS's per-stream
+Before phases 3 to 10 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -185,7 +201,8 @@ device busy share); the default run does not profile.
 The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
 pipeline's (``{"training_launches": ...}``), the bench sweep's
-(``{"bench_launches": ...}``), the ``kernels`` JSON
+(``{"bench_launches": ...}``), the table views' kernel view, quick and
+``--full`` (``{"tables_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check and
 phase 8's pipeline), the card's name and power limit, and ``{"ok":
 true, "device": {...}}``.
@@ -2333,6 +2350,195 @@ def _bench_kernel_checks(prof):
               f"max_abs_err {err} (rtol {RTOL}, atol {ATOL})")
 
 
+PHASE10_WATCHDOG_S = 600
+#: the views the reference's ``run.py tables`` prints, by the first word
+#: of their rows' names (the kernel view's rows begin with ``kernel.``)
+TABLE_ROW_PREFIX = {"table1": "table1", "table2": "table2",
+                    "table3": "table3", "table4": "table4",
+                    "table5": "table5", "fig3": "fig3", "kernels": "kernel",
+                    "roofline": "roofline", "service": "service"}
+#: where the reference's TPU dry-run artifacts live; the port's views must
+#: never read them (the port's roofline reads artifacts/dryrun_torch/)
+REF_DRYRUN = os.path.join(ROOT, "artifacts", "dryrun")
+_REF_DRYRUN_SEEN = []
+_AUDIT_ON = False
+
+
+def _audit_dryrun(event, args):
+    """An audit hook: note every open, glob or directory listing of a path
+    under the reference's dry-run directory while ``_AUDIT_ON``."""
+    if not _AUDIT_ON or event not in ("open", "glob.glob", "os.scandir",
+                                      "os.listdir") or not args:
+        return
+    path = args[0]
+    if isinstance(path, (str, bytes, os.PathLike)):
+        path = os.path.abspath(os.fsdecode(path))
+        if path == REF_DRYRUN or path.startswith(REF_DRYRUN + os.sep):
+            _REF_DRYRUN_SEEN.append((event, path))
+
+
+def phase_tables():
+    import faulthandler
+    print("== phase 10: the paper-table views (python -m repro_torch.bench "
+          "tables) on the card")
+    held_report("phase 10")
+    # the quick sweep forks numpy-fast and numpy-int loader workers (and
+    # the interval-parallel entropy pool) beside a live CUDA context: a
+    # hang fails the run with every thread's traceback
+    faulthandler.dump_traceback_later(PHASE10_WATCHDOG_S, exit=True)
+    try:
+        return _tables_checks()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _tables_cli(argv):
+    """``repro_torch.bench.cli.main(argv)`` with its standard output
+    captured; returns (exit code, every line)."""
+    import contextlib
+    import io
+    from repro_torch.bench import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    return code, buf.getvalue().strip().splitlines()
+
+
+def _spy_views(platforms, launches):
+    """Wrap the views' module attributes the CLI calls: each live view's
+    ``sweep_records`` notes the platforms of the records it read, and the
+    kernel view's ``run`` zeroes the launch counters just before it and
+    reads them just after. Returns a function that puts them back."""
+    import torch
+    from repro_torch.bench.views import VIEWS, kernels_bench
+    from repro_torch.kernels import ops
+    saved = []
+    for name in ("table2", "table3", "table4", "table5", "fig3"):
+        mod = VIEWS[name]
+        saved.append((mod, "sweep_records", mod.sweep_records))
+
+        def spy(quick=True, _name=name, _read=mod.sweep_records):
+            recs = _read(quick)
+            platforms[_name] = sorted({r.platform for r in recs})
+            return recs
+        mod.sweep_records = spy
+    saved.append((kernels_bench, "run", kernels_bench.run))
+
+    def run(quick=True, _run=kernels_bench.run):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rows = _run(quick)
+        torch.cuda.synchronize()
+        launches.update(ops.LAUNCHES)
+        return rows
+    kernels_bench.run = run
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return restore
+
+
+def _check_kernel_rows(label, rows, launches):
+    """The kernel view's rows: every JPEG kernel launched, every kernel row
+    on the card's route and within phase 2's atol of its plain version
+    (max |diff| <= ATOL, which implies the allclose at RTOL), and the
+    batched launch equal to the serial per-image loop bit for bit."""
+    moved = {k: launches.get(k, 0) for k in BENCH_KERNELS}
+    check(all(n >= 1 for n in moved.values()),
+          f"{label}: a JPEG kernel did not launch in the kernel view: "
+          f"{moved}")
+    kernel_rows = [r for r in rows if r.startswith("kernel.")]
+    check(not any(".plain" in r.split(",", 1)[0] for r in kernel_rows),
+          f"{label}: a kernel row on the plain route: {kernel_rows}")
+    errs = {}
+    for r in kernel_rows:
+        name, _, derived = r.split(",", 2)
+        if "max_abs_err=" in derived:
+            check(".cuda[" in name, f"{label}: {name} not on the card")
+            errs[name] = float(derived.split("max_abs_err=")[1].split()[0])
+        if "max_abs_diff_vs_batched=" in derived:
+            diff = float(derived.split("max_abs_diff_vs_batched=")[1])
+            check(diff == 0.0, f"{label}: decode_batch differs from the "
+                               f"serial dequant_idct loop by {diff}")
+    check(sorted(n.split(".")[1] for n in errs) ==
+          sorted(BENCH_KERNELS),
+          f"{label}: kernel rows with an error column: {sorted(errs)}")
+    bad = {n: e for n, e in errs.items() if not e <= ATOL}
+    check(not bad, f"{label}: kernels beyond atol {ATOL}: {bad}")
+    print(f"{label}: kernel view launches {moved}; max_abs_err {errs} "
+          f"(atol {ATOL})")
+    return moved
+
+
+def _tables_checks():
+    import torch
+    from repro_torch.bench.cli import TABLES
+    global _AUDIT_ON
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    sys.addaudithook(_audit_dryrun)
+    platforms, launches = {}, {}
+    restore = _spy_views(platforms, launches)
+    _AUDIT_ON = True
+    try:
+        t0 = time.perf_counter()
+        code, lines = _tables_cli(["tables"])
+        dt_quick = time.perf_counter() - t0
+    finally:
+        _AUDIT_ON = False
+        restore()
+    for line in lines:
+        print(f"tables: {line}")
+    print(f"tables (quick): exit {code} in {dt_quick} s")
+    check(code == 0, f"tables exited {code}")
+    check(lines and lines[0] == "name,us_per_call,derived",
+          f"tables header: {lines[:1]}")
+    rows = lines[1:]
+    errors = [r for r in rows if ".ERROR," in r]
+    check(not errors, f"views failed: {errors}")
+    for view in TABLES:
+        prefix = TABLE_ROW_PREFIX[view] + "."
+        check(any(r.startswith(prefix) for r in rows),
+              f"view {view} printed no row")
+    check(platforms.get("table2") == platforms.get("table5") == [card],
+          f"the live views read records of {platforms}, want [{card!r}]")
+    by_name = {r.split(",", 1)[0]: r for r in rows}
+    for name in ("table2.live_single_thread", "table2.live_loader",
+                 "table5.live"):
+        check(name in by_name and by_name[name].split(",", 2)[2],
+              f"no live row {name}: {by_name.get(name)}")
+    roof = [r for r in rows if r.startswith("roofline.")]
+    check(roof == ["roofline.matrix,0.0,pod ok=0 skipped=0 err=0; "
+                   "multipod ok=0"], f"roofline rows: {roof}")
+    check(not _REF_DRYRUN_SEEN,
+          f"the views read the reference's dry-run: {_REF_DRYRUN_SEEN}")
+    quick = _check_kernel_rows("tables (quick)", rows, launches)
+
+    launches.clear()
+    restore = _spy_views(platforms, launches)
+    try:
+        t0 = time.perf_counter()
+        code, lines = _tables_cli(["tables", "--full", "--only",
+                                   "kernels"])
+        dt_full = time.perf_counter() - t0
+    finally:
+        restore()
+    for line in lines:
+        print(f"tables --full --only kernels: {line}")
+    check(code == 0, f"tables --full --only kernels exited {code}")
+    rows = lines[1:]
+    check(any("[8192x64]" in r for r in rows) and
+          any("[8x2048x64]" in r for r in rows),
+          f"the full kernel view's shapes: {rows}")
+    full = _check_kernel_rows("tables --full --only kernels", rows,
+                              launches)
+    print(f"phase 10: {time.perf_counter() - t_phase} s (tables "
+          f"{dt_quick} s, --full --only kernels {dt_full} s); records of "
+          f"{platforms}")
+    return {"quick": quick, "full": full}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2366,6 +2572,7 @@ def main() -> int:
         loader_launches = phase_loader(corpus)
         training_launches = phase_training(corpus)
         bench_launches = phase_bench()
+        tables_launches = phase_tables()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2381,6 +2588,7 @@ def main() -> int:
     print(json.dumps({"loader_launches": loader_launches}))
     print(json.dumps({"training_launches": training_launches}))
     print(json.dumps({"bench_launches": bench_launches}))
+    print(json.dumps({"tables_launches": tables_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

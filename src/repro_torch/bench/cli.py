@@ -13,6 +13,11 @@ Subcommands:
   ingest   write a profile's synthetic corpus into a shard directory
            (repro_torch.store format: crc32'd shards + JSON manifest) for
            the sweep's ``source=shard`` cells — or any external consumer.
+  tables   regenerate the per-paper-table CSV views (table1..5, fig3,
+           kernels, roofline, service; ``repro_torch.bench.views``),
+           every live row derived from one shared sweep; ``--full`` for
+           the full profile and sizes, ``--only`` to narrow (validated),
+           ``--device`` as for ``sweep``.
   compare  diff two record sets with noise-aware gates; exits nonzero on
            a hard (>2x by default) regression unless --warn-only.
            ``--attribute`` names the pipeline stage behind each
@@ -25,12 +30,15 @@ Subcommands:
 
 Arguments are parsed strictly: unknown flags error out instead of being
 silently swallowed. Exit codes: 2 for a usage error (and for ``compare``
-on a hard regression, as the reference's), 1 when a sweep cell errors.
+on a hard regression, as the reference's), 1 when a sweep cell or a
+table view errors.
 """
 import argparse
 import sys
 
-SUBCOMMANDS = ("sweep", "compare", "list", "ingest", "history")
+SUBCOMMANDS = ("sweep", "tables", "compare", "list", "ingest", "history")
+TABLES = ("table1", "table2", "table3", "table4", "table5",
+          "fig3", "kernels", "roofline", "service")
 
 
 def _profile_from_flags(args) -> str:
@@ -87,6 +95,17 @@ def build_parser() -> argparse.ArgumentParser:
     ig.add_argument("--shard-size", type=int, default=64,
                     help="records per shard file (default 64)")
 
+    tb = sub.add_parser("tables", help="regenerate paper-table CSV views")
+    tb.add_argument("--full", action="store_true",
+                    help="the full profile's sweep and the full kernel "
+                         "sizes")
+    tb.add_argument("--only", default=None,
+                    help=f"comma-separated table names from: "
+                         f"{', '.join(TABLES)}")
+    tb.add_argument("--device", default=None,
+                    help="where the views run, e.g. 'cpu' or 'cuda:0' "
+                         "(default: the card)")
+
     cp = sub.add_parser("compare", help="gate candidate records vs baseline")
     cp.add_argument("baseline", help="baseline record-set JSON")
     cp.add_argument("candidate", help="candidate record-set JSON")
@@ -125,18 +144,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def cmd_sweep(args) -> int:
-    from repro_torch.bench import BenchSelectionError, run_sweep
-    from repro_torch.core.selectors import parse_selector
+def _device_error(device) -> bool:
+    """True (after saying why) when ``device``, or the selected device,
+    cannot run: a device torch cannot parse, or a card that is not there,
+    is the caller's to fix (--device cpu), not a traceback."""
     from repro_torch.device import (current_device, selected_device,
                                     use_device)
-    # a device torch cannot parse, or a card that is not there, is the
-    # caller's to fix (--device cpu), not a traceback
     try:
-        with use_device(args.device or selected_device()):
+        with use_device(device or selected_device()):
             current_device()
     except RuntimeError as e:
         print(f"error: {e} (here: --device cpu)", file=sys.stderr)
+        return True
+    return False
+
+
+def cmd_sweep(args) -> int:
+    from repro_torch.bench import BenchSelectionError, run_sweep
+    from repro_torch.core.selectors import parse_selector
+    if _device_error(args.device):
         return 2
     # tokenize only: sweep selectors allow family *prefixes*, which the
     # bench registry validates (BenchSelectionError below)
@@ -188,6 +214,37 @@ def cmd_ingest(args) -> int:
     print(f"fingerprint {man['fingerprint']}")
     print(f"manifest {manifest}")
     return 0
+
+
+def cmd_tables(args) -> int:
+    import traceback
+
+    from repro_torch.bench.views import VIEWS
+    from repro_torch.core.selectors import SelectorError, parse_selector
+    from repro_torch.device import selected_device, use_device
+    try:
+        only = parse_selector(args.only, valid=VIEWS, what="table")
+    except SelectorError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if _device_error(args.device):
+        return 2
+    quick = not args.full
+    print("name,us_per_call,derived")
+    failures = 0
+    with use_device(args.device or selected_device()):
+        for name, mod in VIEWS.items():
+            if only and name not in only:
+                continue
+            try:
+                for n, us, derived in mod.run(quick=quick):
+                    print(f"{n},{us:.1f},{derived}")
+            # one broken view must not hide the other eight
+            except Exception as e:
+                failures += 1
+                print(f"{name}.ERROR,0.0,{type(e).__name__}: {e}")
+                traceback.print_exc(file=sys.stderr)
+    return 1 if failures else 0
 
 
 def cmd_compare(args) -> int:
@@ -292,7 +349,7 @@ def main(argv=None) -> int:
         if "-h" not in argv and "--help" not in argv:
             argv.insert(0, "sweep")
     args = build_parser().parse_args(argv)
-    handler = {"sweep": cmd_sweep,
+    handler = {"sweep": cmd_sweep, "tables": cmd_tables,
                "compare": cmd_compare, "list": cmd_list,
                "ingest": cmd_ingest, "history": cmd_history}[args.cmd]
     return handler(args)

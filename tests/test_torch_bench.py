@@ -481,7 +481,7 @@ def test_cli_exit_codes(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["sweep", "--only", "bogus", "--device", "cpu"]) == 2
     assert cli.main(["nonsense"]) == 2
-    assert cli.main(["tables"]) == 2            # not ported: unknown
+    assert cli.main(["tables"]) == 2            # no card, no --device cpu
     assert cli.main(["sweep", "--device", "bogus"]) == 2
     assert cli.main(["--smoke", "--only", "single/numpy-ref"]) == 2
     with pytest.raises(SystemExit) as e:

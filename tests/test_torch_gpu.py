@@ -550,3 +550,35 @@ def test_vit_train_step_kernel_route_matches_the_plain_route(cuda, model):
         assert (got - want[name]).abs().max().item() <= 1e-4 * scale, name
     new, metrics = vp.train_step(state, batch, cfg, vp.OPT, vp.CTX)
     assert int(new["step"]) == 1 and torch.isfinite(metrics["loss"])
+
+
+# ------------------------------------------------ the kernel view (tables)
+@pytest.mark.parametrize("quick", [True, False])
+def test_kernel_view_launches_every_jpeg_kernel_on_the_card(cuda, quick):
+    """``python -m repro_torch.bench tables``'s kernel view on the card:
+    every kernel row on the CUDA route, each kernel launched, errors
+    within atol and the batched launch equal to the serial loop."""
+    from repro_torch.bench.views import kernels_bench
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rows = kernels_bench.run(quick=quick)
+    torch.cuda.synchronize()
+    for name in ("decode_batch", "dequant_idct", "idct8x8", "ycbcr2rgb"):
+        assert ops.LAUNCHES[name] >= 1, name
+    routed = [r for r in rows if "max_abs_err=" in r[2]]
+    assert len(routed) == 4 and all(".cuda[" in r[0] for r in routed)
+    for name, us, derived in routed:
+        assert us > 0
+        err = float(derived.split("max_abs_err=")[1].split()[0])
+        assert err <= ATOL, (name, err)
+    serial = [r for r in rows if "serial_loop" in r[0]]
+    assert serial[0][2].endswith("max_abs_diff_vs_batched=0.000e+00")
+
+
+def test_time_us_times_the_card_with_events(cuda):
+    from repro_torch.bench.views import common
+    x = torch.randn(4096, 4096, device=cuda)
+    us = common.time_us(lambda: x @ x, repeats=3)
+    # 2 * 4096^3 FLOPs take at least 2 ms at 67 TFLOP/s (FP32, no TF32)
+    assert us >= 2 * 4096 ** 3 / 67e12 * 1e6
