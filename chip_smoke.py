@@ -188,8 +188,27 @@ and prints no result line:
    at 8192 rows and 8 x 2048 blocks. Prints every row and the phase's
    seconds. A watchdog ends a hung phase with tracebacks (the quick sweep
    forks loader workers beside the CUDA context).
+11. LM training at full width: (a) ``qwen2-7b`` cut to 2 layers in
+   float32 (~1.56 B parameters), one seeded batch of 1 x 512 tokens,
+   ``lm_loss`` and its backward under ``remat="full"`` through the FFMA
+   flash kernel and through the plain attention loop: losses within
+   1e-5 relative, every gradient leaf within 1e-4 of its largest |g|,
+   exactly 2 x 2 ``flash_attention`` launches (each layer's forward and
+   its recompute) against 0. (b) ``qwen2-7b`` cut to 4 layers in bf16
+   (~2.02 B parameters) from ``train_step.make_train_state``, 6 steps
+   of ``make_train_step`` at B 2 x S 2048 on the launcher's batches:
+   4 x 2 x 6 ``flash_attention_wgmma`` launches and no other, finite
+   losses and gradient norms, parameters moved, ``step`` 6; prints the
+   step ms (median of steps 2-6), tokens/s and the peak device memory.
+   Then one step with int8 gradient compression and one with
+   ``microbatch=1`` (2 slices, twice the launches). (c) ``python -m
+   repro_torch.launch.train --arch qwen2-7b-smoke`` in a subprocess for
+   6 steps with a checkpoint every 3, then again to 9: it must print
+   ``resumed from step 6``, and the step-6 checkpoint restored on the
+   card must equal its stored leaves bit for bit. Prints the phase's
+   seconds.
 
-Before phases 3 to 10 the script releases cuBLAS's per-stream
+Before phases 3 to 11 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -202,14 +221,18 @@ The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
 pipeline's (``{"training_launches": ...}``), the bench sweep's
 (``{"bench_launches": ...}``), the table views' kernel view, quick and
-``--full`` (``{"tables_launches": ...}``), the ``kernels`` JSON
-object (``flash_attention``'s launches: phase 5's float32 check and
-phase 8's pipeline), the card's name and power limit, and ``{"ok":
-true, "device": {...}}``.
+``--full`` (``{"tables_launches": ...}``), LM training's
+(``{"lm_training_launches": ...}``), the ``kernels`` JSON object
+(``flash_attention``'s launches: phase 5's float32 check, phase 8's
+pipeline and phase 11's check; ``flash_attention_wgmma``'s: phase 5's
+prefill and phase 11's steps), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2539,6 +2562,254 @@ def _tables_checks():
     return {"quick": quick, "full": full}
 
 
+LM_TRAIN_ARCH = "qwen2-7b"      # full width; depth cut to fit the card
+LM_CHECK_LAYERS = 2             # (a): float32, ~6.2 GB of weights
+LM_CHECK_SEQ = 512
+LM_TRAIN_LAYERS = 4             # (b): bf16, ~8 GB weights+grads, ~16 GB AdamW
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 2048
+LM_TRAIN_STEPS = 6
+LM_LOSS_RTOL = 1e-5             # kernel route against the plain loop
+LM_GRAD_TOL = 1e-4              # of each gradient leaf's largest |element|
+
+
+def phase_lm_train():
+    """Phase 11: returns the launches of its checks and steps."""
+    import torch
+    print("== phase 11: LM training at full width")
+    held_report("phase 11")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    launches = _lm_routes_agree(card)
+    gc.collect()
+    for name, n in _lm_train_steps(card).items():
+        launches[name] = launches.get(name, 0) + n
+    _lm_launcher()
+    torch.cuda.synchronize()
+    print(f"phase 11: {time.perf_counter() - t_phase} s; launches "
+          f"{launches}")
+    return launches
+
+
+def _lm_routes_agree(card):
+    """(a): the float32 loss and gradients at full width through the FFMA
+    flash kernel against the plain loop, from the same weights and batch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_CHECK_LAYERS, dtype="float32")
+    dev = torch.device(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, LM_CHECK_SEQ + 1)).astype(np.int32)).to(dev)
+    print(f"(a) {LM_TRAIN_ARCH} in float32, depth cut from "
+          f"{get_config(LM_TRAIN_ARCH).num_layers} to {cfg.num_layers} "
+          f"layers: {n_params} parameters, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}; batch 1 x {LM_CHECK_SEQ}, remat full")
+    out = {}
+    for route, ctx in (("kernel", ModelContext(remat="full")),
+                       ("plain", ModelContext(remat="full",
+                                              flash_kernel=False))):
+        ((loss, _), grads), launches, dt = drive(
+            f"(a) lm_loss and gradients, {route} route",
+            lambda ctx=ctx: loss_and_grads(params, {"tokens": tokens}, cfg,
+                                           ctx))
+        out[route] = (loss.item(), tree.flatten_with_names(grads), launches,
+                      dt)
+    (k_loss, k_grads, k_launches, k_s), (p_loss, p_grads, p_launches, p_s) \
+        = out["kernel"], out["plain"]
+    want = 2 * cfg.num_layers
+    check(k_launches["flash_attention"] == want and
+          sum(k_launches.values()) == want,
+          f"(a) the kernel route launched {k_launches}, want {want} "
+          f"flash_attention (forward and recompute per layer)")
+    check(sum(p_launches.values()) == 0,
+          f"(a) the plain route launched {p_launches}")
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    worst, worst_name, worst_diff = 0.0, "", 0.0
+    for name, want_g in p_grads.items():
+        got = k_grads[name]
+        scale = want_g.abs().max().item()
+        check(scale > 0 and torch.isfinite(got).all().item(),
+              f"(a) gradient {name}: max |g| {scale}")
+        diff = (got - want_g).abs().max().item()
+        if diff / scale >= worst:
+            worst, worst_name, worst_diff = diff / scale, name, diff
+    print(f"(a) loss kernel route {k_loss}, plain route {p_loss} (relative "
+          f"{rel}, limit {LM_LOSS_RTOL}); worst gradient leaf {worst_name}: "
+          f"max difference {worst_diff}, {worst} of its max |g| (limit "
+          f"{LM_GRAD_TOL}) over {len(p_grads)} leaves; forward+backward "
+          f"{k_s} s kernel route, {p_s} s plain route (first calls); peak "
+          f"device memory {torch.cuda.max_memory_allocated()} bytes ({card})")
+    check(rel <= LM_LOSS_RTOL, f"(a) loss differs by {rel} relative")
+    check(worst <= LM_GRAD_TOL,
+          f"(a) gradient {worst_name} differs by {worst} of its max")
+    return {"flash_attention": k_launches["flash_attention"]}
+
+
+def _lm_train_steps(card):
+    """(b): bf16 training steps at full width, 4 layers."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    dev = torch.device(DEV)
+    ctx = ModelContext(remat="full", q_chunk=256, k_chunk=256)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)   # the launcher's
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(torch.Generator(device=dev).manual_seed(0),
+                             cfg, opt_cfg)
+    n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+    print(f"(b) {LM_TRAIN_ARCH} in {cfg.dtype}, depth cut from "
+          f"{get_config(LM_TRAIN_ARCH).num_layers} to {cfg.num_layers} "
+          f"layers: {n_params} parameters, AdamW moments in "
+          f"{cfg.opt_dtype}; batches of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+          f"tokens, remat full; state {torch.cuda.memory_allocated()} "
+          f"bytes")
+    first = state["params"]["layers"][0]["attn"]["wq"].clone()
+    batches = token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+
+    def run(step_fn, box, n, label):
+        """``n`` steps on ``box["state"]``; the box holds the only
+        reference to the state, so a step's old state is freed as soon
+        as the step returns its new one (two states, not three, at a
+        time: ~20 GB each)."""
+        ms, losses, gnorms = [], [], []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        for _ in range(n):
+            tokens = torch.from_numpy(next(batches)).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            box["state"], metrics = step_fn(box["state"],
+                                            {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            gnorms.append(metrics["grad_norm"].item())
+        launches = dict(ops.LAUNCHES)
+        print(f"(b) {label}: losses {losses}, grad norms {gnorms}, step ms "
+              f"{ms}, launches {launches}")
+        check(all(map(math.isfinite, losses + gnorms)),
+              f"(b) {label}: a loss or gradient norm is not finite")
+        return ms, launches
+
+    box = {"state": state}
+    del state
+    step = make_train_step(cfg, ctx, opt_cfg)
+    ms, launches = run(step, box, LM_TRAIN_STEPS, f"{LM_TRAIN_STEPS} steps")
+    state = box["state"]
+    peak = torch.cuda.max_memory_allocated()
+    want = LM_TRAIN_LAYERS * 2 * LM_TRAIN_STEPS
+    check(launches["flash_attention_wgmma"] == want and
+          sum(launches.values()) == want,
+          f"(b) launched {launches}, want {want} flash_attention_wgmma "
+          f"and no other kernel")
+    check(int(state["step"]) == LM_TRAIN_STEPS,
+          f"(b) step reads {int(state['step'])}")
+    moved = (state["params"]["layers"][0]["attn"]["wq"].float()
+             - first.float()).abs().max().item()
+    check(moved > 0, "(b) the parameters did not move")
+    del first, state
+    med = statistics.median(ms[1:])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"(b) step {med} ms (median of steps 2-{LM_TRAIN_STEPS}), "
+          f"{tokens / med * 1e3} tokens/s, peak device memory {peak} bytes; "
+          f"layer 0 wq moved by up to {moved} ({card})")
+    total = dict(launches)
+
+    box["state"]["err"] = compression.init_error_buffer(
+        box["state"]["params"])
+    ms_c, launches = run(
+        make_train_step(cfg, ctx, opt_cfg, grad_compression=True), box, 1,
+        "one step with int8 gradient compression")
+    check(launches["flash_attention_wgmma"] == LM_TRAIN_LAYERS * 2,
+          f"(b) the compressed step launched {launches}")
+    del box["state"]["err"]
+    for name, n in launches.items():
+        total[name] += n
+    ms_m, launches = run(
+        make_train_step(cfg, ctx, opt_cfg, microbatch=1), box, 1,
+        f"one step with microbatch=1 ({LM_TRAIN_BATCH} slices)")
+    check(launches["flash_attention_wgmma"] ==
+          LM_TRAIN_LAYERS * 2 * LM_TRAIN_BATCH,
+          f"(b) the microbatched step launched {launches}")
+    for name, n in launches.items():
+        total[name] += n
+    print(f"(b) compressed step {ms_c[0]} ms, microbatched step {ms_m[0]} "
+          f"ms; peak device memory over (b) "
+          f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+    return {name: n for name, n in total.items() if n}
+
+
+def _lm_launcher():
+    """(c): the launcher in a subprocess on the card, then its resume."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.train_step import make_train_state
+    os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="lm_launcher_",
+                            dir=os.path.join(ROOT, "artifacts"))
+    env = dict(os.environ, PYTHONPATH=SRC)
+    outs = []
+    for steps in (6, 9):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen2-7b-smoke", "--steps", str(steps), "--ckpt-every", "3",
+             "--ckpt", ckpt], capture_output=True, text=True, timeout=300,
+            env=env, cwd=ROOT)
+        dt = time.perf_counter() - t0
+        for line in (r.stdout + r.stderr).strip().splitlines()[-6:]:
+            print(f"(c) --steps {steps}: {line}")
+        check(r.returncode == 0, f"(c) the launcher exited {r.returncode}")
+        outs.append(r.stdout)
+        print(f"(c) --steps {steps}: {dt} s")
+    check("resumed from step 6" in outs[1],
+          "(c) the second run did not resume from step 6")
+    like = make_train_state(
+        torch.Generator(device=torch.device(DEV)).manual_seed(1),
+        get_config("qwen2-7b-smoke"), OptimizerConfig())
+    step_dir = os.path.join(ckpt, "step_6")
+    stored, _ = restore_pytree(step_dir)
+    restored, _ = restore_pytree(step_dir, like=like)
+    flat = tree.flatten_with_names(restored)
+    check(set(flat) == set(stored), "(c) restored leaves differ by name")
+    for name, t in flat.items():
+        check(t.device.type == torch.device(DEV).type,
+              f"(c) {name} restored on {t.device}")
+        got = t.cpu()
+        if got.dtype == torch.bfloat16:
+            got = got.view(torch.int16)
+        check(got.numpy().tobytes() == np.asarray(stored[name]).tobytes(),
+              f"(c) restored {name} differs from the stored leaf")
+    print(f"(c) step 6 restored on the card equals its {len(flat)} stored "
+          f"leaves bit for bit")
+    shutil.rmtree(ckpt)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2573,11 +2844,15 @@ def main() -> int:
         training_launches = phase_training(corpus)
         bench_launches = phase_bench()
         tables_launches = phase_tables()
+        lm_training_launches = phase_lm_train()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # the float32 flash kernel's main path now includes training
     launches["flash_attention"] += training_launches["flash_attention"]
+    # and LM training (phase 11)
+    for name, count in lm_training_launches.items():
+        launches[name] += count
     for name, count in launches.items():
         if count < 1:
             print(f"chip_smoke: FAILED: {name} never launched on its path",
@@ -2589,6 +2864,7 @@ def main() -> int:
     print(json.dumps({"training_launches": training_launches}))
     print(json.dumps({"bench_launches": bench_launches}))
     print(json.dumps({"tables_launches": tables_launches}))
+    print(json.dumps({"lm_training_launches": lm_training_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

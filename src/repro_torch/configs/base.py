@@ -305,5 +305,7 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 def _load_all() -> None:
     # Importing the arch modules registers them. Only the configs the
-    # port can run are copied (the dense family's qwen2-7b so far).
+    # port can run are copied (the dense family's three so far).
+    from repro_torch.configs import deepseek_coder_33b  # noqa: F401
+    from repro_torch.configs import granite_3_8b  # noqa: F401
     from repro_torch.configs import qwen2_7b  # noqa: F401

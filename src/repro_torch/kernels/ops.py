@@ -139,12 +139,17 @@ def decode_batch(x: torch.Tensor, qidx: torch.Tensor,
     table index + [T, 64] quant tables -> [N, 64] clamped pixel rows (one
     launch for a whole micro-batch; rows from different images interleave
     freely). On the card a row whose index is outside [0, T) comes out
-    NaN; on the CPU the plain version raises IndexError."""
+    NaN; on the CPU any such index, -1 included, raises IndexError
+    (torch indexing would wrap a negative one to a table)."""
     _check("x", x, torch.float32, (None, 64))
     n = x.shape[0]
     _check("qidx", qidx, torch.int32, (n,))
     _check("qtables", qtables, torch.float32, (None, 64))
     if not _on_card(x, qidx, qtables):
+        t = qtables.shape[0]
+        if n and (int(qidx.min()) < 0 or int(qidx.max()) >= t):
+            raise IndexError(f"table index outside [0, {t}): "
+                             f"{int(qidx.min())}..{int(qidx.max())}")
         return ref.decode_batch(x, qidx, qtables)
     _aligned16(x=x, qtables=qtables)
     out = torch.empty_like(x)

@@ -1,5 +1,6 @@
-"""Import the reference package's LM and ViT parameters into the port's
-layout.
+"""Import the reference package's LM and ViT parameters, and its LM
+training state, into the port's layout, and export the port's LM
+parameters (or gradients) to the reference's.
 
 The reference keeps each stage's layers stacked along a leading repeat
 axis (``stage0/layer0/{attn,ffn}/<name>`` of shape ``[R, ...]``) with
@@ -27,19 +28,21 @@ from repro_torch.models.model import Params, layer_specs
 def to_tensor(a: Any, device: Optional[torch.device] = None) -> torch.Tensor:
     """One parameter leaf (numpy or array-like) -> a tensor with the same
     dtype and bits."""
-    a = np.asarray(a)
+    # np.array, not np.ascontiguousarray, which makes a 0-d leaf 1-d
+    a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device) if device is not None else t
 
 
 def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
                             device: Optional[torch.device] = None) -> Params:
     """The reference's parameter pytree -> the port's parameters, so that
-    both compute the same function. Dense family only."""
+    both compute the same function. Dense family only. Any tree of the
+    parameters' structure converts the same way: AdamW's ``mu`` and
+    ``nu``, the compression's error buffer, gradients."""
     specs = layer_specs(cfg)
     stage = tree["stage0"]["layer0"]
     layers = []
@@ -52,6 +55,48 @@ def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
             "unembed": to_tensor(tree["unembed"], device),
             "final_ln": to_tensor(tree["final_ln"], device),
             "layers": layers}
+
+
+def import_reference_train_state(state: Mapping[str, Any],
+                                 cfg: ModelConfig, *,
+                                 device: Optional[torch.device] = None
+                                 ) -> dict:
+    """The reference's training state (``train.train_step``:
+    ``{"params", "opt": {"mu", "nu"}, "step", "err"?}``, numpy leaves)
+    -> the port's, each parameter-shaped tree in the list-of-layers
+    layout and ``step`` an int32 0-d tensor."""
+    out = {"params": import_reference_params(state["params"], cfg,
+                                             device=device),
+           "opt": {k: import_reference_params(state["opt"][k], cfg,
+                                              device=device)
+                   for k in ("mu", "nu")},
+           "step": to_tensor(state["step"], device)}
+    if "err" in state:
+        out["err"] = import_reference_params(state["err"], cfg,
+                                             device=device)
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as numpy; bfloat16 widens exactly to float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def export_reference_params(params: Params) -> dict:
+    """The port's LM parameters, or any tree of their structure
+    (gradients, moments), in the reference's layout: ``stage0/layer0``
+    leaves stacked along a leading layer axis, numpy leaves
+    (``to_numpy``)."""
+    layers = params["layers"]
+    stage = {part: {name: np.stack([to_numpy(layer[part][name])
+                                    for layer in layers])
+                    for name in layers[0][part]}
+             for part in ("attn", "ffn")}
+    return {"embed": to_numpy(params["embed"]),
+            "unembed": to_numpy(params["unembed"]),
+            "final_ln": to_numpy(params["final_ln"]),
+            "stage0": {"layer0": stage}}
 
 
 def import_reference_vit_params(tree: Mapping[str, Any], cfg, *,

@@ -50,6 +50,15 @@ class ModelContext:
     k_chunk: int = 1024
     attn_skip_noncausal: bool = False  # skip fully masked KV blocks
     flash_kernel: bool = True          # False: plain loop on the card too
+    # "full": forward recomputes each layer in the backward
+    # (torch.utils.checkpoint); the reference's default is "full", the
+    # port's "none" so that serving and the ViT keep their graphs
+    remat: str = "none"
+
+    def __post_init__(self):
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', got "
+                             f"{self.remat!r}")
 
 
 # --------------------------------------------------------------------------
@@ -222,8 +231,16 @@ def attention(
 # --------------------------------------------------------------------------
 # GQA attention block with optional KV cache for decode
 # --------------------------------------------------------------------------
+class ShapesOnly:
+    """Stands for the generator of an ``init``: every parameter comes out
+    on the ``meta`` device, shapes and dtypes without memory."""
+    device = torch.device("meta")
+
+
 def normal_param(gen: torch.Generator, shape, dtype: torch.dtype,
             std: float) -> torch.Tensor:
+    if isinstance(gen, ShapesOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return torch.randn(shape, generator=gen, dtype=dtype,
                        device=gen.device) * std
 

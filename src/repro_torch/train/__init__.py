@@ -1,4 +1,5 @@
-"""Training: the reference's AdamW and the loader-fed ViT trainer."""
+"""Training: the reference's AdamW, the LM train step (``train_step``) and
+the loader-fed ViT trainer."""
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
                                          adamw_update)
 

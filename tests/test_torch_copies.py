@@ -116,7 +116,10 @@ def test_tables_are_identical():
             np.testing.assert_array_equal(getattr(T, name), getattr(JT, name))
 
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "qwen2-7b-smoke"])
+@pytest.mark.parametrize("name", ["qwen2-7b", "qwen2-7b-smoke",
+                                  "granite-3-8b", "granite-3-8b-smoke",
+                                  "deepseek-coder-33b",
+                                  "deepseek-coder-33b-smoke"])
 def test_config_copy_matches_the_reference(name):
     from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
@@ -133,7 +136,8 @@ def test_config_copy_matches_the_reference(name):
 
 def test_config_copy_knows_only_what_the_port_runs():
     from repro_torch.configs import get_config, list_configs
-    assert list_configs() == ["qwen2-7b"]
+    assert list_configs() == ["deepseek-coder-33b", "granite-3-8b",
+                              "qwen2-7b"]
     cfg = get_config("qwen2-7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \

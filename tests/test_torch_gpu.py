@@ -582,3 +582,67 @@ def test_time_us_times_the_card_with_events(cuda):
     us = common.time_us(lambda: x @ x, repeats=3)
     # 2 * 4096^3 FLOPs take at least 2 ms at 67 TFLOP/s (FP32, no TF32)
     assert us >= 2 * 4096 ** 3 / 67e12 * 1e6
+
+
+# ------------------------------------------------------------- LM training
+def _lm_at_full_width(cuda, layers, dtype, seq, seed):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=layers,
+                              dtype=dtype)
+    params = model.init(torch.Generator(device=cuda).manual_seed(seed), cfg)
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)).to(cuda)
+    return cfg, params, {"tokens": tokens}
+
+
+def test_lm_gradients_through_the_float32_kernel_match_the_plain_loop(cuda):
+    """chip_smoke.py phase 11 (a) at depth 1 and S 256: qwen2-7b's width
+    in float32, ``lm_loss`` and every gradient leaf under remat through
+    the FFMA kernel against the plain loop (1e-5 relative; 1e-4 of each
+    leaf's largest |g|), 2 launches (forward and recompute) against 0."""
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.train_step import loss_and_grads
+    cfg, params, batch = _lm_at_full_width(cuda, 1, "float32", 256, 4)
+    out = {}
+    for route, ctx in (("kernel", ModelContext(remat="full")),
+                       ("plain", ModelContext(remat="full",
+                                              flash_kernel=False))):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        (loss, _), grads = loss_and_grads(params, batch, cfg, ctx)
+        torch.cuda.synchronize()
+        out[route] = (loss.item(), tree.flatten_with_names(grads),
+                      dict(ops.LAUNCHES))
+    assert out["kernel"][2]["flash_attention"] == 2
+    assert sum(out["kernel"][2].values()) == 2
+    assert sum(out["plain"][2].values()) == 0
+    assert abs(out["kernel"][0] - out["plain"][0]) <= \
+        1e-5 * abs(out["plain"][0])
+    want = out["plain"][1]
+    for name, got in out["kernel"][1].items():
+        scale = want[name].abs().max().item()
+        assert scale > 0, name
+        assert (got - want[name]).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_bf16_lm_backward_launches_wgmma_twice_per_layer_under_remat(cuda):
+    """A bf16 ``lm_loss`` backward at qwen2-7b's width (2 layers, S 256):
+    the wgmma kernel runs each layer's forward and its recompute, the
+    FFMA kernel never; with remat off, once per layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.train_step import loss_and_grads
+    cfg, params, batch = _lm_at_full_width(cuda, 2, "bfloat16", 256, 5)
+    for remat, want in (("full", 4), ("none", 2)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        (loss, _), grads = loss_and_grads(params, batch, cfg,
+                                          ModelContext(remat=remat))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention_wgmma"] == want, remat
+        assert sum(ops.LAUNCHES.values()) == want, remat
+        assert torch.isfinite(loss)

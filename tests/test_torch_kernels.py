@@ -304,3 +304,13 @@ def test_plain_flash_attention_matches_the_oracle_on_odd_shapes(S, rep):
                       ).reshape(B, H, S, D).transpose(0, 2, 1, 3)
     got = ops.flash_attention(_t(q), _t(k), _t(v)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", [-1, 2])
+def test_out_of_range_table_index_raises_on_the_cpu(bad):
+    """The CPU counterpart of tests/test_torch_gpu.py's NaN rows: an index
+    outside [0, T) (T = 2 here), -1 included, raises and returns nothing."""
+    qi = torch.zeros(100, dtype=torch.int32)
+    qi[70] = bad
+    with pytest.raises(IndexError):
+        ops.decode_batch(torch.ones(100, 64), qi, torch.ones(2, 64))
