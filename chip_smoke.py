@@ -207,6 +207,23 @@ and prints no result line:
    ``resumed from step 6``, and the step-6 checkpoint restored on the
    card must equal its stored leaves bit for bit. Prints the phase's
    seconds.
+12. The invariant checker on the card's machine, with the launch
+   counters zeroed just before and read just after (it launches no
+   kernel): (a) ``python -m repro_torch.analysis check`` in a subprocess
+   from the repo root (``PYTHONPATH=src``) over its default roots
+   (``src/repro_torch``, ``chip_smoke.py``, ``tools``) must exit 0 and
+   print ``analysis clean``, and ``rules`` must list the nine ids; (b)
+   a probe script whose parent holds a CUDA context starts a child that
+   touches CUDA: by ``fork`` the child must fail with CUDA's
+   re-initialisation error on its stderr, by ``spawn`` it must exit 0,
+   each child within its own timeout (a hang fails); the checker must
+   flag the fork source (``torch-cuda-in-fork``) and not the spawn one;
+   (c) a thread started inside ``use_device("cpu")`` must read
+   ``cuda:0``, and the checker flag it (``torch-thread-no-device``);
+   one that re-enters the starter's device must read ``cpu``, unflagged;
+   (d) printed only: the host ms of 50 small matmuls with an ``.item()``
+   each against one synchronise after the loop, in turns, beside the
+   card's name and power limit. Prints the phase's seconds.
 
 Before phases 3 to 11 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
@@ -222,7 +239,8 @@ The last lines are the service's launches (``{"service_launches":
 pipeline's (``{"training_launches": ...}``), the bench sweep's
 (``{"bench_launches": ...}``), the table views' kernel view, quick and
 ``--full`` (``{"tables_launches": ...}``), LM training's
-(``{"lm_training_launches": ...}``), the ``kernels`` JSON object
+(``{"lm_training_launches": ...}``), the invariant checker's (all
+zero, ``{"analysis_launches": ...}``), the ``kernels`` JSON object
 (``flash_attention``'s launches: phase 5's float32 check, phase 8's
 pipeline and phase 11's check; ``flash_attention_wgmma``'s: phase 5's
 prefill and phase 11's steps), the card's name and power limit, and
@@ -2810,6 +2828,245 @@ def _lm_launcher():
     shutil.rmtree(ckpt)
 
 
+ANALYSIS_TIMEOUT_S = 300        # the checker over the port, in a subprocess
+CHILD_TIMEOUT_S = 120           # each probe's child process or thread
+DEVICE_RULE_IDS = ("torch-thread-no-device", "torch-cuda-in-fork",
+                   "torch-host-sync-in-loop")
+
+#: (b)'s probe, a script of its own: the parent takes a CUDA context,
+#: then starts a child by ``{method}`` that touches CUDA. It prints the
+#: child's exit code; the child's traceback goes to stderr.
+FORK_PROBE = """\
+import multiprocessing as mp
+import sys
+
+import torch
+
+
+def touch_cuda():
+    x = torch.ones(4, device="cuda")
+    torch.cuda.synchronize()
+    print("child sum", float(x.sum()), flush=True)
+
+
+def main(timeout):
+    torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    child = mp.get_context("{method}").Process(target=touch_cuda)
+    child.start()
+    child.join(timeout)
+    if child.is_alive():
+        child.kill()
+        child.join()
+        print("child hung", flush=True)
+        return 3
+    print("child exit code", child.exitcode, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(float(sys.argv[1])))
+"""
+
+#: (c)'s probes, run in this process: a thread started inside
+#: ``use_device("cpu")`` reads the device, bare and re-entering the
+#: starter's device.
+THREAD_PROBE = """\
+import threading
+
+from repro_torch.device import current_device, use_device
+
+
+def report(out):
+    out.append(str(current_device()))
+
+
+def start(out, timeout):
+    with use_device("cpu"):
+        t = threading.Thread(target=report, args=(out,), daemon=True)
+        t.start()
+        t.join(timeout)
+"""
+
+THREAD_PROBE_SCOPED = """\
+import threading
+
+from repro_torch.device import current_device, selected_device, use_device
+
+
+def report(dev, out):
+    with use_device(dev):
+        out.append(str(current_device()))
+
+
+def start(out, timeout):
+    with use_device("cpu"):
+        t = threading.Thread(target=report, args=(selected_device(), out),
+                             daemon=True)
+        t.start()
+        t.join(timeout)
+"""
+
+
+def phase_analysis():
+    """Phase 12: the invariant checker over the port on the card's
+    machine, and the two runtime facts behind its device rules; returns
+    the launches during the phase (none)."""
+    import torch
+    from repro_torch.kernels import ops
+    print("== phase 12: the invariant checker on the card's machine")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _analysis_check()
+    _fork_probe()
+    _thread_probe()
+    _sync_in_loop_ms()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"phase 12 launched a kernel: {launches}")
+    print(f"phase 12: {time.perf_counter() - t_phase} s; launches "
+          f"{launches}")
+    return launches
+
+
+def _analysis_cli(*argv):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    try:
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", *argv], cwd=ROOT,
+            env=env, capture_output=True, text=True,
+            timeout=ANALYSIS_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"repro_torch.analysis {argv} hung: {e}")
+
+
+def _analysis_check():
+    """(a): ``python -m repro_torch.analysis check`` from the repo root
+    exits 0 with ``analysis clean``; ``rules`` lists the nine ids."""
+    t0 = time.perf_counter()
+    run = _analysis_cli("check")
+    dt = time.perf_counter() - t0
+    print(run.stdout.strip())
+    check(run.returncode == 0 and "analysis clean" in run.stdout,
+          f"(a) analysis check exited {run.returncode}: "
+          f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    rules = _analysis_cli("rules")
+    ids = [line for line in rules.stdout.splitlines()
+           if line and not line.startswith(" ")]
+    check(rules.returncode == 0 and len(ids) == 9 and
+          set(DEVICE_RULE_IDS) <= set(ids),
+          f"(a) analysis rules exited {rules.returncode}: {ids}")
+    print(f"(a) python -m repro_torch.analysis check: exit 0, analysis "
+          f"clean, {dt} s; rules: {', '.join(ids)}")
+
+
+def _flagged(source, rule):
+    from repro_torch.analysis import analyze_source
+    return analyze_source(source, path="probe.py", only=[rule])
+
+
+def _fork_probe():
+    """(b): with the parent holding a context, a forked child that
+    touches CUDA fails with CUDA's re-initialisation error; under spawn
+    it exits 0. The checker flags the fork source and not the spawn."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for method in ("fork", "spawn"):
+            source = FORK_PROBE.replace("{method}", method)
+            script = os.path.join(tmp, f"probe_{method}.py")
+            with open(script, "w") as f:
+                f.write(source)
+            try:
+                run = subprocess.run(
+                    [sys.executable, script, str(CHILD_TIMEOUT_S)],
+                    capture_output=True, text=True,
+                    timeout=CHILD_TIMEOUT_S + 120)
+            except subprocess.TimeoutExpired as e:
+                raise SmokeFailure(f"(b) the {method} probe hung: {e}")
+            said = [line for line in run.stdout.splitlines()
+                    if line.startswith("child exit code")]
+            check(run.returncode == 0 and len(said) == 1,
+                  f"(b) the {method} probe exited {run.returncode}: "
+                  f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+            code = int(said[0].split()[-1])
+            found = _flagged(source, "torch-cuda-in-fork")
+            if method == "fork":
+                check(code != 0 and "re-initialize CUDA" in run.stderr,
+                      f"(b) the forked child exited {code} without CUDA's "
+                      f"re-initialisation error: {run.stderr[-2000:]}")
+                check(len(found) == 1 and "touch_cuda()" in
+                      found[0].message,
+                      f"(b) the checker did not flag the fork source: "
+                      f"{[f.render() for f in found]}")
+                error = [line for line in run.stderr.splitlines()
+                         if "re-initialize CUDA" in line][0]
+                print(f"(b) fork: child exit code {code}; {error.strip()}; "
+                      f"flagged: {found[0].render()}")
+            else:
+                check(code == 0 and "child sum 4.0" in run.stdout,
+                      f"(b) the spawned child exited {code}: "
+                      f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+                check(found == [], f"(b) the checker flagged the spawn "
+                      f"source: {[f.render() for f in found]}")
+                print(f"(b) spawn: child exit code {code}, not flagged")
+
+
+def _thread_probe():
+    """(c): a thread started inside ``use_device("cpu")`` reads
+    ``cuda:0``, and the checker flags it; the thread that re-enters the
+    starter's device reads ``cpu``, and the checker does not."""
+    for source, want, flags in ((THREAD_PROBE, "cuda:0", 1),
+                                (THREAD_PROBE_SCOPED, "cpu", 0)):
+        space = {}
+        exec(compile(source, "probe.py", "exec"), space)
+        out = []
+        space["start"](out, CHILD_TIMEOUT_S)
+        check(out == [want], f"(c) the thread read {out}, want [{want!r}] "
+              f"(an empty list: it hung)")
+        found = _flagged(source, "torch-thread-no-device")
+        check(len(found) == flags,
+              f"(c) the checker gave {[f.render() for f in found]} for the "
+              f"thread reading {want}, want {flags} finding(s)")
+        print(f"(c) a thread started inside use_device('cpu') read {out[0]}"
+              f" ({'bare' if flags else 're-entering the device'}); "
+              f"findings: {[f.render() for f in found]}")
+
+
+def _sync_in_loop_ms(steps=50, reps=5):
+    """(d), printed only: host ms of ``steps`` small matmuls with an
+    ``.item()`` each, against one synchronise after the loop, in turns."""
+    import torch
+    a = torch.randn(256, 256, device="cuda") / 16
+
+    def per_step():
+        x = a
+        for _ in range(steps):
+            x = torch.tanh(x @ a)
+            x.sum().item()
+
+    def once():
+        x = a
+        for _ in range(steps):
+            x = torch.tanh(x @ a)
+        torch.cuda.synchronize()
+
+    times = {"item per step": [], "one sync": []}
+    for fn in (per_step, once):
+        fn()
+    for k in range(reps):
+        for name, fn in ((("item per step", per_step), ("one sync", once))
+                         if k % 2 == 0 else
+                         (("one sync", once), ("item per step", per_step))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"(d) {steps} matmuls of 256x256, host ms over {reps} turns: "
+          f"{ {k: sorted(v) for k, v in times.items()} } ({smi_line()})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2845,6 +3102,7 @@ def main() -> int:
         bench_launches = phase_bench()
         tables_launches = phase_tables()
         lm_training_launches = phase_lm_train()
+        analysis_launches = phase_analysis()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2865,6 +3123,7 @@ def main() -> int:
     print(json.dumps({"bench_launches": bench_launches}))
     print(json.dumps({"tables_launches": tables_launches}))
     print(json.dumps({"lm_training_launches": lm_training_launches}))
+    print(json.dumps({"analysis_launches": analysis_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -169,6 +169,9 @@ class CheckpointManager:
             self._raise_pending()
         else:
             self._thread = threading.Thread(
+                # it gets host copies (_host_copy above): its torch calls
+                # are isinstance tests and host reads, on no device
+                # repro: ignore[torch-thread-no-device] -- host copies only
                 target=self._write, args=(step, host_state, extra),
                 daemon=True, name=f"checkpoint-step-{step}")
             self._thread.start()

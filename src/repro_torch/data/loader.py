@@ -617,6 +617,9 @@ def _prefetch(iterator, size: int, dev: torch.device):
             error.append(e)
         finally:
             for event, _ in inflight:
+                # the exit drain: pinned sources must outlive their
+                # copies; once a pass, over at most the prefetch depth
+                # repro: ignore[torch-host-sync-in-loop] -- exit drain
                 event.synchronize()
             _put(sentinel)
 

@@ -194,6 +194,9 @@ def _cuda_idct(data: bytes, strict: bool = False) -> np.ndarray:
             by, bx = deq.shape[:2]
             blocks = ops.idct8x8(_to_device(deq.reshape(-1, 64)))
             planes.append(pipeline.assemble_plane_np(
+                # host plane assembly takes each component back; device-
+                # resident assembly (ROADMAP queue 1 item 10) would not
+                # repro: ignore[torch-host-sync-in-loop] -- ROADMAP item 10
                 blocks.cpu().numpy().reshape(by, bx, 8, 8)) + 128.0)
     return pipeline.assemble_image(spec, planes)
 
@@ -209,6 +212,9 @@ def _cuda_fused(data: bytes) -> np.ndarray:
                 _to_device(coef[c.cid].reshape(-1, 64)),
                 _to_device(q.reshape(64)))
             planes.append(pipeline.assemble_plane_np(
+                # host plane assembly takes each component back; device-
+                # resident assembly (ROADMAP queue 1 item 10) would not
+                # repro: ignore[torch-host-sync-in-loop] -- ROADMAP item 10
                 blocks.cpu().numpy().reshape(by, bx, 8, 8)))
     return pipeline.assemble_image(spec, planes, ycbcr_fn=_ycbcr_kernel)
 

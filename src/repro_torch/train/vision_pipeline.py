@@ -149,6 +149,10 @@ def train(state, loader: DataLoader, *, steps: int,
             _sync(device)
             report["step_s"] += time.perf_counter() - ts
             report["losses"].append(float(metrics["loss"]))
+            # the report keeps each step's labels, as the reference's
+            # train() does, after the step was synchronised for step_s;
+            # a graphed step (ROADMAP queue 1 item 11) would batch them
+            # repro: ignore[torch-host-sync-in-loop] -- ROADMAP item 11
             report["labels"].append(batch["label"].cpu().numpy())
             done += 1
             if done % log_every == 0:
