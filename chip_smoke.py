@@ -224,6 +224,28 @@ and prints no result line:
    (d) printed only: the host ms of 50 small matmuls with an ``.item()``
    each against one synchronise after the loop, in turns, beside the
    card's name and power limit. Prints the phase's seconds.
+13. The dry-run on the card's machine (it launches no kernel; the
+   launch counters are zeroed just before and read just after): (a)
+   ``python -m repro_torch.launch.dryrun --all --force`` in a subprocess
+   into a scratch directory under ``artifacts/`` (never
+   ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells) must
+   exit 0 with 9 ``ok``, 31 ``skipped`` and 0 ``error`` pod records and
+   40 skipped multi-pod ones; the port's roofline view, pointed at that
+   directory in this process, must read ``pod ok=9 skipped=31 err=0;
+   multipod ok=0`` and print the nine cells' rows. (b) ``run_cell``
+   of ``qwen2-7b`` x ``train_4k`` and the counts of (c) and (d), made in
+   this process beside the live CUDA context, must leave
+   ``torch.cuda.memory_allocated()``, the allocator's count of
+   allocations and ``ops.LAUNCHES`` unchanged (the garbage of earlier
+   phases collected first) and never call ``build.kernel``. (c) Phase 11's bf16 cell (4 layers,
+   2 x 2048, remat full, 256-row chunks, the launcher's AdamW) counted
+   by ``dryrun_lib.count_cell``: its predicted peak (argument + temp
+   bytes) over phase 11's ``max_memory_allocated`` of the uncompressed
+   steps must lie within 0.85-1.15. (d) Printed only: the dry-run's
+   ``bound_s`` and dominant term beside the measured seconds of phase
+   5's bf16 prefill (counted as ``vmem_flash``), one of its decode steps
+   and phase 11's step. The phase must end within 240 s; prints its
+   seconds.
 
 Before phases 3 to 11 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
@@ -240,7 +262,8 @@ pipeline's (``{"training_launches": ...}``), the bench sweep's
 (``{"bench_launches": ...}``), the table views' kernel view, quick and
 ``--full`` (``{"tables_launches": ...}``), LM training's
 (``{"lm_training_launches": ...}``), the invariant checker's (all
-zero, ``{"analysis_launches": ...}``), the ``kernels`` JSON object
+zero, ``{"analysis_launches": ...}``), the dry-run's (all zero,
+``{"dryrun_launches": ...}``), the ``kernels`` JSON object
 (``flash_attention``'s launches: phase 5's float32 check, phase 8's
 pipeline and phase 11's check; ``flash_attention_wgmma``'s: phase 5's
 prefill and phase 11's steps), the card's name and power limit, and
@@ -387,6 +410,10 @@ def parent_lines(label, kern, q, k, v, causal):
     print(f"parent kernel at {label}: parent {times['parent']} ms, this "
           f"kernel {times['this']} ms (interleaved; max diff {diff}); "
           f"speedup {min(times['parent']) / min(times['this'])}")
+
+
+#: what phases 5 and 11 measured, for phase 13's bounds
+MEASURED = {}
 
 
 def phase_build():
@@ -1546,6 +1573,9 @@ def phase_lm(profile):
           out.max().item() < cfg.padded_vocab_size, "ids out of range")
     pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
     n_dec = LM_BATCH * (LM_NEW - 1)
+    MEASURED["lm_serve"] = {"cfg": cfg, "ctx": ctx, "cache_len": cache_len,
+                            "prefill_s": pre_s,
+                            "decode_step_s": dec_s / (LM_NEW - 1)}
     print(f"prefill: {LM_BATCH * LM_PROMPT} tokens in {pre_s} s, "
           f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s")
     print(f"decode: {n_dec} tokens in {dec_s} s ({LM_NEW - 1} steps of "
@@ -2748,6 +2778,8 @@ def _lm_train_steps(card):
     del first, state
     med = statistics.median(ms[1:])
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    MEASURED["lm_train"] = {"cfg": cfg, "ctx": ctx, "opt_cfg": opt_cfg,
+                            "step_s": med / 1e3, "peak": peak}
     print(f"(b) step {med} ms (median of steps 2-{LM_TRAIN_STEPS}), "
           f"{tokens / med * 1e3} tokens/s, peak device memory {peak} bytes; "
           f"layer 0 wq moved by up to {moved} ({card})")
@@ -3067,6 +3099,188 @@ def _sync_in_loop_ms(steps=50, reps=5):
           f"{ {k: sorted(v) for k, v in times.items()} } ({smi_line()})")
 
 
+DRYRUN_TIMEOUT_S = 600          # the whole matrix, in a subprocess
+DRYRUN_MATRIX = {"pod": {"ok": 9, "skipped": 31, "error": 0},
+                 "multipod": {"ok": 0, "skipped": 40, "error": 0}}
+DRYRUN_FIRST_ROW = "pod ok=9 skipped=31 err=0; multipod ok=0"
+DRYRUN_CELL = ("qwen2-7b", "train_4k")      # (b): counted in this process
+#: (c): predicted / measured peak of phase 11's uncompressed steps; fixed
+#: before the first card run
+DRYRUN_PEAK_RATIO = (0.85, 1.15)
+PHASE13_LIMIT_S = 240
+
+
+def phase_dryrun():
+    """Phase 13: the dry-run (``python -m repro_torch.launch.dryrun``) on
+    the card's machine; returns the launches during the phase (none)."""
+    import torch
+    from repro_torch.kernels import ops
+    print("== phase 13: the dry-run on the card's machine")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _dryrun_matrix()
+    counts = _dryrun_in_process()
+    _dryrun_memory(counts["train"], card)
+    _dryrun_bounds(counts, card)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"phase 13 launched a kernel: {launches}")
+    dt = time.perf_counter() - t_phase
+    print(f"phase 13: {dt} s (limit {PHASE13_LIMIT_S} s); launches "
+          f"{launches}")
+    check(dt <= PHASE13_LIMIT_S, f"phase 13 took {dt} s")
+    return launches
+
+
+def _dryrun_matrix():
+    """(a): the whole matrix in a subprocess, into a scratch directory (not
+    artifacts/dryrun_torch/, which phase 10 holds at zero cells), then the
+    port's roofline view over it in this process."""
+    import glob
+    import tempfile
+    from repro_torch.bench.views import roofline
+    os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="phase13_dryrun_",
+                           dir=os.path.join(ROOT, "artifacts"))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--force", "--out", out], capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=SRC),
+        cwd=ROOT)
+    dt = time.perf_counter() - t0
+    lines = (r.stdout + r.stderr).strip().splitlines()
+    for line in lines[-4:]:
+        print(f"(a) dryrun --all: {line}")
+    check(r.returncode == 0, f"(a) the dry-run exited {r.returncode}")
+    got = {kind: {"ok": 0, "skipped": 0, "error": 0}
+           for kind in DRYRUN_MATRIX}
+    for path in glob.glob(os.path.join(out, "*.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        got[rec["mesh_name"]][rec["status"]] += 1
+    print(f"(a) dryrun --all: {dt} s; records {got}")
+    check(got == DRYRUN_MATRIX, f"(a) records {got}, want {DRYRUN_MATRIX}")
+    saved = roofline.DRYRUN_DIR
+    roofline.DRYRUN_DIR = out
+    try:
+        rows = roofline.run()
+    finally:
+        roofline.DRYRUN_DIR = saved
+    check(rows and rows[0][2] == DRYRUN_FIRST_ROW,
+          f"(a) the roofline view's first row: {rows[:1]}")
+    cells = [row for row in rows if row[0].count(".") == 2]
+    for name, us, derived in cells:
+        print(f"(a) {name}: bound {us} us, {derived}")
+    check(len(cells) == DRYRUN_MATRIX["pod"]["ok"],
+          f"(a) the roofline view has {len(cells)} cell rows")
+    shutil.rmtree(out)
+
+
+def _cuda_memory():
+    """(bytes allocated now, allocations made so far) on the card, after
+    collecting the garbage of earlier phases (a collection during the
+    count would free their CUDA tensors and read as the count's)."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats().get("allocation.all.allocated", 0))
+
+
+def _dryrun_in_process():
+    """(b): cells counted in this process beside a live CUDA context: no
+    CUDA memory (none held more, none allocated even for a while), no
+    launch and no kernel build. Returns the counts that (c) and (d)
+    read."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import dryrun_lib
+    calls = []
+    real = build.kernel
+
+    def refuse(name):
+        calls.append(name)
+        raise RuntimeError(f"the dry-run reached kernel {name}")
+    (mem0, allocs0), launches0 = _cuda_memory(), dict(ops.LAUNCHES)
+    build.kernel = refuse
+    try:
+        t0 = time.perf_counter()
+        rec = dryrun_lib.run_cell(*DRYRUN_CELL)
+        dt = time.perf_counter() - t0
+        train = MEASURED["lm_train"]
+        counts = {"train": dryrun_lib.count_cell(
+            train["cfg"], ShapeConfig("phase11_train", "train",
+                                      LM_TRAIN_SEQ, LM_TRAIN_BATCH),
+            train["ctx"], opt_cfg=train["opt_cfg"])}
+        serve = MEASURED["lm_serve"]
+        counts["prefill"] = dryrun_lib.count_cell(
+            serve["cfg"], ShapeConfig("phase5_prefill", "prefill",
+                                      LM_PROMPT, LM_BATCH),
+            serve["ctx"], fused_scopes=(dryrun_lib.FLASH_SCOPE,))
+        counts["decode"] = dryrun_lib.count_cell(
+            serve["cfg"], ShapeConfig("phase5_decode", "decode",
+                                      serve["cache_len"], LM_BATCH),
+            serve["ctx"])
+    finally:
+        build.kernel = real
+    (mem1, allocs1), launches1 = _cuda_memory(), dict(ops.LAUNCHES)
+    print(f"(b) run_cell{DRYRUN_CELL}: {rec['status']} in {dt} s, "
+          f"{rec.get('cost')}; CUDA memory allocated {mem0} -> {mem1} "
+          f"bytes, allocations {allocs0} -> {allocs1}; launches "
+          f"{launches0} -> {launches1}; build.kernel calls {calls}")
+    check(rec["status"] == "ok", f"(b) run_cell: {rec}")
+    check(mem1 == mem0 and allocs1 == allocs0,
+          f"(b) CUDA memory {mem0} -> {mem1} bytes, allocations {allocs0} "
+          f"-> {allocs1} around the dry-run")
+    check(launches1 == launches0, "(b) the dry-run launched a kernel")
+    check(not calls, f"(b) the dry-run reached build.kernel: {calls}")
+    return counts
+
+
+def _dryrun_memory(counts, card):
+    """(c): the predicted peak of phase 11's cell against the card's."""
+    lo, hi = DRYRUN_PEAK_RATIO
+    measured = MEASURED["lm_train"]["peak"]
+    predicted = counts["peak_bytes"]
+    ratio = predicted / measured
+    print(f"(c) phase 11's cell ({LM_TRAIN_LAYERS} layers, "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, remat full): predicted peak "
+          f"{predicted} bytes (argument {counts['argument_bytes']} + temp "
+          f"{predicted - counts['argument_bytes']}), measured "
+          f"max_memory_allocated {measured} bytes, ratio {ratio} (bound "
+          f"{lo}-{hi}; {card})")
+    check(lo <= ratio <= hi, f"(c) predicted/measured peak {ratio}")
+
+
+def _dryrun_bounds(counts, card):
+    """(d): each phase's measured seconds against the dry-run's bound
+    (printed, not checked)."""
+    from repro_torch.common import hw
+    measured = {"prefill": MEASURED["lm_serve"]["prefill_s"],
+                "decode": MEASURED["lm_serve"]["decode_step_s"],
+                "train": MEASURED["lm_train"]["step_s"]}
+    labels = {"prefill": f"phase 5 bf16 prefill, {LM_BATCH} x {LM_PROMPT}, "
+                         f"counted as vmem_flash (cache of {LM_PROMPT} "
+                         f"rows; phase 5 pads to "
+                         f"{MEASURED['lm_serve']['cache_len']})",
+              "decode": f"phase 5 decode step, {LM_BATCH} x 1 against "
+                        f"{MEASURED['lm_serve']['cache_len']} cache rows",
+              "train": f"phase 11 bf16 step, {LM_TRAIN_LAYERS} layers, "
+                       f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}"}
+    for key, c in counts.items():
+        terms = hw.roofline_terms(c["flops"], c["bytes"], 0.0)
+        print(f"(d) {labels[key]}: {c['flops']} FLOPs ({c['matmul_flops']} "
+              f"in matmuls), {c['bytes']} bytes; bound_s "
+              f"{terms['bound_s']} ({terms['dominant']}; compute_s "
+              f"{terms['compute_s']}, memory_s {terms['memory_s']}); "
+              f"measured {measured[key]} s; bound_s / measured "
+              f"{terms['bound_s'] / measured[key]} ({card})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3103,6 +3317,7 @@ def main() -> int:
         tables_launches = phase_tables()
         lm_training_launches = phase_lm_train()
         analysis_launches = phase_analysis()
+        dryrun_launches = phase_dryrun()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3124,6 +3339,7 @@ def main() -> int:
     print(json.dumps({"tables_launches": tables_launches}))
     print(json.dumps({"lm_training_launches": lm_training_launches}))
     print(json.dumps({"analysis_launches": analysis_launches}))
+    print(json.dumps({"dryrun_launches": dryrun_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

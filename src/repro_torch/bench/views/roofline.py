@@ -1,9 +1,12 @@
 """Roofline summary over the dry-run artifacts (deliverable g).
 
-Reads artifacts/dryrun_torch/*.json (the port's own dry-run artifacts;
-never the reference's TPU ones in artifacts/dryrun/), renders the single-pod
-table + the multi-pod shardability check, and names the dominant bottleneck
-per cell. The port has no dry-run yet, so the view reports zero cells.
+Reads artifacts/dryrun_torch/*.json (the port's own dry-run artifacts,
+written by ``python -m repro_torch.launch.dryrun``; never the reference's
+TPU ones in artifacts/dryrun/), renders the single-pod table + the
+multi-pod shardability check, and names the dominant bottleneck per cell.
+The port's dry-run counts one H100 (``common.hw.H100_SXM``): its pod
+records are one card's, and its multi-pod records are all skipped. With
+no dry-run written yet the view reports zero cells.
 """
 from __future__ import annotations
 

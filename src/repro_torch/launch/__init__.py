@@ -1,1 +1,2 @@
-"""Entry points of the port: ``python -m repro_torch.launch.train``."""
+"""Entry points of the port: ``python -m repro_torch.launch.train`` and
+``python -m repro_torch.launch.dryrun``."""

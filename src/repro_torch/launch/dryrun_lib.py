@@ -1,0 +1,552 @@
+"""Dry-run engine: count every (arch x shape) cell on ``meta`` tensors and
+write the roofline artifacts.
+
+Port of the reference's ``launch/dryrun_lib.py`` for one card. The
+reference lowers and compiles each cell with XLA and reads the compiled
+HLO (``common/hlo.py``); the port makes no HLO. It runs each cell's step
+(``make_train_step``, ``model.prefill``, ``model.decode_step``) on
+``meta`` tensors, which carry shapes and dtypes and no memory, under one
+``TorchDispatchMode`` (``Counter``) that sees every aten op and counts:
+
+* FLOPs by ``hlo.py``'s rules: a matmul (``mm``, ``bmm``, ``addmm``,
+  ``baddbmm``; ``einsum`` and ``@`` reach these) 2·M·N·K, as
+  ``torch.utils.flop_counter`` counts it; a pointwise op one FLOP per
+  output element; a reduction its input's elements; a softmax five per
+  element; copies, casts, indexing and factories none;
+* bytes: the operand and output bytes of every op that is not a view, a
+  reshape or a metadata op (``hlo.py``'s memory model without fusion,
+  which is also eager PyTorch's on the card: it does not fuse); indexing
+  reads only what it gathers (2 x the output), a scatter or
+  ``index_put`` 3 x its update, a ``copy_`` its source and destination;
+* memory: the bytes of the live storages after every op. Storages, not
+  tensors: autograd keeps saved tensors alive in C++ after their Python
+  objects are gone, and a storage's Python object lives exactly as long
+  as its C++ storage, so a weak reference to it ends when the storage
+  does.
+
+Under ``ctx_overrides["fused_scopes"]`` (a pseudo-key, as in the
+reference) an op inside a named scope of that list
+(``models.layers.named_scope``) keeps its FLOPs and loses its bytes,
+except that the first read of a storage made outside every fused scope
+counts its bytes once. With ``["vmem_flash"]`` the KV-block body of the
+plain attention loop is counted as the flash kernels move it: its inputs
+(each q block, k, v, the running state) read once, its intermediates
+never written. The q block's float32 cast, the state's zeros and the
+final normalisation lie outside the scope, as in the reference, and stay
+counted as eager ops; so does the backward of the scope's ops, which
+runs outside it (on the card it is plain float32 math).
+
+The meta path never reaches a kernel: ``layers._flash_case`` needs a
+CUDA tensor, so attention takes the plain chunked loop, which is the
+computation the reference's HLO holds (its models never launch the
+Pallas kernel). Nothing is allocated on any device.
+
+Depth by repeat: the counterpart of ``hlo.py``'s while-loop trip
+counts. Each cell is counted at depths 2 and 3 of its stage; the
+difference is one repeat of the layer, counted in its place, with a
+layer before it and the rest of the step after it, and the cell is
+extrapolated to its ``repeat`` linearly: ``f(R) = f(2) + (R - 2) (f(3)
+- f(2))``. FLOPs, bytes, argument and output bytes are linear in depth,
+so this is exact; so is the peak wherever it falls at the same point of
+each layer, which depth 1 misses in prefill (no layer before it holds
+its raw k and v while the next one runs). ``tests/test_torch_dryrun.py``
+holds both against ``unroll=True``.
+
+Collectives are zero on one card; the keys stay. The roofline is
+``common.hw.roofline_terms`` at the card's dense bf16 rate, as the
+reference's convention. Only the dense family is ported: the other
+seven architectures of the reference get ``skipped`` records, and so
+does every multi-pod cell (one card has no multi-pod mesh).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+import traceback
+import weakref
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.common import hw
+from repro_torch.configs import SHAPES, get_config, list_configs, \
+    shape_applicable
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding as shardlib
+from repro_torch.launch import specs as speclib
+from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.models import model
+from repro_torch.models.layers import ModelContext, ShapesOnly, \
+    current_scopes
+from repro_torch.train import OptimizerConfig
+from repro_torch.train.train_step import make_train_state_shapes, \
+    make_train_step
+
+#: the reference's architectures whose family the port does not run
+#: (names only: the port keeps no config of theirs)
+REFERENCE_ONLY_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b", "gemma3-4b",
+                        "llama-3.2-vision-90b", "mamba2-370m",
+                        "musicgen-medium", "zamba2-2.7b")
+NOT_PORTED = "family not ported (ROADMAP queue 1 item 4)"
+NO_MULTIPOD = "one card: no multi-pod mesh"
+#: the scope the plain attention loop's KV-block body runs in
+FLASH_SCOPE = "vmem_flash"
+
+aten = torch.ops.aten
+
+# ------------------------------------------------------------------ rules
+_FREE, _MM, _BMM, _POINTWISE, _REDUCE, _SOFTMAX, _COPY, _GATHER, \
+    _SCATTER, _WRITE, _OTHER = range(11)
+
+
+def _ops(*names: str) -> set:
+    """The aten overloads named ``"op.overload"`` that this torch has."""
+    found = set()
+    for name in names:
+        packet, _, overload = name.partition(".")
+        op = getattr(getattr(aten, packet, None), overload, None)
+        if op is not None:
+            found.add(op)
+    return found
+
+
+#: ops that move no bytes and do no arithmetic: metadata, allocation
+#: without a fill, and aliases that are not marked as views
+_FREE_OPS = _ops(
+    "detach.default", "_unsafe_view.default", "alias.default",
+    "lift_fresh.default", "empty.memory_format", "empty_strided.default",
+    "new_empty.default", "new_empty_strided.default", "empty_like.default",
+    "_local_scalar_dense.default", "sym_size.int", "sym_stride.int",
+    "sym_numel.default", "sym_storage_offset.default",
+    "is_same_size.default", "set_.source_Storage_storage_offset")
+#: factories and fills: they write their output and compute nothing
+_WRITE_OPS = _ops(
+    "zeros.default", "ones.default", "full.default", "arange.default",
+    "arange.start", "arange.start_step", "scalar_tensor.default",
+    "zeros_like.default", "ones_like.default", "full_like.default",
+    "new_zeros.default", "new_ones.default", "new_full.default",
+    "fill_.Scalar", "fill_.Tensor", "zero_.default")
+#: gathers read only what they return (``hlo.py``: 2 x the output)
+_GATHER_OPS = _ops("index.Tensor", "gather.default", "index_select.default",
+                   "embedding.default")
+#: scatters read the region and the update and write the region
+#: (``hlo.py``: 3 x the update); the update is the last tensor argument
+_SCATTER_OPS = _ops("index_put.default", "index_put_.default",
+                    "_index_put_impl_.default", "scatter.src", "scatter_.src",
+                    "scatter_add.default", "scatter_add_.default",
+                    "index_add.default", "index_add_.default")
+_SOFTMAX_OPS = _ops("_softmax.default", "_log_softmax.default",
+                    "_softmax_backward_data.default",
+                    "_log_softmax_backward_data.default")
+# a matmul's two factors are its last two tensor arguments
+_RULES: Dict[Any, int] = {aten.mm.default: _MM, aten.bmm.default: _BMM,
+                          aten.addmm.default: _MM,
+                          aten.baddbmm.default: _BMM,
+                          aten.copy_.default: _COPY,
+                          # a copy, tagged pointwise: no arithmetic
+                          aten.clone.default: _OTHER,
+                          # in place, untagged: one FLOP an element
+                          aten.masked_fill_.Scalar: _POINTWISE}
+_RULES.update({op: _FREE for op in _FREE_OPS})
+_RULES.update({op: _WRITE for op in _WRITE_OPS})
+_RULES.update({op: _GATHER for op in _GATHER_OPS})
+_RULES.update({op: _SCATTER for op in _SCATTER_OPS})
+_RULES.update({op: _SOFTMAX for op in _SOFTMAX_OPS})
+_POINTWISE_TAG = torch.Tag.pointwise
+_REDUCTION_TAG = getattr(torch.Tag, "reduction", None)
+
+
+def _rule(func) -> int:
+    rule = _RULES.get(func)
+    if rule is None:
+        if func.is_view:
+            rule = _FREE
+        elif _POINTWISE_TAG in func.tags:
+            rule = _POINTWISE
+        elif _REDUCTION_TAG is not None and _REDUCTION_TAG in func.tags:
+            rule = _REDUCE
+        else:
+            rule = _OTHER
+        _RULES[func] = rule
+    return rule
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    """Bytes of a tensor's distinct elements (a broadcast dim counts once)."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n
+
+
+def _tensors(args, kwargs) -> list:
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, (list, tuple)):
+            out.extend(x for x in a if isinstance(x, torch.Tensor))
+    if kwargs:
+        out.extend(v for v in kwargs.values() if isinstance(v, torch.Tensor))
+    return out
+
+
+def _outputs(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [x for x in out if isinstance(x, torch.Tensor)]
+    return []
+
+
+def _leaves(tree) -> Iterable[Any]:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ------------------------------------------------------------------ counting
+_MADE_FUSED, _READ_FUSED = 1, 2     # storage flags
+
+
+class Counter(TorchDispatchMode):
+    """Counts FLOPs, bytes and live storage bytes of every aten op run
+    under it (see the module docstring). ``fused_scopes``: scope names
+    whose ops keep their FLOPs and lose their bytes."""
+
+    def __init__(self, fused_scopes: Tuple[str, ...] = ()):
+        super().__init__()
+        self.fused_scopes = frozenset(fused_scopes)
+        self.flops = 0
+        self.matmul_flops = 0
+        self.bytes = 0
+        self.ops = 0
+        self.live = 0
+        self.peak = 0
+        # id(storage) -> [weakref, nbytes, flags]
+        self._storages: Dict[int, list] = {}
+
+    # -- storages
+    def _gone(self, key: int, nbytes: int) -> Callable:
+        def done(_ref):
+            self.live -= nbytes
+            self._storages.pop(key, None)
+        return done
+
+    def track(self, t: torch.Tensor, flags: int = 0) -> None:
+        """Note ``t``'s storage as live (once)."""
+        st = t.untyped_storage()
+        key = id(st)
+        if key not in self._storages:
+            nbytes = st.nbytes()
+            self._storages[key] = [weakref.ref(st, self._gone(key, nbytes)),
+                                   nbytes, flags]
+            self.live += nbytes
+            if self.live > self.peak:
+                self.peak = self.live
+
+    def _fused_read_bytes(self, t: torch.Tensor) -> int:
+        """Inside a fused scope: the bytes of ``t``'s storage the first
+        time a fused region reads it, if it was made outside one."""
+        rec = self._storages.get(id(t.untyped_storage()))
+        if rec is None:
+            return _nbytes(t)
+        if rec[2]:
+            return 0
+        rec[2] |= _READ_FUSED
+        return rec[1]
+
+    # -- dispatch
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops += 1
+        outs = _outputs(out)
+        fused = bool(self.fused_scopes) and \
+            not self.fused_scopes.isdisjoint(current_scopes())
+        for o in outs:      # a view's storage is known; ``empty``'s is new
+            self.track(o, _MADE_FUSED if fused else 0)
+        rule = _rule(func)
+        if rule == _FREE:
+            return out
+        ins = _tensors(args, kwargs)
+        flops = 0
+        if rule == _MM:
+            a, b = ins[-2], ins[-1]
+            flops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+            self.matmul_flops += flops
+        elif rule == _BMM:
+            a, b = ins[-2], ins[-1]
+            flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+            self.matmul_flops += flops
+        elif rule == _POINTWISE:
+            flops = sum(o.numel() for o in outs)
+        elif rule == _REDUCE:
+            flops = ins[0].numel() if ins else 0
+        elif rule == _SOFTMAX:
+            flops = 5 * outs[0].numel()
+        self.flops += flops
+        if fused:
+            self.bytes += sum(self._fused_read_bytes(t) for t in ins)
+            return out
+        if rule == _GATHER:
+            self.bytes += 2 * sum(_nbytes(o) for o in outs)
+        elif rule == _SCATTER:
+            self.bytes += 3 * _nbytes(ins[-1])
+        elif rule == _COPY:
+            self.bytes += _nbytes(ins[0]) + _nbytes(ins[1])
+        elif rule == _WRITE:
+            self.bytes += sum(_nbytes(o) for o in outs)
+        else:
+            self.bytes += sum(_nbytes(t) for t in ins) + \
+                sum(_nbytes(o) for o in outs)
+        return out
+
+
+def _track_arguments(args, counter: Counter) -> Tuple[int, set]:
+    """Track every argument storage; returns their bytes, with each
+    Python int counted as the reference's int32 scalar (decode's
+    position), and the storages' ids."""
+    total = 0
+    ids = set()
+    for leaf in _leaves(args):
+        if isinstance(leaf, torch.Tensor):
+            st = leaf.untyped_storage()
+            if id(st) not in ids:
+                ids.add(id(st))
+                total += st.nbytes()
+                counter.track(leaf)
+        elif isinstance(leaf, int) and not isinstance(leaf, bool):
+            total += speclib.SCALAR_BYTES
+    return total, ids
+
+
+def count(fn: Callable, args: tuple, *,
+          fused_scopes: Tuple[str, ...] = ()) -> Dict[str, int]:
+    """Run ``fn(*args)`` (on meta tensors) under a ``Counter``: FLOPs,
+    matmul FLOPs, bytes, aten ops, and the argument, output, alias and
+    peak bytes (the peak of live storage bytes, arguments included)."""
+    counter = Counter(fused_scopes)
+    arg_bytes, arg_ids = _track_arguments(args, counter)
+    with counter:
+        out = fn(*args)
+    out_bytes = alias_bytes = 0
+    seen = set()
+    for leaf in _leaves(out):
+        if isinstance(leaf, torch.Tensor):
+            st = leaf.untyped_storage()
+            if id(st) in seen:
+                continue
+            seen.add(id(st))
+            out_bytes += st.nbytes()
+            if id(st) in arg_ids:
+                alias_bytes += st.nbytes()
+    return {"flops": counter.flops, "matmul_flops": counter.matmul_flops,
+            "bytes": counter.bytes, "ops": counter.ops,
+            "argument_bytes": arg_bytes, "output_bytes": out_bytes,
+            "alias_bytes": alias_bytes, "peak_bytes": counter.peak}
+
+
+# ------------------------------------------------------------------ cells
+def _build(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
+           opt_cfg: Optional[OptimizerConfig] = None,
+           microbatch: int = 0) -> Tuple[Callable, tuple]:
+    """(step function, meta arguments) of one cell of ``cfg``."""
+    if shape.kind == "train":
+        opt_cfg = opt_cfg or OptimizerConfig()
+        state = make_train_state_shapes(cfg, opt_cfg)
+        batch = speclib.train_batch_specs(cfg, shape)
+        return (make_train_step(cfg, ctx, opt_cfg, microbatch=microbatch),
+                (state, batch))
+    params = model.init(ShapesOnly(), cfg)
+    if shape.kind == "prefill":
+        inputs = speclib.prefill_inputs(cfg, shape)
+
+        def prefill_fn(params, tokens):
+            return model.prefill(params, tokens, cfg, ctx,
+                                 cache_len=shape.seq_len)
+        return prefill_fn, (params, inputs["tokens"])
+    if shape.kind == "decode":
+        inputs = speclib.decode_inputs(cfg, shape)
+
+        def decode_fn(params, caches, token, pos):
+            return model.decode_step(params, caches, token, pos, cfg, ctx)
+        return decode_fn, (params, inputs["caches"], inputs["token"],
+                           inputs["pos"])
+    raise ValueError(shape.kind)
+
+
+def split_overrides(ctx_overrides: Optional[dict]
+                    ) -> Tuple[Dict[str, Any], int, Tuple[str, ...]]:
+    """ctx_overrides -> (ModelContext fields, microbatch, fused scopes);
+    raises ``ValueError`` for a reference-only or unknown field."""
+    over = dict(ctx_overrides or {})
+    microbatch = over.pop("microbatch", 0)
+    fused = tuple(over.pop("fused_scopes", ()))
+    over.setdefault("remat", "full")
+    shardlib.check_context_fields(over)
+    return over, microbatch, fused
+
+
+def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
+               ctx_overrides: Optional[dict] = None):
+    """Returns (step function, meta arguments) for a cell."""
+    over, microbatch, _ = split_overrides(ctx_overrides)
+    ctx = shardlib.make_context(mesh.shape, **over)
+    return _build(get_config(arch), SHAPES[shape_name], ctx,
+                  microbatch=microbatch)
+
+
+def _repeats(cfg: ModelConfig) -> int:
+    stages = cfg.plan()
+    if len(stages) != 1 or len(stages[0].layers) != 1:
+        raise NotImplementedError(
+            f"depth by repeat counts one stage of one layer spec; {cfg.name} "
+            f"has {len(stages)} stages (ROADMAP queue 1 item 4)")
+    return stages[0].repeat
+
+
+def count_cell(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
+               opt_cfg: Optional[OptimizerConfig] = None,
+               microbatch: int = 0, fused_scopes: Tuple[str, ...] = (),
+               unroll: bool = False) -> Dict[str, int]:
+    """The counts of one cell at ``cfg``'s depth: every layer
+    (``unroll``), or by repeat (depths 2 and 3, extrapolated)."""
+    def at(c):
+        fn, args = _build(c, shape, ctx, opt_cfg=opt_cfg,
+                          microbatch=microbatch)
+        return count(fn, args, fused_scopes=fused_scopes)
+
+    repeat = _repeats(cfg)
+    if unroll or repeat <= 3:
+        return at(cfg)
+    two = at(dataclasses.replace(cfg, num_layers=2))
+    three = at(dataclasses.replace(cfg, num_layers=3))
+    return {k: two[k] + (repeat - 2) * (three[k] - two[k]) for k in two}
+
+
+def _skip(arch: str, shape_name: str, reason: str) -> Dict[str, Any]:
+    return {"arch": arch, "shape": shape_name, "status": "skipped",
+            "reason": reason}
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+             mesh: Optional[Mesh] = None,
+             ctx_overrides: Optional[dict] = None,
+             unroll: bool = False) -> Dict[str, Any]:
+    """Count one cell; return the roofline artifact dict.
+
+    ctx_overrides may carry the pseudo-keys ``fused_scopes`` (scope
+    names whose ops the flash kernels keep on chip) and ``microbatch``;
+    the rest override ModelContext fields, and a reference-only or
+    unknown field raises ``ValueError``."""
+    over, microbatch, fused = split_overrides(ctx_overrides)
+    if arch in REFERENCE_ONLY_ARCHS:
+        return _skip(arch, shape_name, NOT_PORTED)
+    if multi_pod:
+        return _skip(arch, shape_name, NO_MULTIPOD)
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        return _skip(arch, shape_name, why)
+    if mesh is None:
+        mesh = make_production_mesh()
+    n_dev = mesh.size
+    t0 = time.perf_counter()
+    try:
+        ctx = shardlib.make_context(mesh.shape, **over)
+        c = count_cell(cfg, shape, ctx, microbatch=microbatch,
+                       fused_scopes=fused, unroll=unroll)
+    except Exception as e:  # noqa: BLE001 - an error is the cell's record
+        return {"arch": arch, "shape": shape_name, "status": "error",
+                "mesh": list(mesh.shape.values()),
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": traceback.format_exc()[-3000:]}
+    t_count = time.perf_counter() - t0
+
+    flops, bytes_accessed = c["flops"], c["bytes"]
+    coll = {"num_collectives": 0, "total_operand_bytes": 0,
+            "total_traffic_bytes": 0, "by_kind": {}}
+    terms = hw.roofline_terms(flops, bytes_accessed,
+                              coll["total_traffic_bytes"])
+    mf_total = speclib.model_flops(cfg, shape)
+    mf_per_chip = mf_total / n_dev
+    temp = c["peak_bytes"] - c["argument_bytes"]
+    return {
+        "arch": arch, "shape": shape_name, "status": "ok",
+        "mesh": {k: int(v) for k, v in mesh.shape.items()},
+        "num_devices": int(n_dev),
+        "lower_s": t_count, "compile_s": 0.0,
+        "counted": FLASH_SCOPE if FLASH_SCOPE in fused else "plain",
+        "memory": {
+            "argument_bytes": c["argument_bytes"],
+            "output_bytes": c["output_bytes"],
+            "temp_bytes": temp,
+            "alias_bytes": c["alias_bytes"],
+            "peak_hbm_proxy_bytes": c["peak_bytes"],
+            "fits_hbm": c["peak_bytes"] < hw.H100_SXM.hbm_bytes,
+        },
+        "cost": {"flops_per_chip": flops,
+                 "bytes_per_chip": bytes_accessed,
+                 "matmul_flops_per_chip": c["matmul_flops"],
+                 "aten_ops": c["ops"],
+                 "depth": "unrolled" if unroll else "by_repeat",
+                 "max_loop_trip": _repeats(cfg)},
+        "collectives": coll,
+        "roofline": terms,
+        "model_flops_total": mf_total,
+        "model_flops_per_chip": mf_per_chip,
+        "useful_flops_ratio": (mf_per_chip / flops) if flops else 0.0,
+    }
+
+
+def all_archs() -> list:
+    """The reference's ten architectures: the port's and the rest."""
+    return sorted(list_configs() + list(REFERENCE_ONLY_ARCHS))
+
+
+def run_matrix(archs, shapes, *, multi_pod: bool, out_dir: str,
+               force: bool = False, ctx_overrides: Optional[dict] = None,
+               tag: str = "", unroll: bool = False) -> list:
+    os.makedirs(out_dir, exist_ok=True)
+    mesh = None if multi_pod else make_production_mesh()
+    results = []
+    mesh_name = ("multipod" if multi_pod else "pod") + (f"-{tag}" if tag
+                                                        else "")
+    for arch in archs:
+        for shape_name in shapes:
+            fn = os.path.join(out_dir,
+                              f"{arch}__{shape_name}__{mesh_name}.json")
+            if os.path.exists(fn) and not force:
+                with open(fn) as f:
+                    results.append(json.load(f))
+                print(f"[cached] {arch} x {shape_name} x {mesh_name}")
+                continue
+            print(f"[run]    {arch} x {shape_name} x {mesh_name} ...",
+                  flush=True)
+            res = run_cell(arch, shape_name, multi_pod=multi_pod, mesh=mesh,
+                           ctx_overrides=ctx_overrides, unroll=unroll)
+            res["mesh_name"] = mesh_name
+            with open(fn, "w") as f:
+                json.dump(res, f, indent=1)
+            status = res["status"]
+            extra = ""
+            if status == "ok":
+                r = res["roofline"]
+                extra = (f" dominant={r['dominant']} "
+                         f"frac={r['roofline_fraction']:.3f} "
+                         f"counted={res['lower_s']:.1f}s")
+            elif status == "error":
+                extra = " " + res["error"][:200]
+            print(f"         -> {status}{extra}", flush=True)
+            results.append(res)
+    return results

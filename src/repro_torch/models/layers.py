@@ -19,7 +19,11 @@ as plain dicts of tensors and keep the reference's layouts: activations
   ``vmem_flash`` region to XLA;
 * everything else, and every call on the CPU: the chunked online-softmax
   loop of the reference, which is also the plain version the card run
-  holds the kernel path against.
+  holds the kernel path against. Its KV-block body runs in the
+  ``vmem_flash`` scope (``named_scope``), as the reference's does:
+  the dry-run (``launch.dryrun_lib``), which counts on ``meta`` tensors
+  and so always takes this loop, can count the scope's ops as the flash
+  kernels move them.
 
 A training call (grad enabled, inputs that require grad) takes the
 same route. On the card its forward is the same one kernel launch and
@@ -30,9 +34,11 @@ reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +46,26 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
+
+_SCOPES = threading.local()
+
+
+@contextlib.contextmanager
+def named_scope(name: str) -> Iterator[None]:
+    """Mark the enclosed ops as inside scope ``name`` on this thread (the
+    reference's ``jax.named_scope``). Nothing reads it but the dry-run's
+    counting mode (``current_scopes``); it changes no result and no route."""
+    outer = current_scopes()
+    _SCOPES.stack = outer + (name,)
+    try:
+        yield
+    finally:
+        _SCOPES.stack = outer
+
+
+def current_scopes() -> Tuple[str, ...]:
+    """The scopes the calling thread is in, outermost first."""
+    return getattr(_SCOPES, "stack", ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,22 +231,26 @@ def attention(
                         window > 0 and q_lo - (k_start + k_chunk - 1)
                         >= window):
                     continue
-            k_i = kb[:, ki]
-            v_i = vb[:, ki]
-            k_idx = kv_offset + ki * k_chunk + torch.arange(k_chunk,
-                                                            device=dev)
-            s = torch.einsum("bqgrd,bkgd->bgrqk", qi_q, k_i.float()) * scale
-            mask = _block_mask(q_idx, k_idx, causal, window, kv_len)
-            s = s.masked_fill(~mask[None, None, None], -1e30)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            # probabilities rounded to v's dtype before the PV product
-            pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v_i.dtype).float(),
-                              v_i.float())
-            acc = acc * corr[..., None] + pv
-            m = m_new
+            # the flash kernel keeps everything in this scope on chip; the
+            # dry-run's counting mode reads the scope (``fused_scopes``)
+            with named_scope("vmem_flash"):
+                k_i = kb[:, ki]
+                v_i = vb[:, ki]
+                k_idx = kv_offset + ki * k_chunk + torch.arange(
+                    k_chunk, device=dev)
+                s = torch.einsum("bqgrd,bkgd->bgrqk", qi_q,
+                                 k_i.float()) * scale
+                mask = _block_mask(q_idx, k_idx, causal, window, kv_len)
+                s = s.masked_fill(~mask[None, None, None], -1e30)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1)
+                # probabilities rounded to v's dtype before the PV product
+                pv = torch.einsum("bgrqk,bkgd->bgrqd",
+                                  p.to(v_i.dtype).float(), v_i.float())
+                acc = acc * corr[..., None] + pv
+                m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         # [B,KV,rep,qc,Dv] -> [B,qc,KV*rep,Dv]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dv)

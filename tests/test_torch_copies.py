@@ -145,3 +145,193 @@ def test_config_copy_knows_only_what_the_port_runs():
     assert 7.5e9 < cfg.param_count() < 7.7e9
     with pytest.raises(KeyError):
         get_config("gemma3-4b")
+
+
+# ------------------------------------------ the dry-run's copies and rules
+_SYNTHETIC_HLO = """
+HloModule test
+
+%body (p: (s32[], f32[4,8])) -> (s32[], f32[4,8]) {
+  %p = (s32[], f32[4,8]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %x = f32[4,8]{1,0} get-tuple-element(%p), index=1
+  %w = f32[8,8]{1,0} constant({...})
+  %dot = f32[4,8]{1,0} dot(%x, %w), lhs_contracting_dims={1}, rhs_contracting_dims={0}
+  %one = s32[] constant(1)
+  %ni = s32[] add(%i, %one)
+  ROOT %t = (s32[], f32[4,8]) tuple(%ni, %dot)
+}
+
+%cond (p2: (s32[], f32[4,8])) -> pred[] {
+  %p2 = (s32[], f32[4,8]) parameter(0)
+  %i2 = s32[] get-tuple-element(%p2), index=0
+  %n = s32[] constant(10)
+  ROOT %lt = pred[] compare(%i2, %n), direction=LT
+}
+
+ENTRY %main (a: f32[4,8]) -> f32[4,8] {
+  %a = f32[4,8]{1,0} parameter(0)
+  %z = s32[] constant(0)
+  %tup = (s32[], f32[4,8]) tuple(%z, %a)
+  %w2 = (s32[], f32[4,8]) while(%tup), condition=%cond, body=%body
+  %ar = f32[4,8]{1,0} all-reduce(%a), replica_groups=[2,4]<=[8], to_apply=%body
+  ROOT %out = f32[4,8]{1,0} get-tuple-element(%w2), index=1
+}
+"""
+
+
+def _source(module) -> str:
+    with open(module.__file__) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", ["hlo", "elastic"])
+def test_numpy_only_copies_are_the_same_text(name):
+    """``common/hlo.py`` (standard library only) and
+    ``distributed/elastic.py`` (numpy only) import nothing of either
+    package: their copies are the originals byte for byte."""
+    from repro.common import hlo as jhlo
+    from repro.distributed import elastic as jelastic
+    from repro_torch.common import hlo
+    from repro_torch.distributed import elastic
+    mods = {"hlo": (hlo, jhlo), "elastic": (elastic, jelastic)}
+    ours, theirs = mods[name]
+    assert _source(ours) == _source(theirs)
+
+
+@pytest.mark.parametrize("fused", [(), ("vmem_flash",)])
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_hlo_analyze_equals_the_references_on_the_synthetic_module(
+        n_dev, fused):
+    from repro.common import hlo as jhlo
+    from repro_torch.common import hlo
+    assert hlo.analyze(_SYNTHETIC_HLO, n_dev, fused) == \
+        jhlo.analyze(_SYNTHETIC_HLO, n_dev, fused)
+    assert hlo.collective_summary(_SYNTHETIC_HLO, n_dev) == \
+        jhlo.collective_summary(_SYNTHETIC_HLO, n_dev)
+
+
+@pytest.fixture(scope="module")
+def decode_cell_hlo():
+    """The HLO text of the reference's compiled ``qwen2-7b-smoke`` x
+    ``decode_32k`` cell on a 1 x 1 mesh with Auto axes (the reference's
+    own dry-run fails on this jax's default Explicit axes, ROADMAP §3)."""
+    import jax
+    from jax.sharding import AxisType
+    from repro.launch import dryrun_lib as jdry
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    fn, args = jdry.build_cell("qwen2-7b-smoke", "decode_32k", mesh)
+    return fn.lower(*args).compile().as_text()
+
+
+@pytest.mark.parametrize("fused", [(), ("vmem_flash",)])
+def test_hlo_analyze_equals_the_references_on_a_compiled_cell(
+        decode_cell_hlo, fused):
+    from repro.common import hlo as jhlo
+    from repro_torch.common import hlo
+    got = hlo.analyze(decode_cell_hlo, 1, fused)
+    assert got == jhlo.analyze(decode_cell_hlo, 1, fused)
+    assert got["flops_per_chip"] > 0 and got["max_loop_trip"] == 4
+
+
+_ELASTIC_CASES = [
+    (((2, 16, 16), ("pod", "data", "model")), dict(lost_pods=1)),
+    (((16, 16), ("data", "model")), dict(lost_data_rows=3)),
+    (((2, 4, 4), ("pod", "data", "model")), dict(lost_pods=2)),
+    (((2, 16, 16), ("pod", "data", "model")),
+     dict(lost_pods=1, keep_global_batch=False)),
+    (((2, 8, 4), ("pod", "data", "model")),
+     dict(lost_pods=1, lost_data_rows=5)),
+    (((4, 4), ("data", "model")), dict(lost_data_rows=4)),
+]
+
+
+@pytest.mark.parametrize("mesh, kw", _ELASTIC_CASES)
+def test_elastic_plan_equals_the_references(mesh, kw):
+    """``tests/test_elastic.py``'s policy cases, and their neighbours,
+    through both copies: the same decision or the same error."""
+    from repro.distributed import elastic as jelastic
+    from repro_torch.distributed import elastic
+
+    def plan(mod):
+        cur = mod.MeshSpec(*mesh)
+        try:
+            d = mod.plan_after_failure(cur, **kw)
+        except ValueError as e:
+            return ("ValueError", str(e))
+        return (d.mesh.shape, d.mesh.axes, d.mesh.num_devices,
+                d.microbatch_scale, d.loader_shard_count, d.note,
+                cur.num_devices, cur.axis("model"))
+    assert plan(elastic) == plan(jelastic)
+
+
+def _abstract_mesh(shape, axes):
+    import jax
+    return jax.sharding.AbstractMesh(shape, axes)
+
+
+_MESHES = [((16, 16), ("data", "model")),
+           ((2, 16, 16), ("pod", "data", "model"))]
+
+
+@pytest.mark.parametrize("mesh", _MESHES, ids=["pod", "multipod"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-3-8b",
+                                  "deepseek-coder-33b"])
+def test_sharding_specs_equal_the_references(arch, mesh):
+    """Each of the port's per-layer leaves gets the reference's spec for
+    its stacked ``[L, ...]`` leaf without the leading layer axis; the
+    top-level leaves, the batches and the caches get the same specs.
+    Full-size shapes from ``jax.eval_shape`` and the port's ``meta``
+    tensors, on an ``AbstractMesh`` (no devices)."""
+    from functools import partial
+
+    import jax
+    from repro.configs import SHAPES as JSHAPES
+    from repro.configs import get_config as jget_config
+    from repro.distributed import sharding as jsharding
+    from repro.launch import specs as jspecs
+    from repro.models import model as jmodel
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import specs
+    from repro_torch.models import model
+    from repro_torch.models.layers import ShapesOnly
+    amesh = _abstract_mesh(*mesh)
+    sizes = dict(zip(mesh[1], mesh[0]))
+    jcfg, cfg = jget_config(arch), get_config(arch)
+
+    jshapes = jax.eval_shape(partial(jmodel.init, cfg=jcfg),
+                             jax.random.PRNGKey(0))
+    jspec = jsharding.param_specs(jshapes, amesh)
+    spec = sharding.param_specs(model.init(ShapesOnly(), cfg), sizes)
+    for name in ("embed", "unembed", "final_ln"):
+        assert spec[name] == tuple(jspec[name])
+    stacked = jspec["stage0"]["layer0"]
+    assert len(spec["layers"]) == cfg.num_layers
+    for layer in spec["layers"]:
+        assert set(layer) == set(stacked)
+        for part in layer:
+            assert set(layer[part]) == set(stacked[part])
+            for leaf, s in layer[part].items():
+                assert s == tuple(stacked[part][leaf])[1:], (part, leaf)
+
+    for shape in ("decode_32k", "long_500k"):
+        jin = jspecs.decode_inputs(jcfg, JSHAPES[shape])
+        pin = specs.decode_inputs(cfg, SHAPES[shape])
+        jc = jsharding.cache_specs(jin["caches"], amesh)["stage0"]["layer0"]
+        pc = sharding.cache_specs(pin["caches"], sizes)
+        for k_spec, v_spec in pc:
+            assert (k_spec, v_spec) == (tuple(jc[0])[1:], tuple(jc[1])[1:])
+        jb = jsharding.batch_specs(amesh, {"t": jin["token"],
+                                           "p": jin["pos"]})
+        pb = sharding.batch_specs(sizes, {"t": pin["token"],
+                                          "p": pin["pos"]})
+        assert pb == {k: tuple(v) for k, v in jb.items()}
+    for shape in ("train_4k", "prefill_32k"):
+        jb = jsharding.batch_specs(
+            amesh, jspecs.train_batch_specs(jcfg, JSHAPES[shape]))
+        pb = sharding.batch_specs(
+            sizes, specs.train_batch_specs(cfg, SHAPES[shape]))
+        assert pb == {k: tuple(v) for k, v in jb.items()}
+    assert sharding.batch_axes(sizes) == jsharding.batch_axes(amesh)

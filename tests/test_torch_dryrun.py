@@ -1,0 +1,310 @@
+"""The port's one-card dry-run (``repro_torch.launch.dryrun``) held to the
+reference's (``repro.launch.dryrun_lib``) cell by cell.
+
+The reference's side compiles its cells on a 1 x 1 mesh with Auto axes:
+``jax.make_mesh`` defaults to Explicit axes on this jax, where the
+reference's ``with_sharding_constraint`` calls fail (ROADMAP §3), and the
+JAX package is not edited. Its dot FLOPs are read from the compiled HLO
+with the port's copy of ``common/hlo.py``, every non-dot op's FLOPs set to
+zero."""
+import dataclasses
+import glob
+import json
+import os
+
+import jax
+import pytest
+import torch
+from jax.sharding import AxisType
+
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import get_config as jget_config
+from repro.configs import list_configs as jlist_configs
+from repro.launch import dryrun_lib as jdry
+from repro.launch import specs as jspecs
+from repro_torch.bench.views import roofline
+from repro_torch.common import hlo, hw
+from repro_torch.configs import SHAPES, get_config, list_configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.device import use_device
+from repro_torch.distributed import sharding
+from repro_torch.kernels import build, ops
+from repro_torch.launch import dryrun, dryrun_lib, specs
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models.layers import ModelContext
+
+SMOKE = "qwen2-7b-smoke"
+DENSE = ("qwen2-7b", "granite-3-8b", "deepseek-coder-33b")
+CELLS = ("prefill_32k", "decode_32k", "train_4k")
+
+
+def _dot_flops(hlo_text: str) -> float:
+    """The reference's dot FLOPs: ``hlo.analyze`` (trip counts included)
+    with every non-dot op's FLOPs zeroed."""
+    keep = hlo._op_flops
+    hlo._op_flops = lambda op, tbl: (hlo._dot_flops(op, tbl)
+                                     if op.opcode == "dot" else 0.0)
+    try:
+        return hlo.analyze(hlo_text, 1)["flops_per_chip"]
+    finally:
+        hlo._op_flops = keep
+
+
+@pytest.fixture(scope="module")
+def reference_cells():
+    """shape -> (dot FLOPs, argument bytes) of the reference's compiled
+    smoke cell."""
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    out = {}
+    for shape in CELLS:
+        fn, args = jdry.build_cell(SMOKE, shape, mesh,
+                                   ctx_overrides={"remat": "full"})
+        compiled = fn.lower(*args).compile()
+        out[shape] = (_dot_flops(compiled.as_text()),
+                      compiled.memory_analysis().argument_size_in_bytes)
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_cells():
+    """shape -> the port's record of the smoke cell (depth by repeat)."""
+    return {shape: dryrun_lib.run_cell(SMOKE, shape) for shape in CELLS}
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_matmul_flops_equal_the_references_dot_flops(shape, reference_cells,
+                                                     port_cells):
+    rec = port_cells[shape]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cost"]["matmul_flops_per_chip"] == \
+        reference_cells[shape][0]
+
+
+def test_train_cell_differs_by_one_attention_forward_per_layer(
+        reference_cells, port_cells):
+    """The reference's compiled step computes each layer's attention
+    products (QK^T and PV) once more than the port's eager step: XLA
+    keeps the forward's and the remat's in its scanned body, where
+    ``torch.utils.checkpoint`` runs the layer once forward and once in the
+    backward. The port's count is what the port runs; the gap is pinned
+    here (ROADMAP §3)."""
+    cfg = get_config(SMOKE)
+    shape = SHAPES["train_4k"]
+    B, S = shape.global_batch, shape.seq_len
+    qk = 2 * B * cfg.num_heads * S * S * cfg.head_dim     # as PV
+    gap = cfg.num_layers * 2 * qk
+    assert gap == 4_398_046_511_104
+    rec = port_cells["train_4k"]
+    assert rec["cost"]["matmul_flops_per_chip"] + gap == \
+        reference_cells["train_4k"][0]
+
+
+@pytest.mark.parametrize("shape", CELLS)
+def test_argument_bytes_equal_the_references(shape, reference_cells,
+                                             port_cells):
+    assert port_cells[shape]["memory"]["argument_bytes"] == \
+        reference_cells[shape][1]
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", DENSE)
+def test_model_flops_equal_the_references(arch, shape):
+    assert specs.model_flops(get_config(arch), SHAPES[shape]) == \
+        jspecs.model_flops(jget_config(arch), JSHAPES[shape])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_long_500k_is_skipped_with_the_references_reason(arch):
+    rec = dryrun_lib.run_cell(arch, "long_500k")
+    assert rec == jdry.run_cell(arch, "long_500k")
+    assert rec["status"] == "skipped"
+
+
+def test_other_families_and_multi_pod_are_skipped():
+    assert sorted(list_configs() + list(dryrun_lib.REFERENCE_ONLY_ARCHS)) \
+        == jlist_configs() == dryrun_lib.all_archs()
+    for arch in dryrun_lib.REFERENCE_ONLY_ARCHS:
+        rec = dryrun_lib.run_cell(arch, "train_4k")
+        assert (rec["status"], rec["reason"]) == \
+            ("skipped", "family not ported (ROADMAP queue 1 item 4)")
+    rec = dryrun_lib.run_cell("qwen2-7b", "train_4k", multi_pod=True)
+    assert (rec["status"], rec["reason"]) == \
+        ("skipped", "one card: no multi-pod mesh")
+
+
+# Depth by repeat against every layer counted. Train and prefill run at
+# shorter shapes than the matrix's (the same ops, fewer and smaller
+# attention blocks) to keep the file quick.
+DEPTH_SHAPES = [ShapeConfig("train_512", "train", 512, 8),
+                SHAPES["decode_32k"],
+                ShapeConfig("prefill_4k", "prefill", 4096, 32)]
+
+
+@pytest.mark.parametrize("fused", [(), ("vmem_flash",)],
+                         ids=["plain", "vmem_flash"])
+@pytest.mark.parametrize("shape", DEPTH_SHAPES, ids=lambda s: s.name)
+@pytest.mark.parametrize("depth", [2, 3, 5, 7])
+def test_depth_by_repeat_equals_the_unrolled_count(depth, shape, fused):
+    """FLOPs, bytes, argument and output bytes are linear in depth, and
+    the peak falls at the same point of each layer from the second on,
+    so all agree exactly (depths 2 and 3 are counted whole either way)."""
+    cfg = dataclasses.replace(get_config(SMOKE), num_layers=depth)
+    ctx = ModelContext(remat="full")
+    whole = dryrun_lib.count_cell(cfg, shape, ctx, fused_scopes=fused,
+                                  unroll=True)
+    by_repeat = dryrun_lib.count_cell(cfg, shape, ctx, fused_scopes=fused)
+    assert by_repeat == whole
+
+
+@pytest.mark.parametrize("shape", [ShapeConfig("prefill_4k", "prefill",
+                                               4096, 32),
+                                   ShapeConfig("train_512", "train", 512,
+                                               8)], ids=lambda s: s.name)
+def test_vmem_flash_keeps_the_flops_and_lowers_the_bytes(shape):
+    cfg = get_config(SMOKE)
+    ctx = ModelContext(remat="full")
+    plain = dryrun_lib.count_cell(cfg, shape, ctx)
+    flash = dryrun_lib.count_cell(cfg, shape, ctx,
+                                  fused_scopes=("vmem_flash",))
+    assert flash["flops"] == plain["flops"]
+    assert flash["matmul_flops"] == plain["matmul_flops"]
+    assert flash["peak_bytes"] == plain["peak_bytes"]
+    assert flash["bytes"] < plain["bytes"]
+
+
+def test_vmem_flash_reads_the_scopes_inputs_once():
+    """One attention call: under ``vmem_flash`` the KV-block body reads
+    each of its inputs once, whatever the number of blocks: every q block
+    in float32, k and v in bf16, each q block's positions and running
+    state (m, l, acc in float32); what it makes inside is free."""
+    from repro_torch.models import layers
+    meta = torch.device("meta")
+    B, S, H, KV, D = 2, 512, 4, 2, 16
+    q = torch.empty(B, S, H, D, dtype=torch.bfloat16, device=meta)
+    k = torch.empty(B, S, KV, D, dtype=torch.bfloat16, device=meta)
+    v = torch.empty(B, S, KV, D, dtype=torch.bfloat16, device=meta)
+
+    def attn(q, k, v):
+        return layers.attention(q, k, v, causal=True, q_chunk=128,
+                                k_chunk=128)
+    plain = dryrun_lib.count(attn, (q, k, v))
+    flash = dryrun_lib.count(attn, (q, k, v), fused_scopes=("vmem_flash",))
+    assert flash["flops"] == plain["flops"]
+    assert flash["bytes"] < plain["bytes"]
+    # the same count with the scope's reads dropped: the ops outside it
+    outside = dryrun_lib.Counter(("vmem_flash",))
+    outside._fused_read_bytes = lambda t: 0
+    dryrun_lib._track_arguments((q, k, v), outside)
+    with outside:
+        attn(q, k, v)
+    state = B * H * S * 4 * 2 + B * H * S * D * 4          # m, l, acc
+    inputs = q.numel() * 4 + (k.numel() + v.numel()) * 2 + S * 8 + state
+    assert flash["bytes"] - outside.bytes == inputs
+
+
+def test_full_width_decode_cell():
+    rec = dryrun_lib.run_cell("qwen2-7b", "decode_32k")
+    assert rec["status"] == "ok", rec.get("error")
+    cfg = get_config("qwen2-7b")
+    shape = SHAPES["decode_32k"]
+    B, S = shape.global_batch, shape.seq_len
+    params = sum(t.numel() * t.element_size() for t in _param_leaves(cfg))
+    caches = cfg.num_layers * 2 * B * S * cfg.num_kv_heads * cfg.head_dim * 2
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == params + caches + B * 4 + 4
+    assert mem["alias_bytes"] == caches            # written in place
+    assert mem["fits_hbm"] is False                 # 257 GB of caches
+    assert rec["cost"]["max_loop_trip"] == cfg.num_layers == 28
+    assert rec["counted"] == "plain" and rec["compile_s"] == 0.0
+    assert rec["roofline"]["dominant"] == "memory_s"
+    assert rec["roofline"]["bound_s"] == pytest.approx(
+        rec["cost"]["bytes_per_chip"] / hw.H100_SXM.hbm_bandwidth)
+    assert rec["model_flops_total"] == jspecs.model_flops(
+        jget_config("qwen2-7b"), JSHAPES["decode_32k"])
+    # one query row a layer against the whole cache, plus the projections
+    d, Vp = cfg.d_model, cfg.padded_vocab_size
+    per_layer = 2 * B * d * (cfg.num_heads + 2 * cfg.num_kv_heads) * \
+        cfg.head_dim + 2 * B * cfg.num_heads * cfg.head_dim * d + \
+        3 * 2 * B * d * cfg.d_ff + \
+        2 * 2 * B * cfg.num_heads * S * cfg.head_dim
+    assert rec["cost"]["matmul_flops_per_chip"] == \
+        cfg.num_layers * per_layer + 2 * B * d * Vp
+
+
+def _param_leaves(cfg):
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ShapesOnly
+    return tree.leaves(model.init(ShapesOnly(), cfg))
+
+
+def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
+                                                    capsys):
+    out = str(tmp_path / "dry")
+    code = dryrun.main(["--arch", SMOKE, "--arch", "gemma3-4b",
+                        "--shape", "decode_32k", "--shape", "long_500k",
+                        "--out", out])
+    assert code == 0
+    assert "dry-run: 1 ok, 7 skipped, 0 errors" in capsys.readouterr().out
+    names = sorted(os.path.basename(p) for p in glob.glob(out + "/*.json"))
+    assert names == sorted(f"{a}__{s}__{m}.json"
+                           for a in (SMOKE, "gemma3-4b")
+                           for s in ("decode_32k", "long_500k")
+                           for m in ("pod", "multipod"))
+    recs = {n: json.load(open(os.path.join(out, n))) for n in names}
+    for n, r in recs.items():
+        want = "ok" if n == f"{SMOKE}__decode_32k__pod.json" else "skipped"
+        assert r["status"] == want, n
+        assert r["mesh_name"] == n.split("__")[2][:-5]
+    monkeypatch.setattr(roofline, "DRYRUN_DIR", out)
+    monkeypatch.chdir(tmp_path)
+    rows = roofline.run()
+    assert rows[0] == ("roofline.matrix", 0.0,
+                       "pod ok=1 skipped=3 err=0; multipod ok=0")
+    cell = [r for r in rows if r[0] == f"roofline.{SMOKE}.decode_32k"]
+    assert len(cell) == 1 and cell[0][1] > 0
+    # a second run reads the records back
+    assert dryrun.main(["--arch", SMOKE, "--shape", "decode_32k",
+                        "--single-pod-only", "--out", out]) == 0
+    assert "[cached]" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("key", ["no_tp", "moe_impl", "seq_shard_residual",
+                                 "capacity_factor", "ssd_chunk",
+                                 "not_a_field"])
+def test_reference_only_and_unknown_ctx_keys_raise(key, tmp_path, capsys):
+    with pytest.raises(ValueError, match=key):
+        dryrun_lib.run_cell(SMOKE, "decode_32k", ctx_overrides={key: 1})
+    with pytest.raises(ValueError,
+                       match="ROADMAP" if key != "not_a_field" else "unknown"):
+        sharding.make_context({"data": 1, "model": 1}, **{key: 1})
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", SMOKE, "--shape", "decode_32k", "--ctx",
+                     json.dumps({key: 1}), "--out", str(tmp_path)])
+    assert e.value.code == 2
+    assert key in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
+
+
+def test_no_kernel_is_reached(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"the dry-run reached kernel {name}")
+    monkeypatch.setattr(build, "kernel", refuse)
+    before = dict(ops.LAUNCHES)
+    for ctx in ({}, {"fused_scopes": ["vmem_flash"], "flash_kernel": True}):
+        for shape in CELLS[1:]:
+            rec = dryrun_lib.run_cell(SMOKE, shape, ctx_overrides=ctx)
+            assert rec["status"] == "ok", rec.get("error")
+    assert dict(ops.LAUNCHES) == before
+
+
+def test_the_mesh_is_one_card():
+    mesh = make_production_mesh()
+    assert (mesh.shape, mesh.size) == ({"data": 1, "model": 1}, 1)
+    with pytest.raises(ValueError, match="one card"):
+        make_production_mesh(multi_pod=True)
+    with use_device("cpu"):
+        assert make_host_mesh().shape == {"data": 1, "model": 1}
+        with pytest.raises(AssertionError):
+            make_host_mesh(data=2)
