@@ -247,14 +247,38 @@ and prints no result line:
    and phase 11's step. The phase must end within 240 s; prints its
    seconds.
 
-Before phases 3 to 11 the script releases cuBLAS's per-stream
+14. MoE serving: ``deepseek-moe-16b`` (the MoE family: 28 layers, the
+   first a dense FFN of d_ff 10944, then 64 routed experts of d_ff
+   1408, top-6, and 2 shared; d_model 2048, 16 heads of 128; 16.38 B
+   parameters, random bf16 weights from a seeded generator, made on the
+   card) at full width and depth through ``engine.generate``: 4 prompts
+   of 2048 tokens, 32 greedy new tokens. ``flash_attention_wgmma`` must
+   launch exactly once per layer (prefill only) and nothing else. Prints
+   prefill tokens/s, decode ms a step, the fewest and most rows any
+   expert took in each MoE layer of the prefill and the summed aux
+   (``models.moe.route`` wrapped for one prefill), the last logits
+   beside the plain attention loop's (bf16 noise, not held) and the
+   peak memory. Then the float32 check at full width, depth cut to 4
+   layers (1 dense + 3 MoE; the bf16 weights released first): the FFMA
+   kernel must launch once per layer and the wgmma kernel never; the
+   two routes' expert choices are compared token by token in each MoE
+   layer. A differing choice whose row and position no earlier
+   differing choice reaches (a root flip: causal attention carries a
+   change only to later positions of its row) must have been a near
+   tie, the k-th and (k+1)-th probabilities closer than 1e-5 in both
+   runs; the last logits of every row without a differing choice must
+   agree within 1e-4 of the largest logit. Prints the differing choices
+   per layer, each root flip's gap and each row's logit difference. The
+   phase must end within 180 s; prints its seconds.
+
+Before phases 3 to 11 and 14 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` pass over
-one prefill and a few decode steps of phase 5 (device time by kernel,
-device busy share); the default run does not profile.
+one prefill and a few decode steps of phases 5 and 14 (device time by
+kernel, device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
@@ -263,10 +287,12 @@ pipeline's (``{"training_launches": ...}``), the bench sweep's
 ``--full`` (``{"tables_launches": ...}``), LM training's
 (``{"lm_training_launches": ...}``), the invariant checker's (all
 zero, ``{"analysis_launches": ...}``), the dry-run's (all zero,
-``{"dryrun_launches": ...}``), the ``kernels`` JSON object
+``{"dryrun_launches": ...}``), MoE serving's
+(``{"moe_serving_launches": ...}``), the ``kernels`` JSON object
 (``flash_attention``'s launches: phase 5's float32 check, phase 8's
-pipeline and phase 11's check; ``flash_attention_wgmma``'s: phase 5's
-prefill and phase 11's steps), the card's name and power limit, and
+pipeline, phase 11's check and phase 14's float32 check;
+``flash_attention_wgmma``'s: phase 5's prefill, phase 11's steps and
+phase 14's prefill), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -1399,7 +1425,12 @@ def phase_flash():
     cfg = get_config(LM_ARCH)
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     path = (LM_BATCH, LM_PROMPT, *heads)
-    cases = [(path, bf16, True), ((LM_BATCH, 100, *heads), bf16, True),
+    moe = get_config(MOE_ARCH)
+    # phase 14's prefill: one KV head per query head
+    moe_path = (LM_BATCH, LM_PROMPT, moe.num_heads, moe.num_kv_heads,
+                moe.head_dim)
+    cases = [(path, bf16, True), (moe_path, bf16, True),
+             ((LM_BATCH, 100, *heads), bf16, True),
              ((LM_BATCH, 129, *heads), bf16, True),
              ((LM_BATCH, 1, *heads), bf16, True),
              ((1, LM_PROMPT, *heads), bf16, False),
@@ -1434,16 +1465,18 @@ def phase_flash():
         check(bad == 0 and torch.isfinite(got).all().item(),
               f"{kernel} {shape} {dtype} causal={causal}: {bad} "
               f"elements outside rtol=atol={tol} of the plain version")
-        if shape == path or dtype == f32:
+        if shape in (path, moe_path) or dtype == f32:
             worst[kernel] = max(worst.get(kernel, 0.0), err)
         del q, k, v, got, want, diff
 
     results = {}
     spec = chip_spec()
-    for dtype, flops_per_s in ((bf16, spec.peak_bf16_flops),
-                               (f32, spec.peak_fp32_flops)):
-        name = ops.flash_kernel_for(dtype, cfg.head_dim)
-        q, k, v = _flash_inputs(path, dtype, seed=0)
+    for dtype, shape, flops_per_s in (
+            (bf16, path, spec.peak_bf16_flops),
+            (f32, path, spec.peak_fp32_flops),
+            (bf16, moe_path, spec.peak_bf16_flops)):
+        name = ops.flash_kernel_for(dtype, shape[-1])
+        q, k, v = _flash_inputs(shape, dtype, seed=0)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         kern = lambda: ops.flash_attention(q, k, v, causal=True)
         plain = lambda: ref.flash_attention(q, k, v, True)
@@ -1455,22 +1488,24 @@ def phase_flash():
         plain_ms = cuda_ms(plain, iters=5)
         library_ms = cuda_ms(lib)
         eager_ms = cuda_ms(kern, graph=False)
-        nbytes, flops = flash_work(*path, True, q.element_size())
+        nbytes, flops = flash_work(*shape, True, q.element_size())
         b_ms, b_by = bound_ms(nbytes, flops, flops_per_s)
-        print(f"{name} at {path} {dtype} causal: ms {ms} plain_ms "
+        print(f"{name} at {shape} {dtype} causal: ms {ms} plain_ms "
               f"{plain_ms} library_ms {library_ms} (SDPA, max diff to the "
               f"kernel {lib_err.item()}) bound_ms {b_ms} ({b_by}: {nbytes} "
-              f"B, {flops} FLOP at {flops_per_s:.3g} FLOP/s); "
-              f"{flops / ms / 1e9} TFLOP/s; eager calls {eager_ms} ms each")
+              f"B, {flops} FLOP at {flops_per_s:.3g} FLOP/s), "
+              f"{b_ms / ms} of the bound; {flops / ms / 1e9} TFLOP/s; "
+              f"eager calls {eager_ms} ms each")
         if dtype == f32:
             parent_lines(f"{path} float32 causal", kern, q, k, v, True)
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:30",
-            "launches": 0, "max_abs_err": worst[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+        if shape == path:       # the MoE shape is printed only
+            results[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:30",
+                "launches": 0, "max_abs_err": worst[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms}
         del q, k, v, qt, kt, vt
     return results
 
@@ -1517,6 +1552,23 @@ def _profile(label, fn):
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         out_dir, f"{label.replace(' ', '_')}.json"))
+
+
+def _profile_serving(label, cfg, ctx, params, prompt, cache_len):
+    """``_profile`` over one prefill and over 8 decode steps."""
+    from repro_torch.serve import engine
+    prefill = engine.make_prefill_step(cfg, ctx, cache_len)
+    _profile(f"{label}prefill", lambda: prefill(params, prompt))
+    caches, logits = prefill(params, prompt)
+    tok = logits.argmax(dim=-1)[:, None]
+    decode = engine.make_decode_step(cfg, ctx)
+
+    def steps():
+        c, t = caches, tok
+        for i in range(8):
+            c, lg = decode(params, c, t, LM_PROMPT + i)
+            t = lg.argmax(dim=-1)[:, None]
+    _profile(f"{label}decode 8 steps", steps)
 
 
 def phase_lm(profile):
@@ -1619,18 +1671,7 @@ def phase_lm(profile):
           "generate's first token is not the prefill's argmax")
     del got, want, other
     if profile:
-        _profile("prefill", lambda: prefill(params, prompt))
-        caches, logits = prefill(params, prompt)
-        tok = logits.argmax(dim=-1)[:, None]
-        decode = engine.make_decode_step(cfg, ctx)
-
-        def steps():
-            c, t = caches, tok
-            for i in range(8):
-                c, lg = decode(params, c, t, LM_PROMPT + i)
-                t = lg.argmax(dim=-1)[:, None]
-        _profile("decode 8 steps", steps)
-        del caches, logits, tok
+        _profile_serving("", cfg, ctx, params, prompt, cache_len)
     bf16_peak = torch.cuda.max_memory_allocated()
 
     # The logits check: the same model in float32 at full width and depth,
@@ -3281,6 +3322,233 @@ def _dryrun_bounds(counts, card):
               f"{terms['bound_s'] / measured[key]} ({card})")
 
 
+MOE_ARCH = "deepseek-moe-16b"   # full width and depth in bf16 (~32.8 GB)
+MOE_CHECK_LAYERS = 4            # the float32 check: 1 dense + 3 MoE, ~9 GB
+#: a routing decision the float32 kernel route and the plain loop make
+#: differently must have been a near tie: the k-th and (k+1)-th
+#: probabilities closer than this in both runs
+MOE_GAP_TOL = 1e-5
+PHASE14_LIMIT_S = 180
+
+
+def phase_moe(profile=False):
+    """Phase 14: ``deepseek-moe-16b`` served at full width and depth in
+    bf16, and the float32 check of the kernel route at 4 layers; returns
+    the flash kernels' launches of the phase. ``profile`` adds
+    ``_profile`` over one bf16 prefill and 8 decode steps."""
+    import torch
+    from repro_torch.configs import get_config
+    print(f"== phase 14: {MOE_ARCH} (the MoE family) serving at full width "
+          f"and depth")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held = held_report("phase 14")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    launches = _moe_serve(cfg, held, card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k_launches = _moe_float32_check(cfg, card)
+    for name, count in k_launches.items():
+        launches[name] += count
+    dt = time.perf_counter() - t_phase
+    print(f"phase 14: {dt} s (limit {PHASE14_LIMIT_S} s); peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes ({held} held "
+          f"before the phase); launches {launches} ({card})")
+    check(dt <= PHASE14_LIMIT_S, f"phase 14 took {dt} s")
+    return launches
+
+
+def _capture_routes(fn):
+    """Run ``fn`` with ``models.moe.route`` wrapped: returns (fn's result,
+    one record a MoE layer: each token's chosen experts as a sorted set,
+    the gap between its k-th and (k+1)-th probability, and the aux)."""
+    import torch
+    from repro_torch.models import moe
+    real, records = moe.route, []
+
+    def route(xt, router, k):
+        gates, idx, aux = real(xt, router, k)
+        top = torch.topk(torch.softmax(xt.float() @ router, dim=-1), k + 1,
+                         dim=-1).values
+        records.append({"idx": idx.sort(dim=-1).values,
+                        "gap": top[:, k - 1] - top[:, k], "aux": aux})
+        return gates, idx, aux
+    moe.route = route
+    try:
+        return fn(), records
+    finally:
+        moe.route = real
+
+
+def _moe_serve(cfg, held, card, profile):
+    """bf16 at full width and depth through ``engine.generate``."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    n_layers = len(params["layers"])
+    print(f"{MOE_ARCH}: {n_layers} layers ({cfg.first_dense_layers} dense "
+          f"of d_ff {cfg.dense_d_ff}, then MoE: {cfg.num_experts} experts "
+          f"of d_ff {cfg.moe_d_ff}, top-{cfg.experts_per_token}, "
+          f"{cfg.num_shared_experts} shared), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+          f"{cfg.head_dim}, {n_params} parameters ({cfg.param_count()} by "
+          f"param_count, {cfg.active_param_count()} active a token), "
+          f"{torch.cuda.memory_allocated() - held} bytes, made on the card "
+          f"in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    cache_len = LM_PROMPT + LM_NEW
+    ctx = ModelContext()
+    # first calls build cuBLAS handles for the experts' row counts: not
+    # measured
+    engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                    cache_len=cache_len)
+    timings = {}
+    out, launches, _ = drive(
+        f"{MOE_ARCH} generate", lambda: engine.generate(
+            params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
+            cache_len=cache_len, timings=timings))
+    check(launches["flash_attention_wgmma"] == n_layers and
+          sum(launches.values()) == n_layers,
+          f"{MOE_ARCH} generate launched {launches}; want "
+          f"flash_attention_wgmma once a layer ({n_layers}) and nothing else")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
+          0 <= out.min().item() and
+          out.max().item() < cfg.padded_vocab_size,
+          f"generated {tuple(out.shape)} ids in [{out.min().item()}, "
+          f"{out.max().item()}]")
+    pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
+    print(f"prefill: {LM_BATCH * LM_PROMPT} tokens in {pre_s} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s ({card})")
+    print(f"decode: {LM_NEW - 1} steps of {LM_BATCH} in {dec_s} s, "
+          f"{dec_s / (LM_NEW - 1) * 1e3} ms per step ({card})")
+    print(f"first generated ids: {out[:, :8].tolist()}")
+
+    prefill = engine.make_prefill_step(cfg, ctx, cache_len)
+    (_, got), records = _capture_routes(lambda: prefill(params, prompt))
+    loads = [torch.bincount(r["idx"].reshape(-1),
+                            minlength=cfg.num_experts) for r in records]
+    check(len(records) == n_layers - cfg.first_dense_layers and
+          all(int(c.sum()) == LM_BATCH * LM_PROMPT * cfg.experts_per_token
+              for c in loads), f"{len(records)} MoE layers routed")
+    aux = torch.stack([r["aux"] for r in records])
+    print(f"expert rows per MoE layer of the prefill (fewest, most of "
+          f"{cfg.num_experts} experts; {LM_BATCH * LM_PROMPT} tokens x "
+          f"{cfg.experts_per_token} = "
+          f"{LM_BATCH * LM_PROMPT * cfg.experts_per_token} rows, "
+          f"{LM_BATCH * LM_PROMPT * cfg.experts_per_token // cfg.num_experts}"
+          f" each if even): "
+          f"{[(int(c.min()), int(c.max())) for c in loads]}")
+    print(f"prefill aux summed over {len(records)} MoE layers: "
+          f"{aux.sum().item()} (per layer {aux.tolist()})")
+    check(bool(torch.isfinite(aux).all()), "non-finite aux")
+    check(torch.equal(out[:, 0], got.argmax(dim=-1)),
+          "generate's first token is not the prefill's argmax")
+    (_, want), p_launches, p_s = drive(
+        "prefill, plain attention", lambda: engine.make_prefill_step(
+            cfg, dataclasses.replace(ctx, flash_kernel=False),
+            cache_len)(params, prompt))
+    check(sum(p_launches.values()) == 0, f"plain launches {p_launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite logits")
+    scale = want.abs().max().item()
+    print(f"bf16 last-position logits: kernel path vs plain attention max "
+          f"abs diff / max |logit| = {(got - want).abs().max().item() / scale}"
+          f" (bf16 noise, printed, not held; max |logit| {scale}); "
+          f"plain-attention prefill {p_s} s")
+    nbytes, flops = flash_work(LM_BATCH, LM_PROMPT, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.head_dim, True, 2)
+    b_ms, b_by = bound_ms(nbytes, flops, chip_spec().peak_bf16_flops)
+    print(f"flash_attention_wgmma a prefill layer: bound_ms {b_ms} ({b_by}: "
+          f"{nbytes} B, {flops} FLOP); phase 4 holds and times the kernel "
+          f"at this shape, the profile gives its ms a launch here")
+    if profile:
+        _profile_serving("moe ", cfg, ctx, params, prompt, cache_len)
+    print(f"peak device memory over the bf16 part: "
+          f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+    return {"flash_attention_wgmma": launches["flash_attention_wgmma"],
+            "flash_attention": launches["flash_attention"]}
+
+
+def _moe_float32_check(cfg, card):
+    """Float32 at full width, depth cut to ``MOE_CHECK_LAYERS``: the
+    FFMA kernel route against the plain loop, decision by decision and
+    on the last logits."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=MOE_CHECK_LAYERS)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    ctx = ModelContext()
+    runs = {}
+    for label, c in (("kernel path", ctx),
+                     ("plain attention",
+                      dataclasses.replace(ctx, flash_kernel=False))):
+        step = engine.make_prefill_step(cfg32, c, LM_PROMPT)
+        ((_, logits), records), launches, _ = drive(
+            f"float32 prefill ({MOE_CHECK_LAYERS} layers), {label}",
+            lambda: _capture_routes(lambda: step(params, prompt)))
+        runs[label] = (logits, records, launches)
+    (got, rec_k, k_launches), (want, rec_p, p_launches) = \
+        runs["kernel path"], runs["plain attention"]
+    check(k_launches["flash_attention"] == MOE_CHECK_LAYERS and
+          sum(k_launches.values()) == MOE_CHECK_LAYERS and
+          sum(p_launches.values()) == 0,
+          f"float32 launches {k_launches} / {p_launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite float32 logits")
+    # A decision at (layer, row b, position t) reaches only later layers
+    # at positions >= t of row b (causal attention; routing is per
+    # token): a root flip has no differing decision before it there.
+    first = [LM_PROMPT] * LM_BATCH      # earliest flipped position by row
+    per_layer, roots = [], []
+    for li, (a, b) in enumerate(zip(rec_k, rec_p)):
+        differ = (a["idx"] != b["idx"]).any(dim=-1).nonzero()[:, 0]
+        gaps = torch.maximum(a["gap"], b["gap"])
+        flips = [(int(t) // LM_PROMPT, int(t) % LM_PROMPT,
+                  gaps[t].item()) for t in differ]
+        per_layer.append(len(flips))
+        roots += [(li, row, pos, gap) for row, pos, gap in flips
+                  if pos < first[row]]
+        for row, pos, _ in flips:
+            first[row] = min(first[row], pos)
+    flipped_rows = sorted({row for row in range(LM_BATCH)
+                           if first[row] < LM_PROMPT})
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max(dim=-1).values / scale
+    print(f"float32 routing, kernel path vs plain attention: differing "
+          f"decisions per MoE layer {per_layer} of {LM_BATCH * LM_PROMPT} "
+          f"each; root flips (layer, row, position, gap) {roots} (gap "
+          f"limit {MOE_GAP_TOL}); rows with a flip {flipped_rows}")
+    print(f"float32 last-position logits: max abs diff / max |logit| by row "
+          f"{rel.tolist()} (limit {LM_F32_REL_TOL} on rows without a flip; "
+          f"max |logit| {scale}) ({card})")
+    check(all(gap < MOE_GAP_TOL for _, _, _, gap in roots),
+          f"a routing decision differs without a near tie: {roots}")
+    clean = [row for row in range(LM_BATCH) if row not in flipped_rows]
+    check(all(rel[row].item() < LM_F32_REL_TOL for row in clean),
+          f"float32 prefill logits differ by {rel.tolist()} relative")
+    return {"flash_attention": k_launches["flash_attention"],
+            "flash_attention_wgmma": k_launches["flash_attention_wgmma"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3318,6 +3586,7 @@ def main() -> int:
         lm_training_launches = phase_lm_train()
         analysis_launches = phase_analysis()
         dryrun_launches = phase_dryrun()
+        moe_launches = phase_moe(profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3325,6 +3594,9 @@ def main() -> int:
     launches["flash_attention"] += training_launches["flash_attention"]
     # and LM training (phase 11)
     for name, count in lm_training_launches.items():
+        launches[name] += count
+    # and MoE serving (phase 14)
+    for name, count in moe_launches.items():
         launches[name] += count
     for name, count in launches.items():
         if count < 1:
@@ -3340,6 +3612,7 @@ def main() -> int:
     print(json.dumps({"lm_training_launches": lm_training_launches}))
     print(json.dumps({"analysis_launches": analysis_launches}))
     print(json.dumps({"dryrun_launches": dryrun_launches}))
+    print(json.dumps({"moe_serving_launches": moe_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -305,7 +305,9 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 def _load_all() -> None:
     # Importing the arch modules registers them. Only the configs the
-    # port can run are copied (the dense family's three so far).
+    # port can run are copied (the dense family's three and the MoE
+    # family's deepseek-moe-16b so far).
     from repro_torch.configs import deepseek_coder_33b  # noqa: F401
+    from repro_torch.configs import deepseek_moe_16b  # noqa: F401
     from repro_torch.configs import granite_3_8b  # noqa: F401
     from repro_torch.configs import qwen2_7b  # noqa: F401

@@ -39,8 +39,10 @@ AxisSizes = Mapping[str, int]
 #: the reference's ``ModelContext`` fields the port has no counterpart
 #: for, and the ROADMAP item that brings each
 REFERENCE_ONLY_CONTEXT = {
-    "moe_impl": "ROADMAP queue 1 item 4 (the MoE family)",
-    "capacity_factor": "ROADMAP queue 1 item 4 (the MoE family)",
+    # expert parallelism (the reference's ``routed_ep``) exists only
+    # across cards
+    "moe_impl": "ROADMAP queue 1 item 13 (more than one card)",
+    "capacity_factor": "ROADMAP queue 1 item 13 (more than one card)",
     "ssd_chunk": "ROADMAP queue 1 item 4 (the SSM family)",
     "seq_shard_residual": "ROADMAP queue 1 item 13 (more than one card)",
     "no_tp": "ROADMAP queue 1 item 13 (more than one card)",

@@ -3,10 +3,12 @@ training state, into the port's layout, and export the port's LM
 parameters (or gradients) to the reference's.
 
 The reference keeps each stage's layers stacked along a leading repeat
-axis (``stage0/layer0/{attn,ffn}/<name>`` of shape ``[R, ...]``) with
-``embed [Vp, d]``, ``unembed [d, Vp]`` and ``final_ln [d]`` at the top.
-The port keeps one dict per layer (``params["layers"][i]``). The ViT
-keeps the reference's nested dict as it is. The leaves
+axis (``stage{s}/layer0/{attn,ffn}/<name>`` of shape ``[R, ...]``) with
+``embed [Vp, d]``, ``unembed [d, Vp]`` and ``final_ln [d]`` at the top:
+the dense family has one stage, the MoE family a stage of leading dense
+layers (``stage0``) and one of MoE layers (``stage1``). The port keeps
+one dict per layer (``params["layers"][i]``), the stages' layers in
+order. The ViT keeps the reference's nested dict as it is. The leaves
 come in as numpy arrays (``np.asarray`` of a JAX array gives one), so
 the port never imports JAX.
 
@@ -40,17 +42,19 @@ def to_tensor(a: Any, device: Optional[torch.device] = None) -> torch.Tensor:
 def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
                             device: Optional[torch.device] = None) -> Params:
     """The reference's parameter pytree -> the port's parameters, so that
-    both compute the same function. Dense family only. Any tree of the
-    parameters' structure converts the same way: AdamW's ``mu`` and
-    ``nu``, the compression's error buffer, gradients."""
-    specs = layer_specs(cfg)
-    stage = tree["stage0"]["layer0"]
+    both compute the same function; every stage of ``cfg``'s plan, each
+    leaf with its dtype and bits. Any tree of the parameters' structure
+    converts the same way: AdamW's ``mu`` and ``nu``, the compression's
+    error buffer, gradients."""
+    layer_specs(cfg)                                # raises if not ported
     layers = []
-    for i in range(len(specs)):
-        layers.append({
-            part: {name: to_tensor(np.asarray(leaf)[i], device)
-                   for name, leaf in stage[part].items()}
-            for part in ("attn", "ffn")})
+    for si, stage in enumerate(cfg.plan()):
+        leaves = tree[f"stage{si}"]["layer0"]
+        for r in range(stage.repeat):
+            layers.append({
+                part: {name: to_tensor(np.asarray(leaf)[r], device)
+                       for name, leaf in leaves[part].items()}
+                for part in ("attn", "ffn")})
     return {"embed": to_tensor(tree["embed"], device),
             "unembed": to_tensor(tree["unembed"], device),
             "final_ln": to_tensor(tree["final_ln"], device),
@@ -83,20 +87,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def export_reference_params(params: Params) -> dict:
+def export_reference_params(params: Params, cfg: ModelConfig) -> dict:
     """The port's LM parameters, or any tree of their structure
-    (gradients, moments), in the reference's layout: ``stage0/layer0``
-    leaves stacked along a leading layer axis, numpy leaves
-    (``to_numpy``)."""
-    layers = params["layers"]
-    stage = {part: {name: np.stack([to_numpy(layer[part][name])
-                                    for layer in layers])
-                    for name in layers[0][part]}
-             for part in ("attn", "ffn")}
-    return {"embed": to_numpy(params["embed"]),
-            "unembed": to_numpy(params["unembed"]),
-            "final_ln": to_numpy(params["final_ln"]),
-            "stage0": {"layer0": stage}}
+    (gradients, moments), in the reference's layout: each stage of
+    ``cfg``'s plan as ``stage{s}/layer0`` leaves stacked along a leading
+    layer axis, numpy leaves (``to_numpy``)."""
+    out = {"embed": to_numpy(params["embed"]),
+           "unembed": to_numpy(params["unembed"]),
+           "final_ln": to_numpy(params["final_ln"])}
+    start = 0
+    for si, stage in enumerate(cfg.plan()):
+        layers = params["layers"][start:start + stage.repeat]
+        start += stage.repeat
+        out[f"stage{si}"] = {"layer0": {
+            part: {name: np.stack([to_numpy(layer[part][name])
+                                   for layer in layers])
+                   for name in layers[0][part]}
+            for part in ("attn", "ffn")}}
+    return out
 
 
 def import_reference_vit_params(tree: Mapping[str, Any], cfg, *,

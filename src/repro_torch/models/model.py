@@ -1,4 +1,5 @@
-"""Model assembly for the dense LM family: init, forward, prefill, decode.
+"""Model assembly for the dense and MoE LM families: init, forward,
+prefill, decode.
 
 Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``forward`` ``:133``, ``fused_ce`` ``:173``, ``lm_loss`` ``:201``,
@@ -10,13 +11,21 @@ a list with one ``(k, v)`` pair per layer, each ``[B, cache_len, KV,
 head_dim]``; ``decode_step`` writes the new token's k and v into them
 IN PLACE and returns the same list.
 
+The config's plan (``cfg.plan()``) is unrolled to one ``LayerSpec`` a
+layer (``layer_specs``): the dense family's one stage, or the MoE
+family's leading dense layers (``dense_d_ff`` wide) and then its MoE
+layers (``models.moe``). Each layer is ``{"attn", "ffn"}``; a MoE
+layer's ``ffn`` holds the router and experts. ``forward`` sums the MoE
+layers' load-balance aux over the layers, as the reference's scan does.
+
 With ``ctx.remat == "full"`` each layer of ``forward`` runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
 scanned block): the backward recomputes the layer from its input, so a
 training step keeps one ``[B, S, d]`` activation per layer.
 
-Only the ``dense`` family is ported: any other family raises
-``NotImplementedError`` naming it.
+Only the ``dense`` family and the ``moe`` family without MLA or MTP
+are ported: anything else raises ``NotImplementedError`` naming the
+family.
 
 Entry points:
   init(generator, cfg)                -> params
@@ -35,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import current_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ModelContext
 
 Params = Dict[str, Any]
@@ -44,15 +54,17 @@ Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     """The config's plan unrolled to one spec per layer; raises for what
     the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe") or cfg.use_mla or cfg.mtp_depth:
         raise NotImplementedError(
-            f"repro_torch runs the dense family only; {cfg.name} is "
-            f"{cfg.family!r}")
+            f"repro_torch runs the dense family and the moe family without "
+            f"MLA or MTP; {cfg.name} is {cfg.family!r} (use_mla="
+            f"{cfg.use_mla}, mtp_depth={cfg.mtp_depth})")
     specs = []
     for stage in cfg.plan():
         for _ in range(stage.repeat):
             for spec in stage.layers:
-                if spec.kind != "attn" or spec.ffn != "dense" or spec.shared:
+                if spec.kind != "attn" or spec.shared or \
+                        spec.ffn not in ("dense", "moe"):
                     raise NotImplementedError(f"layer spec {spec}")
                 specs.append(spec)
     return specs
@@ -67,7 +79,8 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     on ``gen``'s device (``layers.ShapesOnly()`` for ``gen``: on the
     ``meta`` device, no memory). The numbers differ from
     ``jax.random``'s; tests that compare with the reference import its
-    parameters instead (``models.convert``)."""
+    parameters instead (``models.convert``). A MoE layer's router is
+    float32 in any model dtype, as the reference's."""
     specs = layer_specs(cfg)
     dt = getattr(torch, cfg.dtype)
     Vp, d = cfg.padded_vocab_size, cfg.d_model
@@ -75,19 +88,32 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "embed": L.normal_param(gen, (Vp, d), dt, 0.02),
         "unembed": L.normal_param(gen, (d, Vp), dt, 1.0 / d ** 0.5),
         "final_ln": torch.zeros(d, dtype=dt, device=gen.device),
-        "layers": [{"attn": L.init_attn(gen, cfg), "ffn": L.init_ffn(gen, cfg)}
-                   for _ in specs],
+        "layers": [{"attn": L.init_attn(gen, cfg),
+                    "ffn": _init_ffn(gen, spec, cfg)} for spec in specs],
     }
     return params
+
+
+def _init_ffn(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig
+              ) -> Params:
+    if spec.ffn == "moe":
+        return MOE.init_moe(gen, cfg)
+    # the MoE family's leading dense layers are dense_d_ff wide
+    ff = cfg.dense_d_ff if (cfg.family == "moe" and cfg.dense_d_ff) else None
+    return L.init_ffn(gen, cfg, d_ff=ff)
 
 
 def _apply_layer(spec: LayerSpec, p: Params, x: torch.Tensor, cfg, ctx, *,
                  positions=None, cache=None, cache_pos=None,
                  return_cache=False):
+    """One layer -> (x, cache, aux); aux is None for a dense FFN."""
     x, nc = L.attn_block(p["attn"], x, cfg, ctx, window=spec.window,
                          positions=positions, cache=cache,
                          cache_pos=cache_pos, return_kv=return_cache)
-    return L.ffn_block(p["ffn"], x, cfg), nc
+    if spec.ffn == "moe":
+        x, aux = MOE.moe_block(p["ffn"], x, cfg, ctx)
+        return x, nc, aux
+    return L.ffn_block(p["ffn"], x, cfg), nc, None
 
 
 # --------------------------------------------------------------------------
@@ -99,18 +125,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = params["embed"][tokens]
     S = tokens.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    aux_total = torch.zeros((), device=x.device)
     for spec, p in zip(layer_specs(cfg), params["layers"]):
         if ctx.remat == "full":
-            x = checkpoint(_train_layer, spec, p, x, cfg, ctx, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(_train_layer, spec, p, x, cfg, ctx,
+                                positions, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions)
+            x, _, aux = _apply_layer(spec, p, x, cfg, ctx,
+                                     positions=positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux_total
 
 
 def _train_layer(spec, p, x, cfg, ctx, positions):
-    return _apply_layer(spec, p, x, cfg, ctx, positions=positions)[0]
+    x, _, aux = _apply_layer(spec, p, x, cfg, ctx, positions=positions)
+    return x, aux
 
 
 # --------------------------------------------------------------------------
@@ -151,9 +183,10 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S + 1]``: the first S
     tokens in, the last S as targets. Returns (loss, {"ce", "aux",
-    "loss"}); the dense family's aux is 0. ``mtp_weight`` weighs the
-    reference's MTP loss: its MTP head and image embeddings belong to
-    families the port does not run yet, and those raise."""
+    "loss"}), loss = ce + ``aux_weight`` * aux; aux is the MoE layers'
+    summed load-balance loss, 0 in the dense family. ``mtp_weight``
+    weighs the reference's MTP loss: its MTP head and image embeddings
+    belong to families the port does not run yet, and those raise."""
     if cfg.mtp_depth or cfg.cross_attn_every or "image_embeds" in batch:
         raise NotImplementedError(
             f"lm_loss: {cfg.name} needs the MTP head or image embeddings, "
@@ -184,7 +217,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 def _fold_prefill_cache(raw, cfg, cache_len: int):
     """Raw prefill (k, v) -> cache tensors of cache_len rows, zero past
-    the prompt (the dense family has no windowed layers)."""
+    the prompt (neither ported family has windowed layers)."""
     dt = getattr(torch, cfg.dtype)
 
     def pad(t):
@@ -204,8 +237,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=x.device)[None, :]
     caches: Cache = []
     for spec, p in zip(layer_specs(cfg), params["layers"]):
-        x, raw = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                              return_cache=True)
+        x, raw, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
+                                 return_cache=True)
         caches.append(_fold_prefill_cache(raw, cfg, cache_len))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, -1] @ params["unembed"]).float()
@@ -221,8 +254,8 @@ def decode_step(params: Params, caches: Cache, token: torch.Tensor,
     positions = torch.full(token.shape, pos, device=x.device)
     new_caches: Cache = []
     for spec, p, c in zip(layer_specs(cfg), params["layers"], caches):
-        x, nc = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                             cache=c, cache_pos=pos)
+        x, nc, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
+                                cache=c, cache_pos=pos)
         new_caches.append(nc)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, -1] @ params["unembed"]).float()

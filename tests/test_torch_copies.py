@@ -119,7 +119,9 @@ def test_tables_are_identical():
 @pytest.mark.parametrize("name", ["qwen2-7b", "qwen2-7b-smoke",
                                   "granite-3-8b", "granite-3-8b-smoke",
                                   "deepseek-coder-33b",
-                                  "deepseek-coder-33b-smoke"])
+                                  "deepseek-coder-33b-smoke",
+                                  "deepseek-moe-16b",
+                                  "deepseek-moe-16b-smoke"])
 def test_config_copy_matches_the_reference(name):
     from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
@@ -131,13 +133,14 @@ def test_config_copy_matches_the_reference(name):
          for s in b.plan()]
     assert dataclasses.asdict(a.reduced()) == dataclasses.asdict(b.reduced())
     assert a.param_count() == b.param_count()
+    assert a.active_param_count() == b.active_param_count()
     assert a.padded_vocab_size == b.padded_vocab_size
 
 
 def test_config_copy_knows_only_what_the_port_runs():
     from repro_torch.configs import get_config, list_configs
-    assert list_configs() == ["deepseek-coder-33b", "granite-3-8b",
-                              "qwen2-7b"]
+    assert list_configs() == ["deepseek-coder-33b", "deepseek-moe-16b",
+                              "granite-3-8b", "qwen2-7b"]
     cfg = get_config("qwen2-7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \

@@ -646,3 +646,33 @@ def test_bf16_lm_backward_launches_wgmma_twice_per_layer_under_remat(cuda):
         assert ops.LAUNCHES["flash_attention_wgmma"] == want, remat
         assert sum(ops.LAUNCHES.values()) == want, remat
         assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
+                                        ("bfloat16", 0.05)])
+def test_moe_block_on_the_card_equals_the_cpu_and_repeats_its_bits(
+        cuda, dtype, tol):
+    """``moe.moe_block`` at ``deepseek-moe-16b-smoke`` on the card against
+    its CPU run (the same parameters and input), the same expert choices;
+    a second run on the card gives the same bits (the combine uses no
+    atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b-smoke"),
+                              dtype=dtype)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy((0.5 * np.random.RandomState(0).randn(
+        2, 64, cfg.d_model)).astype(np.float32)).to(getattr(torch, dtype))
+    want, want_aux = moe.moe_block(p, x, cfg)
+    pc = {k: t.to(cuda) for k, t in p.items()}
+    got, aux = moe.moe_block(pc, x.to(cuda), cfg)
+    again, aux2 = moe.moe_block(pc, x.to(cuda), cfg)
+    assert torch.equal(got, again) and torch.equal(aux, aux2)
+    xt = moe.L.rms_norm(x, p["ln"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    _, idx, _ = moe.route(xt, p["router"], cfg.experts_per_token)
+    _, cidx, _ = moe.route(xt.to(cuda), pc["router"], cfg.experts_per_token)
+    assert torch.equal(cidx.cpu(), idx)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)

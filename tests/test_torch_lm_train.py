@@ -70,9 +70,10 @@ def _tokens(cfg, seed=1, b=B, s=S):
         0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
 
 
-def _ref_layout(port_tree) -> dict:
+def _ref_layout(port_tree, cfg) -> dict:
     """name -> float32 numpy leaf, in the reference's names and layout."""
-    return tree.flatten_with_names(convert.export_reference_params(port_tree))
+    return tree.flatten_with_names(
+        convert.export_reference_params(port_tree, cfg))
 
 
 def _jflat(jtree) -> dict:
@@ -156,7 +157,7 @@ def test_lm_loss_and_every_gradient_leaf_match_reference(grads_pair):
         want = float(g["jm"][k])
         assert abs(g["metrics"][k].item() - want) <= tol * abs(want), k
     assert g["metrics"]["aux"].item() == float(g["jm"]["aux"]) == 0.0
-    got, want = _ref_layout(g["grads"]), _jflat(g["jg"])
+    got, want = _ref_layout(g["grads"], g["cfg"]), _jflat(g["jg"])
     assert list(got) == list(want)
     for name, w in want.items():
         assert got[name].shape == w.shape, name
@@ -169,7 +170,8 @@ def test_bf16_gradients_are_as_close_to_float32_as_the_reference():
     jp32 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
                                   g["jparams"])
     _, _, exact = _ref_grads(jp32, g["tokens"], jcfg32)
-    exact, ref, port = _jflat(exact), _jflat(g["jg"]), _ref_layout(g["grads"])
+    exact, ref = _jflat(exact), _jflat(g["jg"])
+    port = _ref_layout(g["grads"], g["cfg"])
     ref_worst = max(_rel(ref[n], w) for n, w in exact.items())
     port_worst = max(_rel(port[n], w) for n, w in exact.items())
     assert port_worst <= 2 * ref_worst, (port_worst, ref_worst)
@@ -251,7 +253,7 @@ def test_train_step_matches_reference_jitted_step(case):
     assert met["lr"].item() == float(jmet["lr"])
 
     jtrees = {k: _jflat(v) for k, v in _trees(jnew).items()}
-    trees = {k: _ref_layout(v) for k, v in _trees(new).items()}
+    trees = {k: _ref_layout(v, cfg) for k, v in _trees(new).items()}
     assert set(trees) == set(jtrees)
     for k in ("params", "mu", "nu"):
         out, total = _outside(trees[k], jtrees[k],
@@ -312,10 +314,10 @@ def test_compressed_gradients_equal_the_reference_bit_for_bit(grads_pair):
         jax.tree_util.tree_map(np.asarray, jerr), g["cfg"])
     d, e = comp.compress_grads_with_feedback(tg, terr)
     for got, want in ((d, jd), (e, je)):
-        got, want = _ref_layout(got), _jflat(want)
+        got, want = _ref_layout(got, g["cfg"]), _jflat(want)
         for name, w in want.items():
             np.testing.assert_array_equal(got[name], w, err_msg=name)
-    got, want = _ref_layout(e), _jflat(je_jit)
+    got, want = _ref_layout(e, g["cfg"]), _jflat(je_jit)
     for name, w in want.items():
         np.testing.assert_allclose(got[name], w, rtol=0,
                                    atol=2.0 ** -7 * np.abs(w).max(),

@@ -258,9 +258,13 @@ def test_init_uses_the_reference_scales():
     assert not p["final_ln"].any()
 
 
-def test_other_families_raise_naming_the_family():
-    cfg = dataclasses.replace(get_config(ARCH), family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
+@pytest.mark.parametrize("change, word", [
+    (dict(family="ssm"), "ssm"),
+    (dict(family="moe", use_mla=True), "use_mla=True"),
+])
+def test_other_families_raise_naming_the_family(change, word):
+    cfg = dataclasses.replace(get_config(ARCH), **change)
+    with pytest.raises(NotImplementedError, match=word):
         model.init(torch.Generator(), cfg)
 
 
