@@ -39,14 +39,19 @@ and prints no result line:
    prefill's shape (B=4, S=2048, 28 query heads over 4 KV heads,
    head_dim 128, causal), ragged S=100 and 129, S=1 and ``causal=False``;
    ``flash_attention`` (FFMA) at the float32 cases, head dims 48 and 80
-   included, and bf16 at head dim 48. Each against the
+   included, and bf16 at head dim 48; and at the other served models'
+   prefills (4 x 2048, causal, bf16): ``deepseek-moe-16b``'s 16/16 heads
+   of 128 and ``musicgen-medium``'s 24/24 of 64 on wgmma,
+   ``zamba2-2.7b``'s 32/32 of 80 on FFMA. Each against the
    plain PyTorch version on the card, with tests/test_kernels.py's
    tolerances (2e-2 in bf16, 2e-5 in f32), on inputs drawn so that the
    output is of the order of 1 (peaked attention); each call must move
    its own kernel's launch count and no other. Then both kernels' times
-   at the prefill's shape (wgmma in bf16, FFMA in float32), beside the
-   plain version's, ``scaled_dot_product_attention``'s (a yardstick the
-   port never calls) and the bound (bf16 tensor-core rate, FP32 rate).
+   at the prefill's shape (wgmma in bf16, FFMA in float32) and at the
+   three other models' prefill shapes, beside the plain version's,
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
+   and the bound (the FLOPs at the inputs' type's rate: bf16 tensor-core
+   on either route, FP32).
    With ``--parent DIR`` (a checkout of another commit, such as an
    unpacked ``git archive`` of the parent), that checkout's
    ``flash_attention.cu`` is built too and timed in turns with this one
@@ -229,10 +234,10 @@ and prints no result line:
    ``python -m repro_torch.launch.dryrun --all --force`` in a subprocess
    into a scratch directory under ``artifacts/`` (never
    ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells) must
-   exit 0 with 9 ``ok``, 31 ``skipped`` and 0 ``error`` pod records and
+   exit 0 with 20 ``ok``, 20 ``skipped`` and 0 ``error`` pod records and
    40 skipped multi-pod ones; the port's roofline view, pointed at that
-   directory in this process, must read ``pod ok=9 skipped=31 err=0;
-   multipod ok=0`` and print the nine cells' rows. (b) ``run_cell``
+   directory in this process, must read ``pod ok=20 skipped=20 err=0;
+   multipod ok=0`` and print the twenty cells' rows. (b) ``run_cell``
    of ``qwen2-7b`` x ``train_4k`` and the counts of (c) and (d), made in
    this process beside the live CUDA context, must leave
    ``torch.cuda.memory_allocated()``, the allocator's count of
@@ -271,14 +276,36 @@ and prints no result line:
    per layer, each root flip's gap and each row's logit difference. The
    phase must end within 180 s; prints its seconds.
 
-Before phases 3 to 11 and 14 the script releases cuBLAS's per-stream
+15. The SSM, hybrid and audio families: ``mamba2-370m`` (48 Mamba2
+   layers, d_model 1024, 32 SSM heads of 64, state 128; 0.42 B
+   parameters), ``zamba2-2.7b`` (9 super-blocks of 6 Mamba2 layers and
+   one shared attention block, 32 heads of 80, no FFN; 2.34 B, the shared
+   attention's parameters held once) and ``musicgen-medium`` (48 dense
+   layers, 24 heads of 64; 1.82 B), each at full width and depth in bf16
+   with random weights from a seeded generator, served one at a time
+   (each model's weights released before the next) through
+   ``engine.generate`` with phase 5's traffic (4 prompts of 2048 tokens,
+   32 greedy new tokens). A generate and a prefill must launch exactly:
+   ``mamba2`` no kernel; ``zamba2`` 9 ``flash_attention`` (FFMA, bf16 at
+   head dim 80) and no wgmma; ``musicgen`` 48 ``flash_attention_wgmma``
+   and nothing else (decode launches none). Prints prefill tokens/s,
+   decode ms a step, the peak memory and the last logits beside the
+   plain attention loop's (bf16 noise, not held). Then float32 at full
+   width, depth cut: ``zamba2`` at 2 super-blocks (2 FFMA launches) and
+   ``musicgen`` at 4 layers (4), the kernel route's last logits within
+   1e-4 of the largest logit of the plain loop's; and ``mamba2`` at 4
+   layers, the chunked prefill of 2032 tokens and 16 decode steps against
+   the chunked prefill of all 2048 within 0.08 (tests/test_models.py's
+   bound). The phase must end within 180 s; prints its seconds.
+
+Before phases 3 to 11, 14 and 15 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` pass over
-one prefill and a few decode steps of phases 5 and 14 (device time by
-kernel, device busy share); the default run does not profile.
+one prefill and a few decode steps of phases 5, 14 and 15 (device time
+by kernel, device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
@@ -288,11 +315,13 @@ pipeline's (``{"training_launches": ...}``), the bench sweep's
 (``{"lm_training_launches": ...}``), the invariant checker's (all
 zero, ``{"analysis_launches": ...}``), the dry-run's (all zero,
 ``{"dryrun_launches": ...}``), MoE serving's
-(``{"moe_serving_launches": ...}``), the ``kernels`` JSON object
-(``flash_attention``'s launches: phase 5's float32 check, phase 8's
-pipeline, phase 11's check and phase 14's float32 check;
-``flash_attention_wgmma``'s: phase 5's prefill, phase 11's steps and
-phase 14's prefill), the card's name and power limit, and
+(``{"moe_serving_launches": ...}``), the SSM, hybrid and audio
+families' (``{"ssm_serving_launches": ...}``), the ``kernels`` JSON
+object (``flash_attention``'s launches: phase 5's float32 check, phase
+8's pipeline, phase 11's check, phase 14's float32 check and phase 15's
+``zamba2`` prefill and float32 checks; ``flash_attention_wgmma``'s:
+phase 5's prefill, phase 11's steps, phase 14's prefill and phase 15's
+``musicgen`` prefill), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -1425,11 +1454,16 @@ def phase_flash():
     cfg = get_config(LM_ARCH)
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     path = (LM_BATCH, LM_PROMPT, *heads)
-    moe = get_config(MOE_ARCH)
-    # phase 14's prefill: one KV head per query head
-    moe_path = (LM_BATCH, LM_PROMPT, moe.num_heads, moe.num_kv_heads,
-                moe.head_dim)
+    # phases 14 and 15's prefills: one KV head per query head; zamba2's
+    # shared attention at head dim 80 (the FFMA kernel in bf16),
+    # musicgen's at 64 (wgmma)
+    moe_path, zamba_path, musicgen_path = (
+        (LM_BATCH, LM_PROMPT, c.num_heads, c.num_kv_heads, c.head_dim)
+        for c in map(get_config, (MOE_ARCH, "zamba2-2.7b",
+                                  "musicgen-medium")))
+    serving = (path, moe_path, zamba_path, musicgen_path)
     cases = [(path, bf16, True), (moe_path, bf16, True),
+             (zamba_path, bf16, True), (musicgen_path, bf16, True),
              ((LM_BATCH, 100, *heads), bf16, True),
              ((LM_BATCH, 129, *heads), bf16, True),
              ((LM_BATCH, 1, *heads), bf16, True),
@@ -1465,16 +1499,18 @@ def phase_flash():
         check(bad == 0 and torch.isfinite(got).all().item(),
               f"{kernel} {shape} {dtype} causal={causal}: {bad} "
               f"elements outside rtol=atol={tol} of the plain version")
-        if shape in (path, moe_path) or dtype == f32:
+        if shape in serving or dtype == f32:
             worst[kernel] = max(worst.get(kernel, 0.0), err)
         del q, k, v, got, want, diff
 
     results = {}
     spec = chip_spec()
-    for dtype, shape, flops_per_s in (
-            (bf16, path, spec.peak_bf16_flops),
-            (f32, path, spec.peak_fp32_flops),
-            (bf16, moe_path, spec.peak_bf16_flops)):
+    # the bound: the FLOPs at the inputs' type's peak (bf16 inputs at the
+    # tensor-core rate, on either route)
+    for dtype, shape in ((bf16, path), (f32, path), (bf16, moe_path),
+                         (bf16, zamba_path), (bf16, musicgen_path)):
+        flops_per_s = spec.peak_bf16_flops if dtype == bf16 else \
+            spec.peak_fp32_flops
         name = ops.flash_kernel_for(dtype, shape[-1])
         q, k, v = _flash_inputs(shape, dtype, seed=0)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1498,7 +1534,7 @@ def phase_flash():
               f"eager calls {eager_ms} ms each")
         if dtype == f32:
             parent_lines(f"{path} float32 causal", kern, q, k, v, True)
-        if shape == path:       # the MoE shape is printed only
+        if shape == path:       # the other models' shapes are printed only
             results[name] = {
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3141,9 +3177,9 @@ def _sync_in_loop_ms(steps=50, reps=5):
 
 
 DRYRUN_TIMEOUT_S = 600          # the whole matrix, in a subprocess
-DRYRUN_MATRIX = {"pod": {"ok": 9, "skipped": 31, "error": 0},
+DRYRUN_MATRIX = {"pod": {"ok": 20, "skipped": 20, "error": 0},
                  "multipod": {"ok": 0, "skipped": 40, "error": 0}}
-DRYRUN_FIRST_ROW = "pod ok=9 skipped=31 err=0; multipod ok=0"
+DRYRUN_FIRST_ROW = "pod ok=20 skipped=20 err=0; multipod ok=0"
 DRYRUN_CELL = ("qwen2-7b", "train_4k")      # (b): counted in this process
 #: (c): predicted / measured peak of phase 11's uncompressed steps; fixed
 #: before the first card run
@@ -3183,6 +3219,7 @@ def _dryrun_matrix():
     import glob
     import tempfile
     from repro_torch.bench.views import roofline
+    from repro_torch.configs import SHAPES
     os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
     out = tempfile.mkdtemp(prefix="phase13_dryrun_",
                            dir=os.path.join(ROOT, "artifacts"))
@@ -3213,7 +3250,8 @@ def _dryrun_matrix():
         roofline.DRYRUN_DIR = saved
     check(rows and rows[0][2] == DRYRUN_FIRST_ROW,
           f"(a) the roofline view's first row: {rows[:1]}")
-    cells = [row for row in rows if row[0].count(".") == 2]
+    # a cell's row is roofline.<arch>.<shape> (an arch may hold a dot)
+    cells = [row for row in rows if row[0].rsplit(".", 1)[-1] in SHAPES]
     for name, us, derived in cells:
         print(f"(a) {name}: bound {us} us, {derived}")
     check(len(cells) == DRYRUN_MATRIX["pod"]["ok"],
@@ -3549,6 +3587,234 @@ def _moe_float32_check(cfg, card):
             "flash_attention_wgmma": k_launches["flash_attention_wgmma"]}
 
 
+SSM_ARCHS = ("mamba2-370m", "zamba2-2.7b", "musicgen-medium")
+#: flash kernel launches of one bf16 prefill at full depth: mamba2 has no
+#: attention; zamba2's shared attention (head dim 80, the FFMA kernel in
+#: bf16) is applied 9 times; musicgen has 48 layers at head dim 64 (wgmma)
+SSM_PREFILL_LAUNCHES = {"mamba2-370m": {},
+                        "zamba2-2.7b": {"flash_attention": 9},
+                        "musicgen-medium": {"flash_attention_wgmma": 48}}
+#: the float32 check's depth, full width: zamba2 at 2 super-blocks (12
+#: Mamba2 layers, 2 applications of the shared attention), musicgen at 4
+#: layers; then its FFMA launches a prefill
+SSM_CHECK = {"zamba2-2.7b": (12, 2), "musicgen-medium": (4, 4)}
+#: mamba2 in float32 at 4 layers: stepwise decode over the prompt's last
+#: SSM_STREAM_TOKENS tokens against the chunked prefill's logits, within
+#: tests/test_models.py's bound for chunked against stepwise SSD
+SSM_STREAM_LAYERS, SSM_STREAM_TOKENS, SSM_STREAM_TOL = 4, 16, 0.08
+PHASE15_LIMIT_S = 180
+
+
+def phase_ssm(profile=False):
+    """Phase 15: ``mamba2-370m``, ``zamba2-2.7b`` and ``musicgen-medium``
+    served one at a time at full width and depth in bf16, each model's
+    weights released before the next; then the float32 checks. Returns
+    the flash kernels' launches of the phase. ``profile`` adds
+    ``_profile`` over one bf16 prefill and 8 decode steps of each."""
+    import torch
+    from repro_torch.configs import get_config
+    print("== phase 15: the SSM, hybrid and audio families serving at full "
+          "width and depth")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    for arch in SSM_ARCHS:
+        held = held_report(f"phase 15 ({arch})")
+        torch.cuda.reset_peak_memory_stats()
+        for name, count in _ssm_serve(get_config(arch), held, card,
+                                      profile).items():
+            launches[name] += count
+    for arch in SSM_CHECK:
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, count in _ssm_float32_check(get_config(arch),
+                                              card).items():
+            launches[name] += count
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ssm_stream_check(get_config("mamba2-370m"), card)
+    dt = time.perf_counter() - t_phase
+    print(f"phase 15: {dt} s (limit {PHASE15_LIMIT_S} s); launches "
+          f"{launches} ({card})")
+    check(dt <= PHASE15_LIMIT_S, f"phase 15 took {dt} s")
+    return launches
+
+
+def _ssm_serve(cfg, held, card, profile):
+    """bf16 at full width and depth through ``engine.generate``: the
+    launches of one generate (its prefill's), exactly the expected."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    specs = model.layer_specs(cfg)
+    n_attn = sum(spec.kind == "attn" for spec in specs)
+    print(f"{cfg.name} ({cfg.family}): {len(specs)} layer applications "
+          f"({len(specs) - n_attn} Mamba2, {n_attn} attention"
+          f"{', one shared set' if cfg.family == 'hybrid' else ''}), "
+          f"d_model {cfg.d_model}, "
+          + (f"SSM {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+             f"{cfg.ssm_state}, " if cfg.ssm_state else "")
+          + (f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+             f"{cfg.head_dim}, " if n_attn else "")
+          + f"{sum(t.numel() for t in tree.leaves(params))} parameters "
+          f"({cfg.param_count()} by param_count), "
+          f"{torch.cuda.memory_allocated() - held} bytes, made on the card "
+          f"in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    cache_len = LM_PROMPT + LM_NEW
+    ctx = ModelContext()
+    # first calls build cuBLAS handles and load kernels: not measured
+    engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                    cache_len=cache_len)
+    timings = {}
+    out, launches, _ = drive(
+        f"{cfg.name} generate", lambda: engine.generate(
+            params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
+            cache_len=cache_len, timings=timings))
+    want = {name: SSM_PREFILL_LAUNCHES[cfg.name].get(name, 0)
+            for name in launches}
+    check(launches == want, f"{cfg.name} generate launched {launches}; "
+                            f"want {want}")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
+          0 <= out.min().item() and
+          out.max().item() < cfg.padded_vocab_size,
+          f"generated {tuple(out.shape)} ids in [{out.min().item()}, "
+          f"{out.max().item()}]")
+    pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
+    print(f"prefill: {LM_BATCH * LM_PROMPT} tokens in {pre_s} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s ({card})")
+    print(f"decode: {LM_NEW - 1} steps of {LM_BATCH} in {dec_s} s, "
+          f"{dec_s / (LM_NEW - 1) * 1e3} ms per step ({card})")
+    print(f"first generated ids: {out[:, :8].tolist()}")
+    prefill = engine.make_prefill_step(cfg, ctx, cache_len)
+    (_, got), k_launches, _ = drive("prefill, kernel path",
+                                    lambda: prefill(params, prompt))
+    check(k_launches == want, f"prefill launched {k_launches}; want {want}")
+    (_, plain), p_launches, p_s = drive(
+        "prefill, plain attention", lambda: engine.make_prefill_step(
+            cfg, dataclasses.replace(ctx, flash_kernel=False),
+            cache_len)(params, prompt))
+    check(sum(p_launches.values()) == 0, f"plain launches {p_launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(plain).all()),
+          "non-finite logits")
+    check(torch.equal(out[:, 0], got.argmax(dim=-1)),
+          "generate's first token is not the prefill's argmax")
+    scale = plain.abs().max().item()
+    print(f"bf16 last-position logits: kernel path vs plain attention max "
+          f"abs diff / max |logit| = "
+          f"{(got - plain).abs().max().item() / scale} (bf16 noise, "
+          f"printed, not held; max |logit| {scale}); plain-attention "
+          f"prefill {p_s} s")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes "
+          f"({held} held before; {card})")
+    if profile:
+        _profile_serving(f"{cfg.name} ", cfg, ctx, params, prompt,
+                         cache_len)
+    del params, got, plain
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_wgmma": launches["flash_attention_wgmma"]}
+
+
+def _ssm_float32_check(cfg, card):
+    """Float32 at full width, depth cut (``SSM_CHECK``): the FFMA kernel
+    route's last logits against the plain loop's within
+    ``LM_F32_REL_TOL`` of the largest logit."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    layers, ffma = SSM_CHECK[cfg.name]
+    dev = torch.device(DEV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    ctx = ModelContext()
+    (_, got), k_launches, k_s = drive(
+        f"{cfg.name} float32 prefill ({layers} layers), kernel path",
+        lambda: engine.make_prefill_step(cfg32, ctx, LM_PROMPT)(params,
+                                                                prompt))
+    (_, want), p_launches, p_s = drive(
+        f"{cfg.name} float32 prefill ({layers} layers), plain attention",
+        lambda: engine.make_prefill_step(
+            cfg32, dataclasses.replace(ctx, flash_kernel=False),
+            LM_PROMPT)(params, prompt))
+    check(k_launches["flash_attention"] == ffma and
+          sum(k_launches.values()) == ffma and
+          sum(p_launches.values()) == 0,
+          f"float32 launches {k_launches} / {p_launches}; want "
+          f"flash_attention {ffma} and nothing else")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite float32 logits")
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    print(f"{cfg.name} float32 last-position logits: kernel path vs plain "
+          f"attention max abs diff / max |logit| = {rel} (limit "
+          f"{LM_F32_REL_TOL}; max |logit| {scale}); prefill {k_s} s vs "
+          f"{p_s} s ({card})")
+    check(rel < LM_F32_REL_TOL, f"{cfg.name} float32 prefill logits differ "
+                                f"by {rel} relative")
+    return {"flash_attention": k_launches["flash_attention"],
+            "flash_attention_wgmma": k_launches["flash_attention_wgmma"]}
+
+
+def _ssm_stream_check(cfg, card):
+    """mamba2 in float32 at full width, ``SSM_STREAM_LAYERS`` layers: the
+    chunked prefill of the first S - T tokens, then T decode steps, must
+    give the chunked prefill's logits of all S within
+    ``SSM_STREAM_TOL`` of the largest logit."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=SSM_STREAM_LAYERS)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    ctx = ModelContext()
+    head = LM_PROMPT - SSM_STREAM_TOKENS
+    decode = engine.make_decode_step(cfg32, ctx)
+
+    def stream():
+        caches, logits = engine.make_prefill_step(cfg32, ctx, LM_PROMPT)(
+            params, prompt[:, :head])
+        for t in range(head, LM_PROMPT):
+            caches, logits = decode(params, caches, prompt[:, t:t + 1], t)
+        return logits
+    (_, want), _, _ = drive(f"{cfg.name} float32 prefill of {LM_PROMPT} "
+                            f"({SSM_STREAM_LAYERS} layers)",
+                            lambda: engine.make_prefill_step(
+                                cfg32, ctx, LM_PROMPT)(params, prompt))
+    got, launches, _ = drive(f"{cfg.name} float32 prefill of {head}, then "
+                             f"{SSM_STREAM_TOKENS} decode steps", stream)
+    check(sum(launches.values()) == 0, f"mamba2 launched {launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite float32 logits")
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    print(f"{cfg.name} float32: stepwise decode over the last "
+          f"{SSM_STREAM_TOKENS} tokens vs the chunked prefill, max abs "
+          f"diff / max |logit| = {rel} (limit {SSM_STREAM_TOL}; max "
+          f"|logit| {scale}) ({card})")
+    check(rel < SSM_STREAM_TOL, f"stepwise decode differs by {rel} "
+                                f"relative from the chunked scan")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3587,6 +3853,7 @@ def main() -> int:
         analysis_launches = phase_analysis()
         dryrun_launches = phase_dryrun()
         moe_launches = phase_moe(profile="--profile" in sys.argv[1:])
+        ssm_launches = phase_ssm(profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3595,8 +3862,10 @@ def main() -> int:
     # and LM training (phase 11)
     for name, count in lm_training_launches.items():
         launches[name] += count
-    # and MoE serving (phase 14)
-    for name, count in moe_launches.items():
+    # and MoE serving (phase 14), and the SSM, hybrid and audio families
+    # (phase 15)
+    for name, count in list(moe_launches.items()) + \
+            list(ssm_launches.items()):
         launches[name] += count
     for name, count in launches.items():
         if count < 1:
@@ -3613,6 +3882,7 @@ def main() -> int:
     print(json.dumps({"analysis_launches": analysis_launches}))
     print(json.dumps({"dryrun_launches": dryrun_launches}))
     print(json.dumps({"moe_serving_launches": moe_launches}))
+    print(json.dumps({"ssm_serving_launches": ssm_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,10 @@ Physical mesh axes:
 
 The reference's rules are written for its stacked ``[L, ...]`` layer
 leaves; the port keeps one dict per layer, so each per-layer leaf gets
-the stacked rule without its leading layer axis. Every dim is guarded
-by divisibility against the mesh (non-divisible dims replicate).
+the stacked rule without its leading layer axis. A shared layer's
+leaves (``stage{s}_shared``) have no repeat axis in either package and
+get the rule as it is. Every dim is guarded by divisibility against the
+mesh (non-divisible dims replicate).
 """
 from __future__ import annotations
 
@@ -43,7 +45,6 @@ REFERENCE_ONLY_CONTEXT = {
     # across cards
     "moe_impl": "ROADMAP queue 1 item 13 (more than one card)",
     "capacity_factor": "ROADMAP queue 1 item 13 (more than one card)",
-    "ssd_chunk": "ROADMAP queue 1 item 4 (the SSM family)",
     "seq_shard_residual": "ROADMAP queue 1 item 13 (more than one card)",
     "no_tp": "ROADMAP queue 1 item 13 (more than one card)",
     "mesh": "ROADMAP queue 1 item 13 (more than one card)",
@@ -206,11 +207,12 @@ def batch_specs(axis_sizes: AxisSizes, batch: Dict[str, Any],
 
 
 def cache_specs(caches, axis_sizes: AxisSizes):
-    """KV cache sharding, one ``(k, v)`` pair per layer, each ``[B, S,
-    KV, D]``: the batch over the data axes; for batch 1 (long-context
-    decode) the cache sequence dim over them instead. KV heads over
-    ``model`` when divisible, else the cache sequence dim. The
-    reference's rule for its stacked ``[repeat, B, S, KV, D]`` caches,
+    """Cache sharding, one pair per layer application: ``(k, v)``, each
+    ``[B, S, KV, D]``, or a Mamba2 layer's ``(conv tail [B, K-1, C],
+    state [B, h, p, n])``. The batch over the data axes; for batch 1
+    (long-context decode) dim 1 (the cache sequence) over them instead.
+    Dim 2 (KV heads) over ``model`` when divisible, else dim 1. The
+    reference's rule for its stacked ``[repeat, B, ...]`` caches,
     without the leading repeat axis."""
     baxes = batch_axes(axis_sizes)
     bsize = _axis_size(axis_sizes, baxes)

@@ -42,25 +42,30 @@ computation the reference's HLO holds (its models never launch the
 Pallas kernel). Nothing is allocated on any device.
 
 Depth by repeat: the counterpart of ``hlo.py``'s while-loop trip
-counts. Each cell is counted at depths 2 and 3 of its stage; the
-difference is one repeat of the layer, counted in its place, with a
-layer before it and the rest of the step after it, and the cell is
-extrapolated to its ``repeat`` linearly: ``f(R) = f(2) + (R - 2) (f(3)
-- f(2))``. FLOPs, bytes, argument and output bytes are linear in depth,
-so this is exact; so is the peak wherever it falls at the same point of
-each layer, which depth 1 misses in prefill (no layer before it holds
-its raw k and v while the next one runs). ``tests/test_torch_dryrun.py``
-holds both against ``unroll=True``.
+counts. Each cell is counted at depths 2 and 3 of its stage (2 and 3
+super-blocks for the hybrid family: 12 and 18 Mamba2 layers, each block
+with its application of the shared attention); the difference is one
+repeat of the stage's block, counted in its place, with a block before
+it and the rest of the step after it, and the cell is extrapolated to
+its ``repeat`` linearly: ``f(R) = f(2) + (R - 2) (f(3) - f(2))``.
+FLOPs, bytes, argument and output bytes are linear in depth (a shared
+layer's parameters count once at every depth), so this is exact; so is
+the peak wherever it falls at the same point of each block, which depth
+1 misses in prefill (no layer before it holds its raw k and v while the
+next one runs). ``tests/test_torch_dryrun.py`` holds both against
+``unroll=True``.
 
 Collectives are zero on one card; the keys stay. The roofline is
 ``common.hw.roofline_terms`` at the card's dense bf16 rate, as the
-reference's convention. Only the dense family is counted: the MoE
-family's ``deepseek-moe-16b`` runs on the card but its routing is
-data-dependent (a host read of each layer's expert counts), which
+reference's convention. The dense, SSM, hybrid and audio families are
+counted (the SSD scan has no host read and no data-dependent shape):
+the MoE family's ``deepseek-moe-16b`` runs on the card but its routing
+is data-dependent (a host read of each layer's expert counts), which
 ``meta`` tensors cannot give, so its cells are ``skipped`` with a reason
-of their own; the other six architectures of the reference (their
-family not ported) and every multi-pod cell (one card has no multi-pod
-mesh) get ``skipped`` records too.
+of their own; the other three architectures of the reference (their
+family not ported), ``long_500k`` for the full-attention archs (the
+reference's reason) and every multi-pod cell (one card has no
+multi-pod mesh) get ``skipped`` records too.
 """
 from __future__ import annotations
 
@@ -92,8 +97,7 @@ from repro_torch.train.train_step import make_train_state_shapes, \
 #: the reference's architectures whose family the port does not run
 #: (names only: the port keeps no config of theirs)
 REFERENCE_ONLY_ARCHS = ("deepseek-v3-671b", "gemma3-4b",
-                        "llama-3.2-vision-90b", "mamba2-370m",
-                        "musicgen-medium", "zamba2-2.7b")
+                        "llama-3.2-vision-90b")
 NOT_PORTED = "family not ported (ROADMAP queue 1 item 4)"
 MOE_NOT_COUNTED = ("MoE routing is data-dependent and not counted on meta "
                    "tensors yet (ROADMAP queue 1 item 3)")
@@ -412,12 +416,22 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
 
 
 def _repeats(cfg: ModelConfig) -> int:
+    """The repeats of ``cfg``'s one stage (a layer, or a super-block such
+    as the hybrid family's six Mamba2 layers and a shared attention)."""
     stages = cfg.plan()
-    if len(stages) != 1 or len(stages[0].layers) != 1:
+    if len(stages) != 1:
         raise NotImplementedError(
-            f"depth by repeat counts one stage of one layer spec; {cfg.name} "
-            f"has {len(stages)} stages (ROADMAP queue 1 item 4)")
+            f"depth by repeat counts one stage; {cfg.name} has "
+            f"{len(stages)} stages (ROADMAP queue 1 item 4)")
     return stages[0].repeat
+
+
+def _at_depth(cfg: ModelConfig, repeat: int) -> ModelConfig:
+    """``cfg`` with its one stage repeated ``repeat`` times:
+    ``num_layers`` counts the stage's layers but its shared ones (the
+    hybrid family's 54 are 9 super-blocks of 6 Mamba2 layers)."""
+    per = cfg.num_layers // _repeats(cfg)
+    return dataclasses.replace(cfg, num_layers=repeat * per)
 
 
 def count_cell(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
@@ -434,8 +448,8 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
     repeat = _repeats(cfg)
     if unroll or repeat <= 3:
         return at(cfg)
-    two = at(dataclasses.replace(cfg, num_layers=2))
-    three = at(dataclasses.replace(cfg, num_layers=3))
+    two = at(_at_depth(cfg, 2))
+    three = at(_at_depth(cfg, 3))
     return {k: two[k] + (repeat - 2) * (three[k] - two[k]) for k in two}
 
 

@@ -2,13 +2,18 @@
 training state, into the port's layout, and export the port's LM
 parameters (or gradients) to the reference's.
 
-The reference keeps each stage's layers stacked along a leading repeat
-axis (``stage{s}/layer0/{attn,ffn}/<name>`` of shape ``[R, ...]``) with
-``embed [Vp, d]``, ``unembed [d, Vp]`` and ``final_ln [d]`` at the top:
-the dense family has one stage, the MoE family a stage of leading dense
-layers (``stage0``) and one of MoE layers (``stage1``). The port keeps
-one dict per layer (``params["layers"][i]``), the stages' layers in
-order. The ViT keeps the reference's nested dict as it is. The leaves
+The reference keeps each stage's super-block of layers stacked along a
+leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
+``[R, ...]``), a shared layer once and unstacked
+(``stage{s}_shared/layer{j}/...``), with ``embed [Vp, d]``, ``unembed
+[d, Vp]`` and ``final_ln [d]`` at the top: the dense, SSM and audio
+families have one stage of one layer, the MoE family a stage of leading
+dense layers (``stage0``) and one of MoE layers (``stage1``), the hybrid
+family a stage of six Mamba2 layers and one shared attention layer. The
+port keeps one dict per layer (``params["layers"][i]``), the stages'
+repeats in order and each repeat's layers in order, and a shared layer
+under the reference's ``stage{s}_shared/layer{j}``. The ViT keeps the
+reference's nested dict as it is. The leaves
 come in as numpy arrays (``np.asarray`` of a JAX array gives one), so
 the port never imports JAX.
 
@@ -39,6 +44,13 @@ def to_tensor(a: Any, device: Optional[torch.device] = None) -> torch.Tensor:
     return t.to(device) if device is not None else t
 
 
+def _to_tensors(tree: Mapping[str, Any],
+                device: Optional[torch.device]) -> dict:
+    """A nested dict of numpy leaves as one of tensors (``to_tensor``)."""
+    return {k: _to_tensors(v, device) if isinstance(v, Mapping)
+            else to_tensor(v, device) for k, v in tree.items()}
+
+
 def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
                             device: Optional[torch.device] = None) -> Params:
     """The reference's parameter pytree -> the port's parameters, so that
@@ -47,18 +59,24 @@ def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
     converts the same way: AdamW's ``mu`` and ``nu``, the compression's
     error buffer, gradients."""
     layer_specs(cfg)                                # raises if not ported
-    layers = []
+    out: Params = {"embed": to_tensor(tree["embed"], device),
+                   "unembed": to_tensor(tree["unembed"], device),
+                   "final_ln": to_tensor(tree["final_ln"], device),
+                   "layers": []}
     for si, stage in enumerate(cfg.plan()):
-        leaves = tree[f"stage{si}"]["layer0"]
+        stacked = tree[f"stage{si}"]
         for r in range(stage.repeat):
-            layers.append({
-                part: {name: to_tensor(np.asarray(leaf)[r], device)
-                       for name, leaf in leaves[part].items()}
-                for part in ("attn", "ffn")})
-    return {"embed": to_tensor(tree["embed"], device),
-            "unembed": to_tensor(tree["unembed"], device),
-            "final_ln": to_tensor(tree["final_ln"], device),
-            "layers": layers}
+            out["layers"] += [
+                {part: {name: to_tensor(np.asarray(leaf)[r], device)
+                        for name, leaf in leaves.items()}
+                 for part, leaves in stacked[f"layer{j}"].items()}
+                for j, spec in enumerate(stage.layers) if not spec.shared]
+        shared = {f"layer{j}": _to_tensors(
+            tree[f"stage{si}_shared"][f"layer{j}"], device)
+            for j, spec in enumerate(stage.layers) if spec.shared}
+        if shared:
+            out[f"stage{si}_shared"] = shared
+    return out
 
 
 def import_reference_train_state(state: Mapping[str, Any],
@@ -90,21 +108,34 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def export_reference_params(params: Params, cfg: ModelConfig) -> dict:
     """The port's LM parameters, or any tree of their structure
     (gradients, moments), in the reference's layout: each stage of
-    ``cfg``'s plan as ``stage{s}/layer0`` leaves stacked along a leading
-    layer axis, numpy leaves (``to_numpy``)."""
+    ``cfg``'s plan as ``stage{s}/layer{j}`` leaves stacked along a
+    leading repeat axis and its shared layers as ``stage{s}_shared``,
+    numpy leaves (``to_numpy``)."""
     out = {"embed": to_numpy(params["embed"]),
            "unembed": to_numpy(params["unembed"]),
            "final_ln": to_numpy(params["final_ln"])}
-    start = 0
+    own = iter(params["layers"])
     for si, stage in enumerate(cfg.plan()):
-        layers = params["layers"][start:start + stage.repeat]
-        start += stage.repeat
-        out[f"stage{si}"] = {"layer0": {
-            part: {name: np.stack([to_numpy(layer[part][name])
-                                   for layer in layers])
-                   for name in layers[0][part]}
-            for part in ("attn", "ffn")}}
+        per = [j for j, spec in enumerate(stage.layers) if not spec.shared]
+        repeats = [[next(own) for _ in per] for _ in range(stage.repeat)]
+        out[f"stage{si}"] = {f"layer{j}": {
+            part: {name: np.stack([to_numpy(r[i][part][name])
+                                   for r in repeats])
+                   for name in leaves}
+            for part, leaves in repeats[0][i].items()}
+            for i, j in enumerate(per)}
+        shared = {f"layer{j}": _to_numpy_tree(
+            params[f"stage{si}_shared"][f"layer{j}"])
+            for j, spec in enumerate(stage.layers) if spec.shared}
+        if shared:
+            out[f"stage{si}_shared"] = shared
     return out
+
+
+def _to_numpy_tree(tree: Mapping[str, Any]) -> dict:
+    """A nested dict of tensors as one of numpy arrays (``to_numpy``)."""
+    return {k: _to_numpy_tree(v) if isinstance(v, Mapping) else to_numpy(v)
+            for k, v in tree.items()}
 
 
 def import_reference_vit_params(tree: Mapping[str, Any], cfg, *,

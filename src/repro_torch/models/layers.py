@@ -80,6 +80,8 @@ class ModelContext:
     # (torch.utils.checkpoint); the reference's default is "full", the
     # port's "none" so that serving and the ViT keep their graphs
     remat: str = "none"
+    # positions per chunk of the SSD scan (``models.ssm.ssd_scan``)
+    ssd_chunk: int = 256
 
     def __post_init__(self):
         if self.remat not in ("none", "full"):

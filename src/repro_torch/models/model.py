@@ -1,31 +1,42 @@
-"""Model assembly for the dense and MoE LM families: init, forward,
-prefill, decode.
+"""Model assembly for the dense, MoE, SSM, hybrid and audio LM
+families: init, forward, prefill, decode.
 
 Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``forward`` ``:133``, ``fused_ce`` ``:173``, ``lm_loss`` ``:201``,
 ``init_cache`` ``:255``, ``_fold_prefill_cache`` ``:272``, ``prefill``
 ``:295``, ``decode_step`` ``:329``) for one device. The reference
 scans over stacked per-layer parameters; here ``params["layers"]`` is
-a list with one dict per layer and a Python loop walks it. Caches are
-a list with one ``(k, v)`` pair per layer, each ``[B, cache_len, KV,
-head_dim]``; ``decode_step`` writes the new token's k and v into them
-IN PLACE and returns the same list.
+a list with one dict per layer and a Python loop walks it.
 
-The config's plan (``cfg.plan()``) is unrolled to one ``LayerSpec`` a
-layer (``layer_specs``): the dense family's one stage, or the MoE
-family's leading dense layers (``dense_d_ff`` wide) and then its MoE
-layers (``models.moe``). Each layer is ``{"attn", "ffn"}``; a MoE
-layer's ``ffn`` holds the router and experts. ``forward`` sums the MoE
-layers' load-balance aux over the layers, as the reference's scan does.
+The config's plan (``cfg.plan()``) is unrolled to one ``LayerSpec`` per
+application (``layer_specs``): the dense and audio families' one stage;
+the MoE family's leading dense layers (``dense_d_ff`` wide) and then its
+MoE layers (``models.moe``); the SSM family's Mamba2 layers
+(``models.ssm``, no FFN); the hybrid family's super-blocks of Mamba2
+layers and one shared attention layer (no FFN). A layer is ``{"attn"}``
+(the attention or Mamba2 block's leaves, under the reference's key) and
+``"ffn"`` unless its spec says ``ffn="none"``. A shared layer's
+parameters are held once, as the reference's ``stage{s}_shared``:
+``params[f"stage{s}_shared"][f"layer{j}"]``, not in ``params["layers"]``;
+``layer_params`` gives the parameters of every application, a shared
+layer's the same dict each time. ``forward`` sums the MoE layers'
+load-balance aux over the layers, as the reference's scan does. The
+audio family's ``num_codebooks`` belongs to its frontend; the model does
+not read it, as in the reference.
+
+Caches are a list with one entry per application: an attention layer's
+``(k, v)``, each ``[B, cache_len, KV, head_dim]``, which ``decode_step``
+writes IN PLACE (each application of a shared layer keeps its own); a
+Mamba2 layer's ``(conv tail [B, K-1, C]`` in the model dtype, ``state
+[B, heads, head_dim, N]`` in float32), which ``decode_step`` replaces.
 
 With ``ctx.remat == "full"`` each layer of ``forward`` runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
 scanned block): the backward recomputes the layer from its input, so a
 training step keeps one ``[B, S, d]`` activation per layer.
 
-Only the ``dense`` family and the ``moe`` family without MLA or MTP
-are ported: anything else raises ``NotImplementedError`` naming the
-family.
+MLA, MTP, the local/global family and the VLM family are not ported:
+they raise ``NotImplementedError`` naming what is missing.
 
 Entry points:
   init(generator, cfg)                -> params
@@ -45,29 +56,49 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import current_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import ModelContext
 
 Params = Dict[str, Any]
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
+#: the families the port runs; MLA and MTP stay refused within them
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    """The config's plan unrolled to one spec per layer; raises for what
-    the port does not run yet."""
-    if cfg.family not in ("dense", "moe") or cfg.use_mla or cfg.mtp_depth:
+    """The config's plan unrolled to one spec per application (a shared
+    layer once per repeat); raises for what the port does not run yet."""
+    if cfg.family not in PORTED_FAMILIES or cfg.use_mla or cfg.mtp_depth:
         raise NotImplementedError(
-            f"repro_torch runs the dense family and the moe family without "
-            f"MLA or MTP; {cfg.name} is {cfg.family!r} (use_mla="
-            f"{cfg.use_mla}, mtp_depth={cfg.mtp_depth})")
+            f"repro_torch runs the {', '.join(PORTED_FAMILIES)} families "
+            f"without MLA or MTP (not local_global or vlm); {cfg.name} is "
+            f"{cfg.family!r} (use_mla={cfg.use_mla}, mtp_depth="
+            f"{cfg.mtp_depth})")
     specs = []
     for stage in cfg.plan():
         for _ in range(stage.repeat):
             for spec in stage.layers:
-                if spec.kind != "attn" or spec.shared or \
-                        spec.ffn not in ("dense", "moe"):
+                if spec.kind not in ("attn", "mamba") or spec.window or \
+                        spec.ffn not in ("dense", "moe", "none"):
                     raise NotImplementedError(f"layer spec {spec}")
                 specs.append(spec)
     return specs
+
+
+def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
+    """The parameters of every application, in ``layer_specs`` order: the
+    next dict of ``params["layers"]``, or for a shared layer its one dict
+    under ``stage{s}_shared``."""
+    out, own = [], iter(params["layers"])
+    for si, stage in enumerate(cfg.plan()):
+        for _ in range(stage.repeat):
+            for j, spec in enumerate(stage.layers):
+                out.append(params[f"stage{si}_shared"][f"layer{j}"]
+                           if spec.shared else next(own))
+    if next(own, None) is not None:
+        raise ValueError(f"params hold more layers than {cfg.name}'s plan")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -79,41 +110,62 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     on ``gen``'s device (``layers.ShapesOnly()`` for ``gen``: on the
     ``meta`` device, no memory). The numbers differ from
     ``jax.random``'s; tests that compare with the reference import its
-    parameters instead (``models.convert``). A MoE layer's router is
-    float32 in any model dtype, as the reference's."""
-    specs = layer_specs(cfg)
+    parameters instead (``models.convert``). A MoE layer's router and a
+    Mamba2 layer's ``A_log``, ``D`` and ``dt_bias`` are float32 in any
+    model dtype, as the reference's."""
+    layer_specs(cfg)                                # raises if not ported
     dt = getattr(torch, cfg.dtype)
     Vp, d = cfg.padded_vocab_size, cfg.d_model
     params: Params = {
         "embed": L.normal_param(gen, (Vp, d), dt, 0.02),
         "unembed": L.normal_param(gen, (d, Vp), dt, 1.0 / d ** 0.5),
         "final_ln": torch.zeros(d, dtype=dt, device=gen.device),
-        "layers": [{"attn": L.init_attn(gen, cfg),
-                    "ffn": _init_ffn(gen, spec, cfg)} for spec in specs],
+        "layers": [],
     }
+    for si, stage in enumerate(cfg.plan()):
+        shared = {f"layer{j}": _init_layer(gen, spec, cfg)
+                  for j, spec in enumerate(stage.layers) if spec.shared}
+        if shared:
+            params[f"stage{si}_shared"] = shared
+        for _ in range(stage.repeat):
+            params["layers"] += [_init_layer(gen, spec, cfg)
+                                 for spec in stage.layers if not spec.shared]
     return params
 
 
-def _init_ffn(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig
-              ) -> Params:
+def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig
+                ) -> Params:
+    if spec.kind == "mamba":
+        p = {"attn": SSM.init_mamba(gen, cfg)}
+    else:
+        p = {"attn": L.init_attn(gen, cfg)}
     if spec.ffn == "moe":
-        return MOE.init_moe(gen, cfg)
-    # the MoE family's leading dense layers are dense_d_ff wide
-    ff = cfg.dense_d_ff if (cfg.family == "moe" and cfg.dense_d_ff) else None
-    return L.init_ffn(gen, cfg, d_ff=ff)
+        p["ffn"] = MOE.init_moe(gen, cfg)
+    elif spec.ffn == "dense":
+        # the MoE family's leading dense layers are dense_d_ff wide
+        ff = cfg.dense_d_ff if (cfg.family == "moe" and cfg.dense_d_ff) \
+            else None
+        p["ffn"] = L.init_ffn(gen, cfg, d_ff=ff)
+    return p
 
 
 def _apply_layer(spec: LayerSpec, p: Params, x: torch.Tensor, cfg, ctx, *,
                  positions=None, cache=None, cache_pos=None,
                  return_cache=False):
-    """One layer -> (x, cache, aux); aux is None for a dense FFN."""
-    x, nc = L.attn_block(p["attn"], x, cfg, ctx, window=spec.window,
-                         positions=positions, cache=cache,
-                         cache_pos=cache_pos, return_kv=return_cache)
+    """One layer -> (x, cache, aux); aux is None but for a MoE FFN."""
+    if spec.kind == "mamba":
+        x, nc = SSM.mamba_block(p["attn"], x, cfg, ctx, cache=cache,
+                                return_state=return_cache)
+    else:
+        x, nc = L.attn_block(p["attn"], x, cfg, ctx, window=spec.window,
+                             positions=positions, cache=cache,
+                             cache_pos=cache_pos, return_kv=return_cache)
     if spec.ffn == "moe":
         x, aux = MOE.moe_block(p["ffn"], x, cfg, ctx)
         return x, nc, aux
-    return L.ffn_block(p["ffn"], x, cfg), nc, None
+    if spec.ffn == "dense":
+        x = L.ffn_block(p["ffn"], x, cfg)
+    return x, nc, None
 
 
 # --------------------------------------------------------------------------
@@ -126,7 +178,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     S = tokens.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux_total = torch.zeros((), device=x.device)
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
+    for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
         if ctx.remat == "full":
             x, aux = checkpoint(_train_layer, spec, p, x, cfg, ctx,
                                 positions, use_reentrant=False,
@@ -206,19 +258,26 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
 # --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: Optional[torch.device] = None) -> Cache:
-    """Zeroed caches, one (k, v) pair per layer."""
+    """Zeroed caches, one per application: (k, v) for attention, (conv
+    tail, state) for Mamba2."""
     dev = device or current_device()
     dt = getattr(torch, cfg.dtype)
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return [(torch.zeros(shape, dtype=dt, device=dev),
+    return [SSM.init_mamba_cache(cfg, batch, dt, device=dev)
+            if spec.kind == "mamba" else
+            (torch.zeros(shape, dtype=dt, device=dev),
              torch.zeros(shape, dtype=dt, device=dev))
-            for _ in layer_specs(cfg)]
+            for spec in layer_specs(cfg)]
 
 
-def _fold_prefill_cache(raw, cfg, cache_len: int):
+def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int):
     """Raw prefill (k, v) -> cache tensors of cache_len rows, zero past
-    the prompt (neither ported family has windowed layers)."""
+    the prompt (no ported family has windowed layers); a Mamba2 layer's
+    (tail, state) -> the tail in the model dtype and the state."""
     dt = getattr(torch, cfg.dtype)
+    if spec.kind == "mamba":
+        tail, state = raw
+        return (tail.to(dt), state)
 
     def pad(t):
         out = t.new_zeros((t.shape[0], cache_len) + t.shape[2:], dtype=dt)
@@ -236,10 +295,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     S = tokens.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     caches: Cache = []
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
+    for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
         x, raw, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
                                  return_cache=True)
-        caches.append(_fold_prefill_cache(raw, cfg, cache_len))
+        caches.append(_fold_prefill_cache(spec, raw, cfg, cache_len))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, -1] @ params["unembed"]).float()
     return caches, logits
@@ -248,12 +307,14 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 def decode_step(params: Params, caches: Cache, token: torch.Tensor,
                 pos: int, cfg: ModelConfig, ctx: ModelContext
                 ) -> Tuple[Cache, torch.Tensor]:
-    """One serve step: token [B, 1] at position ``pos``. Writes into
-    ``caches`` in place and returns them with the float32 logits."""
+    """One serve step: token [B, 1] at position ``pos``. Writes the
+    attention caches in place and returns the caches (a Mamba2 layer's
+    replaced) with the float32 logits."""
     x = params["embed"][token]
     positions = torch.full(token.shape, pos, device=x.device)
     new_caches: Cache = []
-    for spec, p, c in zip(layer_specs(cfg), params["layers"], caches):
+    for spec, p, c in zip(layer_specs(cfg), layer_params(params, cfg),
+                          caches):
         x, nc, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
                                 cache=c, cache_pos=pos)
         new_caches.append(nc)

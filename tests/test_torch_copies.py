@@ -121,7 +121,11 @@ def test_tables_are_identical():
                                   "deepseek-coder-33b",
                                   "deepseek-coder-33b-smoke",
                                   "deepseek-moe-16b",
-                                  "deepseek-moe-16b-smoke"])
+                                  "deepseek-moe-16b-smoke",
+                                  "mamba2-370m", "mamba2-370m-smoke",
+                                  "zamba2-2.7b", "zamba2-2.7b-smoke",
+                                  "musicgen-medium",
+                                  "musicgen-medium-smoke"])
 def test_config_copy_matches_the_reference(name):
     from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
@@ -140,7 +144,8 @@ def test_config_copy_matches_the_reference(name):
 def test_config_copy_knows_only_what_the_port_runs():
     from repro_torch.configs import get_config, list_configs
     assert list_configs() == ["deepseek-coder-33b", "deepseek-moe-16b",
-                              "granite-3-8b", "qwen2-7b"]
+                              "granite-3-8b", "mamba2-370m",
+                              "musicgen-medium", "qwen2-7b", "zamba2-2.7b"]
     cfg = get_config("qwen2-7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \

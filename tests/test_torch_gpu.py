@@ -676,3 +676,68 @@ def test_moe_block_on_the_card_equals_the_cpu_and_repeats_its_bits(
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
+                                        ("bfloat16", 0.05)])
+def test_mamba_block_on_the_card_equals_the_cpu(cuda, dtype, tol):
+    """``ssm.mamba_block`` at ``mamba2-370m-smoke`` (two SSD chunks) on the
+    card against its CPU run, on its chunked path with the prefill state
+    and on its one-token decode path from that state."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import ModelContext
+    cfg = dataclasses.replace(get_config("mamba2-370m-smoke"), dtype=dtype)
+    ctx = ModelContext(ssd_chunk=32)
+    p = ssm.init_mamba(torch.Generator().manual_seed(0), cfg)
+    pc = {k: t.to(cuda) for k, t in p.items()}
+    x = torch.from_numpy((0.5 * np.random.RandomState(0).randn(
+        2, 65, cfg.d_model)).astype(np.float32)).to(getattr(torch, dtype))
+    want, (tail, state) = ssm.mamba_block(p, x[:, :64], cfg, ctx,
+                                          return_state=True)
+    got, (ctail, cstate) = ssm.mamba_block(pc, x[:, :64].to(cuda), cfg, ctx,
+                                           return_state=True)
+    step, _ = ssm.mamba_block(p, x[:, 64:], cfg, ctx, cache=(tail, state))
+    cstep, _ = ssm.mamba_block(pc, x[:, 64:].to(cuda), cfg, ctx,
+                               cache=(ctail, cstate))
+    for a, b in ((got, want), (ctail, tail), (cstate, state),
+                 (cstep, step)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("arch, head_dim, kernel", [
+    ("mamba2-370m-smoke", 16, None),
+    ("zamba2-2.7b-smoke", 80, "flash_attention"),
+    ("musicgen-medium-smoke", 64, "flash_attention_wgmma")])
+def test_family_prefill_launches_on_the_card(cuda, arch, head_dim, kernel):
+    """A bf16 prefill of each family on the card launches its kernel once
+    per attention application (zamba2's shared attention at head dim 80
+    on the FFMA kernel, musicgen at 64 on wgmma, mamba2 none), and its
+    logits agree with the plain attention loop's within the bf16 serve
+    bound (0.02 relative, tests/test_models.py)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    cfg = dataclasses.replace(get_config(arch), head_dim=head_dim)
+    n_attn = sum(s.kind == "attn" for s in model.layer_specs(cfg))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    ctx = ModelContext(ssd_chunk=64)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _, got = model.prefill(params, tokens, cfg, ctx, cache_len=260)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    _, want = model.prefill(params, tokens, cfg,
+                            dataclasses.replace(ctx, flash_kernel=False),
+                            cache_len=260)
+    assert launches == {name: (n_attn if name == kernel else 0)
+                        for name in launches}
+    rel = (got - want).abs().max() / want.abs().max()
+    assert rel < 0.02
