@@ -231,13 +231,16 @@ and prints no result line:
    card's name and power limit. Prints the phase's seconds.
 13. The dry-run on the card's machine (it launches no kernel; the
    launch counters are zeroed just before and read just after): (a)
-   ``python -m repro_torch.launch.dryrun --all --force`` in a subprocess
-   into a scratch directory under ``artifacts/`` (never
-   ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells) must
-   exit 0 with 20 ``ok``, 20 ``skipped`` and 0 ``error`` pod records and
-   40 skipped multi-pod ones; the port's roofline view, pointed at that
-   directory in this process, must read ``pod ok=20 skipped=20 err=0;
-   multipod ok=0`` and print the twenty cells' rows. (b) ``run_cell``
+   ``python -m repro_torch.launch.dryrun --arch <arch> --force``, one
+   subprocess for each of the ten architectures, all started together,
+   into one scratch directory under ``artifacts/`` (never
+   ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells): each
+   must exit 0, together with 27 ``ok``, 13 ``skipped`` and 0 ``error``
+   pod records and 40 skipped multi-pod ones; prints the counting
+   seconds of ``gemma3-4b``'s and ``deepseek-moe-16b``'s cells and the
+   matrix's wall seconds; the port's roofline view, pointed at that
+   directory in this process, must read ``pod ok=27 skipped=13 err=0;
+   multipod ok=0`` and print the 27 cells' rows. (b) ``run_cell``
    of ``qwen2-7b`` x ``train_4k`` and the counts of (c) and (d), made in
    this process beside the live CUDA context, must leave
    ``torch.cuda.memory_allocated()``, the allocator's count of
@@ -298,14 +301,34 @@ and prints no result line:
    the chunked prefill of all 2048 within 0.08 (tests/test_models.py's
    bound). The phase must end within 180 s; prints its seconds.
 
-Before phases 3 to 11, 14 and 15 the script releases cuBLAS's per-stream
+16. The local/global family: ``gemma3-4b`` (34 layers in two stages, 5
+   blocks of 5 sliding-window layers (window 1024) and a global one, then
+   4 window layers; d_model 2560, 8 heads over 4 KV heads of 256, vocab
+   262,144; 4.55 B parameters, random bf16 weights from a seeded
+   generator, made on the card) at full width and depth through
+   ``engine.generate`` with phase 5's traffic. Head dim 256 and the
+   windows take the plain attention loop, so a generate and a prefill
+   must launch no hand-written kernel. The prefill's caches must have
+   1024 rows in a window layer and the cache length in a global one.
+   Prints prefill tokens/s, decode ms a step, the KV cache's bytes, the
+   peak memory, and the plain loop's time at a global and a window
+   layer's attention beside SDPA's and the global layer's bound (what a
+   head-dim-256 kernel is to beat). Then float32 at full width, cut to 8
+   layers (one block and 2 window layers, both stages): prompts of 2048
+   and of 1500 tokens (not a multiple of the window: the rings wrap out
+   of the prompt's order), each prefilled and then decoded 8 steps
+   teacher-forced, every step's logits within 1e-4 of the largest logit
+   of the forward over the same tokens. The phase must end within 180
+   s; prints its seconds.
+
+Before phases 3 to 11 and 14 to 16 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` pass over
-one prefill and a few decode steps of phases 5, 14 and 15 (device time
-by kernel, device busy share); the default run does not profile.
+one prefill and a few decode steps of phases 5 and 14 to 16 (device
+time by kernel, device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
@@ -316,7 +339,9 @@ pipeline's (``{"training_launches": ...}``), the bench sweep's
 zero, ``{"analysis_launches": ...}``), the dry-run's (all zero,
 ``{"dryrun_launches": ...}``), MoE serving's
 (``{"moe_serving_launches": ...}``), the SSM, hybrid and audio
-families' (``{"ssm_serving_launches": ...}``), the ``kernels`` JSON
+families' (``{"ssm_serving_launches": ...}``), the local/global
+family's (all zero, ``{"local_global_serving_launches": ...}``), the
+``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check and phase 15's
 ``zamba2`` prefill and float32 checks; ``flash_attention_wgmma``'s:
@@ -3176,10 +3201,12 @@ def _sync_in_loop_ms(steps=50, reps=5):
           f"{ {k: sorted(v) for k, v in times.items()} } ({smi_line()})")
 
 
-DRYRUN_TIMEOUT_S = 600          # the whole matrix, in a subprocess
-DRYRUN_MATRIX = {"pod": {"ok": 20, "skipped": 20, "error": 0},
+DRYRUN_TIMEOUT_S = 600          # the whole matrix, in subprocesses
+DRYRUN_MATRIX = {"pod": {"ok": 27, "skipped": 13, "error": 0},
                  "multipod": {"ok": 0, "skipped": 40, "error": 0}}
-DRYRUN_FIRST_ROW = "pod ok=20 skipped=20 err=0; multipod ok=0"
+DRYRUN_FIRST_ROW = "pod ok=27 skipped=13 err=0; multipod ok=0"
+#: the cells this slice added to the matrix: their counting seconds print
+DRYRUN_NEW_ARCHS = ("gemma3-4b", "deepseek-moe-16b")
 DRYRUN_CELL = ("qwen2-7b", "train_4k")      # (b): counted in this process
 #: (c): predicted / measured peak of phase 11's uncompressed steps; fixed
 #: before the first card run
@@ -3213,34 +3240,54 @@ def phase_dryrun():
 
 
 def _dryrun_matrix():
-    """(a): the whole matrix in a subprocess, into a scratch directory (not
-    artifacts/dryrun_torch/, which phase 10 holds at zero cells), then the
-    port's roofline view over it in this process."""
+    """(a): the whole matrix, one ``python -m repro_torch.launch.dryrun
+    --arch <arch>`` subprocess an architecture, all at once, into one
+    scratch directory (not artifacts/dryrun_torch/, which phase 10 holds
+    at zero cells), then the port's roofline view over it in this
+    process."""
     import glob
     import tempfile
     from repro_torch.bench.views import roofline
     from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun_lib import all_archs
     os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
     out = tempfile.mkdtemp(prefix="phase13_dryrun_",
                            dir=os.path.join(ROOT, "artifacts"))
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--force", "--out", out], capture_output=True, text=True,
-        timeout=DRYRUN_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=SRC),
-        cwd=ROOT)
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--force", "--out", out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+        for arch in all_archs()}
+    try:
+        outputs = {arch: p.communicate(timeout=max(
+            1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))[0]
+            for arch, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     dt = time.perf_counter() - t0
-    lines = (r.stdout + r.stderr).strip().splitlines()
-    for line in lines[-4:]:
-        print(f"(a) dryrun --all: {line}")
-    check(r.returncode == 0, f"(a) the dry-run exited {r.returncode}")
+    for arch, p in procs.items():
+        last = outputs[arch].strip().splitlines()[-1:]
+        print(f"(a) dryrun --arch {arch}: exit {p.returncode}; {last}")
+        check(p.returncode == 0,
+              f"(a) the dry-run of {arch} exited {p.returncode}")
     got = {kind: {"ok": 0, "skipped": 0, "error": 0}
            for kind in DRYRUN_MATRIX}
-    for path in glob.glob(os.path.join(out, "*.json")):
+    for path in sorted(glob.glob(os.path.join(out, "*.json"))):
         with open(path) as f:
             rec = json.load(f)
         got[rec["mesh_name"]][rec["status"]] += 1
-    print(f"(a) dryrun --all: {dt} s; records {got}")
+        if rec["arch"] in DRYRUN_NEW_ARCHS and rec["mesh_name"] == "pod":
+            print(f"(a) {rec['arch']} x {rec['shape']}: {rec['status']}"
+                  + (f", counted in {rec['lower_s']} s"
+                     if rec["status"] == "ok" else
+                     f" ({rec.get('reason')})"))
+    print(f"(a) the matrix in {len(procs)} concurrent subprocesses: wall "
+          f"{dt} s; records {got}")
     check(got == DRYRUN_MATRIX, f"(a) records {got}, want {DRYRUN_MATRIX}")
     saved = roofline.DRYRUN_DIR
     roofline.DRYRUN_DIR = out
@@ -3815,6 +3862,222 @@ def _ssm_stream_check(cfg, card):
                                 f"relative from the chunked scan")
 
 
+LG_ARCH = "gemma3-4b"       # full width and depth in bf16 (~9.10 GB)
+#: the float32 check: full width, a two-stage cut in depth (one block of
+#: 5 window layers and a global one, then 2 window layers, ~8.4 GB),
+#: prompts of a multiple of the window and of another length, each
+#: followed by LG_CHECK_STEPS teacher-forced decode steps held to the
+#: forward over the same tokens within LM_F32_REL_TOL
+LG_CHECK_LAYERS = 8
+LG_CHECK_PROMPTS = (2048, 1500)
+LG_CHECK_STEPS = 8
+PHASE16_LIMIT_S = 180
+
+
+def phase_local_global(profile=False):
+    """Phase 16: ``gemma3-4b`` served at full width and depth in bf16,
+    then the float32 check of its ring caches at a two-stage cut; returns
+    the hand-written kernels' launches of the phase (none: head dim 256
+    and sliding windows take the plain loop). ``profile`` adds
+    ``_profile`` over one bf16 prefill and 8 decode steps."""
+    import torch
+    from repro_torch.configs import get_config
+    print(f"== phase 16: {LG_ARCH} (the local/global family) serving at "
+          f"full width and depth")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held = held_report("phase 16")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LG_ARCH)
+    launches = _lg_serve(cfg, held, card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, count in _lg_float32_check(cfg, card).items():
+        launches[name] += count
+    dt = time.perf_counter() - t_phase
+    print(f"phase 16: {dt} s (limit {PHASE16_LIMIT_S} s); peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes ({held} held "
+          f"before the phase); launches {launches} ({card})")
+    check(not any(launches.values()),
+          f"phase 16 launched a hand-written kernel: {launches}")
+    check(dt <= PHASE16_LIMIT_S, f"phase 16 took {dt} s")
+    return launches
+
+
+def _lg_serve(cfg, held, card, profile):
+    """bf16 at full width and depth through ``engine.generate``: no
+    hand-written kernel launches; prints prefill tokens/s, decode ms a
+    step, the caches' rows and the peak; then the plain loop's time at a
+    global and a window layer's attention beside SDPA's and the bound."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    specs = model.layer_specs(cfg)
+    n_window = sum(bool(spec.window) for spec in specs)
+    print(f"{cfg.name} ({cfg.family}): {len(specs)} layers ({n_window} "
+          f"with a window of {cfg.sliding_window}, "
+          f"{len(specs) - n_window} global; plan "
+          f"{[(st.repeat, len(st.layers)) for st in cfg.plan()]}), "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, {sum(t.numel() for t in tree.leaves(params))} "
+          f"parameters ({cfg.param_count()} by param_count), "
+          f"{torch.cuda.memory_allocated() - held} bytes, made on the card "
+          f"in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    cache_len = LM_PROMPT + LM_NEW
+    ctx = ModelContext()
+    # first calls build cuBLAS handles and load kernels: not measured
+    engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                    cache_len=cache_len)
+    timings = {}
+    out, launches, _ = drive(
+        f"{cfg.name} generate", lambda: engine.generate(
+            params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
+            cache_len=cache_len, timings=timings))
+    check(not any(launches.values()),
+          f"{cfg.name} generate launched {launches}; want none")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
+          0 <= out.min().item() and
+          out.max().item() < cfg.padded_vocab_size,
+          f"generated {tuple(out.shape)} ids in [{out.min().item()}, "
+          f"{out.max().item()}]")
+    pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
+    print(f"prefill: {LM_BATCH * LM_PROMPT} tokens in {pre_s} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s ({card})")
+    print(f"decode: {LM_NEW - 1} steps of {LM_BATCH} in {dec_s} s, "
+          f"{dec_s / (LM_NEW - 1) * 1e3} ms per step ({card})")
+    print(f"first generated ids: {out[:, :8].tolist()}")
+    (caches, logits), p_launches, p_s = drive(
+        "prefill", lambda: engine.make_prefill_step(cfg, ctx, cache_len)(
+            params, prompt))
+    check(not any(p_launches.values()), f"prefill launched {p_launches}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(torch.equal(out[:, 0], logits.argmax(dim=-1)),
+          "generate's first token is not the prefill's argmax")
+    rows = sorted({(spec.window, c[0].shape[1])
+                   for spec, c in zip(specs, caches)})
+    want_rows = sorted({(cfg.sliding_window, cfg.sliding_window),
+                        (0, cache_len)})
+    check(rows == want_rows, f"cache rows {rows}; want {want_rows}")
+    kv_bytes = sum(t.untyped_storage().nbytes() for c in caches for t in c)
+    print(f"caches: (window, rows) {rows}, {kv_bytes} bytes of KV cache "
+          f"for {len(caches)} layers")
+    del caches, logits
+    print(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes "
+          f"({held} held before; {card})")
+    if profile:
+        _profile_serving(f"{cfg.name} ", cfg, ctx, params, prompt,
+                         cache_len)
+    del params
+    _lg_attention_times(cfg, card)
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_wgmma": launches["flash_attention_wgmma"]}
+
+
+def _lg_attention_times(cfg, card):
+    """The plain loop at the prefill's global-layer and window-layer
+    attention (4 x 2048, 8/4 heads of 256, causal, bf16), eager, beside
+    SDPA (a yardstick the port never calls) and the bound of the global
+    layer's work at the bf16 rate: what a head-dim-256 kernel is to
+    beat."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    B, S, H, KV, D = (LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim)
+    q, k, v = _flash_inputs((B, S, H, KV, D), torch.bfloat16, 16)
+    plain = {w: cuda_ms(lambda w=w: layers.attention(
+        q, k, v, causal=True, window=w), iters=5, warmup=1, graph=False)
+        for w in (0, cfg.sliding_window)}
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), iters=10, warmup=2,
+        graph=False)
+    nbytes, flops = flash_work(B, S, H, KV, D, True, 2)
+    bound, by = bound_ms(nbytes, flops, chip_spec().peak_bf16_flops)
+    n_global = sum(not spec.window
+                   for st in cfg.plan() for _ in range(st.repeat)
+                   for spec in st.layers)
+    print(f"plain attention loop, {B} x {S}, {H}/{KV} heads of {D}, "
+          f"causal, bf16: global layer {plain[0]} ms (x {n_global} = "
+          f"{plain[0] * n_global} ms of a prefill), window layer "
+          f"{plain[cfg.sliding_window]} ms; SDPA {sdpa} ms; bound {bound} "
+          f"ms ({by}, bf16 rate) ({card})")
+
+
+def _lg_float32_check(cfg, card):
+    """Float32 at full width, ``LG_CHECK_LAYERS`` layers (two stages):
+    for each prompt length, the prefill's last logits and
+    ``LG_CHECK_STEPS`` teacher-forced decode steps' logits against the
+    forward over the same tokens, within ``LM_F32_REL_TOL`` of its
+    largest logit. At 1500 the window layers' rings wrap out of the
+    prompt's order, as at no multiple of the window."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=LG_CHECK_LAYERS)
+    stages = [(st.repeat, len(st.layers)) for st in cfg32.plan()]
+    check(len(stages) == 2, f"the float32 cut's plan {stages}")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    ctx = ModelContext()
+    launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    for S in LG_CHECK_PROMPTS:
+        g = torch.Generator(device=dev).manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (LM_BATCH, S + LG_CHECK_STEPS), generator=g,
+                               device=dev)
+        decode = engine.make_decode_step(cfg32, ctx)
+
+        def served():
+            caches, logits = engine.make_prefill_step(
+                cfg32, ctx, S + LG_CHECK_STEPS)(params, tokens[:, :S])
+            out = [logits]
+            for t in range(S, S + LG_CHECK_STEPS):
+                caches, logits = decode(params, caches,
+                                        tokens[:, t:t + 1], t)
+                out.append(logits)
+            return torch.stack(out, dim=1)
+
+        def forward():
+            hid, _ = model.forward(params, tokens, cfg32, ctx)
+            return (hid[:, S - 1:] @ params["unembed"]).float()
+        want, f_launches, f_s = drive(
+            f"{cfg.name} float32 ({LG_CHECK_LAYERS} layers, plan {stages}) "
+            f"forward over {S} + {LG_CHECK_STEPS} tokens", forward)
+        got, s_launches, s_s = drive(
+            f"{cfg.name} float32 prefill of {S}, then {LG_CHECK_STEPS} "
+            f"decode steps", served)
+        for name in launches:
+            launches[name] += f_launches[name] + s_launches[name]
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              "non-finite float32 logits")
+        scale = want.abs().max().item()
+        per_step = ((got - want).abs().amax(dim=(0, 2)) / scale).tolist()
+        rel = max(per_step)
+        print(f"{cfg.name} float32, prompt {S}: prefill and decode logits "
+              f"vs the forward's, max abs diff / max |logit| = {rel} "
+              f"(limit {LM_F32_REL_TOL}; max |logit| {scale}; by step "
+              f"{per_step}) ({card})")
+        check(rel < LM_F32_REL_TOL, f"{cfg.name} float32 prompt {S}: "
+                                    f"served logits differ by {rel}")
+        del got, want
+    del params
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3854,6 +4117,8 @@ def main() -> int:
         dryrun_launches = phase_dryrun()
         moe_launches = phase_moe(profile="--profile" in sys.argv[1:])
         ssm_launches = phase_ssm(profile="--profile" in sys.argv[1:])
+        local_global_launches = phase_local_global(
+            profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3883,6 +4148,8 @@ def main() -> int:
     print(json.dumps({"dryrun_launches": dryrun_launches}))
     print(json.dumps({"moe_serving_launches": moe_launches}))
     print(json.dumps({"ssm_serving_launches": ssm_launches}))
+    print(json.dumps({"local_global_serving_launches":
+                      local_global_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -305,10 +305,11 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 def _load_all() -> None:
     # Importing the arch modules registers them. Only the configs the
-    # port can run are copied (the dense, MoE, SSM, hybrid and audio
-    # families' so far).
+    # port can run are copied (the dense, MoE, SSM, hybrid, audio and
+    # local/global families' so far).
     from repro_torch.configs import deepseek_coder_33b  # noqa: F401
     from repro_torch.configs import deepseek_moe_16b  # noqa: F401
+    from repro_torch.configs import gemma3_4b  # noqa: F401
     from repro_torch.configs import granite_3_8b  # noqa: F401
     from repro_torch.configs import mamba2_370m  # noqa: F401
     from repro_torch.configs import musicgen_medium  # noqa: F401

@@ -4,7 +4,7 @@ Port of the reference's ``distributed/sharding.py`` (MaxText-style
 logical axes) for the port's layouts. The port runs on one card, so
 nothing here places a tensor: the rules are kept as data, for the
 dry-run's records and for a mesh of more than one card (ROADMAP queue 1
-item 13), with no DTensor until then. A spec is a tuple with one entry
+item 16), with no DTensor until then. A spec is a tuple with one entry
 per dimension: an axis name, a tuple of axis names (the batch axes of a
 multi-pod mesh), or ``None`` (replicated); ``tuple()`` of the
 reference's ``PartitionSpec`` for the same leaf gives the same tuple.
@@ -43,13 +43,13 @@ AxisSizes = Mapping[str, int]
 REFERENCE_ONLY_CONTEXT = {
     # expert parallelism (the reference's ``routed_ep``) exists only
     # across cards
-    "moe_impl": "ROADMAP queue 1 item 13 (more than one card)",
-    "capacity_factor": "ROADMAP queue 1 item 13 (more than one card)",
-    "seq_shard_residual": "ROADMAP queue 1 item 13 (more than one card)",
-    "no_tp": "ROADMAP queue 1 item 13 (more than one card)",
-    "mesh": "ROADMAP queue 1 item 13 (more than one card)",
-    "model_axis": "ROADMAP queue 1 item 13 (more than one card)",
-    "data_axes": "ROADMAP queue 1 item 13 (more than one card)",
+    "moe_impl": "ROADMAP queue 1 item 16 (more than one card)",
+    "capacity_factor": "ROADMAP queue 1 item 16 (more than one card)",
+    "seq_shard_residual": "ROADMAP queue 1 item 16 (more than one card)",
+    "no_tp": "ROADMAP queue 1 item 16 (more than one card)",
+    "mesh": "ROADMAP queue 1 item 16 (more than one card)",
+    "model_axis": "ROADMAP queue 1 item 16 (more than one card)",
+    "data_axes": "ROADMAP queue 1 item 16 (more than one card)",
 }
 
 

@@ -36,42 +36,73 @@ final normalisation lie outside the scope, as in the reference, and stay
 counted as eager ops; so does the backward of the scope's ops, which
 runs outside it (on the card it is plain float32 math).
 
+Replayed attention: a prefill's plain attention loop is most of a cell's
+aten ops (``prefill_32k``: 1,024 blocks of ~66 ops a layer, ~6 s of
+counting each), and every call with the same inputs counts the same.
+Within one ``count_cell``, the first call of ``models.layers.attention``
+with a given signature (each input's shape, strides, dtype, storage
+size and flags, the call's arguments and scopes) runs under the
+``Counter`` and its increments are kept: FLOPs, matmul FLOPs, bytes,
+ops, the rise of live bytes at its peak and at its end, and the flags
+it left on its inputs' storages. A later call with that signature adds
+the same increments and returns an output of the same layout without
+running the loop. A call whose inputs need a gradient always runs (the
+backward needs its graph), and so does a decode step's one-row call.
+``count_cell(..., replay=False)`` runs every call;
+``tests/test_torch_dryrun.py`` and ``tests/test_torch_dryrun_stages.py``
+hold the two equal.
+
 The meta path never reaches a kernel: ``layers._flash_case`` needs a
 CUDA tensor, so attention takes the plain chunked loop, which is the
 computation the reference's HLO holds (its models never launch the
 Pallas kernel). Nothing is allocated on any device.
 
 Depth by repeat: the counterpart of ``hlo.py``'s while-loop trip
-counts. Each cell is counted at depths 2 and 3 of its stage (2 and 3
-super-blocks for the hybrid family: 12 and 18 Mamba2 layers, each block
-with its application of the shared attention); the difference is one
-repeat of the stage's block, counted in its place, with a block before
-it and the rest of the step after it, and the cell is extrapolated to
-its ``repeat`` linearly: ``f(R) = f(2) + (R - 2) (f(3) - f(2))``.
-FLOPs, bytes, argument and output bytes are linear in depth (a shared
-layer's parameters count once at every depth), so this is exact; so is
-the peak wherever it falls at the same point of each block, which depth
-1 misses in prefill (no layer before it holds its raw k and v while the
-next one runs). ``tests/test_torch_dryrun.py`` holds both against
-``unroll=True``.
+counts. A plan is a list of stages, each a block of layers repeated
+``R_s`` times (one stage for the dense, SSM, hybrid and audio families;
+the MoE family's leading dense layers and its MoE layers; the
+local/global family's blocks of window layers and a global one, then its
+remaining window layers). Every count is linear in each stage's repeat,
+so a cell is counted at a base of small repeats and at one more block of
+each stage that repeats beyond it, and extrapolated:
+``f(R) = f(b) + sum_s (R_s - b_s) (f(b + e_s) - f(b))``. The base repeats
+every stage once but the last, which it repeats twice (``b_s = min(R_s,
+1)``, ``b_last = min(R_last, 2)``), so that the plan's last block has a
+block of its own kind before it, as at full depth: the one-stage
+families are counted at depths 2 and 3 (2 and 3 super-blocks for the
+hybrid family, each with its application of the shared attention);
+``gemma3-4b`` (5 x [5 window + 1 global], then 4 window) at 1+2, 2+2
+and 1+3 blocks, 31 layers instead of 34 in three counts;
+``deepseek-moe-16b`` (1 dense, then 27 MoE) at 1+2 and 1+3. A plan whose
+every stage repeats at most once past its base is counted whole. FLOPs,
+bytes, argument and output bytes are sums over layers (a shared layer's
+parameters count once at every depth), so this is exact; so is the peak
+wherever it falls at the same point of the last block, which a plan of
+one block misses in prefill (no layer before it holds its raw k and v
+while the next one runs). ``tests/test_torch_dryrun.py`` holds both
+against ``unroll=True`` for one stage, ``test_torch_dryrun_stages.py``
+for two.
 
 Collectives are zero on one card; the keys stay. The roofline is
 ``common.hw.roofline_terms`` at the card's dense bf16 rate, as the
-reference's convention. The dense, SSM, hybrid and audio families are
-counted (the SSD scan has no host read and no data-dependent shape):
-the MoE family's ``deepseek-moe-16b`` runs on the card but its routing
-is data-dependent (a host read of each layer's expert counts), which
-``meta`` tensors cannot give, so its cells are ``skipped`` with a reason
-of their own; the other three architectures of the reference (their
-family not ported), ``long_500k`` for the full-attention archs (the
-reference's reason) and every multi-pod cell (one card has no
-multi-pod mesh) get ``skipped`` records too.
+reference's convention. The dense, MoE, SSM, hybrid, audio and
+local/global families are counted (the SSD scan has no host read and no
+data-dependent shape). The MoE family's routing is data-dependent: on
+``meta`` tensors ``models.moe`` splits each layer's ``T·k`` rows evenly
+over the experts (``moe.expert_rows``), where the reference's dry-run
+compiles ``routed_ep``, every expert over a buffer of 1.25 times its
+even share (ROADMAP §3 states the difference). The reference's two
+other architectures (MLA and MTP, the VLM family: not ported),
+``long_500k`` for the full-attention archs (the reference's reason) and
+every multi-pod cell (one card has no multi-pod mesh) get ``skipped``
+records.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import threading
 import time
 import traceback
 import weakref
@@ -87,20 +118,19 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as shardlib
 from repro_torch.launch import specs as speclib
 from repro_torch.launch.mesh import Mesh, make_production_mesh
-from repro_torch.models import model
+from repro_torch.models import layers, model
 from repro_torch.models.layers import ModelContext, ShapesOnly, \
     current_scopes
 from repro_torch.train import OptimizerConfig
 from repro_torch.train.train_step import make_train_state_shapes, \
     make_train_step
 
-#: the reference's architectures whose family the port does not run
-#: (names only: the port keeps no config of theirs)
-REFERENCE_ONLY_ARCHS = ("deepseek-v3-671b", "gemma3-4b",
-                        "llama-3.2-vision-90b")
-NOT_PORTED = "family not ported (ROADMAP queue 1 item 4)"
-MOE_NOT_COUNTED = ("MoE routing is data-dependent and not counted on meta "
-                   "tensors yet (ROADMAP queue 1 item 3)")
+#: the reference's architectures the port does not run yet, each with
+#: its skip reason (names only: the port keeps no config of theirs)
+REFERENCE_ONLY_ARCHS = {
+    "deepseek-v3-671b": "MLA and MTP not ported (ROADMAP queue 1 item 3)",
+    "llama-3.2-vision-90b": "family not ported (ROADMAP queue 1 item 4)",
+}
 NO_MULTIPOD = "one card: no multi-pod mesh"
 #: the scope the plain attention loop's KV-block body runs in
 FLASH_SCOPE = "vmem_flash"
@@ -244,6 +274,7 @@ class Counter(TorchDispatchMode):
         self.peak = 0
         # id(storage) -> [weakref, nbytes, flags]
         self._storages: Dict[int, list] = {}
+        self.silent = False     # run ops without counting them
 
     # -- storages
     def _gone(self, key: int, nbytes: int) -> Callable:
@@ -278,6 +309,8 @@ class Counter(TorchDispatchMode):
     # -- dispatch
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if self.silent:
+            return out
         self.ops += 1
         outs = _outputs(out)
         fused = bool(self.fused_scopes) and \
@@ -339,15 +372,102 @@ def _track_arguments(args, counter: Counter) -> Tuple[int, set]:
     return total, ids
 
 
+_TOTALS = ("flops", "matmul_flops", "bytes", "ops")
+
+
+class _AttentionReplay:
+    """While entered, ``layers.attention`` called on this thread under
+    ``counter`` is counted once per signature and replayed after (module
+    docstring). ``memo`` maps signatures to increments and may be shared
+    by the counts of one cell."""
+
+    def __init__(self, counter: Counter, memo: dict):
+        self.counter, self.memo = counter, memo
+        self.thread = threading.get_ident()
+        self.real = None
+
+    def __enter__(self):
+        self.real = layers.attention
+        layers.attention = self.attention
+        return self
+
+    def __exit__(self, *exc):
+        layers.attention = self.real
+
+    def _signature(self, tensors, kwargs):
+        parts, ids = [], []
+        for t in tensors:
+            st = t.untyped_storage()
+            rec = self.counter._storages.get(id(st))
+            ids.append(id(st))
+            parts.append((tuple(t.shape), t.stride(), t.storage_offset(),
+                          t.dtype, st.nbytes(), rec[2] if rec else None))
+        return (tuple(parts), tuple(ids.index(i) for i in ids),
+                tuple(sorted(kwargs.items())), current_scopes())
+
+    def attention(self, q, k, v, **kwargs):
+        c = self.counter
+        tensors = (q, k, v)
+        if threading.get_ident() != self.thread or q.shape[1] == 1 or (
+                torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)):
+            return self.real(q, k, v, **kwargs)
+        key = self._signature(tensors, kwargs)
+        hit = self.memo.get(key)
+        if hit is not None:
+            for name, n in zip(_TOTALS, hit["totals"]):
+                setattr(c, name, getattr(c, name) + n)
+            c.peak = max(c.peak, c.live + hit["peak"])
+            c.silent = True
+            try:
+                out = torch.empty_strided(hit["shape"], hit["stride"],
+                                          dtype=hit["dtype"], device=q.device)
+            finally:
+                c.silent = False
+            c.track(out)
+            for t, flags in zip(tensors, hit["flags"]):
+                rec = c._storages.get(id(t.untyped_storage()))
+                if rec is not None:
+                    rec[2] |= flags
+            return out
+        totals0 = [getattr(c, name) for name in _TOTALS]
+        live0, peak0 = c.live, c.peak
+        c.peak = live0
+        out = self.real(q, k, v, **kwargs)
+        rise, c.peak = c.peak - live0, max(peak0, c.peak)
+        st = out.untyped_storage()
+        rec = c._storages.get(id(st))
+        # replayable if the call's only lasting storage is its own output
+        if rec is not None and not rec[2] and out.storage_offset() == 0 \
+                and c.live - live0 == st.nbytes() == \
+                out.numel() * out.element_size():
+            self.memo[key] = {
+                "totals": [getattr(c, name) - n
+                           for name, n in zip(_TOTALS, totals0)],
+                "peak": rise, "shape": tuple(out.shape),
+                "stride": out.stride(), "dtype": out.dtype,
+                "flags": [c._storages.get(id(t.untyped_storage()),
+                                          (None, None, 0))[2]
+                          for t in tensors]}
+        return out
+
+
 def count(fn: Callable, args: tuple, *,
-          fused_scopes: Tuple[str, ...] = ()) -> Dict[str, int]:
+          fused_scopes: Tuple[str, ...] = (),
+          memo: Optional[dict] = None) -> Dict[str, int]:
     """Run ``fn(*args)`` (on meta tensors) under a ``Counter``: FLOPs,
     matmul FLOPs, bytes, aten ops, and the argument, output, alias and
-    peak bytes (the peak of live storage bytes, arguments included)."""
+    peak bytes (the peak of live storage bytes, arguments included).
+    ``memo``: the attention calls to replay (module docstring), shared
+    by the counts of one cell; None runs every call."""
     counter = Counter(fused_scopes)
     arg_bytes, arg_ids = _track_arguments(args, counter)
     with counter:
-        out = fn(*args)
+        if memo is None:
+            out = fn(*args)
+        else:
+            with _AttentionReplay(counter, memo):
+                out = fn(*args)
     out_bytes = alias_bytes = 0
     seen = set()
     for leaf in _leaves(out):
@@ -415,42 +535,71 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
                   microbatch=microbatch)
 
 
-def _repeats(cfg: ModelConfig) -> int:
-    """The repeats of ``cfg``'s one stage (a layer, or a super-block such
-    as the hybrid family's six Mamba2 layers and a shared attention)."""
+def _repeats(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The repeats of ``cfg``'s stages, in plan order (a stage repeats a
+    layer or a block, such as the hybrid family's six Mamba2 layers and
+    a shared attention)."""
+    return tuple(stage.repeat for stage in cfg.plan())
+
+
+def _at_depth(cfg: ModelConfig, repeats: Tuple[int, ...]) -> ModelConfig:
+    """``cfg`` with its stages repeated ``repeats`` times, each stage's
+    block unchanged: ``num_layers`` counts every stage's layers but its
+    shared ones (the hybrid family's 54 are 9 blocks of 6 Mamba2 layers,
+    ``gemma3-4b``'s 34 are 5 blocks of 6 and 4), and the MoE family's
+    first stage is its ``first_dense_layers``. Raises ``ValueError`` if
+    the config's plan has no such cut."""
     stages = cfg.plan()
-    if len(stages) != 1:
-        raise NotImplementedError(
-            f"depth by repeat counts one stage; {cfg.name} has "
-            f"{len(stages)} stages (ROADMAP queue 1 item 4)")
-    return stages[0].repeat
+    own = [sum(not spec.shared for spec in st.layers) for st in stages]
+    over = {"num_layers": sum(r * n for r, n in zip(repeats, own))}
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        over["first_dense_layers"] = repeats[0]
+    cut = dataclasses.replace(cfg, **over)
+    if [(st.repeat, st.layers) for st in cut.plan()] != \
+            [(r, st.layers) for r, st in zip(repeats, stages)]:
+        raise ValueError(f"{cfg.name} has no cut with stage repeats "
+                         f"{repeats}")
+    return cut
 
 
-def _at_depth(cfg: ModelConfig, repeat: int) -> ModelConfig:
-    """``cfg`` with its one stage repeated ``repeat`` times:
-    ``num_layers`` counts the stage's layers but its shared ones (the
-    hybrid family's 54 are 9 super-blocks of 6 Mamba2 layers)."""
-    per = cfg.num_layers // _repeats(cfg)
-    return dataclasses.replace(cfg, num_layers=repeat * per)
+def depth_points(repeats: Tuple[int, ...]
+                 ) -> Tuple[Tuple[int, ...], Dict[int, Tuple[int, ...]]]:
+    """(the base repeats, {stage: the base with one more block of it})
+    of depth by repeat (module docstring); only stages that repeat past
+    their base get a point."""
+    base = tuple(min(r, 1) for r in repeats[:-1]) + (min(repeats[-1], 2),)
+    more = {s: base[:s] + (base[s] + 1,) + base[s + 1:]
+            for s, r in enumerate(repeats) if r > base[s]}
+    return base, more
 
 
 def count_cell(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
                opt_cfg: Optional[OptimizerConfig] = None,
                microbatch: int = 0, fused_scopes: Tuple[str, ...] = (),
-               unroll: bool = False) -> Dict[str, int]:
+               unroll: bool = False, replay: bool = True
+               ) -> Dict[str, int]:
     """The counts of one cell at ``cfg``'s depth: every layer
-    (``unroll``), or by repeat (depths 2 and 3, extrapolated)."""
+    (``unroll``), or by repeat (``depth_points``, extrapolated); with
+    attention calls replayed (``replay``, module docstring) or each
+    run."""
+    memo = {} if replay else None
+
     def at(c):
         fn, args = _build(c, shape, ctx, opt_cfg=opt_cfg,
                           microbatch=microbatch)
-        return count(fn, args, fused_scopes=fused_scopes)
+        return count(fn, args, fused_scopes=fused_scopes, memo=memo)
 
-    repeat = _repeats(cfg)
-    if unroll or repeat <= 3:
+    repeats = _repeats(cfg)
+    base, more = depth_points(repeats)
+    if unroll or all(r <= b + 1 for r, b in zip(repeats, base)):
         return at(cfg)
-    two = at(_at_depth(cfg, 2))
-    three = at(_at_depth(cfg, 3))
-    return {k: two[k] + (repeat - 2) * (three[k] - two[k]) for k in two}
+    f0 = at(_at_depth(cfg, base))
+    out = dict(f0)
+    for s, point in more.items():
+        fs = at(_at_depth(cfg, point))
+        for k in out:
+            out[k] += (repeats[s] - base[s]) * (fs[k] - f0[k])
+    return out
 
 
 def _skip(arch: str, shape_name: str, reason: str) -> Dict[str, Any]:
@@ -470,12 +619,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     unknown field raises ``ValueError``."""
     over, microbatch, fused = split_overrides(ctx_overrides)
     if arch in REFERENCE_ONLY_ARCHS:
-        return _skip(arch, shape_name, NOT_PORTED)
+        return _skip(arch, shape_name, REFERENCE_ONLY_ARCHS[arch])
     if multi_pod:
         return _skip(arch, shape_name, NO_MULTIPOD)
     cfg = get_config(arch)
-    if cfg.family == "moe":
-        return _skip(arch, shape_name, MOE_NOT_COUNTED)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
     if not ok:
@@ -522,7 +669,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                  "matmul_flops_per_chip": c["matmul_flops"],
                  "aten_ops": c["ops"],
                  "depth": "unrolled" if unroll else "by_repeat",
-                 "max_loop_trip": _repeats(cfg)},
+                 "max_loop_trip": max(_repeats(cfg))},
         "collectives": coll,
         "roofline": terms,
         "model_flops_total": mf_total,

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, SSM, hybrid and audio LM
-families: init, forward, prefill, decode.
+"""Model assembly for the dense, MoE, SSM, hybrid, audio and
+local/global LM families: init, forward, prefill, decode.
 
 Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``forward`` ``:133``, ``fused_ce`` ``:173``, ``lm_loss`` ``:201``,
@@ -13,9 +13,12 @@ application (``layer_specs``): the dense and audio families' one stage;
 the MoE family's leading dense layers (``dense_d_ff`` wide) and then its
 MoE layers (``models.moe``); the SSM family's Mamba2 layers
 (``models.ssm``, no FFN); the hybrid family's super-blocks of Mamba2
-layers and one shared attention layer (no FFN). A layer is ``{"attn"}``
-(the attention or Mamba2 block's leaves, under the reference's key) and
-``"ffn"`` unless its spec says ``ffn="none"``. A shared layer's
+layers and one shared attention layer (no FFN); the local/global
+family's super-blocks of ``local_global_ratio`` sliding-window layers
+and one global layer, then its remaining window layers. A layer is
+``{"attn"}`` (the attention or Mamba2 block's leaves, under the
+reference's key) and ``"ffn"`` unless its spec says ``ffn="none"``. A
+shared layer's
 parameters are held once, as the reference's ``stage{s}_shared``:
 ``params[f"stage{s}_shared"][f"layer{j}"]``, not in ``params["layers"]``;
 ``layer_params`` gives the parameters of every application, a shared
@@ -25,18 +28,24 @@ audio family's ``num_codebooks`` belongs to its frontend; the model does
 not read it, as in the reference.
 
 Caches are a list with one entry per application: an attention layer's
-``(k, v)``, each ``[B, cache_len, KV, head_dim]``, which ``decode_step``
+``(k, v)``, each ``[B, rows, KV, head_dim]``, which ``decode_step``
 writes IN PLACE (each application of a shared layer keeps its own); a
 Mamba2 layer's ``(conv tail [B, K-1, C]`` in the model dtype, ``state
 [B, heads, head_dim, N]`` in float32), which ``decode_step`` replaces.
+``rows`` is ``cache_len``, or ``min(window, cache_len)`` for a
+sliding-window layer, whose cache is a ring: position t lives in row
+``t % rows``. ``prefill`` writes the prompt's last ``rows`` positions
+there whatever the prompt's length; the reference keeps the last
+``window`` rows in order, which is the same ring only when the prompt
+length is a multiple of the window (ROADMAP §3).
 
 With ``ctx.remat == "full"`` each layer of ``forward`` runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
 scanned block): the backward recomputes the layer from its input, so a
 training step keeps one ``[B, S, d]`` activation per layer.
 
-MLA, MTP, the local/global family and the VLM family are not ported:
-they raise ``NotImplementedError`` naming what is missing.
+MLA, MTP and the VLM family are not ported: they raise
+``NotImplementedError`` naming what is missing.
 
 Entry points:
   init(generator, cfg)                -> params
@@ -63,7 +72,8 @@ Params = Dict[str, Any]
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
 #: the families the port runs; MLA and MTP stay refused within them
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio",
+                   "local_global")
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -72,14 +82,14 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     if cfg.family not in PORTED_FAMILIES or cfg.use_mla or cfg.mtp_depth:
         raise NotImplementedError(
             f"repro_torch runs the {', '.join(PORTED_FAMILIES)} families "
-            f"without MLA or MTP (not local_global or vlm); {cfg.name} is "
+            f"without MLA or MTP (not vlm); {cfg.name} is "
             f"{cfg.family!r} (use_mla={cfg.use_mla}, mtp_depth="
             f"{cfg.mtp_depth})")
     specs = []
     for stage in cfg.plan():
         for _ in range(stage.repeat):
             for spec in stage.layers:
-                if spec.kind not in ("attn", "mamba") or spec.window or \
+                if spec.kind not in ("attn", "mamba") or \
                         spec.ffn not in ("dense", "moe", "none"):
                     raise NotImplementedError(f"layer spec {spec}")
                 specs.append(spec)
@@ -256,34 +266,54 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
 # --------------------------------------------------------------------------
 # serve: cache construction, prefill, decode
 # --------------------------------------------------------------------------
+def cache_rows(spec: LayerSpec, cache_len: int) -> int:
+    """An attention cache's rows: ``cache_len``, or the ring of a
+    sliding-window layer, ``min(window, cache_len)`` (the reference's
+    ``_cache_spec_for_layer``)."""
+    return min(spec.window, cache_len) if spec.window else cache_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: Optional[torch.device] = None) -> Cache:
     """Zeroed caches, one per application: (k, v) for attention, (conv
     tail, state) for Mamba2."""
     dev = device or current_device()
     dt = getattr(torch, cfg.dtype)
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return [SSM.init_mamba_cache(cfg, batch, dt, device=dev)
-            if spec.kind == "mamba" else
-            (torch.zeros(shape, dtype=dt, device=dev),
-             torch.zeros(shape, dtype=dt, device=dev))
-            for spec in layer_specs(cfg)]
+    caches: Cache = []
+    for spec in layer_specs(cfg):
+        if spec.kind == "mamba":
+            caches.append(SSM.init_mamba_cache(cfg, batch, dt, device=dev))
+            continue
+        shape = (batch, cache_rows(spec, cache_len), cfg.num_kv_heads,
+                 cfg.head_dim)
+        caches.append((torch.zeros(shape, dtype=dt, device=dev),
+                       torch.zeros(shape, dtype=dt, device=dev)))
+    return caches
 
 
 def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int):
-    """Raw prefill (k, v) -> cache tensors of cache_len rows, zero past
-    the prompt (no ported family has windowed layers); a Mamba2 layer's
-    (tail, state) -> the tail in the model dtype and the state."""
+    """Raw prefill (k, v) -> cache tensors of ``cache_rows`` rows, zero
+    where no position was written: position t of the prompt goes to row
+    ``t % rows``, so a sliding-window layer keeps the prompt's last
+    ``rows`` positions on the ring ``decode_step`` writes. A Mamba2
+    layer's (tail, state) -> the tail in the model dtype and the state."""
     dt = getattr(torch, cfg.dtype)
     if spec.kind == "mamba":
         tail, state = raw
         return (tail.to(dt), state)
+    rows = cache_rows(spec, cache_len)
 
-    def pad(t):
-        out = t.new_zeros((t.shape[0], cache_len) + t.shape[2:], dtype=dt)
-        out[:, :t.shape[1]] = t
+    def ring(t):
+        S = t.shape[1]
+        keep = min(S, rows)
+        out = t.new_zeros((t.shape[0], rows) + t.shape[2:], dtype=dt)
+        start = (S - keep) % rows           # the row of position S - keep
+        head = min(keep, rows - start)      # rows up to the ring's end
+        out[:, start:start + head] = t[:, S - keep:S - keep + head]
+        if keep > head:                     # the rest wraps to row 0
+            out[:, :keep - head] = t[:, S - keep + head:]
         return out
-    return tuple(pad(t) for t in raw)
+    return tuple(ring(t) for t in raw)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,

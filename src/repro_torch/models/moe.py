@@ -12,10 +12,19 @@ gather and a sum, so a run on the card gives the same bits every time.
 
 The reference's expert-parallel path (``routed_ep``, a ``shard_map``
 over a mesh with fixed capacity) is not ported: expert parallelism
-exists only across cards (ROADMAP queue 1 item 13).
+exists only across cards (ROADMAP queue 1 item 16).
 
 Both entry points return (y, aux) where aux is the switch-style
 load-balance loss, float32.
+
+On ``meta`` tensors (the dry-run's counting, ``launch.dryrun_lib``) the
+expert choices have no values, so the per-expert counts come from a
+stated routing model instead of the one host read: even load, ``T·k //
+E`` rows an expert and one more for each of the first ``T·k % E``
+experts (``expert_rows``). The SwiGLU FLOPs of a layer are then those of
+its ``T·k`` rows, as on the card whatever the split; the reference's
+dry-run compiles ``routed_ep``, every expert over a buffer of 1.25 times
+its even share, and the difference is stated in ROADMAP §3.
 """
 from __future__ import annotations
 
@@ -64,9 +73,23 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # switch-style aux: E * sum_e f_e * P_e, f_e the share of the T
     # tokens' k choices that went to e (counted, so exact)
-    f = torch.bincount(idx.reshape(-1), minlength=E).float() / T
+    flat = idx.reshape(-1)
+    # meta tensors have no counts: an [E] stand-in of bincount's type
+    counts = flat.new_empty(E) if flat.is_meta else \
+        torch.bincount(flat, minlength=E)
+    f = counts.float() / T
     aux = E * torch.sum(f * probs.mean(0))
     return gates.to(xt.dtype), idx, aux
+
+
+def expert_rows(flat: torch.Tensor, num_experts: int) -> list:
+    """Rows routed to each expert, from ``flat`` ([T*k] expert ids): one
+    host read on the card; on ``meta`` tensors the even-load model (see
+    the module docstring)."""
+    if flat.is_meta:
+        n, extra = divmod(flat.shape[0], num_experts)
+        return [n + (e < extra) for e in range(num_experts)]
+    return torch.bincount(flat, minlength=num_experts).tolist()
 
 
 def routed(xt: torch.Tensor, p: Params, cfg
@@ -79,7 +102,7 @@ def routed(xt: torch.Tensor, p: Params, cfg
     flat = idx.reshape(-1)                          # [T*k], token-major
     order = torch.argsort(flat, stable=True)        # the pairs by expert
     # the one host read of the layer: the slices below need the counts
-    counts = torch.bincount(flat, minlength=cfg.num_experts).tolist()
+    counts = expert_rows(flat, cfg.num_experts)
     rows = xt[order // k]                           # [T*k, d]
     outs, start = [], 0
     for e, n in enumerate(counts):

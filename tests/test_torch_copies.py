@@ -125,7 +125,8 @@ def test_tables_are_identical():
                                   "mamba2-370m", "mamba2-370m-smoke",
                                   "zamba2-2.7b", "zamba2-2.7b-smoke",
                                   "musicgen-medium",
-                                  "musicgen-medium-smoke"])
+                                  "musicgen-medium-smoke",
+                                  "gemma3-4b", "gemma3-4b-smoke"])
 def test_config_copy_matches_the_reference(name):
     from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
@@ -144,7 +145,7 @@ def test_config_copy_matches_the_reference(name):
 def test_config_copy_knows_only_what_the_port_runs():
     from repro_torch.configs import get_config, list_configs
     assert list_configs() == ["deepseek-coder-33b", "deepseek-moe-16b",
-                              "granite-3-8b", "mamba2-370m",
+                              "gemma3-4b", "granite-3-8b", "mamba2-370m",
                               "musicgen-medium", "qwen2-7b", "zamba2-2.7b"]
     cfg = get_config("qwen2-7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -152,7 +153,7 @@ def test_config_copy_knows_only_what_the_port_runs():
         (28, 3584, 28, 4, 128, 18944, 152064)
     assert 7.5e9 < cfg.param_count() < 7.7e9
     with pytest.raises(KeyError):
-        get_config("gemma3-4b")
+        get_config("llama-3.2-vision-90b")
 
 
 # ------------------------------------------ the dry-run's copies and rules

@@ -1,0 +1,299 @@
+"""The port's dry-run (``repro_torch.launch.dryrun_lib``) over two-stage
+plans: the local/global family's (``gemma3-4b``: 5 x [5 window + 1
+global], then 4 window layers) and the MoE family's (``deepseek-moe-16b``:
+1 dense, then 27 MoE layers), held to ``unroll=True`` and to the
+reference's compiled smoke cells (a 1 x 1 mesh with Auto axes, as in
+tests/test_torch_dryrun.py), and their sharding specs held to the
+reference's."""
+import dataclasses
+import math
+from functools import partial
+
+import jax
+import pytest
+from jax.sharding import AxisType
+
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import get_config as jget_config
+from repro.distributed import sharding as jsharding
+from repro.launch import dryrun_lib as jdry
+from repro.launch import specs as jspecs
+from repro.models import layers as JL
+from repro.models import model as jmodel
+from repro_torch.common import hlo
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun_lib, specs
+from repro_torch.models import model
+from repro_torch.models.layers import ModelContext, ShapesOnly
+
+CELLS = ("prefill_32k", "decode_32k", "train_4k", "long_500k")
+# train and prefill at shorter shapes than the matrix's, as in
+# tests/test_torch_dryrun.py
+DEPTH_SHAPES = [ShapeConfig("train_512", "train", 512, 8),
+                SHAPES["decode_32k"],
+                ShapeConfig("prefill_4k", "prefill", 4096, 32)]
+
+
+def _gemma_cut(blocks, tail):
+    """``gemma3-4b-smoke`` at the full config's ratio (5 window layers and
+    a global one a block), ``blocks`` blocks and ``tail`` window layers."""
+    cfg = dataclasses.replace(get_config("gemma3-4b-smoke"),
+                              local_global_ratio=5,
+                              num_layers=6 * blocks + tail)
+    assert [st.repeat for st in cfg.plan()] == [blocks, tail]
+    return cfg
+
+
+def _moe_cut(num_layers):
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b-smoke"),
+                              num_layers=num_layers)
+    assert [st.repeat for st in cfg.plan()] == [1, num_layers - 1]
+    return cfg
+
+
+def test_depth_points_are_the_stated_ones():
+    points = {arch: dryrun_lib.depth_points(
+        tuple(st.repeat for st in get_config(arch).plan()))
+        for arch in ("gemma3-4b", "deepseek-moe-16b", "qwen2-7b",
+                     "zamba2-2.7b")}
+    assert points["gemma3-4b"] == ((1, 2), {0: (2, 2), 1: (1, 3)})
+    assert points["deepseek-moe-16b"] == ((1, 2), {1: (1, 3)})
+    assert points["qwen2-7b"] == ((2,), {0: (3,)})
+    assert points["zamba2-2.7b"] == ((2,), {0: (3,)})
+    # 31 layers in three counts for gemma3-4b's 34
+    cfg = get_config("gemma3-4b")
+    assert sum(dryrun_lib._at_depth(cfg, p).num_layers
+               for p in [(1, 2), (2, 2), (1, 3)]) == 31
+    with pytest.raises(ValueError, match="no cut"):
+        dryrun_lib._at_depth(cfg, (1, 6))       # a tail of 6 is a block
+
+
+# vmem_flash changes only the prefill's attention loop
+DEPTH_CASES = [(cut, shape, fused)
+               for cut in ("gemma-3+4", "gemma-2+5", "moe-1+27")
+               for shape in DEPTH_SHAPES
+               for fused in ([(), ("vmem_flash",)]
+                             if shape.kind == "prefill" else [()])]
+
+
+@pytest.mark.parametrize(
+    "cut, shape, fused", DEPTH_CASES,
+    ids=[f"{c}-{s.name}-{'vmem_flash' if f else 'plain'}"
+         for c, s, f in DEPTH_CASES])
+def test_two_stage_depth_by_repeat_equals_the_unrolled_count(cut, shape,
+                                                             fused):
+    """Counted by repeat, with attention calls replayed, a two-stage plan
+    equals every layer counted with every attention call run: FLOPs,
+    matmul FLOPs, bytes, ops, argument, output and alias bytes and the
+    peak."""
+    cfg = {"gemma-3+4": lambda: _gemma_cut(3, 4),
+           "gemma-2+5": lambda: _gemma_cut(2, 5),
+           "moe-1+27": lambda: _moe_cut(28)}[cut]()
+    ctx = ModelContext(remat="full")
+    whole = dryrun_lib.count_cell(cfg, shape, ctx, fused_scopes=fused,
+                                  unroll=True, replay=False)
+    assert dryrun_lib.count_cell(cfg, shape, ctx,
+                                 fused_scopes=fused) == whole
+
+
+def test_replayed_attention_runs_once_per_signature(monkeypatch):
+    """A ``prefill_4k`` cut of 3 + 4 blocks (22 layers) runs the plain
+    attention loop twice, for the window layers and the global ones;
+    the decode step's one-row calls always run."""
+    from repro_torch.models import layers
+    calls = []
+    real = layers.attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[1], kw.get("window", 0)))
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(layers, "attention", spy)
+    cfg = _gemma_cut(3, 4)
+    ctx = ModelContext(remat="full")
+    dryrun_lib.count_cell(cfg, DEPTH_SHAPES[2], ctx, unroll=True)
+    assert sorted(calls) == [(4096, 0), (4096, 8)]
+    calls.clear()
+    dryrun_lib.count_cell(cfg, DEPTH_SHAPES[1], ctx, unroll=True)
+    assert len(calls) == cfg.num_layers
+
+
+# --------------------------------- held to the reference's compiled cells
+def _dot_flops(hlo_text: str) -> float:
+    """The reference's dot FLOPs (tests/test_torch_dryrun.py)."""
+    keep = hlo._op_flops
+    hlo._op_flops = lambda op, tbl: (hlo._dot_flops(op, tbl)
+                                     if op.opcode == "dot" else 0.0)
+    try:
+        return hlo.analyze(hlo_text, 1)["flops_per_chip"]
+    finally:
+        hlo._op_flops = keep
+
+
+STAGE_CELLS = [(arch, shape)
+               for arch in ("gemma3-4b-smoke", "deepseek-moe-16b-smoke")
+               for shape in CELLS
+               if not (arch.startswith("deepseek") and shape == "long_500k")]
+
+
+@pytest.fixture(scope="module")
+def stage_cells():
+    """(arch, shape) -> ((the reference's dot FLOPs, argument bytes) of
+    its compiled smoke cell, the port's record of it)."""
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    out = {}
+    for arch, shape in STAGE_CELLS:
+        fn, args = jdry.build_cell(arch, shape, mesh,
+                                   ctx_overrides={"remat": "full"})
+        compiled = fn.lower(*args).compile()
+        out[arch, shape] = ((_dot_flops(compiled.as_text()),
+                             compiled.memory_analysis()
+                             .argument_size_in_bytes),
+                            dryrun_lib.run_cell(arch, shape))
+    return out
+
+
+def _expert_rows_gap(cfg, tokens: int) -> int:
+    """Rows the reference's compiled MoE layer runs through its experts
+    beyond the port's ``T·k``. The reference's ``sharding.make_context``
+    picks ``moe_impl="ep"`` on a mesh, so its dry-run compiles
+    ``routed_ep``: every expert over a buffer of ``cap = ceil(T·k / E ·
+    capacity_factor)`` rows (1.25 by default), ``E·cap`` rows in all; the
+    port's even load runs exactly ``T·k``."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    cap = max(1, math.ceil(tokens * k / E * JL.ModelContext().capacity_factor))
+    return E * cap - tokens * k
+
+
+def _stage_gap(cfg, shape) -> int:
+    """The matmul FLOPs the reference's compiled cell has beyond the
+    port's, over a plan of attention layers (ROADMAP §3):
+
+    * each MoE layer's experts over ``_expert_rows_gap`` more rows, three
+      products of 2·d·moe_d_ff a row: once in prefill and decode, four
+      times in a train step (forward, the remat's recompute, the two
+      gradient products);
+    * in a train step, each attention application's QK^T and PV once
+      more (tests/test_torch_dryrun.py's dense gap), and, under the
+      reference's one ``jax.checkpoint`` per block, the recompute of the
+      FFN's output product (2·T·d_ff·d) of every layer whose output a
+      later layer of its block reads: all but the last of a block."""
+    B, S = shape.global_batch, shape.seq_len
+    T = B * (1 if shape.kind == "decode" else S)
+    train = shape.kind == "train"
+    gap = 0
+    for st in cfg.plan():
+        for j, spec in enumerate(st.layers):
+            if spec.ffn == "moe":
+                gap += st.repeat * (4 if train else 1) * 3 * 2 * \
+                    _expert_rows_gap(cfg, T) * cfg.d_model * cfg.moe_d_ff
+            if not train:
+                continue
+            gap += st.repeat * 2 * (2 * B * cfg.num_heads * S * S *
+                                    cfg.head_dim)
+            if j < len(st.layers) - 1:
+                gap += st.repeat * 2 * T * cfg.d_ff * cfg.d_model
+    return gap
+
+
+def test_stage_gaps_are_the_stated_numbers():
+    moe = get_config("deepseek-moe-16b-smoke")
+    # 1.25 x 1,048,576 x 2 / 8 = 327,680 rows an expert: a quarter more
+    assert _expert_rows_gap(moe, 32 * 32768) == 2 ** 21 // 4
+    # decode: 128 tokens, cap ceil(40) = 40, 320 rows for 256
+    assert _expert_rows_gap(moe, 128) == 64
+    assert _stage_gap(moe, SHAPES["prefill_32k"]) == 9 * 2 ** 31
+    assert _stage_gap(moe, SHAPES["decode_32k"]) == 2_359_296
+    assert _stage_gap(moe, SHAPES["train_4k"]) == \
+        4 * 2 ** 40 + 36 * 2 ** 31 == 4_475_355_922_432
+    gemma = get_config("gemma3-4b-smoke")
+    assert _stage_gap(gemma, SHAPES["prefill_32k"]) == 0
+    assert _stage_gap(gemma, SHAPES["train_4k"]) == \
+        4 * 2 ** 40 + 2 ** 35 == 4_432_406_249_472
+
+
+@pytest.mark.parametrize("arch, shape", STAGE_CELLS, ids=lambda v: v)
+def test_stage_cells_equal_the_references(arch, shape, stage_cells):
+    """The smoke cells of the two two-stage families: argument bytes
+    equal the reference's compiled cell's; matmul FLOPs too, but for
+    ``_stage_gap`` (0 in ``gemma3-4b``'s prefill and decode cells)."""
+    (ref_flops, ref_args), rec = stage_cells[arch, shape]
+    assert rec["status"] == "ok", rec.get("error")
+    gap = _stage_gap(get_config(arch), SHAPES[shape])
+    assert rec["cost"]["matmul_flops_per_chip"] + gap == ref_flops
+    assert rec["memory"]["argument_bytes"] == ref_args
+    assert rec["cost"]["max_loop_trip"] == max(
+        st.repeat for st in get_config(arch).plan())
+
+
+def test_long_context_cells_of_the_two_stage_archs():
+    """``long_500k`` runs for ``gemma3-4b`` (``sub_quadratic`` admits the
+    local/global family) and is skipped for ``deepseek-moe-16b`` with the
+    reference's reason."""
+    rec = dryrun_lib.run_cell("gemma3-4b", "long_500k")
+    assert rec["status"] == "ok", rec.get("error")
+    cfg = get_config("gemma3-4b")
+    # 29 window layers of 1024 rows and 5 global ones of 524,288, bf16
+    kv = 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    caches = (29 * 1024 + 5 * 524288) * kv
+    params = sum(t.numel() * t.element_size() for t in _leaves(cfg))
+    assert rec["memory"]["argument_bytes"] == params + caches + 4 + 4
+    assert rec["memory"]["alias_bytes"] == caches
+    rec = dryrun_lib.run_cell("deepseek-moe-16b", "long_500k")
+    assert rec == jdry.run_cell("deepseek-moe-16b", "long_500k")
+    assert rec["status"] == "skipped"
+
+
+def _leaves(cfg):
+    from repro_torch import tree
+    return tree.leaves(model.init(ShapesOnly(), cfg))
+
+
+# ------------------------------------------------------------ sharding
+@pytest.mark.parametrize("arch", ["gemma3-4b", "deepseek-moe-16b"])
+def test_two_stage_sharding_specs_equal_the_references(arch):
+    """Every per-layer leaf, the experts' ``[E, ...]`` leaves, ``router``
+    and ``sh_*`` included, gets the reference's spec for its stacked
+    leaf of its stage without the repeat axis; the caches (a window
+    layer's ``[B, 1024, 4, 256]`` beside a global layer's ``[B, S, 4,
+    256]``) the reference's cache specs. Full-size shapes on an
+    ``AbstractMesh`` (no devices)."""
+    sizes = {"data": 16, "model": 16}
+    amesh = jax.sharding.AbstractMesh((16, 16), ("data", "model"))
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    jspec = jsharding.param_specs(jax.eval_shape(
+        partial(jmodel.init, cfg=jcfg), jax.random.PRNGKey(0)), amesh)
+    spec = sharding.param_specs(model.init(ShapesOnly(), cfg), sizes)
+    for name in ("embed", "unembed", "final_ln"):
+        assert spec[name] == tuple(jspec[name])
+    want = [jspec[f"stage{si}"][f"layer{j}"]
+            for si, st in enumerate(cfg.plan()) for _ in range(st.repeat)
+            for j in range(len(st.layers))]
+    assert len(spec["layers"]) == len(want) == cfg.num_layers
+    seen = set()
+    for layer, stacked in zip(spec["layers"], want):
+        assert set(layer) == set(stacked)
+        for part, leaves in layer.items():
+            assert set(leaves) == set(stacked[part])
+            for leaf, s in leaves.items():
+                assert s == tuple(stacked[part][leaf])[1:], (part, leaf)
+                seen.add(leaf)
+    if cfg.family == "moe":
+        assert {"router", "w1", "w2", "w3", "sh_w1", "sh_w2",
+                "sh_w3"} <= seen
+    for shape in ("decode_32k", "long_500k"):
+        jin = jspecs.decode_inputs(jcfg, JSHAPES[shape])
+        pin = specs.decode_inputs(cfg, SHAPES[shape])
+        jc = jsharding.cache_specs(jin["caches"], amesh)
+        ref = [jc[f"stage{si}"][f"layer{j}"]
+               for si, st in enumerate(cfg.plan())
+               for _ in range(st.repeat) for j in range(len(st.layers))]
+        got = sharding.cache_specs(pin["caches"], sizes)
+        assert len(got) == len(ref)
+        for pair, want_pair in zip(got, ref):
+            assert pair == tuple(tuple(w)[1:] for w in want_pair), shape
+        rows = {pair[0].shape[1] for pair in pin["caches"]}
+        if cfg.family == "local_global":
+            assert rows == {1024, SHAPES[shape].seq_len}

@@ -741,3 +741,78 @@ def test_family_prefill_launches_on_the_card(cuda, arch, head_dim, kernel):
                         for name in launches}
     rel = (got - want).abs().max() / want.abs().max()
     assert rel < 0.02
+
+
+def _gemma_cut(cuda, dtype):
+    """``gemma3-4b-smoke`` at the full config's plan in small (ratio 5, 8
+    layers: one block of 5 window layers and a global one, then 2 window
+    layers) and its head dim (256, which no kernel takes), its window 8,
+    made on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config("gemma3-4b-smoke"), dtype=dtype,
+                              local_global_ratio=5, num_layers=8,
+                              head_dim=256)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    return cfg, params
+
+
+def test_local_global_prefill_and_decode_launch_no_kernel(cuda):
+    """A bf16 ``gemma3-4b``-plan prefill and decode on the card launch no
+    hand-written kernel (window layers and, at full size, head dim 256
+    take the plain loop), and the caches keep the window's 8 rows in a
+    window layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    cfg, params = _gemma_cut(cuda, "bfloat16")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    ctx = ModelContext(q_chunk=8, k_chunk=8)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    caches, logits = model.prefill(params, tokens[:, :20], cfg, ctx,
+                                   cache_len=32)
+    caches, logits = model.decode_step(params, caches, tokens[:, 20:], 20,
+                                       cfg, ctx)
+    torch.cuda.synchronize()
+    assert not any(ops.LAUNCHES.values()), dict(ops.LAUNCHES)
+    assert torch.isfinite(logits).all()
+    assert [c[0].shape[1] for c in caches] == [8] * 5 + [32] + [8] * 2
+
+
+@pytest.mark.parametrize("S", [16, 13])
+def test_local_global_decode_on_the_card_equals_its_forward(cuda, S):
+    """float32 on the card: a prompt of S tokens (13: not a multiple of
+    the window), then 6 teacher-forced decode steps past the ring's wrap,
+    each step's logits within 1e-5 of the forward over the same tokens,
+    and equal to the same steps on the CPU within 1e-5."""
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    cfg, params = _gemma_cut(cuda, "float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, S + 6), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    ctx = ModelContext(q_chunk=8, k_chunk=8)
+    hid, _ = model.forward(params, tokens, cfg, ctx)
+    want = (hid @ params["unembed"]).float()
+
+    def served(p, t, dev):
+        caches, logits = model.prefill(p, t[:, :S], cfg, ctx,
+                                       cache_len=S + 6)
+        out = [logits]
+        for pos in range(S, S + 6):
+            caches, logits = model.decode_step(p, caches, t[:, pos:pos + 1],
+                                               pos, cfg, ctx)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+    got = served(params, tokens, cuda)
+    torch.testing.assert_close(got, want[:, S - 1:], rtol=1e-5, atol=1e-5)
+    from repro_torch import tree
+    from repro_torch.device import use_device
+    with use_device("cpu"):
+        cpu = served(tree.tree_map(lambda t: t.cpu(), params),
+                     tokens.cpu(), torch.device("cpu"))
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-5)

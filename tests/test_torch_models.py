@@ -259,8 +259,7 @@ def test_init_uses_the_reference_scales():
 
 
 @pytest.mark.parametrize("change, word", [
-    (dict(family="local_global", local_global_ratio=1, sliding_window=8),
-     "local_global"),
+    (dict(family="vlm", cross_attn_every=2, num_image_tokens=8), "vlm"),
     (dict(family="moe", use_mla=True), "use_mla=True"),
 ])
 def test_other_families_raise_naming_the_family(change, word):
