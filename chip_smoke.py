@@ -41,14 +41,16 @@ and prints no result line:
    ``flash_attention`` (FFMA) at the float32 cases, head dims 48 and 80
    included, and bf16 at head dim 48; and at the other served models'
    prefills (4 x 2048, causal, bf16): ``deepseek-moe-16b``'s 16/16 heads
-   of 128 and ``musicgen-medium``'s 24/24 of 64 on wgmma,
-   ``zamba2-2.7b``'s 32/32 of 80 on FFMA. Each against the
+   of 128, ``musicgen-medium``'s 24/24 of 64 and
+   ``llama-3.2-vision-90b``'s self-attention, 64/8 of 128, on wgmma,
+   ``zamba2-2.7b``'s 32/32 of 80 on FFMA; and at the MTP layer of phase
+   17's loss (1 x 2047, 128/128 heads of 128, wgmma). Each against the
    plain PyTorch version on the card, with tests/test_kernels.py's
    tolerances (2e-2 in bf16, 2e-5 in f32), on inputs drawn so that the
    output is of the order of 1 (peaked attention); each call must move
    its own kernel's launch count and no other. Then both kernels' times
    at the prefill's shape (wgmma in bf16, FFMA in float32) and at the
-   three other models' prefill shapes, beside the plain version's,
+   five other shapes above, beside the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls)
    and the bound (the FLOPs at the inputs' type's rate: bf16 tensor-core
    on either route, FP32).
@@ -235,12 +237,12 @@ and prints no result line:
    subprocess for each of the ten architectures, all started together,
    into one scratch directory under ``artifacts/`` (never
    ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells): each
-   must exit 0, together with 27 ``ok``, 13 ``skipped`` and 0 ``error``
+   must exit 0, together with 33 ``ok``, 7 ``skipped`` and 0 ``error``
    pod records and 40 skipped multi-pod ones; prints the counting
-   seconds of ``gemma3-4b``'s and ``deepseek-moe-16b``'s cells and the
-   matrix's wall seconds; the port's roofline view, pointed at that
-   directory in this process, must read ``pod ok=27 skipped=13 err=0;
-   multipod ok=0`` and print the 27 cells' rows. (b) ``run_cell``
+   seconds of ``deepseek-v3-671b``'s and ``llama-3.2-vision-90b``'s
+   cells and the matrix's wall seconds; the port's roofline view,
+   pointed at that directory in this process, must read ``pod ok=33
+   skipped=7 err=0; multipod ok=0`` and print the 33 cells' rows. (b) ``run_cell``
    of ``qwen2-7b`` x ``train_4k`` and the counts of (c) and (d), made in
    this process beside the live CUDA context, must leave
    ``torch.cuda.memory_allocated()``, the allocator's count of
@@ -321,13 +323,55 @@ and prints no result line:
    of the forward over the same tokens. The phase must end within 180
    s; prints its seconds.
 
-Before phases 3 to 11 and 14 to 16 the script releases cuBLAS's per-stream
+17. MLA and MTP: ``deepseek-v3-671b`` at full width, its depth cut to 4
+   layers (671 B parameters do not fit one card): both stages of its
+   plan, 3 dense MLA layers (d_ff 18432) and 1 MoE MLA layer with all
+   256 routed experts (top-8, one shared expert), and the MTP module;
+   16.08 B parameters, random bf16 weights from a seeded generator,
+   made on the card. Through ``engine.generate`` with phase 5's traffic
+   no hand-written kernel may launch: MLA's prefill attention (q and k
+   192 wide, v 128, scale 1/sqrt(192)) takes the plain loop and its
+   decode the absorbed latent path. Prints prefill tokens/s, decode ms
+   a step, the latent caches' bytes (1,152 a row and layer), the peak,
+   and the plain loop's time at an MLA layer beside SDPA and the bound.
+   Then one ``lm_loss`` under ``no_grad`` at 1 x 2048: ``ce``, ``mtp``
+   and ``aux`` finite, and ``flash_attention_wgmma`` launched exactly
+   once (the MTP layer's GQA attention). Then float32 at full attention
+   width, cut to 2 layers (1 dense, 1 MoE) and 16 experts: a prompt of
+   1024 tokens and 8 teacher-forced absorbed decode steps within 1e-4 of
+   the largest logit of the expanded forward over the same tokens, the
+   decode steps' expert choices equal to the forward's (a choice may
+   differ only at a near tie, whose row is then not held); and the MTP
+   layer on the FFMA kernel against the plain loop within 1e-4, its
+   ``mtp`` loss within 1e-5. The phase must end within 180 s; prints
+   its seconds.
+
+18. The VLM family: ``llama-3.2-vision-90b`` at full width, its depth cut
+   to 10 layers (90 B parameters do not fit one card): two super-blocks
+   of 4 self-attention layers (64/8 heads of 128) and a cross-attention
+   layer over 1600 image tokens; 10.66 B parameters, random bf16
+   weights, the cross layers' gates set to seeded values in [0.5, 1.5)
+   (0 at init closes them), and seeded stub image embeddings (0.1 x
+   normal, the reference's vision tower is a stub). Through
+   ``engine.generate`` with phase 5's traffic a prefill must launch
+   ``flash_attention_wgmma`` exactly once a self-attention layer (8)
+   and nothing else, a decode step nothing: cross-attention (2048 query
+   rows against 1600 image rows) takes the plain loop. Other image
+   embeddings must move the logits. Prints prefill tokens/s, decode ms a
+   step, the peak, and the plain loop's time at a cross-attention layer
+   beside SDPA and the bound. Then float32 at full width cut to 5 layers
+   (one super-block): the prefill and 8 teacher-forced decode steps
+   within 1e-4 of the forward over the same tokens and image, and the
+   prefill's logits on the FFMA kernel route within 1e-4 of the plain
+   loop's. The phase must end within 180 s; prints its seconds.
+
+Before phases 3 to 11 and 14 to 18 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` pass over
-one prefill and a few decode steps of phases 5 and 14 to 16 (device
+one prefill and a few decode steps of phases 5, 14 to 18 (device
 time by kernel, device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
@@ -340,13 +384,16 @@ zero, ``{"analysis_launches": ...}``), the dry-run's (all zero,
 ``{"dryrun_launches": ...}``), MoE serving's
 (``{"moe_serving_launches": ...}``), the SSM, hybrid and audio
 families' (``{"ssm_serving_launches": ...}``), the local/global
-family's (all zero, ``{"local_global_serving_launches": ...}``), the
-``kernels`` JSON
+family's (all zero, ``{"local_global_serving_launches": ...}``), MLA
+and MTP's (``{"mla_serving_launches": ...}``), the VLM family's
+(``{"vlm_serving_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
-8's pipeline, phase 11's check, phase 14's float32 check and phase 15's
-``zamba2`` prefill and float32 checks; ``flash_attention_wgmma``'s:
-phase 5's prefill, phase 11's steps, phase 14's prefill and phase 15's
-``musicgen`` prefill), the card's name and power limit, and
+8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
+``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks
+and phase 18's float32 checks; ``flash_attention_wgmma``'s: phase 5's
+prefill, phase 11's steps, phase 14's prefill, phase 15's ``musicgen``
+prefill, phase 17's ``lm_loss`` and phase 18's prefills), the card's
+name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -1486,9 +1533,19 @@ def phase_flash():
         (LM_BATCH, LM_PROMPT, c.num_heads, c.num_kv_heads, c.head_dim)
         for c in map(get_config, (MOE_ARCH, "zamba2-2.7b",
                                   "musicgen-medium")))
-    serving = (path, moe_path, zamba_path, musicgen_path)
+    # phase 18's self-attention prefill (64/8 heads of 128) and phase
+    # 17's MTP layer in its lm_loss (1 x MLA_LOSS_SEQ inputs: the layer
+    # sees one position fewer; 128/128 heads of 128)
+    vlm, mla = get_config(VLM_ARCH), get_config(MLA_ARCH)
+    vlm_path = (LM_BATCH, LM_PROMPT, vlm.num_heads, vlm.num_kv_heads,
+                vlm.head_dim)
+    mtp_path = (1, MLA_LOSS_SEQ - 1, mla.num_heads, mla.num_kv_heads,
+                mla.head_dim)
+    serving = (path, moe_path, zamba_path, musicgen_path, vlm_path,
+               mtp_path)
     cases = [(path, bf16, True), (moe_path, bf16, True),
              (zamba_path, bf16, True), (musicgen_path, bf16, True),
+             (vlm_path, bf16, True), (mtp_path, bf16, True),
              ((LM_BATCH, 100, *heads), bf16, True),
              ((LM_BATCH, 129, *heads), bf16, True),
              ((LM_BATCH, 1, *heads), bf16, True),
@@ -1533,7 +1590,8 @@ def phase_flash():
     # the bound: the FLOPs at the inputs' type's peak (bf16 inputs at the
     # tensor-core rate, on either route)
     for dtype, shape in ((bf16, path), (f32, path), (bf16, moe_path),
-                         (bf16, zamba_path), (bf16, musicgen_path)):
+                         (bf16, zamba_path), (bf16, musicgen_path),
+                         (bf16, vlm_path), (bf16, mtp_path)):
         flops_per_s = spec.peak_bf16_flops if dtype == bf16 else \
             spec.peak_fp32_flops
         name = ops.flash_kernel_for(dtype, shape[-1])
@@ -1615,19 +1673,21 @@ def _profile(label, fn):
         out_dir, f"{label.replace(' ', '_')}.json"))
 
 
-def _profile_serving(label, cfg, ctx, params, prompt, cache_len):
+def _profile_serving(label, cfg, ctx, params, prompt, cache_len,
+                     image_embeds=None):
     """``_profile`` over one prefill and over 8 decode steps."""
     from repro_torch.serve import engine
     prefill = engine.make_prefill_step(cfg, ctx, cache_len)
-    _profile(f"{label}prefill", lambda: prefill(params, prompt))
-    caches, logits = prefill(params, prompt)
+    _profile(f"{label}prefill", lambda: prefill(params, prompt,
+                                                image_embeds))
+    caches, logits = prefill(params, prompt, image_embeds)
     tok = logits.argmax(dim=-1)[:, None]
     decode = engine.make_decode_step(cfg, ctx)
 
     def steps():
         c, t = caches, tok
         for i in range(8):
-            c, lg = decode(params, c, t, LM_PROMPT + i)
+            c, lg = decode(params, c, t, LM_PROMPT + i, image_embeds)
             t = lg.argmax(dim=-1)[:, None]
     _profile(f"{label}decode 8 steps", steps)
 
@@ -3202,11 +3262,11 @@ def _sync_in_loop_ms(steps=50, reps=5):
 
 
 DRYRUN_TIMEOUT_S = 600          # the whole matrix, in subprocesses
-DRYRUN_MATRIX = {"pod": {"ok": 27, "skipped": 13, "error": 0},
+DRYRUN_MATRIX = {"pod": {"ok": 33, "skipped": 7, "error": 0},
                  "multipod": {"ok": 0, "skipped": 40, "error": 0}}
-DRYRUN_FIRST_ROW = "pod ok=27 skipped=13 err=0; multipod ok=0"
+DRYRUN_FIRST_ROW = "pod ok=33 skipped=7 err=0; multipod ok=0"
 #: the cells this slice added to the matrix: their counting seconds print
-DRYRUN_NEW_ARCHS = ("gemma3-4b", "deepseek-moe-16b")
+DRYRUN_NEW_ARCHS = ("deepseek-v3-671b", "llama-3.2-vision-90b")
 DRYRUN_CELL = ("qwen2-7b", "train_4k")      # (b): counted in this process
 #: (c): predicted / measured peak of phase 11's uncompressed steps; fixed
 #: before the first card run
@@ -4078,6 +4138,602 @@ def _lg_float32_check(cfg, card):
     return launches
 
 
+MLA_ARCH = "deepseek-v3-671b"
+#: full width, depth cut to fit one card (671 B parameters in all): both
+#: stages of the plan, 3 dense MLA layers and 1 MoE MLA layer with all
+#: 256 routed experts, and the MTP module (~16.1 B parameters, ~32.2 GB)
+MLA_LAYERS = 4
+#: lm_loss's batch: 1 x MLA_LOSS_SEQ inputs (MLA_LOSS_SEQ + 1 tokens)
+MLA_LOSS_SEQ = 2048
+#: the float32 check: full attention width, 1 dense and 1 MoE layer and
+#: the MTP module; the experts cut to 16 (still top-8; 4.3 B parameters,
+#: ~17 GB): the check is of MLA and MTP, not of routing. Its prompt is
+#: 1024 tokens, so that the forward over prompt + steps (1032 rows, one
+#: query block) keeps its float32 score blocks near 2 GB at 128 heads
+MLA_CHECK_LAYERS = 2
+MLA_CHECK_EXPERTS = 16
+MLA_CHECK_PROMPT = 1024
+MLA_CHECK_STEPS = 8
+PHASE17_LIMIT_S = 180
+
+
+def phase_mla(profile=False):
+    """Phase 17: ``deepseek-v3-671b`` (MLA, MoE, MTP) served at full
+    width in bf16, depth cut to ``MLA_LAYERS``, then one ``lm_loss`` with
+    the MTP head, then the float32 checks at ``MLA_CHECK_LAYERS``;
+    returns the flash kernels' launches of the phase. ``profile`` adds
+    ``_profile`` over one bf16 prefill and 8 decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    print(f"== phase 17: {MLA_ARCH} (MLA and MTP) serving at full width, "
+          f"{MLA_LAYERS} layers")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held = held_report("phase 17")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    check([(st.repeat, st.layers[0].kind, st.layers[0].ffn)
+           for st in cfg.plan()] == [(3, "mla", "dense"), (1, "mla", "moe")],
+          f"the cut's plan {cfg.plan()}")
+    launches = _mla_serve(cfg, held, card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, count in _mla_float32_check(cfg, card).items():
+        launches[name] += count
+    dt = time.perf_counter() - t_phase
+    print(f"phase 17: {dt} s (limit {PHASE17_LIMIT_S} s); peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes ({held} held "
+          f"before the phase); launches {launches} ({card})")
+    check(dt <= PHASE17_LIMIT_S, f"phase 17 took {dt} s")
+    return launches
+
+
+def _mla_attention_times(cfg, card):
+    """The plain loop at an MLA layer's prefill attention (4 x 2048, 128
+    heads, q and k 192 wide, v 128, causal, scale 1/sqrt(192), bf16),
+    eager, beside SDPA (a yardstick the port never calls) and the bound
+    of its work at the bf16 rate: what an MLA kernel is to beat."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    B, S, H = LM_BATCH, LM_PROMPT, cfg.num_heads
+    dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dv = cfg.v_head_dim
+    g = torch.Generator(device=DEV).manual_seed(17)
+    q, k = [(2.0 * torch.randn(B, S, H, dqk, generator=g, device=DEV))
+            .to(torch.bfloat16) for _ in range(2)]
+    v = torch.randn(B, S, H, dv, generator=g, device=DEV).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(dqk)
+    plain = cuda_ms(lambda: layers.attention(q, k, v, causal=True,
+                                             scale=scale),
+                    iters=3, warmup=1, graph=False)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, scale=scale), iters=10, warmup=2,
+        graph=False)
+    pairs = S * (S + 1) // 2
+    nbytes = B * S * H * (2 * dqk + 2 * dv) * 2
+    flops = 2 * B * H * pairs * (dqk + dv)
+    bound, by = bound_ms(nbytes, flops, chip_spec().peak_bf16_flops)
+    print(f"plain attention loop, MLA prefill layer, {B} x {S}, {H} heads, "
+          f"q/k {dqk} and v {dv} wide, causal, bf16: {plain} ms (x "
+          f"{cfg.num_layers} layers = {plain * cfg.num_layers} ms of a "
+          f"prefill); SDPA {sdpa} ms; bound {bound} ms ({by}: {nbytes} B, "
+          f"{flops} FLOP at the bf16 rate) ({card})")
+
+
+def _mla_serve(cfg, held, card, profile):
+    """bf16 at full width through ``engine.generate``: no hand-written
+    kernel launches (MLA prefill takes the plain loop, decode the
+    absorbed latent path); prints prefill tokens/s, decode ms a step,
+    the latent caches' bytes and the peak; the plain loop's time at an
+    MLA layer beside SDPA and the bound; then one ``lm_loss`` under
+    ``no_grad`` at 1 x ``MLA_LOSS_SEQ``, whose MTP layer (GQA attention,
+    128/128 heads of 128) launches ``flash_attention_wgmma`` exactly
+    once."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    n_mtp = sum(t.numel() for t in tree.leaves(params["mtp"]))
+    print(f"{cfg.name} ({cfg.family}, MLA): {cfg.num_layers} layers "
+          f"({cfg.first_dense_layers} dense of d_ff {cfg.dense_d_ff}, then "
+          f"MoE: {cfg.num_experts} experts of d_ff {cfg.moe_d_ff}, "
+          f"top-{cfg.experts_per_token}, {cfg.num_shared_experts} shared), "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads, MLA ranks "
+          f"q {cfg.q_lora_rank} kv {cfg.kv_lora_rank}, nope/rope/v "
+          f"{cfg.qk_nope_head_dim}/{cfg.qk_rope_head_dim}/"
+          f"{cfg.v_head_dim}; MTP module (GQA {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, dense FFN) "
+          f"{n_mtp} parameters; {n_params} parameters in all "
+          f"({cfg.param_count()} by param_count without MTP, "
+          f"{cfg.active_param_count()} active a token), "
+          f"{torch.cuda.memory_allocated() - held} bytes, made on the card "
+          f"in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    cache_len = LM_PROMPT + LM_NEW
+    ctx = ModelContext()
+    # first calls build cuBLAS handles for the experts' row counts: not
+    # measured
+    engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                    cache_len=cache_len)
+    timings = {}
+    out, launches, _ = drive(
+        f"{cfg.name} generate", lambda: engine.generate(
+            params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
+            cache_len=cache_len, timings=timings))
+    check(not any(launches.values()),
+          f"{cfg.name} generate launched {launches}; want none")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
+          0 <= out.min().item() and
+          out.max().item() < cfg.padded_vocab_size,
+          f"generated {tuple(out.shape)} ids in [{out.min().item()}, "
+          f"{out.max().item()}]")
+    pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
+    print(f"prefill: {LM_BATCH * LM_PROMPT} tokens in {pre_s} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s ({card})")
+    print(f"decode: {LM_NEW - 1} steps of {LM_BATCH} in {dec_s} s, "
+          f"{dec_s / (LM_NEW - 1) * 1e3} ms per step ({card})")
+    print(f"first generated ids: {out[:, :8].tolist()}")
+    (caches, logits), p_launches, _ = drive(
+        "prefill", lambda: engine.make_prefill_step(cfg, ctx, cache_len)(
+            params, prompt))
+    check(not any(p_launches.values()), f"prefill launched {p_launches}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(torch.equal(out[:, 0], logits.argmax(dim=-1)),
+          "generate's first token is not the prefill's argmax")
+    shapes = {tuple(t.shape) for c in caches for t in c}
+    want = {(LM_BATCH, cache_len, cfg.kv_lora_rank),
+            (LM_BATCH, cache_len, cfg.qk_rope_head_dim)}
+    check(shapes == want, f"latent cache shapes {shapes}; want {want}")
+    kv_bytes = sum(t.untyped_storage().nbytes() for c in caches for t in c)
+    per_row = kv_bytes // (len(caches) * LM_BATCH * cache_len)
+    print(f"latent caches: {sorted(shapes)}, {kv_bytes} bytes for "
+          f"{len(caches)} layers ({per_row} bytes a row and layer)")
+    del caches, logits
+    if profile:
+        _profile_serving(f"{cfg.name} ", cfg, ctx, params, prompt,
+                         cache_len)
+    print(f"peak device memory over serving: "
+          f"{torch.cuda.max_memory_allocated()} bytes ({held} held before; "
+          f"{card})")
+    _mla_attention_times(cfg, card)
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MLA_LOSS_SEQ + 1),
+                           generator=g, device=dev)
+    with torch.no_grad():
+        (loss, metrics), l_launches, l_s = drive(
+            f"lm_loss with MTP, 1 x {MLA_LOSS_SEQ}", lambda: model.lm_loss(
+                params, {"tokens": tokens}, cfg, ctx))
+    check(l_launches["flash_attention_wgmma"] == 1 and
+          sum(l_launches.values()) == 1,
+          f"lm_loss launched {l_launches}; want flash_attention_wgmma once "
+          f"(the MTP layer)")
+    vals = {k: v.item() for k, v in metrics.items()}
+    print(f"lm_loss: {vals} in {l_s} s ({card})")
+    check(set(vals) == {"ce", "aux", "mtp", "loss"} and
+          all(math.isfinite(v) for v in vals.values()),
+          f"lm_loss metrics {vals}")
+    del params
+    return {"flash_attention": l_launches["flash_attention"],
+            "flash_attention_wgmma": l_launches["flash_attention_wgmma"]}
+
+
+def _mla_float32_check(cfg, card):
+    """Float32 at full attention width, ``MLA_CHECK_LAYERS`` layers (1
+    dense, 1 MoE of ``MLA_CHECK_EXPERTS`` experts): (a) the prefill of
+    ``MLA_CHECK_PROMPT`` tokens and ``MLA_CHECK_STEPS`` teacher-forced
+    absorbed decode steps against the expanded forward over the same
+    tokens, within ``LM_F32_REL_TOL`` of its largest logit, the decode
+    steps' expert choices equal to the forward's (a choice may differ
+    only at a near tie, ``MOE_GAP_TOL``); (b) the MTP layer on the kernel
+    route (the FFMA kernel, float32 at head dim 128) against the plain
+    loop within ``LM_F32_REL_TOL``, and ``lm_loss``'s ``mtp`` within
+    1e-5 relative."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=MLA_CHECK_LAYERS,
+                                first_dense_layers=1,
+                                num_experts=MLA_CHECK_EXPERTS)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    print(f"{cfg.name} float32 cut: {MLA_CHECK_LAYERS} layers, "
+          f"{MLA_CHECK_EXPERTS} experts (top-{cfg.experts_per_token}), "
+          f"{sum(t.numel() for t in tree.leaves(params))} parameters with "
+          f"MTP, {torch.cuda.memory_allocated()} bytes")
+    ctx = ModelContext()
+    launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    S, steps = MLA_CHECK_PROMPT, MLA_CHECK_STEPS
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, S + steps),
+                           generator=g, device=dev)
+    decode = engine.make_decode_step(cfg32, ctx)
+
+    def served():
+        caches, logits = engine.make_prefill_step(cfg32, ctx, S + steps)(
+            params, tokens[:, :S])
+        out = [logits]
+        for t in range(S, S + steps):
+            caches, logits = decode(params, caches, tokens[:, t:t + 1], t)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+
+    def forward():
+        hid, _ = model.forward(params, tokens, cfg32, ctx)
+        return (hid[:, S - 1:] @ params["unembed"]).float()
+    (want, f_routes), f_launches, _ = drive(
+        f"{cfg.name} float32 forward over {S} + {steps} tokens",
+        lambda: _capture_routes(forward))
+    (got, s_routes), s_launches, _ = drive(
+        f"{cfg.name} float32 prefill of {S}, then {steps} absorbed decode "
+        f"steps", lambda: _capture_routes(served))
+    for name in launches:
+        launches[name] += f_launches[name] + s_launches[name]
+    check(not any(launches.values()), f"MLA float32 launched {launches}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite float32 logits")
+    # the forward's one MoE layer routes every position; the prefill
+    # routes the prompt, then each decode step its one position
+    fwd = f_routes[0]
+    flips = []
+    for i, rec in enumerate(s_routes[1:]):
+        t = S + i
+        rows = torch.arange(LM_BATCH, device=dev) * (S + steps) + t
+        differ = (rec["idx"] != fwd["idx"][rows]).any(dim=-1)
+        gaps = torch.maximum(rec["gap"], fwd["gap"][rows])
+        flips += [(t, int(b), gaps[b].item())
+                  for b in differ.nonzero()[:, 0]]
+    check(len(s_routes) == 1 + steps and len(f_routes) == 1,
+          f"{len(s_routes)} and {len(f_routes)} MoE routings")
+    # a row whose choices differ (at a near tie) is not held on its logits
+    clean = [b for b in range(LM_BATCH) if b not in {r for _, r, _ in flips}]
+    scale = want.abs().max().item()
+    per_step = ((got[clean] - want[clean]).abs().amax(dim=(0, 2)) /
+                scale).tolist()
+    rel = max(per_step)
+    print(f"(a) {cfg.name} float32: absorbed decode vs the expanded "
+          f"forward, max abs diff / max |logit| = {rel} over rows {clean} "
+          f"(limit {LM_F32_REL_TOL}; max |logit| {scale}; by step "
+          f"{per_step}); decode steps' expert choices differing from the "
+          f"forward's (position, row, gap): {flips} (gap limit "
+          f"{MOE_GAP_TOL}) ({card})")
+    check(all(gap < MOE_GAP_TOL for _, _, gap in flips),
+          f"an expert choice differs without a near tie: {flips}")
+    check(clean, f"every row's expert choices differ: {flips}")
+    check(rel < LM_F32_REL_TOL, f"absorbed decode differs by {rel}")
+    del got, want
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MLA_LOSS_SEQ + 1),
+                           generator=g, device=dev)
+    plain_ctx = dataclasses.replace(ctx, flash_kernel=False)
+    with torch.no_grad():
+        hidden, _ = model.forward(params, tokens[:, :-1], cfg32, ctx)
+        p = params["mtp"]
+        hm = model.mtp_input(params, hidden, tokens[:, 1:], cfg32)
+        positions = torch.arange(hm.shape[1], device=dev)[None, :]
+        outs = {}
+        for label, c in (("kernel path", ctx), ("plain loop", plain_ctx)):
+            (y, _, _), lc, _ = drive(
+                f"MTP layer, float32, {label}", lambda c=c: model._apply_layer(
+                    model.MTP_SPEC, p, hm, cfg32, c, positions=positions))
+            (_, m), lm_launches, _ = drive(
+                f"lm_loss with MTP, float32, {label}", lambda c=c:
+                model.lm_loss(params, {"tokens": tokens}, cfg32, c))
+            outs[label] = (y, m, lc, lm_launches)
+    (y_k, m_k, lc_k, ll_k), (y_p, m_p, lc_p, ll_p) = \
+        outs["kernel path"], outs["plain loop"]
+    check(lc_k["flash_attention"] == 1 and sum(lc_k.values()) == 1 and
+          ll_k["flash_attention"] == 1 and sum(ll_k.values()) == 1 and
+          not any(lc_p.values()) and not any(ll_p.values()),
+          f"MTP float32 launches {lc_k} {ll_k} / {lc_p} {ll_p}")
+    for name in launches:
+        launches[name] += lc_k[name] + ll_k[name]
+    y_rel = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
+    mtp_rel = abs(m_k["mtp"].item() - m_p["mtp"].item()) / \
+        abs(m_p["mtp"].item())
+    print(f"(b) MTP layer (1 x {MLA_LOSS_SEQ - 1}, GQA {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}), float32: kernel "
+          f"route vs plain loop max abs diff / max |out| = {y_rel} (limit "
+          f"{LM_F32_REL_TOL}); lm_loss mtp {m_k['mtp'].item()} vs "
+          f"{m_p['mtp'].item()}, relative {mtp_rel} (limit 1e-5); ce "
+          f"{m_k['ce'].item()} vs {m_p['ce'].item()} ({card})")
+    check(y_rel < LM_F32_REL_TOL, f"MTP layer differs by {y_rel}")
+    check(mtp_rel < 1e-5, f"MTP loss differs by {mtp_rel}")
+    check(m_k["ce"].item() == m_p["ce"].item(),
+          "the main loss moved with the MTP layer's route")
+    del params
+    return launches
+
+
+VLM_ARCH = "llama-3.2-vision-90b"
+#: full width, depth cut to fit one card (90 B parameters in all): two
+#: super-blocks of 4 self-attention layers and a cross-attention one
+#: (10.83 B parameters, ~21.7 GB)
+VLM_LAYERS = 10
+#: the float32 check: one super-block (6.4 B parameters, ~25.5 GB)
+VLM_CHECK_LAYERS = 5
+VLM_CHECK_STEPS = 8
+PHASE18_LIMIT_S = 180
+
+
+def _open_gates(params, cfg, seed):
+    """Set each cross-attention layer's ``gate`` (0 at init, where
+    tanh(gate) switches the layer off) to a seeded value in [0.5, 1.5):
+    the weights are random, and a closed gate would leave the image
+    unread."""
+    import torch
+    from repro_torch.models import model
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for layer, spec in zip(params["layers"], model.layer_specs(cfg)):
+        if spec.kind == "cross_attn":
+            layer["attn"]["gate"].fill_(0.5 + torch.rand((), generator=g)
+                                        .item())
+
+
+def _image_embeds(cfg, seed):
+    """Stub patch embeddings ``[LM_BATCH, num_image_tokens, d_model]``,
+    0.1 x normal (tests/test_models.py's), in the model dtype."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return (0.1 * torch.randn(LM_BATCH, cfg.num_image_tokens, cfg.d_model,
+                              generator=g, device=DEV)).to(
+        getattr(torch, cfg.dtype))
+
+
+def phase_vlm(profile=False):
+    """Phase 18: ``llama-3.2-vision-90b`` (self-attention with a
+    cross-attention layer every 5th layer over 1600 image tokens) served
+    at full width in bf16, depth cut to ``VLM_LAYERS``, then the float32
+    check at ``VLM_CHECK_LAYERS``; returns the flash kernels' launches of
+    the phase. ``profile`` adds ``_profile`` over one bf16 prefill and 8
+    decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    print(f"== phase 18: {VLM_ARCH} (the VLM family) serving at full "
+          f"width, {VLM_LAYERS} layers")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held = held_report("phase 18")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    check([(st.repeat, len(st.layers)) for st in cfg.plan()] == [(2, 5)],
+          f"the cut's plan {cfg.plan()}")
+    launches = _vlm_serve(cfg, held, card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, count in _vlm_float32_check(cfg, card).items():
+        launches[name] += count
+    dt = time.perf_counter() - t_phase
+    print(f"phase 18: {dt} s (limit {PHASE18_LIMIT_S} s); peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes ({held} held "
+          f"before the phase); launches {launches} ({card})")
+    check(dt <= PHASE18_LIMIT_S, f"phase 18 took {dt} s")
+    return launches
+
+
+def _vlm_serve(cfg, held, card, profile):
+    """bf16 at full width through ``engine.generate`` with seeded image
+    embeddings: ``flash_attention_wgmma`` exactly once a self-attention
+    layer of a prefill (8) and never in decode; cross-attention (1600
+    image rows, non-causal) takes the plain loop. Prints prefill
+    tokens/s, decode ms a step, the peak, and the plain loop's time at a
+    cross-attention layer beside SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import tree
+    from repro_torch.models import layers, model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    _open_gates(params, cfg, 1)
+    torch.cuda.synchronize()
+    specs = model.layer_specs(cfg)
+    n_self = sum(spec.kind == "attn" for spec in specs)
+    print(f"{cfg.name} ({cfg.family}): {len(specs)} layers ({n_self} "
+          f"self-attention, {len(specs) - n_self} cross-attention over "
+          f"{cfg.num_image_tokens} image tokens), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{sum(t.numel() for t in tree.leaves(params))} parameters "
+          f"({cfg.param_count()} by param_count), "
+          f"{torch.cuda.memory_allocated() - held} bytes, made on the card "
+          f"in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    img = _image_embeds(cfg, 2)
+    cache_len = LM_PROMPT + LM_NEW
+    ctx = ModelContext()
+    # first calls build cuBLAS handles and load kernels: not measured
+    engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                    cache_len=cache_len, image_embeds=img)
+    timings = {}
+    out, launches, _ = drive(
+        f"{cfg.name} generate", lambda: engine.generate(
+            params, prompt, cfg, ctx, max_new_tokens=LM_NEW,
+            cache_len=cache_len, image_embeds=img, timings=timings))
+    check(launches["flash_attention_wgmma"] == n_self and
+          sum(launches.values()) == n_self,
+          f"{cfg.name} generate launched {launches}; want "
+          f"flash_attention_wgmma once a self-attention layer ({n_self}) "
+          f"and nothing else")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW) and
+          0 <= out.min().item() and
+          out.max().item() < cfg.padded_vocab_size,
+          f"generated {tuple(out.shape)} ids in [{out.min().item()}, "
+          f"{out.max().item()}]")
+    pre_s, dec_s = timings["prefill_s"], timings["decode_s"]
+    print(f"prefill: {LM_BATCH * LM_PROMPT} tokens and "
+          f"{LM_BATCH * cfg.num_image_tokens} image rows in {pre_s} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s} tokens/s ({card})")
+    print(f"decode: {LM_NEW - 1} steps of {LM_BATCH} in {dec_s} s, "
+          f"{dec_s / (LM_NEW - 1) * 1e3} ms per step (the image K/V "
+          f"recomputed at each step, as the reference) ({card})")
+    print(f"first generated ids: {out[:, :8].tolist()}")
+    (caches, logits), p_launches, _ = drive(
+        "prefill", lambda: engine.make_prefill_step(cfg, ctx, cache_len)(
+            params, prompt, img))
+    check(p_launches["flash_attention_wgmma"] == n_self and
+          sum(p_launches.values()) == n_self,
+          f"prefill launched {p_launches}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(torch.equal(out[:, 0], logits.argmax(dim=-1)),
+          "generate's first token is not the prefill's argmax")
+    check([len(c) for c in caches] == [0 if s.kind == "cross_attn" else 2
+                                        for s in specs],
+          "a cross-attention layer holds a cache")
+    (_, d_logits), d_launches, _ = drive(
+        "decode step", lambda: engine.make_decode_step(cfg, ctx)(
+            params, caches, out[:, :1], LM_PROMPT, img))
+    check(not any(d_launches.values()), f"decode launched {d_launches}")
+    _, other = engine.make_prefill_step(cfg, ctx, cache_len)(
+        params, prompt, _image_embeds(cfg, 3))
+    moved = (other - logits).abs().max().item()
+    print(f"other image embeddings move the last logits by up to {moved}")
+    check(moved > 0, "the image does not reach the logits")
+    del caches, logits, d_logits, other
+    if profile:
+        _profile_serving(f"{cfg.name} ", cfg, ctx, params, prompt,
+                         cache_len, image_embeds=img)
+    print(f"peak device memory over serving: "
+          f"{torch.cuda.max_memory_allocated()} bytes ({held} held before; "
+          f"{card})")
+    # the plain loop at a cross-attention layer's prefill attention
+    B, S, H, KV, D, N = (LM_BATCH, LM_PROMPT, cfg.num_heads,
+                         cfg.num_kv_heads, cfg.head_dim,
+                         cfg.num_image_tokens)
+    g = torch.Generator(device=DEV).manual_seed(18)
+    q = (2.0 * torch.randn(B, S, H, D, generator=g, device=DEV)).to(
+        torch.bfloat16)
+    k = (2.0 * torch.randn(B, N, KV, D, generator=g, device=DEV)).to(
+        torch.bfloat16)
+    v = torch.randn(B, N, KV, D, generator=g, device=DEV).to(torch.bfloat16)
+    plain = cuda_ms(lambda: layers.attention(q, k, v, causal=False),
+                    iters=5, warmup=1, graph=False)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, enable_gqa=True), iters=10, warmup=2, graph=False)
+    nbytes = (B * S * H * D * 2 + B * N * KV * D * 2) * 2
+    flops = 4 * B * H * S * N * D
+    bound, by = bound_ms(nbytes, flops, chip_spec().peak_bf16_flops)
+    n_cross = len(specs) - n_self
+    print(f"plain attention loop, cross-attention layer, {B} x {S} against "
+          f"{N} image rows, {H}/{KV} heads of {D}, bf16: {plain} ms (x "
+          f"{n_cross} = {plain * n_cross} ms of a prefill); SDPA {sdpa} "
+          f"ms; bound {bound} ms ({by}: {nbytes} B, {flops} FLOP at the "
+          f"bf16 rate) ({card})")
+    del params
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_wgmma": launches["flash_attention_wgmma"]}
+
+
+def _vlm_float32_check(cfg, card):
+    """Float32 at full width, ``VLM_CHECK_LAYERS`` layers (one super-
+    block), with the bf16 phase's image embeddings in float32: (a) the
+    prefill and ``VLM_CHECK_STEPS`` teacher-forced decode steps against
+    the forward over the same tokens and image, within
+    ``LM_F32_REL_TOL`` of its largest logit; (b) the prefill's logits on
+    the kernel route (the FFMA kernel once a self-attention layer)
+    against the plain loop, within ``LM_F32_REL_TOL``."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.serve import engine
+    dev = torch.device(DEV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=VLM_CHECK_LAYERS)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    _open_gates(params, cfg32, 1)
+    n_self = sum(s.kind == "attn" for s in model.layer_specs(cfg32))
+    img = _image_embeds(cfg32, 2)
+    ctx = ModelContext()
+    plain_ctx = dataclasses.replace(ctx, flash_kernel=False)
+    launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    S, steps = LM_PROMPT, VLM_CHECK_STEPS
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, S + steps),
+                           generator=g, device=dev)
+    decode = engine.make_decode_step(cfg32, ctx)
+
+    def served():
+        caches, logits = engine.make_prefill_step(cfg32, ctx, S + steps)(
+            params, tokens[:, :S], img)
+        out = [logits]
+        for t in range(S, S + steps):
+            caches, logits = decode(params, caches, tokens[:, t:t + 1], t,
+                                    img)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+
+    def forward():
+        hid, _ = model.forward(params, tokens, cfg32, ctx, image_embeds=img)
+        return (hid[:, S - 1:] @ params["unembed"]).float()
+    want, f_launches, _ = drive(
+        f"{cfg.name} float32 ({VLM_CHECK_LAYERS} layers) forward over "
+        f"{S} + {steps} tokens", forward)
+    got, s_launches, _ = drive(
+        f"{cfg.name} float32 prefill of {S}, then {steps} decode steps",
+        served)
+    check(f_launches["flash_attention"] == n_self and
+          s_launches["flash_attention"] == n_self and
+          sum(f_launches.values()) + sum(s_launches.values()) == 2 * n_self,
+          f"float32 launches {f_launches} / {s_launches}")
+    for name in launches:
+        launches[name] += f_launches[name] + s_launches[name]
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite float32 logits")
+    scale = want.abs().max().item()
+    per_step = ((got - want).abs().amax(dim=(0, 2)) / scale).tolist()
+    rel = max(per_step)
+    print(f"(a) {cfg.name} float32: prefill and decode logits vs the "
+          f"forward's, max abs diff / max |logit| = {rel} (limit "
+          f"{LM_F32_REL_TOL}; max |logit| {scale}; by step {per_step}) "
+          f"({card})")
+    check(rel < LM_F32_REL_TOL, f"served logits differ by {rel}")
+    runs = {}
+    for label, c in (("kernel path", ctx), ("plain loop", plain_ctx)):
+        (_, logits), lc, _ = drive(
+            f"float32 prefill ({VLM_CHECK_LAYERS} layers), {label}",
+            lambda c=c: engine.make_prefill_step(cfg32, c, S)(
+                params, tokens[:, :S], img))
+        runs[label] = (logits, lc)
+    (got, k_launches), (want, p_launches) = \
+        runs["kernel path"], runs["plain loop"]
+    check(k_launches["flash_attention"] == n_self and
+          sum(k_launches.values()) == n_self and
+          not any(p_launches.values()),
+          f"float32 launches {k_launches} / {p_launches}")
+    for name in launches:
+        launches[name] += k_launches[name]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"(b) float32 last-position logits: kernel path vs plain loop "
+          f"max abs diff / max |logit| = {rel} (limit {LM_F32_REL_TOL}) "
+          f"({card})")
+    check(rel < LM_F32_REL_TOL, f"float32 prefill logits differ by {rel}")
+    del params
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4119,6 +4775,8 @@ def main() -> int:
         ssm_launches = phase_ssm(profile="--profile" in sys.argv[1:])
         local_global_launches = phase_local_global(
             profile="--profile" in sys.argv[1:])
+        mla_launches = phase_mla(profile="--profile" in sys.argv[1:])
+        vlm_launches = phase_vlm(profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4127,10 +4785,11 @@ def main() -> int:
     # and LM training (phase 11)
     for name, count in lm_training_launches.items():
         launches[name] += count
-    # and MoE serving (phase 14), and the SSM, hybrid and audio families
-    # (phase 15)
+    # and MoE serving (phase 14), the SSM, hybrid and audio families
+    # (phase 15), MLA and MTP (phase 17) and the VLM family (phase 18)
     for name, count in list(moe_launches.items()) + \
-            list(ssm_launches.items()):
+            list(ssm_launches.items()) + list(mla_launches.items()) + \
+            list(vlm_launches.items()):
         launches[name] += count
     for name, count in launches.items():
         if count < 1:
@@ -4150,6 +4809,8 @@ def main() -> int:
     print(json.dumps({"ssm_serving_launches": ssm_launches}))
     print(json.dumps({"local_global_serving_launches":
                       local_global_launches}))
+    print(json.dumps({"mla_serving_launches": mla_launches}))
+    print(json.dumps({"vlm_serving_launches": vlm_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 A copy of the reference's ``repro/configs/base.py`` (pure dataclasses),
 with imports rewritten; ``tests/test_torch_copies.py`` holds it to the
-original. Each architecture the port runs is a ``ModelConfig`` in its
-own module under ``repro_torch.configs``; ``get_config(arch)`` resolves
+original. Each of the reference's architectures is a ``ModelConfig`` in
+its own module under ``repro_torch.configs``; ``get_config(arch)`` resolves
 by id. Each config carries a ``reduced()`` variant (same family, tiny
 dims) used by CPU smoke tests.
 """
@@ -304,13 +304,13 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 
 def _load_all() -> None:
-    # Importing the arch modules registers them. Only the configs the
-    # port can run are copied (the dense, MoE, SSM, hybrid, audio and
-    # local/global families' so far).
+    # Importing the arch modules registers them: the reference's ten.
     from repro_torch.configs import deepseek_coder_33b  # noqa: F401
     from repro_torch.configs import deepseek_moe_16b  # noqa: F401
+    from repro_torch.configs import deepseek_v3_671b  # noqa: F401
     from repro_torch.configs import gemma3_4b  # noqa: F401
     from repro_torch.configs import granite_3_8b  # noqa: F401
+    from repro_torch.configs import llama_3_2_vision_90b  # noqa: F401
     from repro_torch.configs import mamba2_370m  # noqa: F401
     from repro_torch.configs import musicgen_medium  # noqa: F401
     from repro_torch.configs import qwen2_7b  # noqa: F401

@@ -10,17 +10,20 @@ reference's data-parallel step would apply.
 
 The int8 bits are the reference's:
 
-* the reference stacks a stage's layers into one leaf, so one scale
-  covers a parameter of every layer; here a list in the tree (the
-  model's ``layers``) is that stacked axis, and the leaves at the same
-  place in each element share one scale;
+* the reference stacks each layer of a stage's block into one leaf
+  (``stage{s}/layer{j}``), so one scale covers that parameter of every
+  repeat; here a list in the tree (the model's ``layers``) holds the
+  repeats, and the leaves at the same place in the elements of one
+  stack share one scale. ``layer_stacks`` (``model.layer_stacks``)
+  names each element's stack; the elements of any other list are one
+  stack;
 * the same float32 divide by the scale, and ``torch.round`` rounds half
   to even as ``jnp.round`` does.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -47,23 +50,28 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale).to(dtype)
 
 
-def _stacks(names) -> Dict[str, List[str]]:
-    """Leaf names grouped by their name with every list index wildcarded:
-    the leaves of one reference (stacked) tensor."""
+def _stacks(names, layer_stacks: Sequence[str]) -> Dict[str, List[str]]:
+    """Leaf names grouped by their name with ``layers/[i]`` replaced by
+    element i's stack (``layer_stacks``) and every list index
+    wildcarded: the leaves of one reference (stacked) tensor."""
     groups: Dict[str, List[str]] = {}
     for name in names:
-        groups.setdefault(re.sub(r"\[\d+\]", "[*]", name), []).append(name)
+        key = re.sub(r"^layers/\[(\d+)\]",
+                     lambda m: f"layers/{layer_stacks[int(m[1])]}", name)
+        groups.setdefault(re.sub(r"\[\d+\]", "[*]", key), []).append(name)
     return groups
 
 
 @torch.no_grad()
-def compress_grads_with_feedback(grads, error_buf):
+def compress_grads_with_feedback(grads, error_buf,
+                                 layer_stacks: Sequence[str]):
     """(compressed-then-dequantized grads in their own dtypes, new error
-    buffer in its dtype)."""
+    buffer in its dtype); ``layer_stacks``: the reference's stack of
+    each element of the trees' ``layers`` (module docstring)."""
     flat_g = tree.flatten_with_names(grads)
     flat_e = tree.flatten_with_names(error_buf)
     new_g, new_e = {}, {}
-    for names in _stacks(flat_g).values():
+    for names in _stacks(flat_g, layer_stacks).values():
         g32 = [flat_g[n].float() + flat_e[n].float() for n in names]
         scale = _scale(torch.stack([t.abs().max() for t in g32]).max())
         for n, t in zip(names, g32):

@@ -86,16 +86,17 @@ for two.
 Collectives are zero on one card; the keys stay. The roofline is
 ``common.hw.roofline_terms`` at the card's dense bf16 rate, as the
 reference's convention. The dense, MoE, SSM, hybrid, audio and
-local/global families are counted (the SSD scan has no host read and no
-data-dependent shape). The MoE family's routing is data-dependent: on
-``meta`` tensors ``models.moe`` splits each layer's ``T·k`` rows evenly
-over the experts (``moe.expert_rows``), where the reference's dry-run
-compiles ``routed_ep``, every expert over a buffer of 1.25 times its
-even share (ROADMAP §3 states the difference). The reference's two
-other architectures (MLA and MTP, the VLM family: not ported),
-``long_500k`` for the full-attention archs (the reference's reason) and
-every multi-pod cell (one card has no multi-pod mesh) get ``skipped``
-records.
+local/global families, MLA and MTP (``deepseek-v3-671b``) and the VLM
+family (``llama-3.2-vision-90b``, its ``image_embeds`` an argument of
+every cell) are counted: all ten of the reference's architectures (the
+SSD scan has no host read and no data-dependent shape). The MoE
+family's routing is data-dependent: on ``meta`` tensors ``models.moe``
+splits each layer's ``T·k`` rows evenly over the experts
+(``moe.expert_rows``), where the reference's dry-run compiles
+``routed_ep``, every expert over a buffer of 1.25 times its even share
+(ROADMAP §3 states the difference). ``long_500k`` for the
+full-attention archs (the reference's reason) and every multi-pod cell
+(one card has no multi-pod mesh) get ``skipped`` records.
 """
 from __future__ import annotations
 
@@ -125,12 +126,6 @@ from repro_torch.train import OptimizerConfig
 from repro_torch.train.train_step import make_train_state_shapes, \
     make_train_step
 
-#: the reference's architectures the port does not run yet, each with
-#: its skip reason (names only: the port keeps no config of theirs)
-REFERENCE_ONLY_ARCHS = {
-    "deepseek-v3-671b": "MLA and MTP not ported (ROADMAP queue 1 item 3)",
-    "llama-3.2-vision-90b": "family not ported (ROADMAP queue 1 item 4)",
-}
 NO_MULTIPOD = "one card: no multi-pod mesh"
 #: the scope the plain attention loop's KV-block body runs in
 FLASH_SCOPE = "vmem_flash"
@@ -500,18 +495,23 @@ def _build(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
     if shape.kind == "prefill":
         inputs = speclib.prefill_inputs(cfg, shape)
 
-        def prefill_fn(params, tokens):
+        def fn(params, tokens, image_embeds=None):
             return model.prefill(params, tokens, cfg, ctx,
-                                 cache_len=shape.seq_len)
-        return prefill_fn, (params, inputs["tokens"])
-    if shape.kind == "decode":
+                                 cache_len=shape.seq_len,
+                                 image_embeds=image_embeds)
+        args = (params, inputs["tokens"])
+    elif shape.kind == "decode":
         inputs = speclib.decode_inputs(cfg, shape)
 
-        def decode_fn(params, caches, token, pos):
-            return model.decode_step(params, caches, token, pos, cfg, ctx)
-        return decode_fn, (params, inputs["caches"], inputs["token"],
-                           inputs["pos"])
-    raise ValueError(shape.kind)
+        def fn(params, caches, token, pos, image_embeds=None):
+            return model.decode_step(params, caches, token, pos, cfg, ctx,
+                                     image_embeds=image_embeds)
+        args = (params, inputs["caches"], inputs["token"], inputs["pos"])
+    else:
+        raise ValueError(shape.kind)
+    if "image_embeds" in inputs:        # the VLM family's stub image
+        args += (inputs["image_embeds"],)
+    return fn, args
 
 
 def split_overrides(ctx_overrides: Optional[dict]
@@ -618,8 +618,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     the rest override ModelContext fields, and a reference-only or
     unknown field raises ``ValueError``."""
     over, microbatch, fused = split_overrides(ctx_overrides)
-    if arch in REFERENCE_ONLY_ARCHS:
-        return _skip(arch, shape_name, REFERENCE_ONLY_ARCHS[arch])
     if multi_pod:
         return _skip(arch, shape_name, NO_MULTIPOD)
     cfg = get_config(arch)
@@ -679,8 +677,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 
 def all_archs() -> list:
-    """The reference's ten architectures: the port's and the rest."""
-    return sorted(list_configs() + list(REFERENCE_ONLY_ARCHS))
+    """The reference's ten architectures, every one of them the port's."""
+    return list_configs()
 
 
 def run_matrix(archs, shapes, *, multi_pod: bool, out_dir: str,

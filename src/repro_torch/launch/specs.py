@@ -4,9 +4,9 @@ Port of the reference's ``launch/specs.py``. Every tensor here is on
 the ``meta`` device: shapes and dtypes, no memory, so nothing here
 allocates on any device. The port's ``decode_step`` takes the position
 as a Python int; the dry-run counts it as the reference's int32 scalar
-(``SCALAR_BYTES``). Configs with image embeddings
-(``cross_attn_every``) raise, as ``model.lm_loss`` does: their family is
-not ported (ROADMAP queue 1 item 4).
+(``SCALAR_BYTES``). The VLM family's vision tower is a stub in both
+packages: its inputs carry the patch embeddings, ``image_embeds [B,
+num_image_tokens, d_model]`` in the model dtype.
 """
 from __future__ import annotations
 
@@ -22,40 +22,39 @@ META = torch.device("meta")
 SCALAR_BYTES = 4
 
 
-def _no_image_embeds(cfg: ModelConfig) -> None:
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name} needs image embeddings, which the port does not "
-            f"run yet (ROADMAP queue 1 item 4)")
-
-
 def _tokens(*shape: int) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.int32, device=META)
 
 
+def _with_image_embeds(cfg: ModelConfig, B: int, inputs: Dict[str, Any]
+                       ) -> Dict[str, Any]:
+    if cfg.cross_attn_every:
+        inputs["image_embeds"] = torch.empty(
+            (B, cfg.num_image_tokens, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=META)
+    return inputs
+
+
 def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig
                       ) -> Dict[str, Any]:
-    _no_image_embeds(cfg)
     B, S = shape.global_batch, shape.seq_len
-    return {"tokens": _tokens(B, S + 1)}
+    return _with_image_embeds(cfg, B, {"tokens": _tokens(B, S + 1)})
 
 
 def prefill_inputs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    _no_image_embeds(cfg)
     B, S = shape.global_batch, shape.seq_len
-    return {"tokens": _tokens(B, S)}
+    return _with_image_embeds(cfg, B, {"tokens": _tokens(B, S)})
 
 
 def decode_inputs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     """One new token against a cache of length shape.seq_len, written at
     the cache's last row."""
-    _no_image_embeds(cfg)
     B, S = shape.global_batch, shape.seq_len
-    return {
+    return _with_image_embeds(cfg, B, {
         "caches": model.init_cache(cfg, B, S, device=META),
         "token": _tokens(B, 1),
         "pos": S - 1,
-    }
+    })
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:

@@ -9,7 +9,11 @@ leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
 [d, Vp]`` and ``final_ln [d]`` at the top: the dense, SSM and audio
 families have one stage of one layer, the MoE family a stage of leading
 dense layers (``stage0``) and one of MoE layers (``stage1``), the hybrid
-family a stage of six Mamba2 layers and one shared attention layer. The
+family a stage of six Mamba2 layers and one shared attention layer, the
+VLM family super-blocks of self-attention layers and a cross-attention
+layer (whose 0-d ``gate`` is stacked to ``[R]``). With MTP the
+reference keeps the MTP module unstacked under ``mtp`` (``proj``,
+``ln_h``, ``ln_e``, ``attn/*``, ``ffn/*``), and so does the port. The
 port keeps one dict per layer (``params["layers"][i]``), the stages'
 repeats in order and each repeat's layers in order, and a shared layer
 under the reference's ``stage{s}_shared/layer{j}``. The ViT keeps the
@@ -76,6 +80,8 @@ def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
             for j, spec in enumerate(stage.layers) if spec.shared}
         if shared:
             out[f"stage{si}_shared"] = shared
+    if "mtp" in tree:
+        out["mtp"] = _to_tensors(tree["mtp"], device)
     return out
 
 
@@ -129,6 +135,8 @@ def export_reference_params(params: Params, cfg: ModelConfig) -> dict:
             for j, spec in enumerate(stage.layers) if spec.shared}
         if shared:
             out[f"stage{si}_shared"] = shared
+    if "mtp" in params:
+        out["mtp"] = _to_numpy_tree(params["mtp"])
     return out
 
 

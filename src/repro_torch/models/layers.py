@@ -1,12 +1,12 @@
-"""Transformer layers of the dense LM family: RMSNorm, RoPE, GQA
-attention with a KV cache, SwiGLU.
+"""Transformer layers: RMSNorm, RoPE, GQA self- and cross-attention with
+a KV cache, MLA with a latent cache, SwiGLU.
 
 Port of the reference's ``models/layers.py`` (norms ``:96-106``, RoPE
 ``:112-126``, attention ``:132-277``, the attention block ``:283-376``,
-the FFN block ``:476-496``) for one device. Functions take parameters
-as plain dicts of tensors and keep the reference's layouts: activations
-``[B, S, d]``, q ``[B, S, H, D]``, k and v ``[B, S, KV, D]``, caches
-``[B, S_cache, KV, D]``.
+MLA ``:382-470``, the FFN block ``:476-496``) for one device. Functions
+take parameters as plain dicts of tensors and keep the reference's
+layouts: activations ``[B, S, d]``, q ``[B, S, H, D]``, k and v ``[B,
+S, KV, D]``, caches ``[B, S_cache, KV, D]``.
 
 ``attention`` has three cases, chosen by shape and device:
 
@@ -277,7 +277,9 @@ def normal_param(gen: torch.Generator, shape, dtype: torch.dtype,
                        device=gen.device) * std
 
 
-def init_attn(gen: torch.Generator, cfg) -> Params:
+def init_attn(gen: torch.Generator, cfg, *, cross: bool = False) -> Params:
+    """GQA attention leaves; ``cross`` (the VLM family's cross-attention
+    layer) adds the 0-d ``gate``, zero, whose tanh scales the output."""
     d = cfg.d_model
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = getattr(torch, cfg.dtype)
@@ -293,6 +295,8 @@ def init_attn(gen: torch.Generator, cfg) -> Params:
         p["bq"] = torch.zeros(h * hd, dtype=dt, device=dev)
         p["bk"] = torch.zeros(kv * hd, dtype=dt, device=dev)
         p["bv"] = torch.zeros(kv * hd, dtype=dt, device=dev)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=dt, device=dev)
     return p
 
 
@@ -302,6 +306,7 @@ def attn_block(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_pos: Optional[int] = None,
+    cross_kv: Optional[torch.Tensor] = None,
     return_kv: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Pre-norm attention residual block.
@@ -311,6 +316,12 @@ def attn_block(
     ``cache_pos`` (ring position for windowed caches); new_cache is that
     same pair. With return_kv (prefill), the raw rotated (k, v) are
     returned for the caller to fold into cache tensors.
+
+    With ``cross_kv`` (image embeddings ``[B, N, d]``, the VLM family's
+    cross-attention layer) k and v are projected from it, neither q nor
+    k is rotated, attention is non-causal over the N rows in prefill
+    and decode alike, no cache is read or returned, and the output is
+    scaled by ``tanh(gate)``, taken in float32.
     """
     B, S, d = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -320,20 +331,26 @@ def attn_block(
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(B, S, h, hd)
-    k = xn @ p["wk"]
-    v = xn @ p["wv"]
+    cross = cross_kv is not None
+    kv_src = cross_kv if cross else xn
+    k = kv_src @ p["wk"]
+    v = kv_src @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, S, kv, hd)
-    v = v.reshape(B, S, kv, hd)
+    k = k.reshape(B, kv_src.shape[1], kv, hd)
+    v = v.reshape(B, kv_src.shape[1], kv, hd)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if not cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cross:
+        out = attention(q, k, v, causal=False, window=0, q_chunk=ctx.q_chunk,
+                        k_chunk=ctx.k_chunk, use_kernel=ctx.flash_kernel)
+    elif cache is not None:
         k_cache, v_cache = cache
         s_cache = k_cache.shape[1]
         wpos = cache_pos % s_cache      # ring position for windowed caches
@@ -351,8 +368,112 @@ def attn_block(
                         use_kernel=ctx.flash_kernel)
 
     y = out.reshape(B, S, h * hd) @ p["wo"]
-    if return_kv:
+    if cross:
+        y = torch.tanh(p["gate"].float()).to(y.dtype) * y
+    elif return_kv:
         new_cache = (k, v)
+    return x + y, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# --------------------------------------------------------------------------
+def init_mla(gen: torch.Generator, cfg) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = getattr(torch, cfg.dtype)
+    dev = gen.device
+
+    def w(shape):
+        return normal_param(gen, shape, dt, 1.0 / math.sqrt(shape[0]))
+    return {
+        "wq_a": w((d, qr)),
+        "q_ln": torch.zeros(qr, dtype=dt, device=dev),
+        "wq_b": w((qr, h * (dn + dr))),
+        "wkv_a": w((d, kvr + dr)),
+        "kv_ln": torch.zeros(kvr, dtype=dt, device=dev),
+        "wk_b": w((kvr, h * dn)),
+        "wv_b": w((kvr, h * dv)),
+        "wo": w((h * dv, d)),
+        "ln": torch.zeros(d, dtype=dt, device=dev),
+    }
+
+
+def mla_block(
+    p: Params, x: torch.Tensor, cfg, ctx: ModelContext, *,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    return_kv: bool = False,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """MLA residual block (the reference's ``mla_block``).
+
+    Prefill and forward expand the latent to per-head ``k = [k_nope |
+    k_pe]`` (``qk_nope_head_dim + qk_rope_head_dim`` wide, ``k_pe``
+    shared by every head) and ``v`` (``v_head_dim``) and run the plain
+    attention loop at scale ``1/sqrt(dn + dr)``: no flash kernel takes
+    unequal q and v head dims or an explicit scale. With return_kv the
+    raw ``(c_kv [B, S, kv_lora_rank], k_pe [B, S, qk_rope_head_dim])``
+    are returned. Decode (cache given) writes them into the latent cache
+    IN PLACE at ``cache_pos`` and attends in the latent space (q
+    absorbed through ``wk_b``, the output through ``wv_b``), with the
+    reference's casts: scores summed in the model dtype, softmax in
+    float32 over the rows below ``cache_pos + S``, probabilities cast
+    to the cache's dtype."""
+    B, S, d = x.shape
+    h = cfg.num_heads
+    kvr = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+
+    q_lat = rms_norm(xn @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(B, S, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+
+    kv_a = xn @ p["wkv_a"]                              # [B, S, kvr + dr]
+    c_kv = rms_norm(kv_a[..., :kvr], p["kv_ln"], cfg.norm_eps)
+    k_pe = apply_rope(kv_a[..., kvr:][:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0]          # [B, S, dr]
+
+    scale = 1.0 / math.sqrt(dn + dr)
+    new_cache = None
+    if cache is not None:
+        c_cache, pe_cache = cache
+        c_cache[:, cache_pos:cache_pos + S] = c_kv.to(c_cache.dtype)
+        pe_cache[:, cache_pos:cache_pos + S] = k_pe.to(pe_cache.dtype)
+        new_cache = (c_cache, pe_cache)
+        kv_len = cache_pos + S
+        wk_b = p["wk_b"].reshape(kvr, h, dn)
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)
+        s_lat = torch.einsum("bshr,btr->bhst", q_abs,
+                             c_cache.to(q_abs.dtype))
+        s_pe = torch.einsum("bshd,btd->bhst", q_pe, pe_cache.to(q_pe.dtype))
+        s_all = (s_lat + s_pe).float() * scale
+        t_idx = torch.arange(c_cache.shape[1], device=x.device)
+        s_all = torch.where(t_idx < kv_len, s_all,
+                            torch.tensor(-1e30, device=x.device))
+        a = torch.softmax(s_all, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", a.to(c_cache.dtype), c_cache)
+        wv_b = p["wv_b"].reshape(kvr, h, dv)
+        out = torch.einsum("bshr,rhd->bshd", o_lat, wv_b)
+    else:
+        k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, dn)
+        v = (c_kv @ p["wv_b"]).reshape(B, S, h, dv)
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, dr)],
+                      dim=-1)
+        out = attention(torch.cat([q_nope, q_pe], dim=-1), k, v,
+                        causal=True, scale=scale, q_chunk=ctx.q_chunk,
+                        k_chunk=ctx.k_chunk,
+                        skip_noncausal=ctx.attn_skip_noncausal,
+                        use_kernel=ctx.flash_kernel)
+
+    y = out.reshape(B, S, h * dv) @ p["wo"]
+    if return_kv:
+        new_cache = (c_kv, k_pe)
     return x + y, new_cache
 
 

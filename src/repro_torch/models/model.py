@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, SSM, hybrid, audio and
-local/global LM families: init, forward, prefill, decode.
+"""Model assembly for every LM family of the reference (dense, MoE with
+MLA and MTP, SSM, hybrid, audio, local/global, VLM): init, forward,
+prefill, decode.
 
 Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``forward`` ``:133``, ``fused_ce`` ``:173``, ``lm_loss`` ``:201``,
@@ -15,9 +16,16 @@ MoE layers (``models.moe``); the SSM family's Mamba2 layers
 (``models.ssm``, no FFN); the hybrid family's super-blocks of Mamba2
 layers and one shared attention layer (no FFN); the local/global
 family's super-blocks of ``local_global_ratio`` sliding-window layers
-and one global layer, then its remaining window layers. A layer is
-``{"attn"}`` (the attention or Mamba2 block's leaves, under the
-reference's key) and ``"ffn"`` unless its spec says ``ffn="none"``. A
+and one global layer, then its remaining window layers; the VLM
+family's super-blocks of ``cross_attn_every - 1`` self-attention layers
+and one cross-attention layer over the image embeddings. With
+``use_mla`` (``deepseek-v3-671b``) the MoE family's layers are MLA
+blocks (``layers.mla_block``). A layer is ``{"attn"}`` (the attention,
+MLA or Mamba2 block's leaves, under the reference's key) and ``"ffn"``
+unless its spec says ``ffn="none"``. With ``mtp_depth``, ``init`` adds
+the reference's MTP module, ``params["mtp"]`` (``proj [2d, d]``,
+``ln_h``, ``ln_e`` and one GQA attention layer with a dense FFN, under
+``attn`` and ``ffn``), which only ``lm_loss`` reads. A
 shared layer's
 parameters are held once, as the reference's ``stage{s}_shared``:
 ``params[f"stage{s}_shared"][f"layer{j}"]``, not in ``params["layers"]``;
@@ -29,9 +37,13 @@ not read it, as in the reference.
 
 Caches are a list with one entry per application: an attention layer's
 ``(k, v)``, each ``[B, rows, KV, head_dim]``, which ``decode_step``
-writes IN PLACE (each application of a shared layer keeps its own); a
-Mamba2 layer's ``(conv tail [B, K-1, C]`` in the model dtype, ``state
-[B, heads, head_dim, N]`` in float32), which ``decode_step`` replaces.
+writes IN PLACE (each application of a shared layer keeps its own); an
+MLA layer's latent ``(c_kv [B, cache_len, kv_lora_rank], k_pe [B,
+cache_len, qk_rope_head_dim])``, also written in place; a Mamba2
+layer's ``(conv tail [B, K-1, C]`` in the model dtype, ``state [B,
+heads, head_dim, N]`` in float32), which ``decode_step`` replaces; a
+cross-attention layer's ``()``: it recomputes the image K/V from
+``image_embeds`` at every step, as the reference does.
 ``rows`` is ``cache_len``, or ``min(window, cache_len)`` for a
 sliding-window layer, whose cache is a ring: position t lives in row
 ``t % rows``. ``prefill`` writes the prompt's last ``rows`` positions
@@ -43,9 +55,6 @@ With ``ctx.remat == "full"`` each layer of ``forward`` runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
 scanned block): the backward recomputes the layer from its input, so a
 training step keeps one ``[B, S, d]`` activation per layer.
-
-MLA, MTP and the VLM family are not ported: they raise
-``NotImplementedError`` naming what is missing.
 
 Entry points:
   init(generator, cfg)                -> params
@@ -71,29 +80,42 @@ from repro_torch.models.layers import ModelContext
 Params = Dict[str, Any]
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
-#: the families the port runs; MLA and MTP stay refused within them
+#: the families the port runs: every family of the reference
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio",
-                   "local_global")
+                   "local_global", "vlm")
+#: the layer kinds and FFN kinds of the reference's plans
+LAYER_KINDS = ("attn", "mla", "mamba", "cross_attn")
+FFN_KINDS = ("dense", "moe", "none")
+#: the MTP module's one layer (the reference's ``model.py:85-87``)
+MTP_SPEC = LayerSpec("attn", "dense")
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     """The config's plan unrolled to one spec per application (a shared
-    layer once per repeat); raises for what the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.use_mla or cfg.mtp_depth:
+    layer once per repeat); raises for a family or layer kind the
+    reference does not have."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch runs the {', '.join(PORTED_FAMILIES)} families "
-            f"without MLA or MTP (not vlm); {cfg.name} is "
-            f"{cfg.family!r} (use_mla={cfg.use_mla}, mtp_depth="
-            f"{cfg.mtp_depth})")
+            f"repro_torch runs the {', '.join(PORTED_FAMILIES)} families; "
+            f"{cfg.name} is {cfg.family!r}")
     specs = []
     for stage in cfg.plan():
         for _ in range(stage.repeat):
             for spec in stage.layers:
-                if spec.kind not in ("attn", "mamba") or \
-                        spec.ffn not in ("dense", "moe", "none"):
+                if spec.kind not in LAYER_KINDS or \
+                        spec.ffn not in FFN_KINDS:
                     raise NotImplementedError(f"layer spec {spec}")
                 specs.append(spec)
     return specs
+
+
+def layer_stacks(cfg: ModelConfig) -> List[str]:
+    """The reference's stacked leaf of each entry of ``params["layers"]``,
+    in order: ``stage{s}/layer{j}`` (its ``init`` stacks each layer of a
+    stage's block over the stage's repeats)."""
+    return [f"stage{si}/layer{j}" for si, stage in enumerate(cfg.plan())
+            for _ in range(stage.repeat)
+            for j, spec in enumerate(stage.layers) if not spec.shared]
 
 
 def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
@@ -122,7 +144,8 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     ``jax.random``'s; tests that compare with the reference import its
     parameters instead (``models.convert``). A MoE layer's router and a
     Mamba2 layer's ``A_log``, ``D`` and ``dt_bias`` are float32 in any
-    model dtype, as the reference's."""
+    model dtype, as the reference's. With ``mtp_depth`` the MTP module
+    is ``params["mtp"]``."""
     layer_specs(cfg)                                # raises if not ported
     dt = getattr(torch, cfg.dtype)
     Vp, d = cfg.padded_vocab_size, cfg.d_model
@@ -140,6 +163,12 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         for _ in range(stage.repeat):
             params["layers"] += [_init_layer(gen, spec, cfg)
                                  for spec in stage.layers if not spec.shared]
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": L.normal_param(gen, (2 * d, d), dt, 1.0 / (2 * d) ** 0.5),
+            "ln_h": torch.zeros(d, dtype=dt, device=gen.device),
+            "ln_e": torch.zeros(d, dtype=dt, device=gen.device),
+            **_init_layer(gen, MTP_SPEC, cfg)}
     return params
 
 
@@ -147,8 +176,10 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig
                 ) -> Params:
     if spec.kind == "mamba":
         p = {"attn": SSM.init_mamba(gen, cfg)}
+    elif spec.kind == "mla":
+        p = {"attn": L.init_mla(gen, cfg)}
     else:
-        p = {"attn": L.init_attn(gen, cfg)}
+        p = {"attn": L.init_attn(gen, cfg, cross=spec.kind == "cross_attn")}
     if spec.ffn == "moe":
         p["ffn"] = MOE.init_moe(gen, cfg)
     elif spec.ffn == "dense":
@@ -161,11 +192,22 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig
 
 def _apply_layer(spec: LayerSpec, p: Params, x: torch.Tensor, cfg, ctx, *,
                  positions=None, cache=None, cache_pos=None,
-                 return_cache=False):
-    """One layer -> (x, cache, aux); aux is None but for a MoE FFN."""
+                 cross_kv=None, return_cache=False):
+    """One layer -> (x, cache, aux); aux is None but for a MoE FFN. A
+    cross-attention layer reads ``cross_kv`` and its cache is ``()``."""
     if spec.kind == "mamba":
         x, nc = SSM.mamba_block(p["attn"], x, cfg, ctx, cache=cache,
                                 return_state=return_cache)
+    elif spec.kind == "cross_attn":
+        if cross_kv is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             f"image_embeds")
+        x, _ = L.attn_block(p["attn"], x, cfg, ctx, cross_kv=cross_kv)
+        nc = ()
+    elif spec.kind == "mla":
+        x, nc = L.mla_block(p["attn"], x, cfg, ctx, positions=positions,
+                            cache=cache, cache_pos=cache_pos,
+                            return_kv=return_cache)
     else:
         x, nc = L.attn_block(p["attn"], x, cfg, ctx, window=spec.window,
                              positions=positions, cache=cache,
@@ -182,8 +224,10 @@ def _apply_layer(spec: LayerSpec, p: Params, x: torch.Tensor, cfg, ctx, *,
 # forward (teacher-forced)
 # --------------------------------------------------------------------------
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            ctx: ModelContext) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] -> (hidden [B, S, d], aux_loss)."""
+            ctx: ModelContext, *, image_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, S] -> (hidden [B, S, d], aux_loss); ``image_embeds``
+    ``[B, N, d]`` for the cross-attention layers."""
     x = params["embed"][tokens]
     S = tokens.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -191,19 +235,22 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
         if ctx.remat == "full":
             x, aux = checkpoint(_train_layer, spec, p, x, cfg, ctx,
-                                positions, use_reentrant=False,
+                                positions, image_embeds,
+                                use_reentrant=False,
                                 preserve_rng_state=False)
         else:
             x, _, aux = _apply_layer(spec, p, x, cfg, ctx,
-                                     positions=positions)
+                                     positions=positions,
+                                     cross_kv=image_embeds)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, aux_total
 
 
-def _train_layer(spec, p, x, cfg, ctx, positions):
-    x, _, aux = _apply_layer(spec, p, x, cfg, ctx, positions=positions)
+def _train_layer(spec, p, x, cfg, ctx, positions, image_embeds):
+    x, _, aux = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
+                             cross_kv=image_embeds)
     return x, aux
 
 
@@ -239,25 +286,49 @@ def fused_ce(x: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
     return torch.stack(losses).mean()               # [n, B, chunk]
 
 
+def mtp_input(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """The MTP layer's input ``[B, S - 1, d]``: the final hidden state of
+    positions 0..S-2 and the embedding of their next tokens
+    (``targets[:, :-1]``), each normed, concatenated and projected."""
+    p = params["mtp"]
+    h = L.rms_norm(hidden[:, :-1], p["ln_h"], cfg.norm_eps)
+    e = L.rms_norm(params["embed"][targets[:, :-1]], p["ln_e"], cfg.norm_eps)
+    return torch.cat([h, e], dim=-1) @ p["proj"]
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, ctx: ModelContext, *, mtp_weight: float = 0.3,
             aux_weight: float = 0.001
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token loss of ``batch["tokens"] [B, S + 1]``: the first S
-    tokens in, the last S as targets. Returns (loss, {"ce", "aux",
-    "loss"}), loss = ce + ``aux_weight`` * aux; aux is the MoE layers'
-    summed load-balance loss, 0 in the dense family. ``mtp_weight``
-    weighs the reference's MTP loss: its MTP head and image embeddings
-    belong to families the port does not run yet, and those raise."""
-    if cfg.mtp_depth or cfg.cross_attn_every or "image_embeds" in batch:
-        raise NotImplementedError(
-            f"lm_loss: {cfg.name} needs the MTP head or image embeddings, "
-            f"which the port does not run yet")
+    """Next-token loss of ``batch["tokens"] [B, S + 1]`` (and
+    ``batch["image_embeds"]`` for the VLM family): the first S tokens
+    in, the last S as targets. Returns (loss, {"ce", "aux", ["mtp"],
+    "loss"}), loss = ce + ``mtp_weight`` * mtp + ``aux_weight`` * aux;
+    aux is the MoE layers' summed load-balance loss, 0 without MoE.
+
+    With ``mtp_depth`` and ``params["mtp"]``, the reference's MTP loss
+    (``model.py:211-222``): position t's final hidden state and the
+    embedding of token t + 1, each normed, concatenated and projected,
+    go through the MTP layer (GQA attention at positions 0..S-2 and a
+    dense FFN, no final norm) to predict token t + 2. Its ``fused_ce``
+    chunks as any other: one chunk when S - 1 is not a multiple of
+    512."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    hidden, aux = forward(params, inputs, cfg, ctx)
+    hidden, aux = forward(params, inputs, cfg, ctx,
+                          image_embeds=batch.get("image_embeds"))
     loss = fused_ce(hidden, params["unembed"], targets, cfg.vocab_size)
     metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp_depth and "mtp" in params:
+        hm = mtp_input(params, hidden, targets, cfg)
+        positions = torch.arange(hm.shape[1], device=hm.device)[None, :]
+        hm, _, _ = _apply_layer(MTP_SPEC, params["mtp"], hm, cfg, ctx,
+                                positions=positions)
+        mtp = fused_ce(hm, params["unembed"], targets[:, 1:],
+                       cfg.vocab_size)
+        metrics["mtp"] = mtp
+        loss = loss + mtp_weight * mtp
     loss = loss + aux_weight * aux
     metrics["loss"] = loss
     return loss, metrics
@@ -267,7 +338,7 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
 # serve: cache construction, prefill, decode
 # --------------------------------------------------------------------------
 def cache_rows(spec: LayerSpec, cache_len: int) -> int:
-    """An attention cache's rows: ``cache_len``, or the ring of a
+    """An attention or MLA cache's rows: ``cache_len``, or the ring of a
     sliding-window layer, ``min(window, cache_len)`` (the reference's
     ``_cache_spec_for_layer``)."""
     return min(spec.window, cache_len) if spec.window else cache_len
@@ -275,8 +346,9 @@ def cache_rows(spec: LayerSpec, cache_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: Optional[torch.device] = None) -> Cache:
-    """Zeroed caches, one per application: (k, v) for attention, (conv
-    tail, state) for Mamba2."""
+    """Zeroed caches, one per application: (k, v) for attention, the
+    latent (c_kv, k_pe) for MLA, (conv tail, state) for Mamba2, () for
+    cross-attention."""
     dev = device or current_device()
     dt = getattr(torch, cfg.dtype)
     caches: Cache = []
@@ -284,19 +356,28 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
         if spec.kind == "mamba":
             caches.append(SSM.init_mamba_cache(cfg, batch, dt, device=dev))
             continue
-        shape = (batch, cache_rows(spec, cache_len), cfg.num_kv_heads,
-                 cfg.head_dim)
-        caches.append((torch.zeros(shape, dtype=dt, device=dev),
-                       torch.zeros(shape, dtype=dt, device=dev)))
+        if spec.kind == "cross_attn":
+            caches.append(())
+            continue
+        rows = cache_rows(spec, cache_len)
+        if spec.kind == "mla":
+            shapes = [(batch, rows, cfg.kv_lora_rank),
+                      (batch, rows, cfg.qk_rope_head_dim)]
+        else:
+            shapes = [(batch, rows, cfg.num_kv_heads, cfg.head_dim)] * 2
+        caches.append(tuple(torch.zeros(shape, dtype=dt, device=dev)
+                            for shape in shapes))
     return caches
 
 
 def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int):
-    """Raw prefill (k, v) -> cache tensors of ``cache_rows`` rows, zero
-    where no position was written: position t of the prompt goes to row
-    ``t % rows``, so a sliding-window layer keeps the prompt's last
-    ``rows`` positions on the ring ``decode_step`` writes. A Mamba2
-    layer's (tail, state) -> the tail in the model dtype and the state."""
+    """Raw prefill (k, v) or MLA's (c_kv, k_pe) -> cache tensors of
+    ``cache_rows`` rows, zero where no position was written: position t
+    of the prompt goes to row ``t % rows``, so a sliding-window layer
+    keeps the prompt's last ``rows`` positions on the ring
+    ``decode_step`` writes. A Mamba2 layer's (tail, state) -> the tail
+    in the model dtype and the state; a cross-attention layer's () stays
+    ()."""
     dt = getattr(torch, cfg.dtype)
     if spec.kind == "mamba":
         tail, state = raw
@@ -317,7 +398,8 @@ def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int):
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            ctx: ModelContext, *, cache_len: int
+            ctx: ModelContext, *, cache_len: int,
+            image_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[Cache, torch.Tensor]:
     """Teacher-forced pass emitting decode caches + last-position logits
     (float32, [B, padded_vocab])."""
@@ -327,7 +409,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     caches: Cache = []
     for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
         x, raw, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                                 return_cache=True)
+                                 cross_kv=image_embeds, return_cache=True)
         caches.append(_fold_prefill_cache(spec, raw, cfg, cache_len))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, -1] @ params["unembed"]).float()
@@ -335,18 +417,20 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def decode_step(params: Params, caches: Cache, token: torch.Tensor,
-                pos: int, cfg: ModelConfig, ctx: ModelContext
+                pos: int, cfg: ModelConfig, ctx: ModelContext, *,
+                image_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[Cache, torch.Tensor]:
     """One serve step: token [B, 1] at position ``pos``. Writes the
-    attention caches in place and returns the caches (a Mamba2 layer's
-    replaced) with the float32 logits."""
+    attention and MLA caches in place and returns the caches (a Mamba2
+    layer's replaced) with the float32 logits."""
     x = params["embed"][token]
     positions = torch.full(token.shape, pos, device=x.device)
     new_caches: Cache = []
     for spec, p, c in zip(layer_specs(cfg), layer_params(params, cfg),
                           caches):
         x, nc, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                                cache=c, cache_pos=pos)
+                                cache=c, cache_pos=pos,
+                                cross_kv=image_embeds)
         new_caches.append(nc)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, -1] @ params["unembed"]).float()

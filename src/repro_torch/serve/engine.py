@@ -20,14 +20,16 @@ from repro_torch.models.layers import ModelContext
 
 def make_prefill_step(cfg: ModelConfig, ctx: ModelContext,
                       cache_len: int) -> Callable:
-    def prefill_step(params, tokens):
-        return model.prefill(params, tokens, cfg, ctx, cache_len=cache_len)
+    def prefill_step(params, tokens, image_embeds=None):
+        return model.prefill(params, tokens, cfg, ctx, cache_len=cache_len,
+                             image_embeds=image_embeds)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, ctx: ModelContext) -> Callable:
-    def decode_step(params, caches, token, pos):
-        return model.decode_step(params, caches, token, pos, cfg, ctx)
+    def decode_step(params, caches, token, pos, image_embeds=None):
+        return model.decode_step(params, caches, token, pos, cfg, ctx,
+                                 image_embeds=image_embeds)
     return decode_step
 
 
@@ -38,12 +40,15 @@ def _sync(dev: torch.device) -> None:
 
 def generate(params, prompt: torch.Tensor, cfg: ModelConfig,
              ctx: ModelContext, *, max_new_tokens: int,
-             cache_len: Optional[int] = None, greedy: bool = True,
+             cache_len: Optional[int] = None,
+             image_embeds: Optional[torch.Tensor] = None, greedy: bool = True,
              generator: Optional[torch.Generator] = None,
              timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
     """Batched generation: prefill, then one decode step per new token.
 
-    prompt: [B, S] token ids -> [B, max_new_tokens] ids of prompt's dtype.
+    prompt: [B, S] token ids -> [B, max_new_tokens] ids of prompt's dtype;
+    ``image_embeds`` ``[B, N, d]`` (the VLM family) go to the prefill
+    and to every decode step, on the device the port runs on.
     Greedy picks the first index of the largest logit (as ``jnp.argmax``);
     otherwise each token is drawn from softmax(logits) with ``generator``.
     With ``timings`` given, the device is synchronised after the prefill
@@ -54,6 +59,8 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"parameters are on {params['embed'].device}, the "
                          f"port runs on {dev}")
     prompt = prompt.to(dev)
+    if image_embeds is not None:
+        image_embeds = image_embeds.to(dev)
     B, S = prompt.shape
     cache_len = cache_len or (S + max_new_tokens)
     prefill_fn = make_prefill_step(cfg, ctx, cache_len)
@@ -68,7 +75,7 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig,
         return tok[:, None].to(prompt.dtype)
 
     t0 = time.perf_counter()
-    caches, logits = prefill_fn(params, prompt)
+    caches, logits = prefill_fn(params, prompt, image_embeds)
     tok = pick(logits)
     if timings is not None:
         _sync(dev)
@@ -79,7 +86,7 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig,
         out.append(tok)
         if i == max_new_tokens - 1:
             break
-        caches, logits = decode_fn(params, caches, tok, S + i)
+        caches, logits = decode_fn(params, caches, tok, S + i, image_embeds)
         tok = pick(logits)
     if timings is not None:
         _sync(dev)

@@ -108,7 +108,7 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
         new_state = dict(state)
         if grad_compression:
             grads, new_err = compression.compress_grads_with_feedback(
-                grads, state["err"])
+                grads, state["err"], model.layer_stacks(cfg))
             new_state["err"] = new_err
         params, opt, opt_metrics = adamw_update(
             grads, state["opt"], state["params"], state["step"], opt_cfg)

@@ -126,7 +126,11 @@ def test_tables_are_identical():
                                   "zamba2-2.7b", "zamba2-2.7b-smoke",
                                   "musicgen-medium",
                                   "musicgen-medium-smoke",
-                                  "gemma3-4b", "gemma3-4b-smoke"])
+                                  "gemma3-4b", "gemma3-4b-smoke",
+                                  "deepseek-v3-671b",
+                                  "deepseek-v3-671b-smoke",
+                                  "llama-3.2-vision-90b",
+                                  "llama-3.2-vision-90b-smoke"])
 def test_config_copy_matches_the_reference(name):
     from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
@@ -143,17 +147,23 @@ def test_config_copy_matches_the_reference(name):
 
 
 def test_config_copy_knows_only_what_the_port_runs():
+    """The port runs every architecture of the reference: the registries
+    hold the same ten names, and an unknown name raises in both."""
+    from repro.configs import get_config as jget_config
+    from repro.configs import list_configs as jlist_configs
     from repro_torch.configs import get_config, list_configs
-    assert list_configs() == ["deepseek-coder-33b", "deepseek-moe-16b",
-                              "gemma3-4b", "granite-3-8b", "mamba2-370m",
-                              "musicgen-medium", "qwen2-7b", "zamba2-2.7b"]
+    assert list_configs() == jlist_configs() == [
+        "deepseek-coder-33b", "deepseek-moe-16b", "deepseek-v3-671b",
+        "gemma3-4b", "granite-3-8b", "llama-3.2-vision-90b", "mamba2-370m",
+        "musicgen-medium", "qwen2-7b", "zamba2-2.7b"]
     cfg = get_config("qwen2-7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
         (28, 3584, 28, 4, 128, 18944, 152064)
     assert 7.5e9 < cfg.param_count() < 7.7e9
-    with pytest.raises(KeyError):
-        get_config("llama-3.2-vision-90b")
+    for get in (get_config, jget_config):
+        with pytest.raises(KeyError):
+            get("llama-3.2-vision-11b")
 
 
 # ------------------------------------------ the dry-run's copies and rules

@@ -122,20 +122,19 @@ def test_long_500k_is_skipped_with_the_references_reason(arch):
 
 
 def test_other_families_and_multi_pod_are_skipped():
-    assert sorted(list_configs() + list(dryrun_lib.REFERENCE_ONLY_ARCHS)) \
-        == jlist_configs() == dryrun_lib.all_archs()
-    assert len(dryrun_lib.REFERENCE_ONLY_ARCHS) == 2
-    for arch, reason in (
-            ("deepseek-v3-671b",
-             "MLA and MTP not ported (ROADMAP queue 1 item 3)"),
-            ("llama-3.2-vision-90b",
-             "family not ported (ROADMAP queue 1 item 4)")):
-        rec = dryrun_lib.run_cell(arch, "train_4k")
-        assert (rec["status"], rec["reason"]) == ("skipped", reason)
-    # the MoE cells are counted (even load on meta tensors)
-    rec = dryrun_lib.run_cell("deepseek-moe-16b", "decode_32k")
-    assert rec["status"] == "ok", rec.get("error")
-    for arch in ("qwen2-7b", "deepseek-moe-16b"):
+    """Every architecture of the reference is counted: MLA with MTP and
+    the VLM family too (their smoke cells are held to the reference's in
+    tests/test_torch_dryrun_stages.py); only multi-pod cells and
+    ``long_500k`` (below) are skipped."""
+    assert list_configs() == jlist_configs() == dryrun_lib.all_archs()
+    assert len(dryrun_lib.all_archs()) == 10
+    # the MoE cells are counted (even load on meta tensors), MLA's and
+    # the VLM family's too
+    for arch in ("deepseek-moe-16b", "deepseek-v3-671b",
+                 "llama-3.2-vision-90b"):
+        rec = dryrun_lib.run_cell(arch, "decode_32k")
+        assert rec["status"] == "ok", rec.get("error")
+    for arch in ("qwen2-7b", "deepseek-moe-16b", "deepseek-v3-671b"):
         rec = dryrun_lib.run_cell(arch, "train_4k", multi_pod=True)
         assert (rec["status"], rec["reason"]) == \
             ("skipped", "one card: no multi-pod mesh")
@@ -419,7 +418,7 @@ def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
                         "--shape", "decode_32k", "--shape", "long_500k",
                         "--out", out])
     assert code == 0
-    assert "dry-run: 1 ok, 7 skipped, 0 errors" in capsys.readouterr().out
+    assert "dry-run: 2 ok, 6 skipped, 0 errors" in capsys.readouterr().out
     names = sorted(os.path.basename(p) for p in glob.glob(out + "/*.json"))
     assert names == sorted(f"{a}__{s}__{m}.json"
                            for a in (SMOKE, "llama-3.2-vision-90b")
@@ -427,14 +426,14 @@ def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
                            for m in ("pod", "multipod"))
     recs = {n: json.load(open(os.path.join(out, n))) for n in names}
     for n, r in recs.items():
-        want = "ok" if n == f"{SMOKE}__decode_32k__pod.json" else "skipped"
+        want = "ok" if n.endswith("__decode_32k__pod.json") else "skipped"
         assert r["status"] == want, n
         assert r["mesh_name"] == n.split("__")[2][:-5]
     monkeypatch.setattr(roofline, "DRYRUN_DIR", out)
     monkeypatch.chdir(tmp_path)
     rows = roofline.run()
     assert rows[0] == ("roofline.matrix", 0.0,
-                       "pod ok=1 skipped=3 err=0; multipod ok=0")
+                       "pod ok=2 skipped=2 err=0; multipod ok=0")
     cell = [r for r in rows if r[0] == f"roofline.{SMOKE}.decode_32k"]
     assert len(cell) == 1 and cell[0][1] > 0
     # a second run reads the records back

@@ -816,3 +816,132 @@ def test_local_global_decode_on_the_card_equals_its_forward(cuda, S):
         cpu = served(tree.tree_map(lambda t: t.cpu(), params),
                      tokens.cpu(), torch.device("cpu"))
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------- MLA with MTP, and the VLM family
+def _smoke_on_card(cuda, arch, dtype, **over):
+    """``arch``'s smoke config at head dim 64 (a wgmma head dim in bf16)
+    and its random parameters on the card; a VLM's cross-layer gates set
+    to 1 (0 at init switches the layer off)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype, head_dim=64,
+                              **over)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    for layer, spec in zip(params["layers"], model.layer_specs(cfg)):
+        if spec.kind == "cross_attn":
+            layer["attn"]["gate"].fill_(1.0)
+    return cfg, params
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_mtp_loss_kernel_route_matches_the_plain_loop(cuda, dtype, tol):
+    """``lm_loss`` with the MTP head on the card: the MTP layer's GQA
+    attention is the loss's one flash launch (the MLA layers take the
+    plain loop), and its ``mtp`` and ``loss`` equal the plain loop's;
+    ``ce`` does not move with the route."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    cfg, params = _smoke_on_card(cuda, "deepseek-v3-671b-smoke", dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 41), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    ctx = ModelContext(q_chunk=16, k_chunk=16)
+    runs = {}
+    with torch.no_grad():
+        for kernel in (True, False):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            _, m = model.lm_loss(params, {"tokens": tokens}, cfg,
+                                 dataclasses.replace(ctx,
+                                                     flash_kernel=kernel))
+            torch.cuda.synchronize()
+            runs[kernel] = (m, dict(ops.LAUNCHES))
+    (got, launched), (want, plain) = runs[True], runs[False]
+    name = ops.flash_kernel_for(getattr(torch, dtype), 64)
+    assert launched == {**plain, name: 1} and not any(plain.values())
+    assert got["ce"].item() == want["ce"].item()
+    for key in ("mtp", "loss"):
+        assert abs(got[key].item() - want[key].item()) <= \
+            tol * abs(want[key].item()), key
+
+
+def test_mla_decode_on_the_card_equals_its_forward(cuda):
+    """float32 on the card: the absorbed latent decode over 6
+    teacher-forced steps against the expanded forward within 1e-5, and
+    equal to the same steps on the CPU within 1e-5."""
+    from repro_torch import tree
+    from repro_torch.device import use_device
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    cfg, params = _smoke_on_card(cuda, "deepseek-v3-671b-smoke", "float32")
+    S = 16
+    tokens = torch.randint(0, cfg.vocab_size, (2, S + 6), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    ctx = ModelContext(q_chunk=8, k_chunk=8)
+    hid, _ = model.forward(params, tokens, cfg, ctx)
+    want = (hid @ params["unembed"]).float()
+
+    def served(p, t):
+        caches, logits = model.prefill(p, t[:, :S], cfg, ctx,
+                                       cache_len=S + 6)
+        out = [logits]
+        for pos in range(S, S + 6):
+            caches, logits = model.decode_step(p, caches, t[:, pos:pos + 1],
+                                               pos, cfg, ctx)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+    got = served(params, tokens)
+    torch.testing.assert_close(got, want[:, S - 1:], rtol=1e-5, atol=1e-5)
+    with use_device("cpu"):
+        cpu = served(tree.tree_map(lambda t: t.cpu(), params), tokens.cpu())
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-4),
+                                        ("bfloat16", 5e-2)])
+def test_vlm_prefill_kernel_route_matches_the_plain_loop(cuda, dtype, tol):
+    """A VLM prefill on the card at the full plan's super-block (4
+    self-attention layers and a cross-attention one, twice): one flash
+    launch a self-attention layer, none for cross-attention (its query
+    and image rows differ) and none in decode; the last logits within
+    ``tol`` of the plain loop's largest |logit|."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    cfg, params = _smoke_on_card(cuda, "llama-3.2-vision-90b-smoke", dtype,
+                                 cross_attn_every=5, num_layers=10)
+    n_self = sum(s.kind == "attn" for s in model.layer_specs(cfg))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                           generator=g)
+    img = (0.1 * torch.randn(2, cfg.num_image_tokens, cfg.d_model,
+                             generator=g, device=cuda)).to(
+        getattr(torch, dtype))
+    ctx = ModelContext(q_chunk=16, k_chunk=16)
+    runs = {}
+    for kernel in (True, False):
+        c = dataclasses.replace(ctx, flash_kernel=kernel)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        caches, logits = model.prefill(params, tokens[:, :32], cfg, c,
+                                       cache_len=40, image_embeds=img)
+        torch.cuda.synchronize()
+        runs[kernel] = (logits, dict(ops.LAUNCHES))
+        ops.reset_launches()
+        _, dec = model.decode_step(params, caches, tokens[:, 32:], 32, cfg,
+                                   c, image_embeds=img)
+        torch.cuda.synchronize()
+        assert not any(ops.LAUNCHES.values()), dict(ops.LAUNCHES)
+        assert torch.isfinite(dec).all()
+    (got, launched), (want, plain) = runs[True], runs[False]
+    name = ops.flash_kernel_for(getattr(torch, dtype), 64)
+    assert launched == {**plain, name: n_self} and not any(plain.values())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel < tol, rel

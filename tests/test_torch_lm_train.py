@@ -193,10 +193,18 @@ def test_remat_takes_only_none_or_full():
 
 
 def test_lm_loss_refuses_what_the_port_does_not_run():
+    """MTP and image embeddings run (tests/test_torch_mla.py,
+    tests/test_torch_vlm.py). As in the reference, ``mtp_depth`` without
+    ``params["mtp"]`` adds no MTP term; a family the reference does not
+    have raises, naming the config."""
     cfg = dataclasses.replace(get_config(ARCH), mtp_depth=1)
-    with pytest.raises(NotImplementedError, match=cfg.name):
-        model.lm_loss({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
-                      cfg, CTX)
+    params = model.init(torch.Generator().manual_seed(0), get_config(ARCH))
+    batch = {"tokens": torch.zeros(1, 3, dtype=torch.long)}
+    _, metrics = model.lm_loss(params, batch, cfg, CTX)
+    assert set(metrics) == {"ce", "aux", "loss"}
+    bad = dataclasses.replace(cfg, family="vision")
+    with pytest.raises(NotImplementedError, match=bad.name):
+        model.lm_loss(params, batch, bad, CTX)
 
 
 # --------------------------------------------------------------- train step
@@ -312,7 +320,8 @@ def test_compressed_gradients_equal_the_reference_bit_for_bit(grads_pair):
         jax.tree_util.tree_map(np.asarray, g["jg"]), g["cfg"])
     terr = convert.import_reference_params(
         jax.tree_util.tree_map(np.asarray, jerr), g["cfg"])
-    d, e = comp.compress_grads_with_feedback(tg, terr)
+    d, e = comp.compress_grads_with_feedback(tg, terr,
+                                             model.layer_stacks(g["cfg"]))
     for got, want in ((d, jd), (e, je)):
         got, want = _ref_layout(got, g["cfg"]), _jflat(want)
         for name, w in want.items():
@@ -326,6 +335,45 @@ def test_compressed_gradients_equal_the_reference_bit_for_bit(grads_pair):
     assert tree.leaves(d)[0].dtype == tree.leaves(tg)[0].dtype
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b-smoke",
+                                  "deepseek-v3-671b-smoke",
+                                  "llama-3.2-vision-90b-smoke",
+                                  "zamba2-2.7b-smoke"])
+def test_compression_scales_follow_the_references_stacks(arch):
+    """Plans of several stages, or of several layers a block: the
+    reference stacks each ``stage{s}/layer{j}`` on its own and gives it
+    one int8 scale, so the port groups its layers by
+    ``model.layer_stacks``; every leaf's magnitude is drawn per stack
+    (scales 10^0..10^3), so that a scale shared across stacks would
+    show. The dequantized gradients and error buffers equal the
+    reference's (unjitted) bit for bit; one stack for every layer (a
+    grouping by leaf name alone) differs."""
+    jcfg, cfg = _cfgs("float32", arch)
+    jp = jax.eval_shape(lambda k: jmodel.init(k, jcfg),
+                        jax.random.PRNGKey(0))
+    rng = np.random.RandomState(4)
+    g = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(10.0 ** rng.randint(0, 4) *
+                              rng.randn(*a.shape), jnp.float32), jp)
+    err = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(1e-3 * rng.randn(*a.shape), jnp.bfloat16), jp)
+    jd, je = jcomp.compress_grads_with_feedback(g, err)
+    tg, terr = (convert.import_reference_params(
+        jax.tree_util.tree_map(np.asarray, t), cfg) for t in (g, err))
+    d, e = comp.compress_grads_with_feedback(tg, terr,
+                                             model.layer_stacks(cfg))
+    for got, want in ((d, jd), (e, je)):
+        got, want = _ref_layout(got, cfg), _jflat(want)
+        assert list(got) == list(want)
+        for name, w in want.items():
+            np.testing.assert_array_equal(got[name], w, err_msg=name)
+    stacks = model.layer_stacks(cfg)
+    shared, _ = comp.compress_grads_with_feedback(tg, terr,
+                                                  stacks[:1] * len(stacks))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree.leaves(shared), tree.leaves(d)))
+
+
 def test_gradient_compression_error_feedback():
     """tests/test_distributed.py's error-feedback test on the port."""
     g = {"w": torch.linspace(-1.0, 1.0, 64).reshape(8, 8)}
@@ -333,7 +381,7 @@ def test_gradient_compression_error_feedback():
     total_true = np.zeros((8, 8))
     total_sent = np.zeros((8, 8))
     for _ in range(20):
-        sent, err = comp.compress_grads_with_feedback(g, err)
+        sent, err = comp.compress_grads_with_feedback(g, err, [])
         total_true += g["w"].numpy()
         total_sent += sent["w"].numpy()
     rel = np.abs(total_sent - total_true).max() / np.abs(total_true).max()

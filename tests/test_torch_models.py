@@ -263,9 +263,20 @@ def test_init_uses_the_reference_scales():
     (dict(family="moe", use_mla=True), "use_mla=True"),
 ])
 def test_other_families_raise_naming_the_family(change, word):
-    cfg = dataclasses.replace(get_config(ARCH), **change)
-    with pytest.raises(NotImplementedError, match=word):
-        model.init(torch.Generator(), cfg)
+    """The VLM family and MLA (with MTP) run: their smoke configs, which
+    carry ``change``, init with their own leaves (tests/test_torch_vlm.py
+    and tests/test_torch_mla.py hold them to the reference). A family the
+    reference does not have still raises, naming it."""
+    arch = {"vlm": "llama-3.2-vision-90b-smoke",
+            "use_mla=True": "deepseek-v3-671b-smoke"}[word]
+    cfg = get_config(arch)
+    assert {k: getattr(cfg, k) for k in change} == change
+    p = model.init(torch.Generator(), cfg)
+    leaf = "gate" if cfg.family == "vlm" else "wkv_a"
+    assert any(leaf in layer["attn"] for layer in p["layers"])
+    with pytest.raises(NotImplementedError, match="'vision'"):
+        model.init(torch.Generator(),
+                   dataclasses.replace(cfg, family="vision"))
 
 
 def test_generate_without_a_card_raises(monkeypatch, lm32):
