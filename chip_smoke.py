@@ -44,13 +44,18 @@ and prints no result line:
    of 128, ``musicgen-medium``'s 24/24 of 64 and
    ``llama-3.2-vision-90b``'s self-attention, 64/8 of 128, on wgmma,
    ``zamba2-2.7b``'s 32/32 of 80 on FFMA; and at the MTP layer of phase
-   17's loss (1 x 2047, 128/128 heads of 128, wgmma). Each against the
+   17's loss (1 x 2047, 128/128 heads of 128, wgmma); and at phase 19's
+   training shapes: float32 at 1 x 512 (``deepseek-moe-16b``'s 16/16
+   heads of 128, ``zamba2-2.7b``'s 32/32 of 80, ``musicgen-medium``'s
+   24/24 of 64, the VLM's 64/8 of 128, the MTP layer's 128/128 of 128 at
+   1 x 511) and bf16 at 2 x 2048 (the first three, and the MTP layer at
+   2 x 2047). Each against the
    plain PyTorch version on the card, with tests/test_kernels.py's
    tolerances (2e-2 in bf16, 2e-5 in f32), on inputs drawn so that the
    output is of the order of 1 (peaked attention); each call must move
    its own kernel's launch count and no other. Then both kernels' times
    at the prefill's shape (wgmma in bf16, FFMA in float32) and at the
-   five other shapes above, beside the plain version's,
+   other served and trained shapes above, beside the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls)
    and the bound (the FLOPs at the inputs' type's rate: bf16 tensor-core
    on either route, FP32).
@@ -114,7 +119,7 @@ and prints no result line:
    process-mode ``cuda-batch`` loader must be refused. Then the paper's
    protocols over the 33 images, labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
    before and after the sweeps) and ``WorkerSweep`` in thread and
-   process mode at workers 0, 2, 4 and 8 (1 repeat), over
+   process mode at workers 0, 2 and 8 (1 repeat), over
    ``cuda-batch`` and ``numpy-fast``; ``cuda-batch`` must give skip
    records under the fork harness. Prints every record, the reports, each decoder's rank under
    each protocol and ``autotune_workers`` over a ``cuda-batch`` loader.
@@ -365,14 +370,48 @@ and prints no result line:
    prefill's logits on the FFMA kernel route within 1e-4 of the plain
    loop's. The phase must end within 180 s; prints its seconds.
 
-Before phases 3 to 11 and 14 to 18 the script releases cuBLAS's per-stream
+19. LM training of the non-dense families at full width: (a) float32
+   ``lm_loss`` and every gradient leaf under ``remat="full"`` at 1 x 512,
+   the FFMA kernel route against the plain loop (loss within 1e-5
+   relative, each leaf within 1e-4 of its largest |g|, the launches
+   exact): ``deepseek-moe-16b`` at 2 layers (4 launches; its kernel
+   route run twice must repeat the loss and every leaf bit for bit),
+   ``zamba2-2.7b`` at one super-block (2), ``musicgen-medium`` at 2
+   layers (4), ``deepseek-v3-671b`` at one dense MLA layer and the MTP
+   module (1, the MTP layer) and ``llama-3.2-vision-90b`` at one self
+   and one cross layer over 1600 image rows (2); (b) bf16 AdamW steps
+   at 2 x 2048 on the launcher's batches: ``deepseek-moe-16b`` at 4
+   layers, ``mamba2-370m``, ``zamba2-2.7b`` and ``musicgen-medium`` at
+   full depth, ``gemma3-4b`` at 6 layers and ``deepseek-v3-671b`` at
+   one dense MLA layer with MTP, 4 steps each: finite losses and
+   gradient norms, ``step`` 4, layer 0 moved, the launches of every
+   step exact (8 wgmma, 0, 18 FFMA, 96 wgmma, 0, 1 wgmma) and the MoE
+   layers' host reads (one a layer in the forward and one in its
+   recompute); then an int8-compressed and a ``microbatch=1`` step of
+   ``deepseek-moe-16b``; prints each cell's median step ms, tokens/s
+   and peak; (c) each (b) cell counted by ``dryrun_lib.count_cell`` in a
+   subprocess that never touches CUDA (started with the phase): the
+   predicted peak within 0.85-1.15 of the measured one; (d) ``python
+   -m repro_torch.launch.train --arch <a>-smoke --steps 3`` for the
+   seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 6
+   steps, all at once beside (a), then (before (b)) that run resumed to
+   9, its step-6 checkpoint restored on the card bit for bit. A cross
+   layer's one-element gate gradient, a sum whose terms cancel, is held
+   in (a) by its terms: the gate broadcast to a [B, S, d] field of its
+   value, whose gradient is checked leaf-wise. Phase 19 runs with the
+   allocator's expandable segments (the V3 cell's 75.8 GB peak does not
+   fit fixed segments' fragmentation). The phase must end within 300 s;
+   prints its seconds.
+
+Before phases 3 to 11 and 14 to 19 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` pass over
-one prefill and a few decode steps of phases 5, 14 to 18 (device
-time by kernel, device busy share); the default run does not profile.
+one prefill and a few decode steps of phases 5, 14 to 18 and over one
+more training step of each phase 19 (b) cell (device time by kernel,
+device busy share); the default run does not profile.
 
 The last lines are the service's launches (``{"service_launches":
 ...}``), the loader's (``{"loader_launches": ...}``), the training
@@ -386,13 +425,15 @@ zero, ``{"analysis_launches": ...}``), the dry-run's (all zero,
 families' (``{"ssm_serving_launches": ...}``), the local/global
 family's (all zero, ``{"local_global_serving_launches": ...}``), MLA
 and MTP's (``{"mla_serving_launches": ...}``), the VLM family's
-(``{"vlm_serving_launches": ...}``), the ``kernels`` JSON
+(``{"vlm_serving_launches": ...}``), the non-dense families'
+training (``{"lm_family_training_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
 ``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks
-and phase 18's float32 checks; ``flash_attention_wgmma``'s: phase 5's
-prefill, phase 11's steps, phase 14's prefill, phase 15's ``musicgen``
-prefill, phase 17's ``lm_loss`` and phase 18's prefills), the card's
+phase 18's float32 checks and phase 19's float32 checks and
+``zamba2`` steps; ``flash_attention_wgmma``'s: phase 5's prefill, phase
+11's steps, phase 14's prefill, phase 15's ``musicgen`` prefill, phase
+17's ``lm_loss``, phase 18's prefills and phase 19's steps), the card's
 name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1130,7 +1171,9 @@ def phase_service(corpus):
 LOADER_BATCH = 16
 LOADER_CHUNK = 8
 LOADER_HW = (224, 224)
-PROTOCOL_WORKERS = (0, 2, 4, 8)
+#: the sweeps' worker counts (0, 2, 4 and 8 until phase 19 needed the
+#: ~50 s that workers 4 took of the 1200 s run)
+PROTOCOL_WORKERS = (0, 2, 8)
 PHASE7_WATCHDOG_S = 900
 
 
@@ -1541,8 +1584,21 @@ def phase_flash():
                 vlm.head_dim)
     mtp_path = (1, MLA_LOSS_SEQ - 1, mla.num_heads, mla.num_kv_heads,
                 mla.head_dim)
+    # phase 19's training shapes: (a) float32 at 1 x FAMILY_CHECK_SEQ
+    # (the MTP layer one position fewer), (b) bf16 at FAMILY_TRAIN_BATCH x
+    # FAMILY_TRAIN_SEQ
+    fams = [get_config(a) for a in (MOE_ARCH, "zamba2-2.7b",
+                                    "musicgen-medium", VLM_ARCH)]
+    train_f32 = [(1, FAMILY_CHECK_SEQ, c.num_heads, c.num_kv_heads,
+                  c.head_dim) for c in fams] + [
+        (1, FAMILY_CHECK_SEQ - 1, mla.num_heads, mla.num_kv_heads,
+         mla.head_dim)]
+    train_bf16 = [(FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, c.num_heads,
+                   c.num_kv_heads, c.head_dim) for c in fams[:3]] + [
+        (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ - 1, mla.num_heads,
+         mla.num_kv_heads, mla.head_dim)]
     serving = (path, moe_path, zamba_path, musicgen_path, vlm_path,
-               mtp_path)
+               mtp_path, *train_bf16)
     cases = [(path, bf16, True), (moe_path, bf16, True),
              (zamba_path, bf16, True), (musicgen_path, bf16, True),
              (vlm_path, bf16, True), (mtp_path, bf16, True),
@@ -1555,7 +1611,9 @@ def phase_flash():
              # head dims 48 (the `small` ViT's) and 80 (zamba2's)
              ((2, 256, 8, 2, 48), f32, True),
              ((2, 100, 8, 2, 80), f32, False),
-             ((2, 130, 4, 4, 48), bf16, True)]
+             ((2, 130, 4, 4, 48), bf16, True)] + \
+        [(shape, f32, True) for shape in train_f32] + \
+        [(shape, bf16, True) for shape in train_bf16]
     worst = {}
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = _flash_inputs(shape, dtype, seed=i)
@@ -1591,7 +1649,9 @@ def phase_flash():
     # tensor-core rate, on either route)
     for dtype, shape in ((bf16, path), (f32, path), (bf16, moe_path),
                          (bf16, zamba_path), (bf16, musicgen_path),
-                         (bf16, vlm_path), (bf16, mtp_path)):
+                         (bf16, vlm_path), (bf16, mtp_path),
+                         *((f32, shape) for shape in train_f32),
+                         *((bf16, shape) for shape in train_bf16)):
         flops_per_s = spec.peak_bf16_flops if dtype == bf16 else \
             spec.peak_fp32_flops
         name = ops.flash_kernel_for(dtype, shape[-1])
@@ -1615,7 +1675,7 @@ def phase_flash():
               f"B, {flops} FLOP at {flops_per_s:.3g} FLOP/s), "
               f"{b_ms / ms} of the bound; {flops / ms / 1e9} TFLOP/s; "
               f"eager calls {eager_ms} ms each")
-        if dtype == f32:
+        if dtype == f32 and shape == path:
             parent_lines(f"{path} float32 causal", kern, q, k, v, True)
         if shape == path:       # the other models' shapes are printed only
             results[name] = {
@@ -2874,7 +2934,7 @@ def _lm_train_steps(card):
     from repro_torch.configs import get_config
     from repro_torch.distributed import compression
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import token_batches
+    from repro_torch.launch.train import train_batches
     from repro_torch.models.layers import ModelContext
     from repro_torch.train import OptimizerConfig
     from repro_torch.train.train_step import make_train_state, make_train_step
@@ -2894,7 +2954,7 @@ def _lm_train_steps(card):
           f"tokens, remat full; state {torch.cuda.memory_allocated()} "
           f"bytes")
     first = state["params"]["layers"][0]["attn"]["wq"].clone()
-    batches = token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    batches = train_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
 
     def run(step_fn, box, n, label):
         """``n`` steps on ``box["state"]``; the box holds the only
@@ -2905,7 +2965,7 @@ def _lm_train_steps(card):
         torch.cuda.synchronize()
         ops.reset_launches()
         for _ in range(n):
-            tokens = torch.from_numpy(next(batches)).to(dev)
+            tokens = next(batches)["tokens"].to(dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             box["state"], metrics = step_fn(box["state"],
@@ -2974,13 +3034,6 @@ def _lm_train_steps(card):
 def _lm_launcher():
     """(c): the launcher in a subprocess on the card, then its resume."""
     import tempfile
-    import numpy as np
-    import torch
-    from repro_torch import tree
-    from repro_torch.checkpoint import restore_pytree
-    from repro_torch.configs import get_config
-    from repro_torch.train import OptimizerConfig
-    from repro_torch.train.train_step import make_train_state
     os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="lm_launcher_",
                             dir=os.path.join(ROOT, "artifacts"))
@@ -3001,25 +3054,38 @@ def _lm_launcher():
         print(f"(c) --steps {steps}: {dt} s")
     check("resumed from step 6" in outs[1],
           "(c) the second run did not resume from step 6")
+    _restored_on_card_bit_for_bit("(c)", os.path.join(ckpt, "step_6"),
+                                  "qwen2-7b-smoke")
+    shutil.rmtree(ckpt)
+
+
+def _restored_on_card_bit_for_bit(label, step_dir, arch):
+    """A launcher checkpoint restored on the card (``like`` a state made
+    there) must equal its stored leaves bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.train_step import make_train_state
     like = make_train_state(
         torch.Generator(device=torch.device(DEV)).manual_seed(1),
-        get_config("qwen2-7b-smoke"), OptimizerConfig())
-    step_dir = os.path.join(ckpt, "step_6")
+        get_config(arch), OptimizerConfig())
     stored, _ = restore_pytree(step_dir)
     restored, _ = restore_pytree(step_dir, like=like)
     flat = tree.flatten_with_names(restored)
-    check(set(flat) == set(stored), "(c) restored leaves differ by name")
+    check(set(flat) == set(stored), f"{label} restored leaves differ by name")
     for name, t in flat.items():
         check(t.device.type == torch.device(DEV).type,
-              f"(c) {name} restored on {t.device}")
+              f"{label} {name} restored on {t.device}")
         got = t.cpu()
         if got.dtype == torch.bfloat16:
             got = got.view(torch.int16)
         check(got.numpy().tobytes() == np.asarray(stored[name]).tobytes(),
-              f"(c) restored {name} differs from the stored leaf")
-    print(f"(c) step 6 restored on the card equals its {len(flat)} stored "
-          f"leaves bit for bit")
-    shutil.rmtree(ckpt)
+              f"{label} restored {name} differs from the stored leaf")
+    print(f"{label} {arch}: {os.path.basename(step_dir)} restored on the "
+          f"card equals its {len(flat)} stored leaves bit for bit")
 
 
 ANALYSIS_TIMEOUT_S = 300        # the checker over the port, in a subprocess
@@ -4734,6 +4800,582 @@ def _vlm_float32_check(cfg, card):
     return launches
 
 
+#: phase 19: LM training of the non-dense families at full width.
+#: (a) float32 loss and gradients at 1 x FAMILY_CHECK_SEQ, remat full, the
+#: kernel route against the plain loop: each arch's cut and the
+#: ``flash_attention`` launches of one ``loss_and_grads`` on the kernel
+#: route (an attention layer's forward and its remat recompute; the MTP
+#: layer, not under remat, once; windows, MLA and cross-attention take
+#: the plain loop)
+FAMILY_CHECK = {
+    "deepseek-moe-16b": (dict(num_layers=2), 4),      # 1 dense + 1 MoE
+    "zamba2-2.7b": (dict(num_layers=6), 2),           # one super-block
+    "musicgen-medium": (dict(num_layers=2), 4),
+    "deepseek-v3-671b": (dict(num_layers=1, first_dense_layers=1), 1),
+    # 1 self + 1 cross, the interleave of the reference's reduced()
+    "llama-3.2-vision-90b": (dict(num_layers=2, cross_attn_every=2), 2),
+}
+FAMILY_CHECK_SEQ = 512
+#: its kernel-route gradients are computed twice and must repeat their
+#: bits (the backward of the MoE layer's gathers)
+FAMILY_REPEAT_BITS = "deepseek-moe-16b"
+#: (b) bf16 AdamW steps at FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ on the
+#: launcher's batches, ctx and optimizer: each arch's cut (the depth
+#: whose predicted peak fits one card) and the launches of one step
+FAMILY_TRAIN = {
+    "deepseek-moe-16b": (dict(num_layers=4),          # 1 dense + 3 MoE
+                         {"flash_attention_wgmma": 8}),
+    "mamba2-370m": ({}, {}),                          # all 48 layers
+    "zamba2-2.7b": ({}, {"flash_attention": 18}),     # all 54, D 80
+    "musicgen-medium": ({}, {"flash_attention_wgmma": 96}),   # all 48
+    "gemma3-4b": (dict(num_layers=6), {}),            # 5 window + 1 global
+    # one dense MLA layer and the MTP module (a V3 MoE layer's 256
+    # experts alone are 11.3 B parameters)
+    "deepseek-v3-671b": (dict(num_layers=1, first_dense_layers=1),
+                         {"flash_attention_wgmma": 1}),
+}
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 2048
+FAMILY_TRAIN_STEPS = 4
+#: the arch that also takes an int8-compressed and a microbatched step
+FAMILY_EXTRA_STEPS = "deepseek-moe-16b"
+#: (d) the launcher at each non-dense family's -smoke config
+FAMILY_LAUNCHER_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b",
+                         "mamba2-370m", "zamba2-2.7b", "musicgen-medium",
+                         "gemma3-4b", "llama-3.2-vision-90b")
+FAMILY_RESUME_ARCH = "llama-3.2-vision-90b"
+FAMILY_COUNT_TIMEOUT_S = 240
+FAMILY_LAUNCHER_TIMEOUT_S = 240
+PHASE19_LIMIT_S = 300
+
+FAMILY_COUNT = """\
+import dataclasses, json, sys, time
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.kernels import build, ops
+from repro_torch.launch import dryrun_lib
+from repro_torch.models.layers import ModelContext
+from repro_torch.train import OptimizerConfig
+calls = []
+
+
+def refuse(name):
+    calls.append(name)
+    raise RuntimeError(f"the dry-run reached kernel {name}")
+
+
+build.kernel = refuse
+arch, cut, seq, batch = sys.argv[1], json.loads(sys.argv[2]), \\
+    int(sys.argv[3]), int(sys.argv[4])
+cfg = dataclasses.replace(get_config(arch), **cut)
+t0 = time.perf_counter()
+counts = dryrun_lib.count_cell(
+    cfg, ShapeConfig("phase19_train", "train", seq, batch),
+    ModelContext(remat="full", q_chunk=256, k_chunk=256),
+    opt_cfg=OptimizerConfig(lr=1e-3, warmup_steps=10))
+print(json.dumps({"counts": counts, "seconds": time.perf_counter() - t0,
+                  "cuda_initialized": torch.cuda.is_initialized(),
+                  "launches": dict(ops.LAUNCHES), "build_calls": calls}))
+"""
+
+
+def phase_family_train(profile=False):
+    """Phase 19: LM training of the non-dense families (MoE, MLA with
+    MTP, SSM, hybrid, audio, local/global; the VLM's gradients) at full
+    width on the card; returns the flash kernels' launches of the phase.
+    ``profile`` adds ``_profile`` over one more step of each (b) cell."""
+    import torch
+    print("== phase 19: LM training of the non-dense families at full "
+          "width")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held_report("phase 19")
+    procs = _family_counts_start()
+    launchers = _family_launchers_start()
+    # the V3 cell peaks at ~75.5 GB of the card's 85.0: with fixed
+    # segments its AdamW found 9.5 GiB reserved and free in pieces too
+    # small for a 3.45 GiB leaf and ran out; expandable segments map
+    # pages into one growing segment. Set for this phase only, after
+    # releasing the earlier phases' segments.
+    torch.cuda.empty_cache()
+    _allocator("expandable_segments:True")
+    print("phase 19 allocator: expandable_segments:True")
+    try:
+        launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+        for arch, (cut, want) in FAMILY_CHECK.items():
+            for name, n in _family_routes_agree(arch, cut, want,
+                                                card).items():
+                launches[name] += n
+            _release()
+        print(f"(a) done at {time.perf_counter() - t_phase} s")
+        _family_launchers_finish(*launchers)
+        print(f"(d) done at {time.perf_counter() - t_phase} s")
+        measured = {}
+        for arch, (cut, want) in FAMILY_TRAIN.items():
+            got, measured[arch] = _family_train_steps(arch, cut, want,
+                                                      card, profile)
+            for name, n in got.items():
+                launches[name] += n
+            _release()
+        print(f"(b) done at {time.perf_counter() - t_phase} s")
+        _family_peaks(procs, measured, card)
+    finally:
+        for p in list(procs.values()) + list(launchers[1].values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        _release()
+        _allocator("expandable_segments:False")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_phase
+    print(f"phase 19: {dt} s (limit {PHASE19_LIMIT_S} s); launches "
+          f"{launches} ({card})")
+    check(dt <= PHASE19_LIMIT_S, f"phase 19 took {dt} s")
+    return launches
+
+
+def _allocator(setting):
+    """Set the caching allocator's ``setting`` in this process (torch
+    2.11 names the call deprecated; its successor is private too)."""
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(setting)
+
+
+def _release():
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _family_cfg(arch, cut, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **cut, **kw)
+
+
+def _family_routes_agree(arch, cut, want, card):
+    """(a): float32 ``loss_and_grads`` at full width through the FFMA
+    kernel against the plain loop, from the same weights and batch; for
+    ``FAMILY_REPEAT_BITS`` the kernel route once more, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = _family_cfg(arch, cut, dtype="float32")
+    dev = torch.device(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    if cfg.cross_attn_every:
+        _open_gates(params, cfg, 1)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, FAMILY_CHECK_SEQ + 1)).astype(np.int32)).to(
+            dev)
+    batch = {"tokens": tokens}
+    if cfg.cross_attn_every:
+        g = torch.Generator(device=dev).manual_seed(2)
+        batch["image_embeds"] = 0.1 * torch.randn(
+            1, cfg.num_image_tokens, cfg.d_model, generator=g, device=dev)
+    specs = model.layer_specs(cfg)
+    print(f"(a) {arch} in float32, cut to {len(specs)} layer applications "
+          f"({', '.join(sorted({f'{s.kind}/{s.ffn}' for s in specs}))}"
+          f"{', MTP' if 'mtp' in params else ''}"
+          f"{f', {cfg.num_image_tokens} image rows' if cfg.cross_attn_every else ''}"
+          f"): {sum(t.numel() for t in tree.leaves(params))} parameters, d "
+          f"{cfg.d_model}; batch 1 x {FAMILY_CHECK_SEQ}, remat full")
+    kernel = ModelContext(remat="full")
+    runs = [("kernel", kernel),
+            ("plain", ModelContext(remat="full", flash_kernel=False))]
+    if arch == FAMILY_REPEAT_BITS:
+        runs.append(("kernel again", kernel))
+    out = {}
+    for route, ctx in runs:
+        ((loss, _), grads), got, dt = drive(
+            f"(a) {arch} lm_loss and gradients, {route} route",
+            lambda ctx=ctx: loss_and_grads(params, batch, cfg, ctx))
+        out[route] = (loss, tree.flatten_with_names(grads), got, dt)
+        del grads
+    (k_loss, k_grads, k_launches, k_s), (p_loss, p_grads, p_launches, p_s) \
+        = out["kernel"], out["plain"]
+    check(k_launches["flash_attention"] == want and
+          sum(k_launches.values()) == want,
+          f"(a) {arch}: the kernel route launched {k_launches}, want {want} "
+          f"flash_attention")
+    check(sum(p_launches.values()) == 0,
+          f"(a) {arch}: the plain route launched {p_launches}")
+    rel = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
+    # a one-element leaf (a cross layer's gate) is one sum over every
+    # B x S x d element of its layer's output, whose terms cancel: it is
+    # held, after the other leaves, by its terms before that sum
+    scalars = [name for name, g in p_grads.items() if g.numel() == 1]
+    check(all(name.endswith("/attn/gate") for name in scalars),
+          f"(a) {arch}: one-element leaves {scalars}")
+    worst, worst_name, worst_diff = 0.0, "", 0.0
+    for name, want_g in p_grads.items():
+        if name in scalars:
+            continue
+        got_g = k_grads[name]
+        scale = want_g.abs().max().item()
+        check(scale > 0 and torch.isfinite(got_g).all().item(),
+              f"(a) {arch} gradient {name}: max |g| {scale}")
+        diff = (got_g - want_g).abs().max().item()
+        if diff / scale >= worst:
+            worst, worst_name, worst_diff = diff / scale, name, diff
+    print(f"(a) {arch}: loss kernel route {k_loss.item()}, plain route "
+          f"{p_loss.item()} (relative {rel}, limit {LM_LOSS_RTOL}); worst "
+          f"gradient leaf {worst_name}: max difference {worst_diff}, "
+          f"{worst} of its max |g| (limit {LM_GRAD_TOL}) over "
+          f"{len(p_grads) - len(scalars)} leaves of more than one element; "
+          f"{k_s} s kernel route, {p_s} s plain "
+          f"route; peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes ({card})")
+    check(rel <= LM_LOSS_RTOL, f"(a) {arch}: loss differs by {rel}")
+    check(worst <= LM_GRAD_TOL,
+          f"(a) {arch}: gradient {worst_name} differs by {worst}")
+    n = k_launches["flash_attention"]
+    for name in scalars:
+        print(f"(a) {arch} {name} (one element): kernel route "
+              f"{k_grads[name].item()}, plain route {p_grads[name].item()}")
+    if scalars:
+        got, k_n = _gate_terms_agree(arch, params, batch, cfg, kernel,
+                                     {name: (k_grads[name].item(),
+                                             p_grads[name].item())
+                                      for name in scalars},
+                                     (k_loss, p_loss), card)
+        # every self-attention layer's forward; only those after the
+        # first gate are recomputed (nothing before it needs a gradient)
+        kinds = [spec.kind for spec in specs]
+        first = kinds.index("cross_attn")
+        want_terms = kinds.count("attn") + kinds[first:].count("attn")
+        check(got["flash_attention"] == want_terms and
+              sum(got.values()) == want_terms,
+              f"(a) {arch}: the gate terms' kernel route launched {got}, "
+              f"want {want_terms}")
+        n += k_n
+    if "kernel again" in out:
+        a_loss, a_grads, a_launches, _ = out["kernel again"]
+        check(a_launches == k_launches,
+              f"(a) {arch}: the second kernel run launched {a_launches}")
+        same = [name for name, t in a_grads.items()
+                if torch.equal(t, k_grads[name])]
+        print(f"(a) {arch}: a second kernel-route run repeats the loss "
+              f"{'bit for bit' if torch.equal(a_loss, k_loss) else 'NOT'}"
+              f" and {len(same)} of {len(k_grads)} gradient leaves bit for "
+              f"bit")
+        check(torch.equal(a_loss, k_loss) and len(same) == len(k_grads),
+              f"(a) {arch}: gradients that did not repeat: "
+              f"{sorted(set(k_grads) - set(same))[:6]}")
+        n += a_launches["flash_attention"]
+    del params, out, k_grads, p_grads
+    return {"flash_attention": n}
+
+
+def _gate_terms_agree(arch, params, batch, cfg, kernel, summed, losses,
+                      card):
+    """(a) for the cross layers' gates: each gate broadcast to a ``[B, S,
+    d]`` field of its value (the same function), whose gradient is the
+    gate gradient's terms before their sum; the field's gradient on the
+    kernel route against the plain loop within ``LM_GRAD_TOL`` of its
+    largest |term|, each field's sum and the summed gradients of both
+    routes printed beside them; the loss with the fields must
+    equal ``losses`` (kernel, plain) bit for bit. Returns (launches, the
+    kernel route's flash launches)."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    B, S = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+    names = [f"layers/[{i}]/attn/gate"
+             for i, spec in enumerate(model.layer_specs(cfg))
+             if spec.kind == "cross_attn"]
+    check(sorted(names) == sorted(summed),
+          f"(a) {arch}: gates {names}, one-element leaves {list(summed)}")
+    runs = {}
+    for route, ctx in (("kernel", kernel),
+                       ("plain", ModelContext(remat="full",
+                                              flash_kernel=False))):
+        layers, fields = [], []
+        for layer, spec in zip(params["layers"], model.layer_specs(cfg)):
+            if spec.kind == "cross_attn":
+                field = layer["attn"]["gate"].detach().expand(
+                    B, S, cfg.d_model).clone().requires_grad_()
+                fields.append(field)
+                layer = dict(layer, attn=dict(layer["attn"], gate=field))
+            layers.append(layer)
+
+        def terms(ctx=ctx, layers=layers, fields=fields):
+            loss, _ = model.lm_loss(dict(params, layers=layers), batch,
+                                    cfg, ctx)
+            return loss.detach(), torch.autograd.grad(loss, fields)
+        runs[route] = drive(f"(a) {arch} gate terms, {route} route", terms)
+    ((k_loss, k_terms), k_launches, _), ((p_loss, p_terms), p_launches, _) \
+        = runs["kernel"], runs["plain"]
+    check(sum(p_launches.values()) == 0,
+          f"(a) {arch}: the plain route launched {p_launches}")
+    # the fields compute the same function: the same loss, bit for bit
+    check(torch.equal(k_loss, losses[0]) and torch.equal(p_loss, losses[1]),
+          f"(a) {arch}: the loss with gate fields {k_loss.item()}, "
+          f"{p_loss.item()} differs from {[x.item() for x in losses]}")
+    for name, k_t, p_t in zip(names, k_terms, p_terms):
+        scale = p_t.abs().max().item()
+        diff = (k_t - p_t).abs().max().item()
+        k_sum, p_sum = summed[name]
+        print(f"(a) {arch} {name} before its sum over {tuple(p_t.shape)}: "
+              f"max |term| {scale}, sum of |terms| {p_t.abs().sum().item()}"
+              f", max difference {diff}, {diff / scale} of the max |term| "
+              f"(limit {LM_GRAD_TOL}); summed: kernel route {k_t.sum().item()}"
+              f" (gradient {k_sum}), plain route {p_t.sum().item()} "
+              f"(gradient {p_sum}) ({card})")
+        check(scale > 0 and diff <= LM_GRAD_TOL * scale,
+              f"(a) {arch}: {name}'s terms differ by {diff / scale}")
+    return k_launches, k_launches["flash_attention"]
+
+
+def _family_train_steps(arch, cut, want, card, profile):
+    """(b): ``FAMILY_TRAIN_STEPS`` bf16 steps of ``make_train_step`` on
+    the launcher's batches; for ``FAMILY_EXTRA_STEPS`` then one int8-
+    compressed and one ``microbatch=1`` step. Returns (launches, the
+    cell's measurements for (c))."""
+    import statistics
+    import torch
+    from repro_torch import tree
+    from repro_torch.distributed import compression
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_batches
+    from repro_torch.models import model, moe
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+    cfg = _family_cfg(arch, cut)
+    dev = torch.device(DEV)
+    ctx = ModelContext(remat="full", q_chunk=256, k_chunk=256)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)   # the launcher's
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(torch.Generator(device=dev).manual_seed(0),
+                             cfg, opt_cfg)
+    n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+    specs = model.layer_specs(cfg)
+    n_moe = sum(s.ffn == "moe" for s in specs)
+    # layer 0's largest leaf, to see the step move it
+    first_name, first = max(tree.flatten_with_names(
+        state["params"]["layers"][0]).items(), key=lambda kv: kv[1].numel())
+    first = first.clone()
+    print(f"(b) {arch} in {cfg.dtype}, {len(specs)} layer applications "
+          f"(full: {len(model.layer_specs(_family_cfg(arch, {})))})"
+          f"{' and the MTP module' if 'mtp' in state['params'] else ''}: "
+          f"{n_params} parameters, AdamW moments in {cfg.opt_dtype}; "
+          f"batches of {FAMILY_TRAIN_BATCH} x {FAMILY_TRAIN_SEQ}, remat "
+          f"full; state {torch.cuda.memory_allocated() - held} bytes "
+          f"({held} held before)")
+    batches = train_batches(cfg, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ)
+    reads = [0]
+    real_rows = moe.expert_rows
+
+    def counted_rows(flat, num_experts):
+        reads[0] += 1
+        return real_rows(flat, num_experts)
+
+    def run(step_fn, box, n, label):
+        """``n`` steps on ``box["state"]``, the only reference to the
+        state, so a step's old state is freed as the step returns."""
+        ms, losses, gnorms = [], [], []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        reads[0] = 0
+        for _ in range(n):
+            tokens = next(batches)["tokens"].to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            box["state"], metrics = step_fn(box["state"],
+                                            {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            gnorms.append(metrics["grad_norm"].item())
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"(b) {arch} {label}: losses {losses}, grad norms {gnorms}, "
+              f"step ms {ms}, launches {launches}, expert-count host reads "
+              f"{reads[0]}")
+        check(all(map(math.isfinite, losses + gnorms)),
+              f"(b) {arch} {label}: a loss or gradient norm is not finite")
+        return ms, launches
+
+    def want_times(k):
+        return {name: n * k for name, n in want.items()}
+
+    box = {"state": state}
+    del state
+    step = make_train_step(cfg, ctx, opt_cfg)
+    moe.expert_rows = counted_rows
+    try:
+        ms, launches = run(step, box, FAMILY_TRAIN_STEPS,
+                           f"{FAMILY_TRAIN_STEPS} steps")
+        peak = torch.cuda.max_memory_allocated()
+        # one host read a MoE layer in the forward and one in its remat
+        # recompute
+        check(reads[0] == 2 * n_moe * FAMILY_TRAIN_STEPS,
+              f"(b) {arch}: {reads[0]} expert-count host reads, want "
+              f"{2 * n_moe * FAMILY_TRAIN_STEPS}")
+        check(launches == want_times(FAMILY_TRAIN_STEPS),
+              f"(b) {arch} launched {launches}, want "
+              f"{want_times(FAMILY_TRAIN_STEPS)}")
+        check(int(box["state"]["step"]) == FAMILY_TRAIN_STEPS,
+              f"(b) {arch}: step reads {int(box['state']['step'])}")
+        after = tree.flatten_with_names(
+            box["state"]["params"]["layers"][0])[first_name]
+        moved = (after.float() - first.float()).abs().max().item()
+        check(moved > 0, f"(b) {arch}: layer 0 {first_name} did not move")
+        med = statistics.median(ms[1:])
+        tokens = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
+        print(f"(b) {arch}: step {med} ms (median of steps "
+              f"2-{FAMILY_TRAIN_STEPS}), {tokens / med * 1e3} tokens/s, "
+              f"peak device memory {peak} bytes; layer 0 {first_name} "
+              f"moved by up to {moved} ({card})")
+        total = dict(launches)
+        if arch == FAMILY_EXTRA_STEPS:
+            box["state"]["err"] = compression.init_error_buffer(
+                box["state"]["params"])
+            ms_c, got = run(make_train_step(cfg, ctx, opt_cfg,
+                                            grad_compression=True),
+                            box, 1, "one step with int8 compression")
+            check(got == want_times(1),
+                  f"(b) {arch}: the compressed step launched {got}")
+            del box["state"]["err"]
+            for name, n in got.items():
+                total[name] += n
+            ms_m, got = run(make_train_step(cfg, ctx, opt_cfg, microbatch=1),
+                            box, 1, f"one step with microbatch=1 "
+                            f"({FAMILY_TRAIN_BATCH} slices)")
+            check(got == want_times(FAMILY_TRAIN_BATCH),
+                  f"(b) {arch}: the microbatched step launched {got}")
+            for name, n in got.items():
+                total[name] += n
+            print(f"(b) {arch}: compressed step {ms_c[0]} ms, microbatched "
+                  f"step {ms_m[0]} ms; peak device memory over them "
+                  f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+        if profile:
+            tokens_p = next(batches)["tokens"].to(dev)
+
+            def one_step():
+                box["state"], _ = step(box["state"], {"tokens": tokens_p})
+            _profile(f"{arch} train step", one_step)
+    finally:
+        moe.expert_rows = real_rows
+    del box, first, after
+    return total, {"cfg": cfg, "peak": peak, "held": held,
+                   "step_s": med / 1e3}
+
+
+def _family_counts_start():
+    """(c)'s counts, one subprocess a (b) cell, started together at the
+    phase's start (each ~3-12 s of CPU on the sandbox)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return {arch: subprocess.Popen(
+        [sys.executable, "-c", FAMILY_COUNT, arch, json.dumps(cut),
+         str(FAMILY_TRAIN_SEQ), str(FAMILY_TRAIN_BATCH)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT) for arch, (cut, _) in FAMILY_TRAIN.items()}
+
+
+def _family_peaks(procs, measured, card):
+    """(c): each (b) cell's predicted peak (``dryrun_lib.count_cell`` in
+    a subprocess that never touches CUDA: no memory, no launch, no
+    kernel build) against the card's ``max_memory_allocated``."""
+    from repro_torch.common import hw
+    lo, hi = DRYRUN_PEAK_RATIO
+    for arch, p in procs.items():
+        out, _ = p.communicate(timeout=FAMILY_COUNT_TIMEOUT_S)
+        check(p.returncode == 0,
+              f"(c) the count of {arch} exited {p.returncode}: "
+              f"{out.strip().splitlines()[-3:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        check(not rec["cuda_initialized"] and
+              not any(rec["launches"].values()) and not rec["build_calls"],
+              f"(c) the count of {arch} touched the card: {rec}")
+        c, m = rec["counts"], measured[arch]
+        ratio = c["peak_bytes"] / m["peak"]
+        terms = hw.roofline_terms(c["flops"], c["bytes"], 0.0)
+        print(f"(c) {arch}: predicted peak {c['peak_bytes']} bytes "
+              f"(argument {c['argument_bytes']}), measured "
+              f"max_memory_allocated {m['peak']} bytes ({m['held']} held "
+              f"before), ratio {ratio} (bound {lo}-{hi}); counted in "
+              f"{rec['seconds']} s; bound_s {terms['bound_s']} "
+              f"({terms['dominant']}), measured {m['step_s']} s a step, "
+              f"bound_s / measured {terms['bound_s'] / m['step_s']} "
+              f"({card})")
+        check(lo <= ratio <= hi,
+              f"(c) {arch}: predicted/measured peak {ratio}")
+
+
+def _family_launchers_start():
+    """(d), started with the phase: ``python -m repro_torch.launch.train
+    --arch <a>-smoke --steps 3`` for each family, one subprocess each, all
+    at once, beside a 6-step run of ``FAMILY_RESUME_ARCH`` with a
+    checkpoint every 3. Returns (scratch directory, processes)."""
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="family_launcher_",
+                            dir=os.path.join(ROOT, "artifacts"))
+    procs = {f"{arch}-smoke --steps 3": _launcher(arch, 3,
+                                                  os.path.join(root, arch))
+             for arch in FAMILY_LAUNCHER_ARCHS}
+    procs[f"{FAMILY_RESUME_ARCH}-smoke --steps 6"] = _launcher(
+        FAMILY_RESUME_ARCH, 6, os.path.join(root, "resume"))
+    return root, procs, time.perf_counter()
+
+
+def _launcher(arch, steps, ckpt):
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         f"{arch}-smoke", "--steps", str(steps), "--ckpt-every", "3",
+         "--ckpt", ckpt], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+
+
+def _launcher_done(label, p, t0):
+    """Wait for one launcher run (within ``FAMILY_LAUNCHER_TIMEOUT_S`` of
+    ``t0``); it must exit 0 having done its steps. Returns its output."""
+    try:
+        out, _ = p.communicate(timeout=max(1.0, FAMILY_LAUNCHER_TIMEOUT_S - (
+            time.perf_counter() - t0)))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for line in out.strip().splitlines()[-3:]:
+        print(f"(d) {label}: {line}")
+    check(p.returncode == 0, f"(d) the launcher at {label} exited "
+                             f"{p.returncode}")
+    steps = label.rsplit(" ", 1)[-1]
+    check(f"done: {steps} steps" in out,
+          f"(d) the launcher at {label} did not finish {steps} steps")
+    return out
+
+
+def _family_launchers_finish(root, procs, t0):
+    """(d): the runs of ``_family_launchers_start``, then the 6-step run
+    resumed to 9 steps and its step-6 checkpoint restored on the card bit
+    for bit."""
+    for label, p in procs.items():
+        _launcher_done(label, p, t0)
+    print(f"(d) {len(procs)} launcher runs at once: "
+          f"{time.perf_counter() - t0} s")
+    t1 = time.perf_counter()
+    resume = os.path.join(root, "resume")
+    out = _launcher_done(f"{FAMILY_RESUME_ARCH}-smoke --steps 9",
+                         _launcher(FAMILY_RESUME_ARCH, 9, resume), t1)
+    check("resumed from step 6" in out,
+          "(d) the second run did not resume from step 6")
+    print(f"(d) the resumed run: {time.perf_counter() - t1} s")
+    _restored_on_card_bit_for_bit("(d)", os.path.join(resume, "step_6"),
+                                  f"{FAMILY_RESUME_ARCH}-smoke")
+    shutil.rmtree(root)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4777,6 +5419,8 @@ def main() -> int:
             profile="--profile" in sys.argv[1:])
         mla_launches = phase_mla(profile="--profile" in sys.argv[1:])
         vlm_launches = phase_vlm(profile="--profile" in sys.argv[1:])
+        family_training_launches = phase_family_train(
+            profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4786,10 +5430,12 @@ def main() -> int:
     for name, count in lm_training_launches.items():
         launches[name] += count
     # and MoE serving (phase 14), the SSM, hybrid and audio families
-    # (phase 15), MLA and MTP (phase 17) and the VLM family (phase 18)
+    # (phase 15), MLA and MTP (phase 17), the VLM family (phase 18) and
+    # the non-dense families' training (phase 19)
     for name, count in list(moe_launches.items()) + \
             list(ssm_launches.items()) + list(mla_launches.items()) + \
-            list(vlm_launches.items()):
+            list(vlm_launches.items()) + \
+            list(family_training_launches.items()):
         launches[name] += count
     for name, count in launches.items():
         if count < 1:
@@ -4811,6 +5457,8 @@ def main() -> int:
                       local_global_launches}))
     print(json.dumps({"mla_serving_launches": mla_launches}))
     print(json.dumps({"vlm_serving_launches": vlm_launches}))
+    print(json.dumps({"lm_family_training_launches":
+                      family_training_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

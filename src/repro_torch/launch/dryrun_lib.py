@@ -79,7 +79,17 @@ bytes, argument and output bytes are sums over layers (a shared layer's
 parameters count once at every depth), so this is exact; so is the peak
 wherever it falls at the same point of the last block, which a plan of
 one block misses in prefill (no layer before it holds its raw k and v
-while the next one runs). ``tests/test_torch_dryrun.py`` holds both
+while the next one runs). A train step's peak is kept in two regions,
+outside and inside the optimizer's update (the ``optimizer`` scope of
+``train_step``), each extrapolated on its own and the larger taken: the
+backward's peak grows by a layer's parameters, gradients and saved
+input, the functional AdamW's by its parameters, moments and their new
+copies, so a deep cell's peak can move from the first to the second
+(``musicgen-medium`` at 2 x 2048: 25.5 GB from the backward at depths
+2 and 3 extrapolated, 40.3 GB measured, AdamW's). Past that point the
+backward's own peak may move too, to its end, where every gradient is
+live; that point is where the optimizer's region starts, below its
+peak, so the cell's peak stays exact. ``tests/test_torch_dryrun.py`` holds both
 against ``unroll=True`` for one stage, ``test_torch_dryrun_stages.py``
 for two.
 
@@ -123,8 +133,8 @@ from repro_torch.models import layers, model
 from repro_torch.models.layers import ModelContext, ShapesOnly, \
     current_scopes
 from repro_torch.train import OptimizerConfig
-from repro_torch.train.train_step import make_train_state_shapes, \
-    make_train_step
+from repro_torch.train.train_step import OPTIMIZER_SCOPE, \
+    make_train_state_shapes, make_train_step
 
 NO_MULTIPOD = "one card: no multi-pod mesh"
 #: the scope the plain attention loop's KV-block body runs in
@@ -267,6 +277,8 @@ class Counter(TorchDispatchMode):
         self.ops = 0
         self.live = 0
         self.peak = 0
+        # the peak outside and inside the optimizer's scope
+        self.region_peak = {"step": 0, OPTIMIZER_SCOPE: 0}
         # id(storage) -> [weakref, nbytes, flags]
         self._storages: Dict[int, list] = {}
         self.silent = False     # run ops without counting them
@@ -287,8 +299,15 @@ class Counter(TorchDispatchMode):
             self._storages[key] = [weakref.ref(st, self._gone(key, nbytes)),
                                    nbytes, flags]
             self.live += nbytes
-            if self.live > self.peak:
-                self.peak = self.live
+            self.note_peak(self.live)
+
+    def note_peak(self, nbytes: int) -> None:
+        """Live bytes reached ``nbytes``: raise the peak and the peak of
+        the region the thread is in."""
+        self.peak = max(self.peak, nbytes)
+        region = OPTIMIZER_SCOPE if OPTIMIZER_SCOPE in current_scopes() \
+            else "step"
+        self.region_peak[region] = max(self.region_peak[region], nbytes)
 
     def _fused_read_bytes(self, t: torch.Tensor) -> int:
         """Inside a fused scope: the bytes of ``t``'s storage the first
@@ -412,7 +431,7 @@ class _AttentionReplay:
         if hit is not None:
             for name, n in zip(_TOTALS, hit["totals"]):
                 setattr(c, name, getattr(c, name) + n)
-            c.peak = max(c.peak, c.live + hit["peak"])
+            c.note_peak(c.live + hit["peak"])
             c.silent = True
             try:
                 out = torch.empty_strided(hit["shape"], hit["stride"],
@@ -477,7 +496,9 @@ def count(fn: Callable, args: tuple, *,
     return {"flops": counter.flops, "matmul_flops": counter.matmul_flops,
             "bytes": counter.bytes, "ops": counter.ops,
             "argument_bytes": arg_bytes, "output_bytes": out_bytes,
-            "alias_bytes": alias_bytes, "peak_bytes": counter.peak}
+            "alias_bytes": alias_bytes, "peak_bytes": counter.peak,
+            "step_peak_bytes": counter.region_peak["step"],
+            "optimizer_peak_bytes": counter.region_peak[OPTIMIZER_SCOPE]}
 
 
 # ------------------------------------------------------------------ cells
@@ -592,13 +613,19 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
     repeats = _repeats(cfg)
     base, more = depth_points(repeats)
     if unroll or all(r <= b + 1 for r, b in zip(repeats, base)):
-        return at(cfg)
-    f0 = at(_at_depth(cfg, base))
-    out = dict(f0)
-    for s, point in more.items():
-        fs = at(_at_depth(cfg, point))
-        for k in out:
-            out[k] += (repeats[s] - base[s]) * (fs[k] - f0[k])
+        out = at(cfg)
+    else:
+        f0 = at(_at_depth(cfg, base))
+        out = dict(f0)
+        for s, point in more.items():
+            fs = at(_at_depth(cfg, point))
+            for k in out:
+                out[k] += (repeats[s] - base[s]) * (fs[k] - f0[k])
+    # each region's peak is extrapolated on its own, their maximum is not
+    # linear: the optimizer's grows faster and overtakes a deep cell's
+    # backward (module docstring)
+    out["peak_bytes"] = max(out.pop("step_peak_bytes"),
+                            out.pop("optimizer_peak_bytes"))
     return out
 
 

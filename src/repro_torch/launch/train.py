@@ -1,18 +1,22 @@
-"""Training launcher for the LM: a dense arch of the port on one card.
+"""Training launcher for the LM: any arch of the port on one card.
 
 Port of the reference's ``launch/train.py``. It trains ``--arch`` (the
-``-smoke`` reduced configs by default) for ``--steps`` steps on random
-token batches, checkpoints every ``--ckpt-every`` steps and resumes
-from the newest checkpoint under ``--ckpt``:
+``-smoke`` reduced configs by default; every family: dense, MoE with
+MLA and MTP, SSM, hybrid, audio, local/global, VLM) for ``--steps``
+steps on random batches, checkpoints every ``--ckpt-every`` steps and
+resumes from the newest checkpoint under ``--ckpt``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b-smoke \\
       --steps 30 [--grad-compression] [--microbatch 2] [--device cpu]
 
 The batches are the reference's: ``np.random.RandomState(1)`` draws one
-``[batch, seq + 1]`` int32 token array a step. A resumed run draws and
-drops the batches of the steps its checkpoint holds, so it trains on
-the batches an uninterrupted run would (the reference's resume starts
-the stream again). It runs on the card unless ``--device cpu``; with no
+``[batch, seq + 1]`` int32 token array a step and, for an arch with
+cross-attention layers (the VLM family), then ``0.1 * randn(batch,
+num_image_tokens, d_model)`` image embeddings, float32 cast to bfloat16
+whatever the model's dtype. A resumed run draws and drops the batches
+of the steps its checkpoint holds, so it trains on the batches an
+uninterrupted run would (the reference's resume starts the stream
+again). It runs on the card unless ``--device cpu``; with no
 card it exits 2, and it exits 2 for a mesh (``--data-parallel`` times
 ``--model-parallel`` above 1), which one card cannot hold.
 """
@@ -21,7 +25,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -34,12 +38,21 @@ from repro_torch.train import OptimizerConfig
 from repro_torch.train.train_step import make_train_state, make_train_step
 
 
-def token_batches(vocab: int, batch: int, seq: int
-                  ) -> Iterator[np.ndarray]:
-    """The reference launcher's batches, one a step, endless."""
+def train_batches(cfg, batch: int, seq: int
+                  ) -> Iterator[Dict[str, torch.Tensor]]:
+    """The reference launcher's batches for ``cfg``, one a step, endless,
+    as CPU tensors: ``tokens`` int32 and, with ``cfg.cross_attn_every``,
+    ``image_embeds`` bfloat16 drawn after the step's tokens from the same
+    ``RandomState``."""
     rng = np.random.RandomState(1)
     while True:
-        yield rng.randint(0, vocab, size=(batch, seq + 1)).astype(np.int32)
+        out = {"tokens": torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, size=(batch, seq + 1)).astype(np.int32))}
+        if cfg.cross_attn_every:
+            out["image_embeds"] = torch.from_numpy((0.1 * rng.randn(
+                batch, cfg.num_image_tokens, cfg.d_model)).astype(
+                    np.float32)).to(torch.bfloat16)
+        yield out
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -96,14 +109,14 @@ def train(args: argparse.Namespace, dev: torch.device) -> None:
         state = restored
         print(f"resumed from step {step0}")
 
-    batches = token_batches(cfg.vocab_size, args.batch, args.seq)
+    batches = train_batches(cfg, args.batch, args.seq)
     done = int(state["step"])
     for _ in range(done):
         next(batches)
     t0 = time.perf_counter()
     while done < args.steps:
-        tokens = torch.from_numpy(next(batches)).to(dev)
-        state, metrics = step_fn(state, {"tokens": tokens})
+        batch = {k: v.to(dev) for k, v in next(batches).items()}
+        state, metrics = step_fn(state, batch)
         done = int(state["step"])
         if done % 10 == 0 or done == args.steps:
             print(f"step {done:4d} loss={float(metrics['loss']):.4f} "

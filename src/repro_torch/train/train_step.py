@@ -9,7 +9,8 @@ state::
      "err": ...}                     # err only with grad compression
 
 ``batch`` is ``{"tokens": [B, S + 1] integer tensor}`` on the
-parameters' device. The step runs eagerly; remat is the context's
+parameters' device, with ``"image_embeds"`` ``[B, N, d]`` for the VLM
+family. The step runs eagerly; remat is the context's
 (``ModelContext(remat="full")`` recomputes each layer in the
 backward, as the reference's ``jax.checkpoint`` does).
 """
@@ -23,11 +24,14 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import compression
 from repro_torch.models import model
-from repro_torch.models.layers import ModelContext, ShapesOnly
+from repro_torch.models.layers import ModelContext, ShapesOnly, named_scope
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
                                          adamw_update)
 
 Metrics = Dict[str, torch.Tensor]
+#: the scope of the compression and AdamW update (``layers.named_scope``;
+#: the dry-run keeps a step's peak inside and outside it apart)
+OPTIMIZER_SCOPE = "optimizer"
 
 
 def make_train_state(gen: torch.Generator, cfg: ModelConfig,
@@ -106,12 +110,14 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
     def train_step(state, batch):
         (_, metrics), grads = grads_of(state["params"], batch)
         new_state = dict(state)
-        if grad_compression:
-            grads, new_err = compression.compress_grads_with_feedback(
-                grads, state["err"], model.layer_stacks(cfg))
-            new_state["err"] = new_err
-        params, opt, opt_metrics = adamw_update(
-            grads, state["opt"], state["params"], state["step"], opt_cfg)
+        with named_scope(OPTIMIZER_SCOPE):
+            if grad_compression:
+                grads, new_err = compression.compress_grads_with_feedback(
+                    grads, state["err"], model.layer_stacks(cfg))
+                new_state["err"] = new_err
+            params, opt, opt_metrics = adamw_update(
+                grads, state["opt"], state["params"], state["step"],
+                opt_cfg)
         new_state.update(params=params, opt=opt, step=state["step"] + 1)
         return new_state, dict(metrics, **opt_metrics)
 

@@ -166,6 +166,29 @@ def test_depth_by_repeat_equals_the_unrolled_count(depth, shape, fused):
     assert by_repeat == whole
 
 
+def test_depth_by_repeat_keeps_the_optimizers_peak_apart():
+    """A train cell whose peak moves with depth from the backward to the
+    optimizer's update (at 128 x 4 tokens the backward's peak is the
+    larger at depths 2 and 3, AdamW's at 20: its parameters, moments
+    and their new copies grow faster a layer): each region's peak is
+    extrapolated on its own, and the cell's peak equals the unrolled
+    count's, AdamW's."""
+    cfg = dataclasses.replace(get_config(SMOKE), num_layers=20)
+    shape = ShapeConfig("train_128", "train", 128, 4)
+    ctx = ModelContext(remat="full")
+    for depth, optimizer_wins in ((3, False), (20, True)):
+        fn, args = dryrun_lib._build(
+            dataclasses.replace(cfg, num_layers=depth), shape, ctx)
+        c = dryrun_lib.count(fn, args)
+        assert (c["optimizer_peak_bytes"] > c["step_peak_bytes"]) == \
+            optimizer_wins, depth
+    assert c["peak_bytes"] == c["optimizer_peak_bytes"]
+    whole = dryrun_lib.count_cell(cfg, shape, ctx, unroll=True,
+                                  replay=False)
+    assert whole["peak_bytes"] == c["peak_bytes"]
+    assert dryrun_lib.count_cell(cfg, shape, ctx) == whole
+
+
 @pytest.mark.parametrize("shape", [ShapeConfig("prefill_4k", "prefill",
                                                4096, 32),
                                    ShapeConfig("train_512", "train", 512,

@@ -945,3 +945,103 @@ def test_vlm_prefill_kernel_route_matches_the_plain_loop(cuda, dtype, tol):
     assert launched == {**plain, name: n_self} and not any(plain.values())
     rel = ((got - want).abs().max() / want.abs().max()).item()
     assert rel < tol, rel
+
+
+# ------------------------------------------- non-dense families' training
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
+                                        ("bfloat16", 0.05)])
+def test_moe_block_gradients_on_the_card_repeat_and_equal_the_cpu(
+        cuda, dtype, tol):
+    """The backward of ``moe.moe_block`` at ``deepseek-moe-16b-smoke`` on
+    the card (the routed rows' gather, the inverse permutation, the
+    experts, the router and the shared experts): two runs give the same
+    bits in every gradient, and each gradient equals the CPU's within
+    ``tol`` of its largest |value|, with the same expert choices."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b-smoke"),
+                              dtype=dtype)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((0.5 * rng.randn(2, 64, cfg.d_model)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.randn(2, 64, cfg.d_model).astype(np.float32))
+
+    def grads(dev):
+        leaves = {k: t.to(dev).requires_grad_() for k, t in p.items()}
+        xi = x.to(dev).requires_grad_()
+        y, aux = moe.moe_block(leaves, xi, cfg)
+        loss = (y.float() * w.to(dev)).sum() + aux
+        names = sorted(leaves)
+        got = torch.autograd.grad(loss, [xi] + [leaves[n] for n in names])
+        return dict(zip(["x"] + names, (g.detach() for g in got)))
+    want = grads(torch.device("cpu"))
+    got, again = grads(cuda), grads(cuda)
+    for name, g in want.items():
+        assert torch.equal(got[name], again[name]), name
+        scale = g.float().abs().max().item()
+        assert scale > 0, name
+        diff = (got[name].cpu().float() - g.float()).abs().max().item()
+        assert diff <= tol * scale, (name, diff / scale)
+
+
+def _train_launches(cfg):
+    """One training step's flash launches under remat (each attention
+    layer the kernel takes: forward and recompute; the MTP layer once)."""
+    from repro_torch.models import model
+    n = sum(s.kind == "attn" and not s.window
+            for s in model.layer_specs(cfg))
+    return 2 * n + (1 if cfg.mtp_depth else 0)
+
+
+@pytest.mark.parametrize("arch", [
+    "deepseek-moe-16b-smoke", "deepseek-v3-671b-smoke", "mamba2-370m-smoke",
+    "zamba2-2.7b-smoke", "musicgen-medium-smoke", "gemma3-4b-smoke",
+    "llama-3.2-vision-90b-smoke"])
+def test_family_train_step_launches_its_kernels_on_the_card(cuda, arch):
+    """One bf16 ``make_train_step`` at each non-dense ``-smoke`` arch on
+    the card (the launcher's context and optimizer; the VLM with bf16
+    image embeddings): exactly its flash launches (head dim 16: the
+    FFMA kernel; windows, MLA and cross-attention on the plain loop),
+    finite metrics, the step counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_batches
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+    cfg = get_config(arch)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)
+    state = make_train_state(torch.Generator(device=cuda).manual_seed(0),
+                             cfg, opt_cfg)
+    step = make_train_step(cfg, ModelContext(remat="full", q_chunk=256,
+                                             k_chunk=256), opt_cfg)
+    batch = {k: v.to(cuda) for k, v in next(train_batches(cfg, 2, 64))
+             .items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    name = ops.flash_kernel_for(torch.bfloat16, cfg.head_dim)
+    n = _train_launches(cfg)
+    assert dict(ops.LAUNCHES) == {k: (n if k == name else 0)
+                                  for k in ops.LAUNCHES}
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert int(state["step"]) == 1
+
+
+def test_vlm_launcher_runs_on_the_card(cuda, tmp_path, capsys):
+    """``python -m repro_torch.launch.train`` at the VLM's ``-smoke``
+    config on the card (its default device): image batches reach the
+    cross-attention layers, the run ends at its step count."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    arch = "llama-3.2-vision-90b-smoke"
+    ops.reset_launches()
+    assert train.main(["--arch", arch, "--steps", "2", "--ckpt",
+                       str(tmp_path)]) == 0
+    assert "done: 2 steps" in capsys.readouterr().out
+    assert ops.LAUNCHES["flash_attention"] == \
+        2 * _train_launches(get_config(arch))

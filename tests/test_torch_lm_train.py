@@ -38,7 +38,7 @@ from repro.models import model as jmodel
 from repro.train import optimizer as jopt
 from repro.train import train_step as jts
 from repro_torch import tree
-from repro_torch.checkpoint import restore_pytree
+from repro_torch.checkpoint import CheckpointManager, restore_pytree
 from repro_torch.configs import get_config
 from repro_torch.distributed import compression as comp
 from repro_torch.launch import train as launch
@@ -47,6 +47,7 @@ from repro_torch.train import OptimizerConfig
 from repro_torch.train import train_step as ts
 
 ARCH = "qwen2-7b-smoke"
+VLM = "llama-3.2-vision-90b-smoke"
 DENSE = ["qwen2-7b", "granite-3-8b", "deepseek-coder-33b"]
 TOL32, TOL_BF16 = 1e-5, 5e-2
 FLIP_BUDGET = 1e-3
@@ -389,38 +390,50 @@ def test_gradient_compression_error_feedback():
 
 
 # ------------------------------------------------------------ state shapes
-def _shapes_in_ref_layout(port_state) -> dict:
+NON_DENSE = ["deepseek-moe-16b", "deepseek-v3-671b", "mamba2-370m",
+             "zamba2-2.7b", "musicgen-medium", "gemma3-4b",
+             "llama-3.2-vision-90b"]
+
+
+def _shapes_in_ref_layout(port_state, cfg) -> dict:
     """name -> (shape, dtype name) with the layers stacked as the
-    reference stacks them, read from meta tensors."""
+    reference stacks them, read from meta tensors: each
+    ``stage{s}/layer{j}`` of ``model.layer_stacks`` over its repeats, a
+    shared layer (``stage{s}_shared``) and the MTP module unstacked."""
+    def sd(v, lead=()):
+        return lead + tuple(v.shape), str(v.dtype).split(".")[-1]
+
     def stacked(t):
-        layers = t["layers"]
-        out = {f"{k}": (tuple(v.shape), str(v.dtype).split(".")[-1])
-               for k, v in t.items() if k != "layers"}
-        for part, leaves in layers[0].items():
-            for name, v in leaves.items():
-                out[f"stage0/layer0/{part}/{name}"] = (
-                    (len(layers),) + tuple(v.shape),
-                    str(v.dtype).split(".")[-1])
+        out = {name: sd(v) for name, v in tree.flatten_with_names(
+            {k: v for k, v in t.items() if k != "layers"}).items()}
+        groups = {}
+        for stack, layer in zip(model.layer_stacks(cfg), t["layers"]):
+            groups.setdefault(stack, []).append(layer)
+        assert sum(map(len, groups.values())) == len(t["layers"])
+        for stack, layers in groups.items():
+            for name, v in tree.flatten_with_names(layers[0]).items():
+                out[f"{stack}/{name}"] = sd(v, (len(layers),))
         return out
     out = {}
     for key, t in _trees(port_state).items():
-        for name, sd in stacked(t).items():
-            out[f"{key}/{name}"] = sd
+        for name, shape_dtype in stacked(t).items():
+            out[f"{key}/{name}"] = shape_dtype
     out["step"] = ((), str(port_state["step"].dtype).split(".")[-1])
     return out
 
 
 @pytest.mark.parametrize("arch", [a + "-smoke" for a in DENSE] +
-                         ["qwen2-7b"])
+                         ["qwen2-7b"] + [a + "-smoke" for a in NON_DENSE] +
+                         ["deepseek-v3-671b", "zamba2-2.7b"])
 def test_train_state_shapes_match_reference_on_meta(arch):
-    compress = arch.startswith("qwen2")
+    compress = arch.startswith(("qwen2", "zamba2-2.7b-smoke"))
     jshapes = jts.make_train_state_shapes(
         jget_config(arch), jopt.OptimizerConfig(), grad_compression=compress)
     shapes = ts.make_train_state_shapes(
         get_config(arch), OptimizerConfig(), grad_compression=compress)
     for leaf in tree.leaves(shapes):
         assert leaf.is_meta, arch           # no memory behind any leaf
-    got = _shapes_in_ref_layout(shapes)
+    got = _shapes_in_ref_layout(shapes, get_config(arch))
     want = {}
     for key, t in _trees(jshapes).items():
         for name, sd in tree.flatten_with_names(t).items():
@@ -461,11 +474,97 @@ def test_launcher_refuses_a_mesh_and_a_missing_card(tmp_path, capsys,
 
 
 def test_launcher_batches_are_the_reference_launchers():
-    batches = launch.token_batches(256, 4, 64)
+    """The reference launcher's draws (``src/repro/launch/train.py``):
+    a step's tokens, then for the VLM its image embeddings from the same
+    ``RandomState``, float32 cast to bfloat16, bit for bit."""
+    dense = launch.train_batches(get_config(ARCH), 4, 64)
     rng = np.random.RandomState(1)
     for _ in range(3):
-        want = rng.randint(0, 256, size=(4, 65)).astype(np.int32)
-        np.testing.assert_array_equal(next(batches), want)
+        want = rng.randint(0, get_config(ARCH).vocab_size,
+                           size=(4, 65)).astype(np.int32)
+        got = next(dense)
+        assert set(got) == {"tokens"} and got["tokens"].dtype == torch.int32
+        np.testing.assert_array_equal(got["tokens"].numpy(), want)
+    cfg = get_config(VLM)
+    vlm = launch.train_batches(cfg, 2, 16)
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        tokens = rng.randint(0, cfg.vocab_size, size=(2, 17)).astype(
+            np.int32)
+        img = (0.1 * rng.randn(2, cfg.num_image_tokens, cfg.d_model)
+               ).astype(np.float32).astype(jnp.bfloat16)
+        got = next(vlm)
+        assert set(got) == {"tokens", "image_embeds"}
+        np.testing.assert_array_equal(got["tokens"].numpy(), tokens)
+        assert got["image_embeds"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            got["image_embeds"].view(torch.int16).numpy(),
+            img.view(np.int16))
+
+
+def test_launcher_vlm_resumed_run_equals_an_uninterrupted_one(tmp_path,
+                                                              capsys):
+    """The VLM's batches carry image embeddings: a run resumed at step 6
+    draws and drops both, and ends where an uninterrupted one does."""
+    arch = ("--arch", VLM)
+    assert _launch(tmp_path / "a", 6, *arch) == 0
+    assert _launch(tmp_path / "a", 9, *arch) == 0
+    assert "resumed from step 6" in capsys.readouterr().out
+    assert _launch(tmp_path / "b", 9, *arch) == 0
+    a, _ = restore_pytree(os.path.join(tmp_path / "a", "step_9"))
+    b, _ = restore_pytree(os.path.join(tmp_path / "b", "step_9"))
+    assert set(a) == set(b) and int(a["step"]) == 9
+    assert any("/gate" in name for name in a)
+    for name in a:
+        assert a[name].tobytes() == b[name].tobytes(), name
+
+
+@pytest.mark.parametrize("arch", [a + "-smoke" for a in NON_DENSE])
+def test_every_familys_train_state_restores_bit_for_bit(tmp_path, arch):
+    """A trained state of each family (its MTP module, a shared layer, a
+    cross layer's gate, V3's bf16 moments, the error buffer) saved and
+    restored ``like`` a fresh state: every leaf's dtype and bits."""
+    cfg = get_config(arch)
+    opt = OptimizerConfig(lr=LR, warmup_steps=10)
+    state = ts.make_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                grad_compression=True)
+    batch = next(launch.train_batches(cfg, 2, 16))
+    state, _ = ts.make_train_step(cfg, CTX, opt, grad_compression=True)(
+        state, batch)
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(1, state)
+    like = ts.make_train_state(torch.Generator().manual_seed(1), cfg, opt,
+                               grad_compression=True)
+    step, restored, _ = mgr.restore_latest(like=like)
+    assert step == 1
+    got, want = (tree.flatten_with_names(t) for t in (restored, state))
+    assert list(got) == list(want)
+    names = "".join(want)
+    assert ("mtp/" in names) == bool(cfg.mtp_depth)
+    assert ("_shared/" in names) == any(
+        spec.shared for stage in cfg.plan() for spec in stage.layers)
+    assert ("/gate" in names) == bool(cfg.cross_attn_every)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert g.reshape(-1).view(torch.uint8).equal(
+            w.reshape(-1).view(torch.uint8)), name
+    assert state["opt"]["mu"]["embed"].dtype == getattr(torch, cfg.opt_dtype)
+
+
+@pytest.mark.parametrize("arch", [a + "-smoke" for a in NON_DENSE])
+def test_launcher_trains_every_family(tmp_path, capsys, arch):
+    """Each non-dense family through the launcher, microbatched and
+    compressed (before image batches, the VLM stopped at its first
+    cross-attention layer: it needs image_embeds)."""
+    assert _launch(tmp_path, 2, "--arch", arch, "--microbatch", "1",
+                   "--grad-compression") == 0
+    out = capsys.readouterr().out
+    assert "step    2 loss=" in out and "done: 2 steps" in out
+    state, _ = restore_pytree(os.path.join(tmp_path, "step_2"))
+    assert int(state["step"]) == 2
+    assert all(np.isfinite(np.asarray(v, np.float32)).all()
+               for n, v in state.items() if v.dtype.kind == "f")
 
 
 # ------------------------------------------------------------ dense smokes

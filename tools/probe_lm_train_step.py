@@ -36,7 +36,7 @@ def main() -> int:
         return 2
     import chip_smoke
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import token_batches
+    from repro_torch.launch.train import train_batches
     from repro_torch.models.layers import ModelContext
     from repro_torch.train import OptimizerConfig, adamw_update
     from repro_torch.train.train_step import (loss_and_grads,
@@ -50,10 +50,10 @@ def main() -> int:
     box = {"state": make_train_state(
         torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg)}
     step = make_train_step(cfg, ctx, opt_cfg)
-    batches = token_batches(cfg.vocab_size, 2, 2048)
+    batches = train_batches(cfg, 2, 2048)
 
     def batch():
-        return {"tokens": torch.from_numpy(next(batches)).to(dev)}
+        return {"tokens": next(batches)["tokens"].to(dev)}
 
     for _ in range(2):
         box["state"], _ = step(box["state"], batch())
