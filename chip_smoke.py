@@ -37,7 +37,8 @@ and prints no result line:
 4. Flash attention, whose two kernels ``ops.flash_kernel_for`` picks by
    dtype: ``flash_attention_wgmma`` (bf16, tensor cores) at the LM
    prefill's shape (B=4, S=2048, 28 query heads over 4 KV heads,
-   head_dim 128, causal), ragged S=100 and 129, S=1 and ``causal=False``;
+   head_dim 128, causal), ragged S=100 and 129, S=1, phase 20's
+   ``serve_lm`` prefill (4 x 32) and ``causal=False``;
    ``flash_attention`` (FFMA) at the float32 cases, head dims 48 and 80
    included, and bf16 at head dim 48; and at the other served models'
    prefills (4 x 2048, causal, bf16): ``deepseek-moe-16b``'s 16/16 heads
@@ -402,8 +403,34 @@ and prints no result line:
    allocator's expandable segments (the V3 cell's 75.8 GB peak does not
    fit fixed segments' fragmentation). The phase must end within 300 s;
    prints its seconds.
+20. The example entry points (``repro_torch.examples``), each through
+   its ``main(argv)`` in this process with no ``--device`` (the card),
+   the launch counters zeroed just before and read just after, plus one
+   ``python -m repro_torch.examples.quickstart`` subprocess, run to its
+   end (exit 0) before the in-process examples start. Contrib: whether
+   ``PIL`` and ``cv2`` import here, ``contrib.available()``, and ``decoder_names()``
+   equal to the 14 port paths followed by it (a plugin that imports
+   decodes phase 3's corpus within 32 levels of ``numpy-ref``, the rare
+   image exempt). ``quickstart``: ``cuda-idct`` launches ``idct8x8``
+   once per component of the decoded image and nothing else launches;
+   ``strict-fast`` skips the rare image. ``serve_lm --arch qwen2-7b``
+   (full config, 28 layers, bf16; 4 x 32 tokens, 24 new): exactly 28
+   ``flash_attention_wgmma`` launches (one a layer in the prefill, none
+   in decode) and no other, ids equal to ``engine.generate`` called
+   directly on the same seeded parameters and prompt; prints prefill
+   and decode seconds and the peak device memory. ``serve_decode`` at
+   its defaults (2 workers, 4 clients x 60 zipf requests over 24
+   images, UCB) with ``/metrics`` on an ephemeral port: no failure,
+   served plus shed equal to the requests, every arm pulled, one
+   scrape; ``decode_batch`` and ``ycbcr2rgb`` launch (``cuda-fused``
+   and ``cuda-batch`` serve a micro-batch through their shared batch
+   entry point, one ``decode_batch`` launch a structure group, as the
+   reference's ``pallas-fused`` does, so ``dequant_idct`` launches only
+   on a fallback single decode; its count is printed). ``storage_loader``:
+   exact resume, nothing launched. ``autotune_workers``: every path
+   swept. The phase must end within 240 s.
 
-Before phases 3 to 11 and 14 to 19 the script releases cuBLAS's per-stream
+Before phases 3 to 11 and 14 to 20 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -426,14 +453,17 @@ families' (``{"ssm_serving_launches": ...}``), the local/global
 family's (all zero, ``{"local_global_serving_launches": ...}``), MLA
 and MTP's (``{"mla_serving_launches": ...}``), the VLM family's
 (``{"vlm_serving_launches": ...}``), the non-dense families'
-training (``{"lm_family_training_launches": ...}``), the ``kernels`` JSON
+training (``{"lm_family_training_launches": ...}``), the example entry
+points' (``{"examples_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
 ``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks
 phase 18's float32 checks and phase 19's float32 checks and
 ``zamba2`` steps; ``flash_attention_wgmma``'s: phase 5's prefill, phase
 11's steps, phase 14's prefill, phase 15's ``musicgen`` prefill, phase
-17's ``lm_loss``, phase 18's prefills and phase 19's steps), the card's
+17's ``lm_loss``, phase 18's prefills, phase 19's steps and phase 20's
+``serve_lm`` prefill; the JPEG kernels' also count phase 20's
+``quickstart`` and ``serve_decode``), the card's
 name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1597,14 +1627,17 @@ def phase_flash():
                    c.num_kv_heads, c.head_dim) for c in fams[:3]] + [
         (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ - 1, mla.num_heads,
          mla.num_kv_heads, mla.head_dim)]
+    serve_lm_path = (SERVE_LM_BATCH, SERVE_LM_PROMPT, *heads)
     serving = (path, moe_path, zamba_path, musicgen_path, vlm_path,
-               mtp_path, *train_bf16)
+               mtp_path, serve_lm_path, *train_bf16)
     cases = [(path, bf16, True), (moe_path, bf16, True),
              (zamba_path, bf16, True), (musicgen_path, bf16, True),
              (vlm_path, bf16, True), (mtp_path, bf16, True),
              ((LM_BATCH, 100, *heads), bf16, True),
              ((LM_BATCH, 129, *heads), bf16, True),
              ((LM_BATCH, 1, *heads), bf16, True),
+             # phase 20's serve_lm prefill (qwen2-7b, 4 x 32 tokens)
+             (serve_lm_path, bf16, True),
              ((1, LM_PROMPT, *heads), bf16, False),
              ((1, 512, *heads), f32, True),
              ((2, 100, *heads), f32, False),
@@ -5376,6 +5409,238 @@ def _family_launchers_finish(root, procs, t0):
     shutil.rmtree(root)
 
 
+# ---------------------------------------------------------------- phase 20
+#: the port's built-in paths, in registration order
+PORT_PATHS = ("numpy-ref", "numpy-fast", "numpy-int", "numpy-sparse",
+              "fft-idct", "strict-fast", "torch-basic", "torch-fused",
+              "torch-batch", "strict-torch", "cuda-idct", "cuda-fused",
+              "cuda-batch", "strict-cuda")
+SERVE_LM_ARCH = "qwen2-7b"      # the full config: 28 layers, bf16
+SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_NEW = 4, 32, 24
+SERVE_LM_ARGV = ["--arch", SERVE_LM_ARCH, "--batch", str(SERVE_LM_BATCH),
+                 "--prompt-len", str(SERVE_LM_PROMPT), "--new-tokens",
+                 str(SERVE_LM_NEW)]
+SERVE_DECODE_ARGV = ["--metrics-port", "0"]     # the example's defaults
+CONTRIB_TOL = 32                # tests/test_codecs.py's bound
+EXAMPLE_TIMEOUT_S = 300         # the quickstart's own process
+PHASE20_LIMIT_S = 240
+PHASE20_WATCHDOG_S = 600
+
+
+def phase_examples(corpus):
+    """Phase 20: the five example entry points on the card; returns the
+    kernels' launches of the phase, summed over the examples."""
+    import faulthandler
+    print("== phase 20: the example entry points (repro_torch.examples) "
+          "on the card")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held_report("phase 20")
+    faulthandler.dump_traceback_later(PHASE20_WATCHDOG_S, exit=True)
+    try:
+        # the entry point's own process ends before the in-process
+        # examples start, so it shares neither the card nor the CPUs
+        # with what they time
+        _quickstart_entry_point()
+        per_example = _examples_checks(corpus, card)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    launches = {}
+    for got in per_example.values():
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+    MEASURED["examples"] = per_example
+    dt = time.perf_counter() - t_phase
+    print(f"phase 20: {dt} s (limit {PHASE20_LIMIT_S} s); launches "
+          f"{launches} ({card})")
+    check(dt <= PHASE20_LIMIT_S, f"phase 20 took {dt} s")
+    return launches
+
+
+def _quickstart_entry_point():
+    """``python -m repro_torch.examples.quickstart``, run to its end."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.quickstart"],
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"python -m repro_torch.examples.quickstart: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0} s; last lines "
+          f"{out.strip().splitlines()[-4:]}")
+    check(proc.returncode == 0 and "zero-skip tier" in out,
+          f"the quickstart entry point exited {proc.returncode}: "
+          f"{err.strip()[-2000:]}")
+
+
+def _examples_checks(corpus, card):
+    """Each example through its ``main`` on the card; returns each
+    one's launches."""
+    _contrib_on_card(corpus)
+    per_example = {"quickstart": _quickstart_on_card()}
+    _release()
+    per_example["serve_lm"] = _serve_lm_on_card(card)
+    _release()
+    per_example["serve_decode"] = _serve_decode_on_card()
+    per_example["storage_loader"] = _storage_loader_on_card()
+    per_example["autotune_workers"] = _autotune_on_card()
+    return per_example
+
+
+def _contrib_on_card(corpus):
+    """Which of Pillow and OpenCV import here, what registered, and the
+    registry's order; a plugin that imports decodes phase 3's corpus."""
+    import importlib
+    import numpy as np
+    from repro_torch.codecs import contrib, decoder_names, get_decoder
+    imports = {}
+    for lib in ("PIL", "cv2"):
+        try:
+            importlib.import_module(lib)
+            imports[lib] = True
+        except ImportError:
+            imports[lib] = False
+    print(f"contrib: imports {imports}; contrib.available() "
+          f"{contrib.available()}; {len(decoder_names())} decoders "
+          f"registered")
+    check(decoder_names() == list(PORT_PATHS) + list(contrib.available()),
+          f"registry {decoder_names()}")
+    ref = get_decoder("numpy-ref")
+    for name in contrib.available():
+        dec = get_decoder(name)
+        worst = 0
+        for i, f in enumerate(corpus.files):
+            img, want = dec.fn(f), ref.fn(f)
+            check(img.dtype == np.uint8 and img.shape == want.shape,
+                  f"{name} image {i}: {img.shape} {img.dtype}")
+            if i != corpus.rare_index:
+                worst = max(worst, int(np.abs(img.astype(int) -
+                                              want.astype(int)).max()))
+        print(f"{name}: {len(corpus.files)} images, max level difference "
+              f"to numpy-ref {worst} (limit {CONTRIB_TOL}, rare image "
+              f"exempt)")
+        check(worst <= CONTRIB_TOL, f"{name} differs by {worst} levels")
+
+
+def _quickstart_on_card():
+    from repro_torch.examples import quickstart
+    from repro_torch.jpeg import parser as P
+    from repro_torch.jpeg.corpus import build_corpus
+    out, launches, dt = drive("quickstart", lambda: quickstart.main([]))
+    first = build_corpus(out["corpus"]["n"], seed=0).files[0]
+    n_comp = len(P.parse(first).components)
+    check(launches["idct8x8"] == n_comp and
+          sum(launches.values()) == n_comp,
+          f"quickstart launches {launches} for a {n_comp}-component "
+          f"image through cuda-idct")
+    check(out["strict"]["kind"] == "skip",
+          f"strict-fast on the rare image: {out['strict']}")
+    check(out["decodes"]["cuda-idct"] == out["decodes"]["numpy-fast"],
+          f"decodes {out['decodes']}")
+    print(f"quickstart: {dt} s; idct8x8 {launches['idct8x8']} launches "
+          f"for {n_comp} components; tier {out['tier']}; leaders "
+          f"{out['disagreement']['single_leader']} / "
+          f"{out['disagreement']['loader_leader']}")
+    return launches
+
+
+def _serve_lm_on_card(card):
+    """``serve_lm --arch qwen2-7b``: 28 wgmma launches, ids equal to a
+    direct ``engine.generate`` on the same seeded inputs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    cfg = get_config(SERVE_LM_ARCH)
+    out, launches, dt = drive(f"serve_lm --arch {SERVE_LM_ARCH}",
+                              lambda: serve_lm.main(SERVE_LM_ARGV))
+    check(launches["flash_attention_wgmma"] == cfg.num_layers and
+          sum(launches.values()) == cfg.num_layers,
+          f"serve_lm launched {launches} for {cfg.num_layers} layers "
+          f"(want one wgmma launch a layer, in the prefill)")
+    _release()
+    dev = torch.device(DEV)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt, _ = serve_lm.inputs(cfg, SERVE_LM_BATCH, SERVE_LM_PROMPT, dev)
+    want = engine.generate(params, prompt, cfg, serve_lm.CTX,
+                           max_new_tokens=SERVE_LM_NEW).cpu().tolist()
+    del params
+    check(out["ids"] == want, "serve_lm's ids differ from a direct "
+          "engine.generate's on the same parameters and prompt")
+    check(out["shape"] == [SERVE_LM_BATCH, SERVE_LM_NEW] and
+          out["dtype"] == "bfloat16",
+          f"serve_lm gave {out['shape']} in {out['dtype']}")
+    steps = SERVE_LM_NEW - 1
+    print(f"serve_lm {SERVE_LM_ARCH}: prefill {SERVE_LM_BATCH} x "
+          f"{SERVE_LM_PROMPT} tokens {out['prefill_s']} s, decode {steps} "
+          f"steps {out['decode_s']} s ({out['decode_s'] / steps * 1e3} ms "
+          f"a step), "
+          f"{out['tokens_per_s']} tokens/s with the first calls, peak "
+          f"device memory {out['peak_bytes']} bytes; ids equal a direct "
+          f"generate's ({card})")
+    return launches
+
+
+def _serve_decode_on_card():
+    from repro_torch.codecs import contrib
+    from repro_torch.examples import serve_decode
+    out, launches, dt = drive("serve_decode",
+                              lambda: serve_decode.main(SERVE_DECODE_ARGV))
+    svc = out["stats"]["service"]
+    n_req = 4 * 60
+    pulls = {k: v["pulls"] for k, v in out["stats"]["router"].items()}
+    print(f"serve_decode: {dt} s; {svc['requests']} requests, "
+          f"{svc['completed']} completed, {svc['shed']} shed, "
+          f"{svc['failed']} failed, {svc['cache_hits']} cache hits; "
+          f"pulls {pulls}; best {out['router_best']}; launches {launches} "
+          f"(dequant_idct only on a cuda-fused fallback decode)")
+    check(svc["failed"] == 0 and svc["requests"] == n_req and
+          svc["completed"] + svc["shed"] == n_req,
+          f"serve_decode served {svc}")
+    check(sum(c["served"] + c["shed"] for c in out["clients"].values())
+          == n_req, f"clients {out['clients']}")
+    check(list(pulls) == list(PORT_PATHS) + list(contrib.available()) and
+          all(n >= 1 for n in pulls.values()), f"arm pulls {pulls}")
+    check(launches["decode_batch"] >= 1 and launches["ycbcr2rgb"] >= 1,
+          f"serve_decode launches {launches}")
+    check(any(ln.startswith("service_requests")
+              for ln in out.get("metrics_lines", [])),
+          "no /metrics scrape")
+    return launches
+
+
+def _storage_loader_on_card():
+    from repro_torch.examples import storage_loader
+    out, launches, dt = drive("storage_loader",
+                              lambda: storage_loader.main([]))
+    check(out["parity"] and sum(launches.values()) == 0 and
+          out["fingerprint"] == out["corpus_fingerprint"],
+          f"storage_loader {launches}")
+    print(f"storage_loader: {dt} s; resume parity after "
+          f"{len(out['first'])} images; memory {out['memory_img_s']} "
+          f"img/s, shard {out['shard_img_s']} img/s")
+    return launches
+
+
+def _autotune_on_card():
+    from repro_torch.examples import autotune_workers
+    out, launches, dt = drive("autotune_workers",
+                              lambda: autotune_workers.main([]))
+    check(list(out["paths"]) == list(autotune_workers.PATHS) and all(
+        sorted(r["sweep"]) == [0, 2, 4, 8] for r in out["paths"].values())
+        and sum(launches.values()) == 0, f"autotune {out['paths']}")
+    print(f"autotune_workers: {dt} s; best "
+          f"{ {k: v['best'] for k, v in out['paths'].items()} } on "
+          f"{out['cpu_count']} CPUs")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -5421,6 +5686,7 @@ def main() -> int:
         vlm_launches = phase_vlm(profile="--profile" in sys.argv[1:])
         family_training_launches = phase_family_train(
             profile="--profile" in sys.argv[1:])
+        examples_launches = phase_examples(corpus)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5431,11 +5697,13 @@ def main() -> int:
         launches[name] += count
     # and MoE serving (phase 14), the SSM, hybrid and audio families
     # (phase 15), MLA and MTP (phase 17), the VLM family (phase 18) and
-    # the non-dense families' training (phase 19)
+    # the non-dense families' training (phase 19) and the example entry
+    # points (phase 20)
     for name, count in list(moe_launches.items()) + \
             list(ssm_launches.items()) + list(mla_launches.items()) + \
             list(vlm_launches.items()) + \
-            list(family_training_launches.items()):
+            list(family_training_launches.items()) + \
+            list(examples_launches.items()):
         launches[name] += count
     for name, count in launches.items():
         if count < 1:
@@ -5459,6 +5727,7 @@ def main() -> int:
     print(json.dumps({"vlm_serving_launches": vlm_launches}))
     print(json.dumps({"lm_family_training_launches":
                       family_training_launches}))
+    print(json.dumps({"examples_launches": MEASURED["examples"]}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

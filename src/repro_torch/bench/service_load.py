@@ -61,9 +61,10 @@ def make_service(workers: int, seed: int = 0,
                  max_inflight: int = 64) -> DecodeService:
     cfg = ServiceConfig(num_workers=workers, max_inflight=max_inflight,
                         max_batch=8, max_wait_ms=2.0, seed=seed)
-    # CI-cheap arm set: the fork-safe (numpy) non-strict decoders — the
-    # PROCESS_POOL context filter is the resolver-backed spelling of the
-    # old list_paths(process_eligible=True)
+    # CI-cheap arm set: the fork-safe non-strict decoders (the numpy
+    # paths, and the Pillow/OpenCV plugins where they import, as in the
+    # reference) — the PROCESS_POOL context filter is the resolver-backed
+    # spelling of the old list_paths(process_eligible=True)
     return DecodeService(cfg, paths=list_decoders(
         context=ExecContext.PROCESS_POOL, strict=False))
 

@@ -77,12 +77,13 @@ class DecoderSpec:
 
 
 _REGISTRY: Dict[str, DecoderSpec] = {}
-# the built-in decode paths live in repro_torch.jpeg.paths and register
-# at import (the Pillow/OpenCV plugins are not ported yet). Importing
-# lazily here breaks the would-be cycle
+# the built-in decode paths live in repro_torch.jpeg.paths and the
+# optional real-backend plugins (Pillow/OpenCV) in
+# repro_torch.codecs.contrib; both register at import, in that order.
+# Importing lazily here breaks the would-be cycle
 # (paths -> codecs at import time, codecs -> paths at first use); a
 # module already mid-import sits in sys.modules, so no recursion.
-_BUILTIN_MODULES = ("repro_torch.jpeg.paths",)
+_BUILTIN_MODULES = ("repro_torch.jpeg.paths", "repro_torch.codecs.contrib")
 # per thread: a first registry read from a second thread (a loader's or
 # the service's worker) must not take another thread's import in flight
 # for a finished one

@@ -27,15 +27,25 @@ paths run each kernel's plain PyTorch version). Paths with a
 ``batch_fn`` register ``batchable=True``: a micro-batch runs one
 transform per same-structure group. ``fork_safe`` holds only for the
 numpy engine, since a CUDA context does not survive ``fork()``.
+
+``DECODE_PATHS`` / ``get_path`` / ``list_paths`` remain below as thin
+deprecation shims over the registry, as in the reference; new code uses
+``repro_torch.codecs`` directly.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+import dataclasses
+import warnings
+from collections.abc import Mapping
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.codecs import Capabilities, register_decoder
+from repro_torch.codecs import (Capabilities, DecoderSpec, ExecContext,
+                                as_spec, decoder_names, eligible,
+                                get_decoder, list_decoders,
+                                register_decoder)
 from repro_torch.device import current_device
 from repro_torch.jpeg import huffman, pipeline
 from repro_torch.jpeg import parser as P
@@ -305,3 +315,109 @@ _register("cuda-batch", _one_of_batch(_cuda_decode_batch), engine="cuda",
           description="CUDA batched kernel, per-row quant-table gather")
 _register("strict-cuda", lambda d: _cuda_idct(d, True), engine="cuda",
           strict=True, description="cuda-idct + strict JPEG-mode policy")
+
+
+# ------------------------------------------------- deprecation shims (v1)
+# DECODE_PATHS / get_path / list_paths were the pre-codecs front door.
+# They remain as live read-only views over the registry: a decoder
+# registered via repro_torch.codecs shows up here too, and these never
+# diverge from the registry. New code: repro_torch.codecs.
+@dataclasses.dataclass(frozen=True)
+class DecodePath:
+    """Deprecated adapter over ``repro_torch.codecs.DecoderSpec`` (same
+    duck type: ``decode``/``decode_batch`` raw conventions plus the legacy
+    ``process_eligible`` flag). Constructible directly for ad-hoc test
+    decoders; ``repro_torch.codecs.as_spec`` lifts it into the new API."""
+
+    name: str
+    fn: Callable[[bytes], np.ndarray]
+    strict: bool = False
+    process_eligible: bool = True     # legacy alias of caps.fork_safe
+    engine: str = "numpy"             # numpy | torch | cuda
+    description: str = ""
+    batch_fn: Optional[Callable[[List[bytes]], List]] = None
+    parallel_entropy: bool = False    # ad-hoc shims stay serial-only
+    progressive: bool = False         # ad-hoc shims are baseline-only
+
+    @property
+    def caps(self) -> Capabilities:
+        return Capabilities(engine=self.engine, strict=self.strict,
+                            fork_safe=self.process_eligible,
+                            batchable=self.batch_fn is not None,
+                            parallel_entropy=self.parallel_entropy,
+                            progressive=self.progressive)
+
+    def decode(self, data: bytes) -> np.ndarray:
+        return self.fn(data)
+
+    def decode_batch(self, datas: List[bytes]) -> List:
+        """Index-aligned arrays-or-exceptions: the registration-level
+        batch convention, delegated to the registry's one implementation
+        so the shim can never diverge from it."""
+        return as_spec(self).decode_batch(datas)
+
+
+_PATH_CACHE: Dict[str, Tuple[DecoderSpec, DecodePath]] = {}
+
+
+def _path_of(spec: DecoderSpec) -> DecodePath:
+    cached = _PATH_CACHE.get(spec.name)
+    if cached is not None and cached[0] is spec:
+        return cached[1]
+    path = DecodePath(name=spec.name, fn=spec.fn, strict=spec.caps.strict,
+                      process_eligible=spec.caps.fork_safe,
+                      engine=spec.caps.engine,
+                      description=spec.description, batch_fn=spec.batch_fn,
+                      parallel_entropy=spec.caps.parallel_entropy,
+                      progressive=spec.caps.progressive)
+    _PATH_CACHE[spec.name] = (spec, path)
+    return path
+
+
+class _DecodePathsView(Mapping):
+    """Live read-only mapping over the codecs registry (deprecated)."""
+
+    def __getitem__(self, name: str) -> DecodePath:
+        return _path_of(get_decoder(name))
+
+    def __iter__(self):
+        return iter(decoder_names())
+
+    def __len__(self) -> int:
+        return len(decoder_names())
+
+    def __repr__(self) -> str:
+        return f"DECODE_PATHS<deprecated view of {len(self)} decoders>"
+
+
+DECODE_PATHS: Mapping = _DecodePathsView()
+
+
+def get_path(name: str) -> DecodePath:
+    """Deprecated: use ``repro_torch.codecs.get_decoder`` (or
+    ``open_decoder`` for a context-checked session)."""
+    warnings.warn("jpeg.paths.get_path() is deprecated; use "
+                  "repro_torch.codecs.get_decoder()/open_decoder()",
+                  DeprecationWarning, stacklevel=2)
+    return DECODE_PATHS[name]
+
+
+def list_paths(process_eligible: Optional[bool] = None,
+               strict: Optional[bool] = None) -> List[DecodePath]:
+    """Deprecated: use ``repro_torch.codecs.list_decoders``: eligibility
+    is a (capabilities, context) question answered by the ``eligible``
+    resolver, e.g. ``list_decoders(context=ExecContext.PROCESS_POOL)``.
+    """
+    warnings.warn("jpeg.paths.list_paths() is deprecated; use "
+                  "repro_torch.codecs.list_decoders()",
+                  DeprecationWarning, stacklevel=2)
+    out = []
+    for spec in list_decoders():
+        if process_eligible is not None and \
+                bool(eligible(spec.caps, ExecContext.PROCESS_POOL)) \
+                != process_eligible:
+            continue
+        if strict is not None and spec.caps.strict != strict:
+            continue
+        out.append(_path_of(spec))
+    return out

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.device import current_device, use_device
+from repro_torch.device import add_device_flag, entry_device, use_device
 from repro_torch.models.layers import ModelContext
 from repro_torch.train import OptimizerConfig
 from repro_torch.train.train_step import make_train_state, make_train_step
@@ -68,8 +68,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1)
-    ap.add_argument("--device", default="cuda",
-                    help="'cuda' (the card, the default) or 'cpu'")
+    add_device_flag(ap)
     return ap.parse_args(argv)
 
 
@@ -79,12 +78,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("error: one card: no mesh until the port has a second device",
               file=sys.stderr)
         return 2
-    with use_device(args.device):
-        try:
-            dev = current_device()
-        except RuntimeError as e:
-            print(f"error: {e} (here: --device cpu)", file=sys.stderr)
-            return 2
+    dev = entry_device(args.device)
+    if dev is None:
+        return 2
+    with use_device(dev):
         # the reference computes float32 products in float32
         torch.backends.cuda.matmul.allow_tf32 = False
         train(args, dev)

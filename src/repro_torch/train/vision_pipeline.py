@@ -34,7 +34,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.autotune import autotune_workers
 from repro_torch.data.loader import (DataLoader, LoaderConfig,
                                      prefetch_to_device)
-from repro_torch.device import current_device, use_device
+from repro_torch.device import add_device_flag, on_device
 from repro_torch.jpeg.corpus import build_corpus
 from repro_torch.models import vision
 from repro_torch.models.layers import ModelContext
@@ -197,14 +197,13 @@ def main(argv=None) -> Dict[str, Any]:
                          "thread (0: one image per call)")
     ap.add_argument("--corpus", type=int, default=96)
     ap.add_argument("--ckpt", default="artifacts/ckpt_vision_torch")
-    ap.add_argument("--device", default="cuda",
-                    help="'cuda' (the card, the default) or 'cpu'")
+    add_device_flag(ap)
     args = ap.parse_args(argv)
     # the reference computes float32 products in float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with use_device(args.device):
-        return _run(args, current_device())
+    with on_device(args.device) as dev:
+        return _run(args, dev)
 
 
 def _run(args, device: torch.device) -> Dict[str, Any]:

@@ -24,15 +24,18 @@ from repro_torch.bench import (PROFILES, BenchSelectionError, cli,
                                build_registry, compare_records, run_sweep,
                                select_scenarios, service_load)
 from repro_torch.bench import compare, registry
-from repro_torch.codecs import decoder_names, list_decoders
+from repro_torch.codecs import contrib, decoder_names, list_decoders
 from repro_torch.core import schema
 from repro_torch.core.schema import RunRecord
 from repro_torch.device import selected_device, use_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-#: decoders both registries hold, with the same name and capabilities
+#: decoders both registries hold, with the same name and capabilities:
+#: the numpy family and the Pillow/OpenCV plugins that import here
 SHARED = ("numpy-ref", "numpy-fast", "numpy-int", "numpy-sparse",
-          "fft-idct", "strict-fast")
+          "fft-idct", "strict-fast") + contrib.available()
+#: the port's built-in paths (``repro_torch.jpeg.paths``)
+BUILTIN = [n for n in decoder_names() if n not in contrib.available()]
 #: the cells both smoke profiles run (as --only tokens)
 BOTH_SMOKE = ["single/numpy-fast", "loader/numpy-fast/w2/process",
               "single/strict-fast/corpus-progressive"]
@@ -59,10 +62,16 @@ def _shape(scenarios, path):
 @pytest.mark.parametrize("path", decoder_names())
 def test_every_port_path_gets_the_references_per_path_shape(path):
     """A path's cells depend only on its capabilities: a batchable port
-    path is shaped like ``jnp-fused``, the others like ``numpy-fast``."""
+    path is shaped like ``jnp-fused``, the other built-ins like
+    ``numpy-fast``, and a contrib plugin (no interval-parallel entropy
+    decode) like the reference's registration of the same library."""
     spec = {s.name: s for s in list_decoders()}[path]
-    like = "jnp-fused" if spec.caps.batchable else "numpy-fast"
-    assert spec.caps.parallel_entropy
+    if path in contrib.available():
+        like = path
+        assert not spec.caps.parallel_entropy
+    else:
+        like = "jnp-fused" if spec.caps.batchable else "numpy-fast"
+        assert spec.caps.parallel_entropy
     assert _shape(build_registry(), path) == \
         _shape(jregistry.build_registry(), like)
 
@@ -72,7 +81,8 @@ def test_registry_covers_the_matrix_and_service_cells():
     names = [s.name for s in scenarios]
     assert len(names) == len(set(names))
     assert {s.path for s in scenarios if s.path} == set(decoder_names())
-    assert len(decoder_names()) == 14
+    assert len(BUILTIN) == 14
+    assert decoder_names() == BUILTIN + list(contrib.available())
     assert [dataclasses.asdict(s) for s in scenarios if not s.path] == \
         [dataclasses.asdict(s) for s in jregistry.build_registry()
          if not s.path]
@@ -107,8 +117,11 @@ def test_the_smoke_profile_runs_the_cuda_paths():
     runs = {s.name for s in build_registry() if prof.wants(s)[0]}
     singles = {s.name for s in build_registry()
                if s.kind == registry.KIND_SINGLE and s.entropy == "serial"
-               and s.corpus == "baseline"}
+               and s.corpus == "baseline" and s.path in BUILTIN}
     assert singles <= runs and len(singles) == 14
+    # the contrib plugins' cells are the open full profile's only
+    assert not {s.name for s in build_registry()
+                if s.path in contrib.available()} & runs
     assert runs - singles == {
         "loader/numpy-fast/w0/thread", "loader/numpy-fast/w2/thread",
         "loader/cuda-batch/w0/thread", "loader/cuda-batch/w2/thread",
@@ -358,8 +371,10 @@ def test_smoke_sweep_runs_every_cell_of_the_profile(smoke_sweep):
             assert r.meta["eligible"] is False and r.meta["reason"]
         else:
             assert r.throughput_mean > 0 and "stage_s" in r.meta
-    for path in decoder_names():
+    for path in BUILTIN:
         assert by[f"single/{path}"].ok, path
+    for path in contrib.available():
+        assert by[f"single/{path}"].status == "skipped", path
     assert by["single/cuda-fused/corpus-mixed"].ok
     assert by["batched/cuda-batch"].ok
     assert by["service/closed/w2"].ok

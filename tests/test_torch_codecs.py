@@ -12,9 +12,9 @@ import pytest
 
 import repro.codecs as jcodecs
 from repro_torch.codecs import (Capabilities, DecodeOutcome, ExecContext,
-                                IneligibleDecoder, decoder_names, eligible,
-                                get_decoder, list_decoders, open_decoder,
-                                probe_key, register_decoder,
+                                IneligibleDecoder, contrib, decoder_names,
+                                eligible, get_decoder, list_decoders,
+                                open_decoder, probe_key, register_decoder,
                                 resolve_entropy_workers, unregister_decoder)
 from repro_torch.device import use_device
 from repro_torch.jpeg.parser import CorruptJpeg, UnsupportedJpeg
@@ -31,11 +31,16 @@ def _on_cpu():
 
 
 def test_engines_are_numpy_torch_cuda():
+    """The built-in paths' engines are numpy, torch and cuda; each contrib
+    plugin that imports is an engine of its own, named as the plugin."""
     engines = {n: get_decoder(n).engine for n in decoder_names()}
-    assert set(engines.values()) == {"numpy", "torch", "cuda"}
+    plugins = set(contrib.available())
+    assert set(engines.values()) == {"numpy", "torch", "cuda"} | plugins
     assert {n for n, e in engines.items() if e == "numpy"} == NUMPY_FAMILY
     assert all(n.startswith(e + "-") or n == f"strict-{e}"
-               for n, e in engines.items() if e != "numpy")
+               for n, e in engines.items() if e != "numpy"
+               and n not in plugins)
+    assert all(engines[n] == n for n in plugins)
 
 
 @pytest.mark.parametrize("context", list(ExecContext))
@@ -43,7 +48,8 @@ def test_only_the_forked_pool_vetoes_and_only_torch_and_cuda(context):
     for name in decoder_names():
         caps = get_decoder(name).caps
         verdict = eligible(caps, context)
-        if context is ExecContext.PROCESS_POOL and caps.engine != "numpy":
+        if context is ExecContext.PROCESS_POOL and \
+                caps.engine in ("torch", "cuda"):
             assert not verdict and not caps.fork_safe, name
             assert "not process-loader eligible" in verdict.reason
             assert "CUDA context" in verdict.reason
@@ -69,7 +75,8 @@ def test_open_decoder_enforces_context():
 
 def test_list_decoders_process_pool_is_the_numpy_family():
     assert {s.name for s in
-            list_decoders(context=ExecContext.PROCESS_POOL)} == NUMPY_FAMILY
+            list_decoders(context=ExecContext.PROCESS_POOL)} == \
+        NUMPY_FAMILY | set(contrib.available())
     assert {s.name for s in list_decoders(batchable=True)} == \
         {"torch-fused", "torch-batch", "cuda-fused", "cuda-batch"}
 

@@ -2,6 +2,7 @@
 (it may not import ``repro``). These tests hold each copy to its
 original: same bytes, same fields, same coefficients, same tables."""
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -216,6 +217,53 @@ def test_numpy_only_copies_are_the_same_text(name):
     mods = {"hlo": (hlo, jhlo), "elastic": (elastic, jelastic)}
     ours, theirs = mods[name]
     assert _source(ours) == _source(theirs)
+
+
+#: inputs no decoder can read: empty, not an image, a JPEG cut short
+CORRUPT = [b"", b"not a jpeg at all", b"\xff\xd8\xff\xdb\x00\x43" + bytes(8)]
+
+
+def _code_lines(module) -> list:
+    """The module's lines after its docstring, its import lines left out."""
+    body = _source(module).split('"""', 2)[2]
+    return [ln for ln in body.splitlines()
+            if not ln.startswith(("from repro", "import repro"))]
+
+
+def test_contrib_copy_is_the_references_code():
+    """``codecs/contrib.py`` is the reference's module with its imports
+    rewritten to the port's: the same code and the same names."""
+    from repro.codecs import contrib as jcontrib
+    from repro_torch.codecs import contrib
+    assert _code_lines(contrib) == _code_lines(jcontrib)
+    assert sorted(n for n in vars(contrib) if not n.startswith("__")) == \
+        sorted(n for n in vars(jcontrib) if not n.startswith("__"))
+    assert contrib.available() == jcontrib.available()
+
+
+@pytest.mark.parametrize("name", ["pillow", "opencv"])
+def test_contrib_copy_behaves_as_the_reference(name, corpus):
+    """Caps, description, the exception raised on each corrupt input
+    (type and message) and the output on every corpus image."""
+    from repro.codecs import get_decoder as jget_decoder
+    from repro_torch.codecs import contrib, get_decoder
+    if name not in contrib.available():
+        pytest.skip(f"{name} not importable in this environment")
+    mine, theirs = get_decoder(name), jget_decoder(name)
+    assert dataclasses.asdict(mine.caps) == dataclasses.asdict(theirs.caps)
+    assert (mine.description, mine.batch_fn, theirs.batch_fn) == \
+        (theirs.description, None, None)
+    for bad in CORRUPT:
+        with pytest.raises((P.CorruptJpeg, P.UnsupportedJpeg)) as got:
+            mine.fn(bad)
+        with pytest.raises((JP.CorruptJpeg, JP.UnsupportedJpeg)) as want:
+            theirs.fn(bad)
+        assert type(got.value).__name__ == type(want.value).__name__
+        # Pillow's message names the BytesIO object by its address
+        assert re.sub("0x[0-9a-f]+", "0x", str(got.value)) == \
+            re.sub("0x[0-9a-f]+", "0x", str(want.value))
+    for f in corpus.files:
+        assert mine.fn(f).tobytes() == theirs.fn(f).tobytes()
 
 
 @pytest.mark.parametrize("fused", [(), ("vmem_flash",)])

@@ -1045,3 +1045,80 @@ def test_vlm_launcher_runs_on_the_card(cuda, tmp_path, capsys):
     assert "done: 2 steps" in capsys.readouterr().out
     assert ops.LAUNCHES["flash_attention"] == \
         2 * _train_launches(get_config(arch))
+
+
+# ------------------------------------------------------ example entry points
+def test_quickstart_runs_on_the_card(cuda):
+    """No ``--device``: the card. ``cuda-idct`` launches ``idct8x8`` once
+    per component of the decoded image; the strict path skips."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = quickstart.main([], corpus_n=12, st_repeats=1, loader_repeats=1)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["idct8x8"] == 3 and sum(ops.LAUNCHES.values()) == 3
+    assert out["strict"]["kind"] == "skip"
+    assert out["decodes"]["cuda-idct"] == out["decodes"]["numpy-fast"]
+
+
+def test_serve_lm_on_the_card_equals_a_direct_generate(cuda):
+    """bf16 at ``qwen2-7b-smoke`` (head dim 16: the FFMA kernel), one
+    launch a layer in the prefill, ids equal to ``engine.generate``'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    cfg = get_config("qwen2-7b-smoke")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = serve_lm.main(["--batch", "2", "--prompt-len", "16",
+                         "--new-tokens", "6"])
+    torch.cuda.synchronize()
+    kernel = ops.flash_kernel_for(torch.bfloat16, cfg.head_dim)
+    assert ops.LAUNCHES[kernel] == cfg.num_layers
+    assert sum(ops.LAUNCHES.values()) == cfg.num_layers
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompt, _ = serve_lm.inputs(cfg, 2, 16, cuda)
+    want = engine.generate(params, prompt, cfg, serve_lm.CTX,
+                           max_new_tokens=6)
+    assert out["ids"] == want.cpu().tolist() and out["peak_bytes"] > 0
+
+
+def test_generate_under_a_bare_cuda_runs_on_the_card(cuda):
+    """``use_device("cuda")``, then ``model.init`` and ``generate``: the
+    parameters land on ``cuda:0``, which the selected device names."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import use_device
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    cfg = get_config("qwen2-7b-smoke")
+    with use_device("cuda") as dev:
+        params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        prompt, _ = serve_lm.inputs(cfg, 2, 16, dev)
+        got = engine.generate(params, prompt, cfg, serve_lm.CTX,
+                              max_new_tokens=4)
+    assert got.device == cuda and got.shape == (2, 4)
+
+
+def test_serve_decode_on_the_card_serves_every_request(cuda):
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = serve_decode.main(["--clients", "2", "--requests", "30",
+                             "--metrics-port", "0"])
+    svc = out["stats"]["service"]
+    assert svc["failed"] == 0 and svc["completed"] + svc["shed"] == 60
+    pulls = {k: v["pulls"] for k, v in out["stats"]["router"].items()}
+    if pulls["cuda-batch"] or pulls["cuda-fused"]:
+        assert ops.LAUNCHES["decode_batch"] >= 1
+
+
+def test_storage_loader_and_autotune_run_on_the_card(cuda):
+    from repro_torch.examples import autotune_workers, storage_loader
+    assert storage_loader.main([], corpus_n=16)["parity"]
+    out = autotune_workers.main([], corpus_n=12, candidates=(0, 2),
+                                max_items=8)
+    assert sorted(out["paths"]) == sorted(autotune_workers.PATHS)

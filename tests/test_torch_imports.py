@@ -101,6 +101,25 @@ def test_the_default_device_is_the_first_card(monkeypatch):
     assert device.current_device() == torch.device("cuda", 0)
 
 
+def test_a_bare_cuda_selects_the_first_card(monkeypatch):
+    """``cuda`` and ``cuda:0`` are one device: parameters made under a
+    bare ``cuda`` sit on ``cuda:0``, and ``engine.generate`` checks them
+    against the selected device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(device, "_PROCESS_DEVICE", None)
+    with device.use_device("cuda") as dev:
+        assert dev == device.current_device() == torch.device("cuda", 0)
+    with device.use_device(torch.device("cuda")):
+        assert device.selected_device() == torch.device("cuda", 0)
+    with device.use_device("cuda:1"):
+        assert device.selected_device() == torch.device("cuda", 1)
+    device.set_device("cuda")
+    try:
+        assert device.selected_device() == torch.device("cuda", 0)
+    finally:
+        device.set_device(None)
+
+
 def test_cuda_paths_without_a_card_raise_instead_of_using_the_cpu(
         monkeypatch, corpus):
     from repro_torch.codecs import get_decoder

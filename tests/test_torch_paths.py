@@ -14,7 +14,7 @@ import pytest
 import repro.codecs as jcodecs
 from repro.jpeg import encoder
 from repro.jpeg.corpus import natural_image
-from repro_torch.codecs import decoder_names, get_decoder
+from repro_torch.codecs import contrib, decoder_names, get_decoder
 from repro_torch.device import use_device
 from repro_torch.jpeg import parser as P
 from repro_torch.jpeg import pipeline
@@ -54,7 +54,9 @@ def _max_diff(a, b) -> int:
 
 
 def test_registry_holds_exactly_the_port_paths():
-    assert decoder_names() == PORT_PATHS
+    """The port's paths, then the contrib plugins that import, as the
+    reference's registry orders its built-ins and plugins."""
+    assert decoder_names() == PORT_PATHS + list(contrib.available())
 
 
 @pytest.mark.parametrize("name", PORT_PATHS)
