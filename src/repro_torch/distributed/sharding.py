@@ -1,14 +1,21 @@
 """Sharding rules as data: parameter path -> partition spec.
 
 Port of the reference's ``distributed/sharding.py`` (MaxText-style
-logical axes) for the port's layouts. The port runs on one card, so
-nothing here places a tensor: the rules are kept as data, for the
-dry-run's records and for a mesh of more than one card (ROADMAP queue 1
-item 16), with no DTensor until then. A spec is a tuple with one entry
-per dimension: an axis name, a tuple of axis names (the batch axes of a
-multi-pod mesh), or ``None`` (replicated); ``tuple()`` of the
-reference's ``PartitionSpec`` for the same leaf gives the same tuple.
-Every function takes the mesh as a mapping of axis sizes
+logical axes) for the port's layouts, and its ``make_context``.
+
+``make_context`` given a live ``torch.distributed`` device mesh
+(``launch.mesh.make_host_mesh``) makes the context of the
+expert-parallel MoE path, as the reference's does: the mesh, its batch
+axes, the model axis and ``moe_impl="ep"``. That path places the only
+tensors that are split across ranks (each rank's experts, by
+``models.moe.local_experts``; its batch rows and sequence slice). The
+partition rules below place nothing: they are kept as data, for the
+dry-run's records and for DTensor placements across cards (ROADMAP
+queue 1 item 16). A spec is a tuple with one entry per dimension: an
+axis name, a tuple of axis names (the batch axes of a multi-pod mesh),
+or ``None`` (replicated); ``tuple()`` of the reference's
+``PartitionSpec`` for the same leaf gives the same tuple. The rule
+functions take the mesh as a mapping of axis sizes
 (``launch.mesh.Mesh.shape``).
 
 Physical mesh axes:
@@ -29,36 +36,42 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.models.layers import ModelContext
 
 Spec = Tuple[Any, ...]
 AxisSizes = Mapping[str, int]
 
-#: the reference's ``ModelContext`` fields the port has no counterpart
-#: for, and the ROADMAP item that brings each
+_DRYRUN_EP = "ROADMAP queue 1 item 19 (the dry-run counts `routed_ep`)"
+_CARDS = "ROADMAP queue 1 item 16 (more than one card)"
+
+#: the reference's ``ModelContext`` fields that a context made from plain
+#: axis sizes (the dry-run's) refuses, and the ROADMAP item that brings
+#: each. The mesh fields come with a live device mesh (``make_context``);
+#: the two layout hints of a sharded run are refused everywhere.
 REFERENCE_ONLY_CONTEXT = {
-    # expert parallelism (the reference's ``routed_ep``) exists only
-    # across cards
-    "moe_impl": "ROADMAP queue 1 item 16 (more than one card)",
-    "capacity_factor": "ROADMAP queue 1 item 16 (more than one card)",
-    "seq_shard_residual": "ROADMAP queue 1 item 16 (more than one card)",
-    "no_tp": "ROADMAP queue 1 item 16 (more than one card)",
-    "mesh": "ROADMAP queue 1 item 16 (more than one card)",
-    "model_axis": "ROADMAP queue 1 item 16 (more than one card)",
-    "data_axes": "ROADMAP queue 1 item 16 (more than one card)",
+    "moe_impl": _DRYRUN_EP,
+    "capacity_factor": _DRYRUN_EP,
+    "mesh": _DRYRUN_EP,
+    "model_axis": _DRYRUN_EP,
+    "data_axes": _DRYRUN_EP,
+    "seq_shard_residual": _CARDS,
+    "no_tp": _CARDS,
 }
+#: the fields a caller may set beside a live device mesh
+LIVE_MESH_FIELDS = ("moe_impl", "capacity_factor")
 
 
-def check_context_fields(kw: Mapping[str, Any]) -> None:
-    """Raise ``ValueError`` for a reference-only or unknown
-    ``ModelContext`` field."""
+def check_context_fields(kw: Mapping[str, Any], allow=()) -> None:
+    """Raise ``ValueError`` for a reference-only field not in ``allow``
+    or an unknown ``ModelContext`` field."""
     known = {f.name for f in dataclasses.fields(ModelContext)}
     for key in kw:
-        if key in REFERENCE_ONLY_CONTEXT:
+        if key in REFERENCE_ONLY_CONTEXT and key not in allow:
             raise ValueError(
                 f"context field {key!r} belongs to the reference only; "
                 f"{REFERENCE_ONLY_CONTEXT[key]} brings it")
@@ -67,10 +80,23 @@ def check_context_fields(kw: Mapping[str, Any]) -> None:
                              f"ModelContext has {sorted(known)}")
 
 
-def make_context(axis_sizes: Optional[AxisSizes], **kw) -> ModelContext:
-    """The port's ``ModelContext`` for a mesh of ``axis_sizes``. One card
-    needs no mesh fields; a reference-only or unknown field raises
-    ``ValueError``."""
+def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw
+                 ) -> ModelContext:
+    """The port's ``ModelContext``.
+
+    Given a live ``DeviceMesh``, as the reference given a mesh: ``mesh``,
+    ``data_axes`` (those of ``pod`` and ``data`` that the mesh has),
+    ``model_axis="model"`` and ``moe_impl="ep"`` unless ``kw`` sets it.
+    Given ``None`` or plain axis sizes (the dry-run's), the single-device
+    context; a mesh field there, a layout hint anywhere, or an unknown
+    field raises ``ValueError``."""
+    if isinstance(mesh, DeviceMesh):
+        check_context_fields(kw, allow=LIVE_MESH_FIELDS)
+        kw.setdefault("moe_impl", "ep")
+        return ModelContext(
+            mesh=mesh, model_axis="model",
+            data_axes=tuple(a for a in ("pod", "data")
+                            if a in mesh.mesh_dim_names), **kw)
     check_context_fields(kw)
     return ModelContext(**kw)
 

@@ -1,12 +1,18 @@
-"""The mesh the port runs on: one card.
+"""The meshes the port runs on.
 
 Port of the reference's ``launch/mesh.py``. The reference builds a
 16 x 16 production mesh (and a 2 x 16 x 16 multi-pod one) of
-placeholder devices; the port's production mesh is one card, axes
-``("data", "model")`` of size 1 x 1. A ``Mesh`` here is plain data (axis
-names and sizes): building one touches no device, so the dry-run runs
-where there is no card. ``Mesh.shape`` is the mapping of axis sizes that
-``repro_torch.distributed.sharding`` takes.
+placeholder devices; the port's production mesh, which the dry-run
+counts for, is one card, axes ``("data", "model")`` of size 1 x 1. A
+``Mesh`` here is plain data (axis names and sizes): building one touches
+no device, so the dry-run runs where there is no card. ``Mesh.shape`` is
+the mapping of axis sizes that ``repro_torch.distributed.sharding``
+takes.
+
+``make_host_mesh`` is the mesh a run computes on: a
+``torch.distributed`` device mesh over the live process group, which
+``sharding.make_context`` turns into the context of the expert-parallel
+MoE path (``models.moe.routed_ep``).
 """
 from __future__ import annotations
 
@@ -15,8 +21,10 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch.device import selected_device
+from repro_torch.device import current_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +51,38 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(("data", "model"), (1, 1))
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """A ``data`` x ``model`` mesh over the devices of the selected kind
-    (the visible cards, or the one CPU); asserts that they suffice."""
-    dev = selected_device()
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
-    assert data * model <= n, (data, model, n)
-    return Mesh(("data", "model"), (data, model))
+#: the process group's backend for each device type
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
+    """A ``data`` x ``model`` device mesh over the live process group, axes
+    ``("data", "model")``; rank ``d·model + m`` is at ``(d, m)``, where
+    the reference's ``jax.make_mesh`` puts device ``d·model + m``.
+
+    With no process group yet and ``data·model == 1`` it starts a world
+    of one on an in-process ``HashStore`` (no socket, no environment
+    variables): NCCL on the card, gloo on the CPU, which is used only
+    when the caller asked for it (``use_device("cpu")``). More ranks need
+    a world of ``data·model`` ranks that the caller initialised; a group
+    of another size or of the other device's backend raises
+    ``ValueError``."""
+    dev = current_device()
+    backend = BACKENDS[dev.type]
+    n = data * model
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(f"a {data} x {model} mesh needs an initialised "
+                             f"world of {n} ranks")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, store=dist.HashStore(), rank=0, world_size=1,
+            device_id=dev if dev.type == "cuda" else None)
+    if dist.get_world_size() != n or dist.get_backend() != backend:
+        raise ValueError(
+            f"a {data} x {model} mesh on {dev} wants a {backend} world of "
+            f"{n}; the live one is {dist.get_backend()} of "
+            f"{dist.get_world_size()}")
+    return init_device_mesh(dev.type, (data, model),
+                            mesh_dim_names=("data", "model"))

@@ -1,6 +1,7 @@
 """Import the reference package's LM and ViT parameters, and its LM
 training state, into the port's layout, and export the port's LM
-parameters (or gradients) to the reference's.
+parameters (or gradients) to the reference's. On a mesh,
+``local_expert_params`` then keeps each rank's experts.
 
 The reference keeps each stage's super-block of layers stacked along a
 leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import Params, layer_specs
 
 
@@ -82,6 +84,23 @@ def import_reference_params(tree: Mapping[str, Any], cfg: ModelConfig, *,
             out[f"stage{si}_shared"] = shared
     if "mtp" in tree:
         out["mtp"] = _to_tensors(tree["mtp"], device)
+    return out
+
+
+def local_expert_params(params: Params, ctx) -> Params:
+    """``params`` (the port's LM layout) with each MoE layer's experts cut
+    to this rank's ``E/M`` (``moe.local_experts``), the step after
+    ``import_reference_params`` on a mesh: every rank then holds the
+    numbers that the reference's device at the same mesh position holds.
+    Every other leaf is the same tensor."""
+    def layer(p):
+        return {part: MOE.local_experts(leaves, ctx)
+                if part == "ffn" and "router" in leaves else leaves
+                for part, leaves in p.items()}
+    out = dict(params, layers=[layer(p) for p in params["layers"]])
+    for key, shared in params.items():
+        if key.endswith("_shared"):
+            out[key] = {name: layer(p) for name, p in shared.items()}
     return out
 
 

@@ -38,7 +38,7 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,8 +70,22 @@ def current_scopes() -> Tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class ModelContext:
-    """Runtime knobs threaded through the model (single device; mesh and
-    sharding come with the port's ``distributed`` slice)."""
+    """Runtime knobs threaded through the model.
+
+    Without a mesh (the default) every call runs on one device. ``mesh``
+    is a ``torch.distributed.device_mesh.DeviceMesh`` over the live
+    process group whose ``mesh_dim_names`` are the reference's axis names
+    (``launch.mesh.make_host_mesh``); with ``moe_impl="ep"`` a MoE block
+    then runs the expert-parallel path (``models.moe.routed_ep``) over
+    ``model_axis``, each rank holding its batch rows of ``data_axes`` and
+    its experts. Nothing else reads the mesh: attention and the dense
+    layers run replicated on every rank of the model axis."""
+    mesh: Any = None
+    model_axis: str = "model"
+    data_axes: Tuple[str, ...] = ("data",)
+    moe_impl: str = "dense"            # dense | ep (needs a mesh)
+    # routed_ep's buffer: ceil(T·k / E · capacity_factor) rows an expert
+    capacity_factor: float = 1.25
     q_chunk: int = 1024
     k_chunk: int = 1024
     attn_skip_noncausal: bool = False  # skip fully masked KV blocks
@@ -87,6 +101,24 @@ class ModelContext:
         if self.remat not in ("none", "full"):
             raise ValueError(f"remat must be 'none' or 'full', got "
                              f"{self.remat!r}")
+        if self.moe_impl not in ("dense", "ep"):
+            raise ValueError(f"moe_impl must be 'dense' or 'ep', got "
+                             f"{self.moe_impl!r}")
+
+    def _axis_size(self, axis: str) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(axis))
+
+    @property
+    def model_axis_size(self) -> int:
+        """Ranks along the model axis (1 without a mesh)."""
+        return 1 if self.mesh is None else self._axis_size(self.model_axis)
+
+    @property
+    def data_axes_size(self) -> int:
+        """Ranks along the batch axes together (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        return math.prod(self._axis_size(a) for a in self.data_axes)
 
 
 # --------------------------------------------------------------------------

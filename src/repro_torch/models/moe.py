@@ -1,21 +1,29 @@
-"""Mixture-of-Experts FFN: shared experts + routed top-k, on one device.
+"""Mixture-of-Experts FFN: shared experts + routed top-k.
 
 Port of the reference's ``models/moe.py`` (``init_moe`` ``:45``,
-``_route`` ``:66``, ``routed_dense`` ``:91``, ``moe_block`` ``:161``).
-``routed`` computes what the reference's dense oracle computes, the
-exact drop-free top-k combine, without running every expert over every
-token: the (token, slot) pairs are sorted by expert, each expert that
-got rows runs its SwiGLU on those rows only, and the outputs return to
-``[T, k, d]`` order through the inverse permutation, where the gates
-weigh them and a sum over k combines them. No atomics: the combine is a
-gather and a sum, so a run on the card gives the same bits every time.
+``_route`` ``:66``, ``routed_dense`` ``:91``, ``routed_ep`` ``:109``,
+``moe_block`` ``:161``). Two routes, as there:
 
-The reference's expert-parallel path (``routed_ep``, a ``shard_map``
-over a mesh with fixed capacity) is not ported: expert parallelism
-exists only across cards (ROADMAP queue 1 item 16).
+* ``routed`` computes what the reference's dense oracle computes, the
+  exact drop-free top-k combine, without running every expert over every
+  token: the (token, slot) pairs are sorted by expert, each expert that
+  got rows runs its SwiGLU on those rows only, and the outputs return to
+  ``[T, k, d]`` order through the inverse permutation, where the gates
+  weigh them and a sum over k combines them. It reads the expert counts
+  to the host once a layer.
+* ``routed_ep`` is the reference's production path, expert parallelism
+  over the mesh's model axis (``ctx.mesh``, a ``torch.distributed``
+  device mesh): each expert gets a fixed buffer of ``cap`` rows, the
+  (token, slot) pairs beyond it are dropped, ``all_to_all_single`` over
+  the model-axis group sends each buffer to the rank that holds its
+  expert and brings the outputs back. Its shapes are fixed by ``cap``,
+  so it makes no host read.
 
-Both entry points return (y, aux) where aux is the switch-style
-load-balance loss, float32.
+No atomics on either route: the combine is a gather and a sum, so a run
+on the card gives the same bits every time. Both return (y, aux) where
+aux is the switch-style load-balance loss, float32. ``moe_block`` takes
+``routed_ep`` when ``ctx.moe_impl == "ep"`` and ``ctx.mesh`` is set, as
+the reference's does.
 
 On ``meta`` tensors (the dry-run's counting, ``launch.dryrun_lib``) the
 expert choices have no values, so the per-expert counts come from a
@@ -32,6 +40,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
@@ -74,12 +84,24 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int
     # switch-style aux: E * sum_e f_e * P_e, f_e the share of the T
     # tokens' k choices that went to e (counted, so exact)
     flat = idx.reshape(-1)
-    # meta tensors have no counts: an [E] stand-in of bincount's type
+    # meta tensors have no counts: an [E] stand-in of the counts' type.
+    # A one-hot sum, as the reference's, not bincount, which reads the
+    # largest id to the host on the card
     counts = flat.new_empty(E) if flat.is_meta else \
-        torch.bincount(flat, minlength=E)
+        _one_hot(flat, E).sum(1)
     f = counts.float() / T
     aux = E * torch.sum(f * probs.mean(0))
     return gates.to(xt.dtype), idx, aux
+
+
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """[N] ids -> [n, N] int32 with a 1 where pair j chose expert e, with
+    no host read. Expert-major, so that sums and running counts over the
+    pairs run along the inner dimension: CUDA's scan along an outer
+    dimension runs one thread a column, 64 columns over 49,152 pairs at
+    ``deepseek-moe-16b``'s prefill."""
+    return (torch.arange(n, device=ids.device)[:, None] == ids).to(
+        torch.int32)
 
 
 def expert_rows(flat: torch.Tensor, num_experts: int) -> list:
@@ -114,15 +136,124 @@ def routed(xt: torch.Tensor, p: Params, cfg
     return (y * gates[..., None]).sum(dim=1), aux
 
 
+def capacity(tokens: int, cfg, ctx) -> int:
+    """``routed_ep``'s rows an expert for ``tokens`` local tokens: the
+    reference's ``max(1, ceil(T·k / E · capacity_factor))``."""
+    return max(1, int(math.ceil(tokens * cfg.experts_per_token /
+                                cfg.num_experts * ctx.capacity_factor)))
+
+
+def dispatch_slots(ids: torch.Tensor, num_experts: int, cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ids: [T*k] expert ids in token-major (t, slot) order -> (pos, keep):
+    each pair's slot in its expert's buffer (the count of earlier pairs
+    to that expert) and whether it is below ``cap``."""
+    counts = _one_hot(ids, num_experts).cumsum(1, dtype=torch.int32)
+    pos = counts.gather(0, ids[None, :])[0] - 1
+    return pos, pos < cap
+
+
+def local_experts(p: Params, ctx) -> Params:
+    """A MoE layer's parameters with only this rank's experts: rows
+    ``m·E/M`` to ``(m+1)·E/M`` of ``w1``, ``w3`` and ``w2`` for rank ``m``
+    of the model axis (the reference's ``in_specs`` ``P(model, None,
+    None)``); the router, ``ln`` and the shared experts stay whole. With
+    one rank on the axis (or no mesh) ``p`` is returned as it is."""
+    M = ctx.model_axis_size
+    if M == 1:
+        return p
+    El = p["w1"].shape[0] // M
+    m = ctx.mesh.get_local_rank(ctx.model_axis)
+    return {name: t[m * El:(m + 1) * El].clone()
+            if name in ("w1", "w3", "w2") else t for name, t in p.items()}
+
+
+def _expert_ffn(h: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor) -> torch.Tensor:
+    """h: [E, C, d] through each expert's SwiGLU (batched products, as the
+    reference's ``_expert_ffn`` ``:81``)."""
+    return torch.bmm(F.silu(torch.bmm(h, w1)) * torch.bmm(h, w3), w2)
+
+
+def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over ``ctx.model_axis`` on this rank.
+
+    x: [B_local, S, d], this rank's rows of the data axes, the same on
+    every rank of the model axis; ``p`` holds this rank's ``E/M`` experts
+    (``local_experts``). -> (y [B_local, S, d], aux): the values of the
+    reference's global ``routed_ep`` at these rows, and aux averaged over
+    the model axis. When ``S`` divides over the ``M`` ranks, each routes
+    its ``S/M`` positions and the outputs are all-gathered; otherwise
+    every rank routes all of them. Each expert takes at most ``cap``
+    (``capacity``) of a rank's (token, slot) pairs, in token-major order;
+    the rest are dropped (weight 0). Forward only."""
+    M = ctx.model_axis_size
+    E, k = cfg.num_experts, cfg.experts_per_token
+    if E % M:
+        raise ValueError(f"{E} experts do not divide over {M} ranks")
+    El = E // M
+    if p["w1"].shape[0] != El:
+        raise ValueError(f"routed_ep wants this rank's {El} experts, got "
+                         f"{p['w1'].shape[0]} (models.moe.local_experts)")
+    if torch.is_grad_enabled() and (x.requires_grad or
+                                    p["w1"].requires_grad):
+        raise NotImplementedError(
+            "routed_ep has no backward through the exchange (ROADMAP "
+            "queue 1 item 16)")
+    group = ctx.mesh.get_group(ctx.model_axis)
+    B, S, d = x.shape
+    seq_shard = S % M == 0 and S >= M   # the reference's tok_spec
+    if seq_shard:
+        m = ctx.mesh.get_local_rank(ctx.model_axis)
+        x = x[:, m * (S // M):(m + 1) * (S // M)]
+    bl, sl = x.shape[:2]
+    T = bl * sl
+    xt = x.reshape(T, d)
+    gates, idx, aux = route(xt, p["router"], k)
+    dist.all_reduce(aux, group=group)
+    aux = aux / M
+    cap = capacity(T, cfg, ctx)
+    ids = idx.reshape(-1)                               # [T*k]
+    pos, keep = dispatch_slots(ids, E, cap)
+    # kept (expert, slot) pairs are unique, so an index copy places them;
+    # a dropped pair goes to the spare row E·cap, cut off below
+    dest = torch.where(keep, ids * cap + pos, E * cap)
+    buf = xt.new_zeros(E * cap + 1, d)
+    buf.index_copy_(0, dest, xt[:, None].expand(T, k, d).reshape(T * k, d))
+    # dispatch: [E, cap, d] in M blocks of E/M experts, block j to rank j;
+    # rank i's block arrives as [M, E/M, cap, d] -> [E/M, M·cap, d]
+    recv = torch.empty(E * cap, d, dtype=xt.dtype, device=xt.device)
+    dist.all_to_all_single(recv, buf[:E * cap], group=group)
+    h = recv.view(M, El, cap, d).transpose(0, 1).reshape(El, M * cap, d)
+    hidden = _expert_ffn(h, p["w1"], p["w3"], p["w2"])
+    # return: [E/M, M·cap, d] -> [M, E/M, cap, d], block i to rank i;
+    # what comes back is [E, cap, d], the outputs for this rank's pairs
+    send = hidden.view(El, M, cap, d).transpose(0, 1).contiguous()
+    back = torch.empty_like(send)
+    dist.all_to_all_single(back, send, group=group)
+    rows = back.view(E * cap, d)[ids * cap + torch.clamp(pos, max=cap - 1)]
+    w = keep.to(xt.dtype) * gates.reshape(-1)
+    y = (rows * w[:, None]).reshape(T, k, d).sum(dim=1).reshape(bl, sl, d)
+    if seq_shard:
+        parts = [torch.empty_like(y) for _ in range(M)]
+        dist.all_gather(parts, y, group=group)
+        y = torch.cat(parts, dim=1)
+    return y, aux
+
+
 def moe_block(p: Params, x: torch.Tensor, cfg, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE residual block: x + shared experts + routed experts.
-    ``ctx`` is the reference's (it picks the expert-parallel path on a
-    mesh); on one device the block computes the same either way."""
+    ``routed_ep`` when ``ctx`` asks for it (``moe_impl="ep"`` on a mesh),
+    else the drop-free ``routed``."""
     B, S, d = x.shape
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    r, aux = routed(xn.reshape(B * S, d), p, cfg)
-    r = r.reshape(B, S, d)
+    if ctx is not None and ctx.moe_impl == "ep" and ctx.mesh is not None:
+        r, aux = routed_ep(xn, p, cfg, ctx)
+    else:
+        r, aux = routed(xn.reshape(B * S, d), p, cfg)
+        r = r.reshape(B, S, d)
     if cfg.num_shared_experts:
         return x + L.swiglu(xn, p["sh_w1"], p["sh_w3"], p["sh_w2"]) + r, aux
     return x + r, aux

@@ -500,6 +500,11 @@ def test_the_mesh_is_one_card():
     with pytest.raises(ValueError, match="one card"):
         make_production_mesh(multi_pod=True)
     with use_device("cpu"):
-        assert make_host_mesh().shape == {"data": 1, "model": 1}
-        with pytest.raises(AssertionError):
-            make_host_mesh(data=2)
+        try:
+            host = make_host_mesh()
+            assert dict(zip(host.mesh_dim_names, host.shape)) == \
+                {"data": 1, "model": 1}
+            with pytest.raises(ValueError, match="world of 2"):
+                make_host_mesh(data=2)
+        finally:
+            torch.distributed.destroy_process_group()

@@ -680,6 +680,66 @@ def test_moe_block_on_the_card_equals_the_cpu_and_repeats_its_bits(
 
 @pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
                                         ("bfloat16", 0.05)])
+def test_routed_ep_on_the_card_equals_the_cpu_and_repeats_its_bits(
+        cuda, dtype, tol):
+    """``moe.routed_ep`` at ``deepseek-moe-16b-smoke`` over an NCCL world
+    of one on the card against its run over a gloo world of one on the
+    CPU (the same parameters and input): the same kept pairs, the outputs
+    within ``tol``; a second run on the card gives the same bits, and a
+    decode step makes no host read. A capacity factor of 1 (each expert
+    its even share) makes pairs drop here."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.device import use_device
+    from repro_torch.distributed.sharding import make_context
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b-smoke"),
+                              dtype=dtype)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy((0.5 * np.random.RandomState(0).randn(
+        2, 64, cfg.d_model)).astype(np.float32)).to(getattr(torch, dtype))
+
+    def run(dev, xs):
+        pd = {k: t.to(dev) for k, t in p.items()}
+        with use_device(dev):
+            ctx = make_context(make_host_mesh(1, 1), capacity_factor=1.0)
+        try:
+            assert dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                          else "gloo")
+            outs = [moe.routed_ep(xi.to(dev), pd, cfg, ctx) for xi in xs]
+            if dev.type == "cuda":
+                step = x[:, :1].to(dev)
+                moe.routed_ep(step, pd, cfg, ctx)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    moe.routed_ep(step, pd, cfg, ctx)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            return outs
+        finally:
+            dist.destroy_process_group()
+
+    (got, aux), (again, aux2) = run(cuda, [x, x])
+    ((want, want_aux),) = run(torch.device("cpu"), [x])
+    assert torch.equal(got, again) and torch.equal(aux, aux2)
+    xt = x.reshape(-1, cfg.d_model)
+    cap = xt.shape[0] * cfg.experts_per_token // cfg.num_experts
+    keep = [moe.dispatch_slots(moe.route(t, r, cfg.experts_per_token)[1]
+                               .reshape(-1), cfg.num_experts, cap)[1].cpu()
+            for t, r in ((xt, p["router"]),
+                         (xt.to(cuda), p["router"].to(cuda)))]
+    assert torch.equal(keep[0], keep[1]) and not keep[0].all()
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
+                                        ("bfloat16", 0.05)])
 def test_mamba_block_on_the_card_equals_the_cpu(cuda, dtype, tol):
     """``ssm.mamba_block`` at ``mamba2-370m-smoke`` (two SSD chunks) on the
     card against its CPU run, on its chunked path with the prefill state
