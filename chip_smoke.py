@@ -456,8 +456,36 @@ and prints no result line:
    within 1e-5 of the largest |y|.
    (c) The exchange's device time (CUDA events) at the prefill's and a
    decode step's buffers. The phase must end within 120 s.
+22. Training through expert parallelism: ``deepseek-moe-16b`` at full
+   width over the same NCCL world of one, the launcher's context
+   (``make_context(make_host_mesh(1, 1), remat="full", q_chunk=256,
+   k_chunk=256)``), so every MoE layer's forward and backward run
+   ``routed_ep`` and the step reduces its gradients over the mesh
+   (``distributed.data_parallel``, nothing over axes of one rank). (a)
+   float32 ``loss_and_grads`` at 1 x 512, phase 19 (a)'s cut (1 dense +
+   1 MoE layer): at a capacity that drops nothing (``cap = T``) the loss
+   within 1e-5 and every gradient leaf within 1e-4 of its largest
+   |element| of the drop-free ``routed``'s; at 1.25 (pairs must drop)
+   the same against a plain capacity-drop combine (phase 21's, swapped
+   in for ``moe_block``), and a second run repeats every bit; 4
+   ``flash_attention`` launches a run. (b) Phase 21's float32 first MoE
+   layer (4 x 2048 tokens) at 1.25: the block's gradients (``x``, the
+   router, ``w1``, ``w3``, ``w2``) under a seeded cotangent on the card
+   within 1e-4 of each leaf's largest |element| of the same block's on
+   the CPU (a gloo world of one), the same choices and kept pairs, pairs
+   dropped, and a second card run repeats every bit. (c) bf16 AdamW
+   steps at phase 19 (b)'s cut (4 layers: 1 dense + 3 MoE) on the
+   launcher's batches at 2 x 2048: 4 steps, one int8-compressed and one
+   ``microbatch=1`` step; exactly 8 ``flash_attention_wgmma`` launches
+   a step (16 the microbatched one); every MoE layer's forward, remat
+   recompute and backward under ``torch.cuda.set_sync_debug_mode(
+   "error")`` (a host read fails the phase); step ms, tokens/s and the
+   peak device memory beside the dry-run's count of the same cell
+   through ``routed_ep`` (a subprocess that never touches CUDA; within
+   0.85-1.15) and phase 19's ``routed`` step of the same cell in the same
+   run. The phase must end within 150 s.
 
-Before phases 3 to 11 and 14 to 21 the script releases cuBLAS's per-stream
+Before phases 3 to 11 and 14 to 22 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -482,16 +510,17 @@ and MTP's (``{"mla_serving_launches": ...}``), the VLM family's
 (``{"vlm_serving_launches": ...}``), the non-dense families'
 training (``{"lm_family_training_launches": ...}``), the example entry
 points' (``{"examples_launches": ...}``), expert-parallel serving's
-(``{"ep_serving_launches": ...}``), the ``kernels`` JSON
+(``{"ep_serving_launches": ...}``), expert-parallel training's
+(``{"ep_training_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
 ``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks,
 phase 18's float32 checks, phase 19's float32 checks and ``zamba2``
-steps and phase 21's float32 check; ``flash_attention_wgmma``'s: phase
-5's prefill, phase 11's steps, phase 14's prefill, phase 15's
-``musicgen`` prefill, phase 17's ``lm_loss``, phase 18's prefills,
-phase 19's steps, phase 20's ``serve_lm`` prefill and phase 21's
-prefills; the JPEG kernels' also count phase 20's ``quickstart`` and
+steps, phase 21's float32 check and phase 22's float32 gradients;
+``flash_attention_wgmma``'s: phase 5's prefill, phase 11's steps, phase
+14's prefill, phase 15's ``musicgen`` prefill, phase 17's ``lm_loss``,
+phase 18's prefills, phase 19's steps, phase 20's ``serve_lm`` prefill,
+phase 21's prefills and phase 22's steps; the JPEG kernels' also count phase 20's ``quickstart`` and
 ``serve_decode``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -4978,6 +5007,7 @@ import dataclasses, json, sys, time
 import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed.sharding import make_context
 from repro_torch.kernels import build, ops
 from repro_torch.launch import dryrun_lib
 from repro_torch.models.layers import ModelContext
@@ -4994,10 +5024,13 @@ build.kernel = refuse
 arch, cut, seq, batch = sys.argv[1], json.loads(sys.argv[2]), \\
     int(sys.argv[3]), int(sys.argv[4])
 cfg = dataclasses.replace(get_config(arch), **cut)
+kw = dict(remat="full", q_chunk=256, k_chunk=256)
+# "ep": the production mesh's context, whose MoE layers run routed_ep
+ctx = make_context({"data": 1, "model": 1}, **kw) if sys.argv[5:] == \\
+    ["ep"] else ModelContext(**kw)
 t0 = time.perf_counter()
 counts = dryrun_lib.count_cell(
-    cfg, ShapeConfig("phase19_train", "train", seq, batch),
-    ModelContext(remat="full", q_chunk=256, k_chunk=256),
+    cfg, ShapeConfig("phase19_train", "train", seq, batch), ctx,
     opt_cfg=OptimizerConfig(lr=1e-3, warmup_steps=10))
 print(json.dumps({"counts": counts, "seconds": time.perf_counter() - t0,
                   "cuda_initialized": torch.cuda.is_initialized(),
@@ -5045,6 +5078,9 @@ def phase_family_train(profile=False):
             _release()
         print(f"(b) done at {time.perf_counter() - t_phase} s")
         _family_peaks(procs, measured, card)
+        MEASURED["family_train"] = {arch: {"step_s": m["step_s"],
+                                           "peak": m["peak"]}
+                                    for arch, m in measured.items()}
     finally:
         for p in list(procs.values()) + list(launchers[1].values()):
             if p.poll() is None:
@@ -5778,6 +5814,7 @@ def phase_ep(profile=False):
     finally:
         dist.destroy_process_group()
     _ep_block_on_the_cpu(block, card)
+    MEASURED["ep_block"] = {k: block[k] for k in ("p", "x", "cfg")}
     for name, count in f32_launches.items():
         launches[name] += count
     dt = time.perf_counter() - t_phase
@@ -5949,7 +5986,7 @@ def _ep_float32_check(cfg, ctx, block, card):
     check(torch.equal(y, y2) and torch.equal(aux, aux2),
           "a second routed_ep block on the card gave other bits")
     keep = kept[0]
-    want, want_keep = _ep_plain_block(p, x, cfg32, ctx)
+    want, want_keep, _ = _ep_plain_block(p, x, cfg32, ctx)
     rel = (y - want).abs().max().item() / want.abs().max().item()
     print(f"float32 first MoE layer of the bf16 prefill ({x.shape[0]} x "
           f"{x.shape[1]} tokens), capacity factor {ctx.capacity_factor}: "
@@ -5977,14 +6014,14 @@ def _ep_plain_block(p, x, cfg, ctx):
     pair's slot is its rank among its expert's pairs in token-major
     order (a stable sort), the pairs below ``cap`` are kept, and each
     expert's SwiGLU runs on its kept pairs' tokens, weighed by the gates
-    and added. -> (y, the kept mask over the pairs)."""
+    and added. -> (y, the kept mask over the pairs, aux)."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import moe
     B, S, d = x.shape
     k = cfg.experts_per_token
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps).reshape(B * S, d)
-    gates, idx, _ = moe.route(xn, p["router"], k)
+    gates, idx, aux = moe.route(xn, p["router"], k)
     flat, w = idx.reshape(-1), gates.reshape(-1)
     order = torch.argsort(flat, stable=True)
     ranked = flat[order]
@@ -6002,7 +6039,7 @@ def _ep_plain_block(p, x, cfg, ctx):
     if cfg.num_shared_experts:
         y = y + L.swiglu(xn, p["sh_w1"], p["sh_w3"],
                          p["sh_w2"]).reshape(B, S, d)
-    return y, keep
+    return y, keep, aux
 
 
 def _ep_block_on_the_cpu(block, card):
@@ -6053,6 +6090,454 @@ def _ep_block_on_the_cpu(block, card):
           f"the card's block differs from the CPU's by {rel} relative")
 
 
+# ---------------------------------------------------------------- phase 22
+#: (a) float32 gradients at 1 x EP_TRAIN_CHECK_SEQ, phase 19 (a)'s cut of
+#: MOE_ARCH; (c) phase 19 (b)'s cut, batches, steps and launches
+EP_TRAIN_CHECK_SEQ = 512
+#: (b) the block's gradients, card against CPU, of each leaf's largest
+#: |element| (phase 19's gradient bound)
+EP_BLOCK_GRAD_TOL = LM_GRAD_TOL
+PHASE22_LIMIT_S = 150
+
+
+def phase_ep_train(profile=False):
+    """Phase 22: ``deepseek-moe-16b`` trained through ``routed_ep`` over
+    a world of one (NCCL on the card); returns the flash kernels'
+    launches of the phase. Needs phase 21's float32 block
+    (``MEASURED["ep_block"]``). ``profile`` adds ``_profile`` over one
+    more (c) step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import make_context
+    from repro_torch.launch.mesh import BACKENDS, make_host_mesh
+    print(f"== phase 22: {MOE_ARCH} trained through routed_ep (expert "
+          f"parallelism over a world of one)")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held_report("phase 22")
+    check("ep_block" in MEASURED, "phase 22 needs phase 21's MoE block")
+    cut = FAMILY_TRAIN[MOE_ARCH][0]
+    count = subprocess.Popen(
+        [sys.executable, "-c", FAMILY_COUNT, MOE_ARCH, json.dumps(cut),
+         str(FAMILY_TRAIN_SEQ), str(FAMILY_TRAIN_BATCH), "ep"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+    mesh = make_host_mesh(1, 1)
+    try:
+        ctx = make_context(mesh, remat="full", q_chunk=256, k_chunk=256)
+        print(f"process group: {dist.get_backend()}, world of "
+              f"{dist.get_world_size()}; context moe_impl "
+              f"{ctx.moe_impl!r}, capacity_factor {ctx.capacity_factor}, "
+              f"model axis {ctx.model_axis_size}, data axes "
+              f"{ctx.data_axes_size}")
+        check(dist.get_backend() == BACKENDS[torch.device(DEV).type] and
+              ctx.moe_impl == "ep",
+              f"the context runs {ctx.moe_impl} over {dist.get_backend()}")
+        launches = _ep_train_grads(ctx, card)
+        _release()
+        block = _ep_train_block_on_card(ctx, card)
+        _release()
+        got, measured = _ep_train_steps(ctx, card, profile)
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        _release()
+        _ep_train_peak(count, measured, card)
+    finally:
+        if count.poll() is None:
+            count.kill()
+            count.wait()
+        dist.destroy_process_group()
+    _ep_train_block_on_the_cpu(block, card)
+    dt = time.perf_counter() - t_phase
+    print(f"phase 22: {dt} s (limit {PHASE22_LIMIT_S} s); launches "
+          f"{launches} ({card})")
+    check(dt <= PHASE22_LIMIT_S, f"phase 22 took {dt} s")
+    return {"flash_attention": launches.get("flash_attention", 0),
+            "flash_attention_wgmma": launches.get("flash_attention_wgmma",
+                                                  0)}
+
+
+def _grad_gap(got, want):
+    """(worst leaf, its max difference over its max |want|) of two
+    ``{name: gradient}``; every leaf must be finite with max |want| > 0."""
+    import torch
+    worst, worst_name = -1.0, ""
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        check(scale > 0 and bool(torch.isfinite(got[name]).all()),
+              f"gradient {name}: max |g| {scale}")
+        rel = (got[name] - w).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst_name, worst
+
+
+def _ep_train_grads(ctx, card):
+    """(a): float32 ``loss_and_grads`` through ``routed_ep`` against the
+    drop-free ``routed`` at ``cap = T`` and against the plain
+    capacity-drop combine at the context's capacity, the latter twice,
+    bit for bit. Returns the launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model, moe
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.train_step import loss_and_grads
+    cut, want = FAMILY_CHECK[MOE_ARCH]
+    cfg = _family_cfg(MOE_ARCH, cut, dtype="float32")
+    dev = torch.device(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, EP_TRAIN_CHECK_SEQ + 1)).astype(
+            np.int32)).to(dev)
+    batch = {"tokens": tokens}
+    nodrop = dataclasses.replace(
+        ctx, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    routed = ModelContext(remat="full", q_chunk=256, k_chunk=256)
+    real = moe.moe_block
+
+    def plain_block(p, x, cfg, ctx=None):
+        y, _, aux = _ep_plain_block(p, x, cfg, ctx)
+        return y, aux
+    runs = [("routed_ep at cap = T", nodrop, real),
+            ("routed", routed, real),
+            (f"routed_ep at {ctx.capacity_factor}", ctx, real),
+            (f"routed_ep at {ctx.capacity_factor} again", ctx, real),
+            (f"the plain capacity-drop combine at {ctx.capacity_factor}",
+             ctx, plain_block)]
+    print(f"(a) {MOE_ARCH} in float32, {cfg.num_layers} layers "
+          f"({cfg.first_dense_layers} dense): "
+          f"{sum(t.numel() for t in tree.leaves(params))} parameters; batch "
+          f"1 x {EP_TRAIN_CHECK_SEQ}, remat full")
+    out, launches = {}, {}
+    for label, c, block in runs:
+        moe.moe_block = block
+        try:
+            (((loss, _), grads), kept), got, dt = drive(
+                f"(a) {label}", lambda c=c: _capture_keep(
+                    lambda: loss_and_grads(params, batch, cfg, c)))
+        finally:
+            moe.moe_block = real
+        check(got["flash_attention"] == want and
+              sum(got.values()) == want,
+              f"(a) {label} launched {got}, want {want} flash_attention")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        out[label] = (loss, tree.flatten_with_names(grads), kept)
+        del grads
+    ep0, dense, ep1, ep2, plain = (out[label] for label, _, _ in runs)
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    check(len(ep0[2]) == 2 * n_moe and all(bool(m.all()) for m in ep0[2]),
+          "(a) routed_ep at cap = T dropped pairs")
+    check(len(ep1[2]) == 2 * n_moe and not bool(ep1[2][0].all()),
+          f"(a) no pair dropped at {ctx.capacity_factor}: the drop path is "
+          f"not reached")
+    for label, (loss, grads, _), (w_loss, w_grads, _) in (
+            ("routed_ep at cap = T vs routed", ep0, dense),
+            (f"routed_ep at {ctx.capacity_factor} vs the plain combine",
+             ep1, plain)):
+        rel = abs(loss.item() - w_loss.item()) / abs(w_loss.item())
+        name, worst = _grad_gap(grads, w_grads)
+        print(f"(a) {label}: loss {loss.item()} vs {w_loss.item()} "
+              f"(relative {rel}, limit {LM_LOSS_RTOL}); worst gradient leaf "
+              f"{name}, {worst} of its max |g| (limit {LM_GRAD_TOL}) over "
+              f"{len(w_grads)} leaves ({card})")
+        check(rel <= LM_LOSS_RTOL, f"(a) {label}: loss differs by {rel}")
+        check(worst <= LM_GRAD_TOL,
+              f"(a) {label}: gradient {name} differs by {worst}")
+    share = ep1[2][0].float().mean().item()
+    same = [n for n, t in ep2[1].items() if torch.equal(t, ep1[1][n])]
+    print(f"(a) kept share at {ctx.capacity_factor}: {share} "
+          f"({int((~ep1[2][0]).sum())} pairs dropped); a second run repeats "
+          f"the loss {'bit for bit' if torch.equal(ep1[0], ep2[0]) else 'NOT'}"
+          f" and {len(same)} of {len(ep1[1])} gradient leaves bit for bit; "
+          f"peak device memory {torch.cuda.max_memory_allocated()} bytes "
+          f"({card})")
+    check(torch.equal(ep1[0], ep2[0]) and len(same) == len(ep1[1]),
+          f"(a) leaves that did not repeat: "
+          f"{sorted(set(ep1[1]) - set(same))[:6]}")
+    del params, out, ep0, dense, ep1, ep2, plain
+    return launches
+
+
+#: (b) the block gradients held: the input's and the routed experts'
+EP_BLOCK_LEAVES = ("router", "w1", "w3", "w2")
+
+
+def _ep_block_grads(block, ctx):
+    """The float32 MoE block of ``block`` (phase 21's) under ``ctx`` on
+    the tensors' device: (loss, aux, {x and EP_BLOCK_LEAVES: gradient},
+    the routes' records, the kept masks) under a seeded cotangent of
+    ``y`` and a weight of 1 on aux."""
+    import torch
+    from repro_torch.models import moe
+    dev = torch.device(block.get("device", DEV))
+    p = {n: t.to(dev).requires_grad_(n in EP_BLOCK_LEAVES)
+         for n, t in block["p"].items()}
+    x = block["x"].to(dev).requires_grad_()
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)
+                      ).to(dev)
+
+    def run():
+        y, aux = moe.moe_block(p, x, block["cfg"], ctx)
+        loss = (y * cot).sum() + aux
+        grads = torch.autograd.grad(loss, [x] + [p[n]
+                                                 for n in EP_BLOCK_LEAVES])
+        return loss.detach(), aux.detach(), dict(zip(
+            ("x",) + EP_BLOCK_LEAVES, grads))
+    (out, records), kept = _capture_keep(lambda: _capture_routes(run))
+    return out + (records, kept)
+
+
+def _ep_train_block_on_card(ctx, card):
+    """(b) on the card: the block's gradients twice, bit for bit, pairs
+    dropped. Returns phase 21's block with the card's results on the
+    host."""
+    import torch
+    block = dict(MEASURED["ep_block"])
+    t0 = time.perf_counter()
+    loss, aux, grads, records, kept = _ep_block_grads(block, ctx)
+    loss2, _, grads2, _, _ = _ep_block_grads(block, ctx)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = [n for n in grads if torch.equal(grads[n], grads2[n])]
+    keep = kept[0]
+    print(f"(b) float32 first MoE layer ({tuple(block['x'].shape)}) at "
+          f"{ctx.capacity_factor} on the card, forward and backward twice in "
+          f"{dt} s: kept share {keep.float().mean().item()} "
+          f"({int((~keep).sum())} pairs dropped); the second run repeats the "
+          f"loss {'bit for bit' if torch.equal(loss, loss2) else 'NOT'} and "
+          f"{len(same)} of {len(grads)} gradients bit for bit ({card})")
+    check(not bool(keep.all()), "(b) no pair dropped")
+    check(torch.equal(loss, loss2) and len(same) == len(grads),
+          f"(b) gradients that did not repeat: "
+          f"{sorted(set(grads) - set(same))}")
+    block.update(loss=loss.cpu(), aux=aux.cpu(),
+                 grads={n: g.cpu() for n, g in grads.items()},
+                 idx=records[0]["idx"].cpu(), keep=keep.cpu())
+    return block
+
+
+def _ep_train_block_on_the_cpu(block, card):
+    """(b) on the CPU, over a gloo world of one that the caller asked
+    for: the same choices and kept pairs as the card's, and each
+    gradient within ``EP_BLOCK_GRAD_TOL`` of its largest |element|."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import use_device
+    from repro_torch.distributed.sharding import make_context
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    with use_device("cpu"):
+        mesh = make_host_mesh(1, 1)
+        try:
+            check(dist.get_backend() == "gloo", dist.get_backend())
+            ctx = make_context(mesh)
+            loss, aux, grads, records, kept = _ep_block_grads(
+                dict(block, device="cpu"), ctx)
+        finally:
+            dist.destroy_process_group()
+    flips = int((records[0]["idx"] != block["idx"]).any(dim=-1).sum())
+    moved = int((kept[0] != block["keep"]).sum())
+    name, worst = _grad_gap(block["grads"], grads)
+    print(f"(b) the same block on the CPU ({time.perf_counter() - t0} s): "
+          f"{flips} tokens choose other experts, {moved} pairs kept "
+          f"otherwise; loss {block['loss'].item()} vs {loss.item()}, aux "
+          f"{block['aux'].item()} vs {aux.item()}; worst gradient "
+          f"{name}, {worst} of its max |g| (limit {EP_BLOCK_GRAD_TOL}) over "
+          f"{', '.join(grads)} ({card})")
+    check(flips == 0 and moved == 0,
+          f"(b) card and CPU routed otherwise: {flips} tokens, {moved} pairs")
+    check(worst <= EP_BLOCK_GRAD_TOL,
+          f"(b) the card's gradient {name} differs by {worst}")
+
+
+def _ep_train_steps(ctx, card, profile):
+    """(c): bf16 AdamW steps through ``routed_ep``: ``FAMILY_TRAIN_STEPS``,
+    one int8-compressed and one ``microbatch=1`` step, each MoE layer's
+    forward, recompute and backward under the sync check. Returns (the
+    launches, the cell's measurements)."""
+    import statistics
+    import torch
+    from repro_torch import tree
+    from repro_torch.distributed import compression
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_batches
+    from repro_torch.models import convert, layers, model, moe
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.train_step import data_shard, make_train_state, \
+        make_train_step
+    cut, want = FAMILY_TRAIN[MOE_ARCH]
+    cfg = _family_cfg(MOE_ARCH, cut)
+    dev = torch.device(DEV)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)   # the launcher's
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = convert.local_expert_state(make_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg), ctx)
+    n_moe = sum(s.ffn == "moe" for s in model.layer_specs(cfg))
+    print(f"(c) {MOE_ARCH} in {cfg.dtype}, {cfg.num_layers} layers "
+          f"({n_moe} MoE): {sum(t.numel() for t in tree.leaves(state['params']))}"
+          f" parameters; batches of {FAMILY_TRAIN_BATCH} x "
+          f"{FAMILY_TRAIN_SEQ}, remat full; state "
+          f"{torch.cuda.memory_allocated() - held} bytes ({held} held before)")
+    batches = train_batches(cfg, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ)
+    real, calls = moe.moe_block, {"forward": 0, "backward": 0}
+    real_attn = layers.attn_block
+
+    class Mark(torch.autograd.Function):
+        """Identity; its backward sets the sync debug mode: "error" where
+        a gradient enters the MoE block, 0 where the input's leaves."""
+        @staticmethod
+        def forward(fctx, t, mode):
+            fctx.mode = mode
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(fctx, g):
+            if fctx.mode == "error":
+                calls["backward"] += 1
+            torch.cuda.set_sync_debug_mode(fctx.mode)
+            return g, None
+
+    def checked_block(p, x, cfg, ctx=None):
+        # counted on entry: the remat recompute stops once it has what
+        # the backward needs
+        calls["forward"] += 1
+        x = Mark.apply(x, 0)
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = real(p, x, cfg, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        return Mark.apply(y, "error"), Mark.apply(aux, "error")
+
+    def unchecked_attn_block(*args, **kw):
+        # the remat recompute of a MoE layer's attention runs inside the
+        # layer's backward, within the MoE block's marks: not checked
+        # (its RoPE frequencies are a host-to-device copy)
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_attn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    def run(step_fn, box, n, label, microbatch=0):
+        ms, losses = [], []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        calls.update(forward=0, backward=0)
+        for _ in range(n):
+            batch = {k: v.to(dev) for k, v in data_shard(
+                next(batches), ctx, microbatch).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                box["state"], metrics = step_fn(box["state"], batch)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                check(False, f"(c) {label}: a MoE layer read to the host: "
+                             f"{e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        slices = max(1, FAMILY_TRAIN_BATCH // microbatch) if microbatch \
+            else 1
+        # forward and remat recompute of each MoE layer, one backward
+        want_calls = {"forward": 2 * n_moe * n * slices,
+                      "backward": 2 * n_moe * n * slices}
+        print(f"(c) {label}: losses {losses}, step ms {ms}, launches "
+              f"{launches}, MoE layer passes under the sync check {calls} "
+              f"(want {want_calls})")
+        check(all(map(math.isfinite, losses)),
+              f"(c) {label}: a loss is not finite")
+        check(launches == {k: v * n * slices for k, v in want.items()},
+              f"(c) {label} launched {launches}, want {want} a step")
+        check(calls == want_calls, f"(c) {label}: MoE passes {calls}")
+        return ms, launches
+
+    box = {"state": state}
+    del state
+    moe.moe_block, layers.attn_block = checked_block, unchecked_attn_block
+    total = {}
+    try:
+        ms, got = run(make_train_step(cfg, ctx, opt_cfg), box,
+                      FAMILY_TRAIN_STEPS, f"{FAMILY_TRAIN_STEPS} steps")
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+        box["state"]["err"] = compression.init_error_buffer(
+            box["state"]["params"])
+        ms_c, got = run(make_train_step(cfg, ctx, opt_cfg,
+                                        grad_compression=True),
+                        box, 1, "one step with int8 compression")
+        for name, n in got.items():
+            total[name] += n
+        del box["state"]["err"]
+        ms_m, got = run(make_train_step(cfg, ctx, opt_cfg, microbatch=1),
+                        box, 1, f"one step with microbatch=1 "
+                        f"({FAMILY_TRAIN_BATCH} slices)", microbatch=1)
+        for name, n in got.items():
+            total[name] += n
+    finally:
+        moe.moe_block, layers.attn_block = real, real_attn
+    check(int(box["state"]["step"]) == FAMILY_TRAIN_STEPS + 2,
+          f"(c) step reads {int(box['state']['step'])}")
+    med = statistics.median(ms[1:])
+    tokens = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
+    routed = MEASURED.get("family_train", {}).get(MOE_ARCH)
+    print(f"(c) {MOE_ARCH} through routed_ep: step {med} ms (median of "
+          f"steps 2-{FAMILY_TRAIN_STEPS}), {tokens / med * 1e3} tokens/s, "
+          f"peak device memory {peak} bytes; compressed step {ms_c[0]} ms, "
+          f"microbatched step {ms_m[0]} ms; phase 19's routed step of the "
+          f"same cell in this run: "
+          + (f"{routed['step_s'] * 1e3} ms, {tokens / routed['step_s']} "
+             f"tokens/s, peak {routed['peak']} bytes" if routed else
+             "not run in this call") + f" ({card})")
+    if profile:
+        batch = {k: v.to(dev) for k, v in next(batches).items()}
+        step = make_train_step(cfg, ctx, opt_cfg)
+
+        def one_step():
+            box["state"], _ = step(box["state"], batch)
+        _profile(f"{MOE_ARCH} routed_ep train step", one_step)
+    del box
+    return total, {"cfg": cfg, "peak": peak, "held": held,
+                   "step_s": med / 1e3}
+
+
+def _ep_train_peak(proc, m, card):
+    """(c): the dry-run's count of the cell through ``routed_ep`` (the
+    production mesh's context, in a subprocess that never touches CUDA)
+    against the card's peak."""
+    from repro_torch.common import hw
+    lo, hi = DRYRUN_PEAK_RATIO
+    out, _ = proc.communicate(timeout=FAMILY_COUNT_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"(c) the count exited {proc.returncode}: "
+          f"{out.strip().splitlines()[-3:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    check(not rec["cuda_initialized"] and not any(rec["launches"].values())
+          and not rec["build_calls"], f"(c) the count touched the card: {rec}")
+    c = rec["counts"]
+    ratio = c["peak_bytes"] / m["peak"]
+    terms = hw.roofline_terms(c["flops"], c["bytes"], 0.0)
+    print(f"(c) {MOE_ARCH} through routed_ep: predicted peak "
+          f"{c['peak_bytes']} bytes (argument {c['argument_bytes']}), "
+          f"measured max_memory_allocated {m['peak']} bytes ({m['held']} "
+          f"held before), ratio {ratio} (bound {lo}-{hi}); counted in "
+          f"{rec['seconds']} s; bound_s {terms['bound_s']} "
+          f"({terms['dominant']}), measured {m['step_s']} s a step, "
+          f"bound_s / measured {terms['bound_s'] / m['step_s']} ({card})")
+    check(lo <= ratio <= hi, f"(c) predicted/measured peak {ratio}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -6100,6 +6585,8 @@ def main() -> int:
             profile="--profile" in sys.argv[1:])
         examples_launches = phase_examples(corpus)
         ep_launches = phase_ep(profile="--profile" in sys.argv[1:])
+        ep_training_launches = phase_ep_train(
+            profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6111,12 +6598,14 @@ def main() -> int:
     # and MoE serving (phase 14), the SSM, hybrid and audio families
     # (phase 15), MLA and MTP (phase 17), the VLM family (phase 18) and
     # the non-dense families' training (phase 19), the example entry
-    # points (phase 20) and expert-parallel serving (phase 21)
+    # points (phase 20), expert-parallel serving (phase 21) and training
+    # (phase 22)
     for name, count in list(moe_launches.items()) + \
             list(ssm_launches.items()) + list(mla_launches.items()) + \
             list(vlm_launches.items()) + \
             list(family_training_launches.items()) + \
-            list(examples_launches.items()) + list(ep_launches.items()):
+            list(examples_launches.items()) + list(ep_launches.items()) + \
+            list(ep_training_launches.items()):
         launches[name] += count
     for name, count in launches.items():
         if count < 1:
@@ -6142,6 +6631,7 @@ def main() -> int:
                       family_training_launches}))
     print(json.dumps({"examples_launches": MEASURED["examples"]}))
     print(json.dumps({"ep_serving_launches": ep_launches}))
+    print(json.dumps({"ep_training_launches": ep_training_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

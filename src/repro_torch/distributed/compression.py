@@ -19,6 +19,11 @@ The int8 bits are the reference's:
   stack;
 * the same float32 divide by the scale, and ``torch.round`` rounds half
   to even as ``jnp.round`` does.
+
+On a mesh each rank holds its ``E/M`` experts of a MoE layer; their
+scale is the maximum over the whole leaf, as the reference computes it
+on the global gradient: the stacks' maxima are reduced over the model
+axis (``data_parallel.model_axis_max``). The error buffer stays local.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import data_parallel
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -64,17 +70,32 @@ def _stacks(names, layer_stacks: Sequence[str]) -> Dict[str, List[str]]:
 
 @torch.no_grad()
 def compress_grads_with_feedback(grads, error_buf,
-                                 layer_stacks: Sequence[str]):
+                                 layer_stacks: Sequence[str], ctx=None):
     """(compressed-then-dequantized grads in their own dtypes, new error
     buffer in its dtype); ``layer_stacks``: the reference's stack of
-    each element of the trees' ``layers`` (module docstring)."""
+    each element of the trees' ``layers`` (module docstring); ``ctx``, a
+    context on a mesh, makes the expert leaves' scales the whole
+    leaves'."""
     flat_g = tree.flatten_with_names(grads)
     flat_e = tree.flatten_with_names(error_buf)
+    stacks = list(_stacks(flat_g, layer_stacks).values())
+
+    def g32(names):
+        return [flat_g[n].float() + flat_e[n].float() for n in names]
+
+    def amax(ts):
+        return torch.stack([t.abs().max() for t in ts]).max()
+    # a split leaf's stack: its maximum over the model axis first
+    experts = set(data_parallel.expert_leaves(flat_g)) \
+        if data_parallel.model_groups(ctx) else set()
+    split = [i for i, names in enumerate(stacks) if experts & set(names)]
+    whole = dict(zip(split, data_parallel.model_axis_max(
+        [amax(g32(stacks[i])) for i in split], ctx)))
     new_g, new_e = {}, {}
-    for names in _stacks(flat_g, layer_stacks).values():
-        g32 = [flat_g[n].float() + flat_e[n].float() for n in names]
-        scale = _scale(torch.stack([t.abs().max() for t in g32]).max())
-        for n, t in zip(names, g32):
+    for i, names in enumerate(stacks):
+        ts = g32(names)
+        scale = _scale(whole[i] if i in whole else amax(ts))
+        for n, t in zip(names, ts):
             deq = dequantize_int8(_quantize(t, scale), scale)
             new_g[n] = deq.to(flat_g[n].dtype)
             new_e[n] = (t - deq).to(flat_e[n].dtype)

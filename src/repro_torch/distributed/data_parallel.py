@@ -1,0 +1,174 @@
+"""A training step's collectives on a ``data x model`` mesh.
+
+The reference jits its train step over the mesh with sharded inputs
+(``launch/train.py:66``): its gradients, norm and int8 scales are those
+of the global batch, with the reductions XLA inserts. The port runs the
+step on every rank of a ``torch.distributed`` device mesh
+(``launch.mesh.make_host_mesh``, ``sharding.make_context``), each rank
+on its data shard's rows and with every leaf whole but each MoE layer's
+experts, cut to the rank's ``E/M`` by ``models.moe.local_experts``
+(*expert leaves*). What the reference's global values need:
+
+* over the data axes, every gradient leaf is averaged: each rank's loss
+  is the mean over its rows, and the shards hold equal rows;
+* over the model axis, the MoE routers' gradients are summed: each rank
+  routes its ``S/M`` positions (``models.moe.routed_ep``), so its router
+  gradient covers those only. Every other whole leaf (attention, the
+  dense FFNs, a MoE layer's ``ln`` and shared experts, which see the
+  whole sequence on every rank) has its whole gradient on every rank,
+  and each rank's experts the whole gradient from every rank's tokens
+  (the exchange's backward);
+* the global norm counts each whole leaf once and sums the expert
+  leaves' squares over the model axis (``global_sq_sums``);
+* an int8 scale is the maximum over a whole leaf: the maximum over the
+  model axis for the expert leaves (``model_axis_max``).
+
+An axis of one rank needs none of this, and nothing is called over it:
+the dry-run's ``launch.mesh.OneRankMesh`` (no process group) and a world
+of one run the step as one device does.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterable, List
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree
+
+_EXPERT = re.compile(r"(.*/)?ffn/w[123]$")
+
+
+def on_mesh(ctx) -> bool:
+    """Whether ``ctx`` computes on a mesh (a live one or the dry-run's)."""
+    return ctx is not None and ctx.mesh is not None
+
+
+def _groups(ctx, axes: Iterable[str]) -> List:
+    """The process groups of those of ``axes`` with more than one rank."""
+    mesh = ctx.mesh
+    return [mesh.get_group(a) for a in axes
+            if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+
+
+def data_groups(ctx) -> List:
+    return _groups(ctx, ctx.data_axes) if on_mesh(ctx) else []
+
+
+def model_groups(ctx) -> List:
+    return _groups(ctx, (ctx.model_axis,)) if on_mesh(ctx) else []
+
+
+def data_rank(ctx) -> int:
+    """This rank's index along the data axes together (row-major)."""
+    if not on_mesh(ctx):
+        return 0
+    mesh, r = ctx.mesh, 0
+    for a in ctx.data_axes:
+        r = r * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return r
+
+
+def expert_leaves(flat: Dict[str, torch.Tensor]) -> List[str]:
+    """The names in ``flat`` (``tree.flatten_with_names`` of a parameter
+    tree, or of a state tree holding such trees) of the MoE layers'
+    expert leaves: ``w1``/``w3``/``w2`` of an ``ffn`` that has a
+    ``router``."""
+    return [n for n in flat if _EXPERT.fullmatch(n) and
+            n.rsplit("/", 1)[0] + "/router" in flat]
+
+
+def _sum(t: torch.Tensor, groups) -> torch.Tensor:
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+@torch.no_grad()
+def reduce_gradients(grads, ctx):
+    """This rank's gradients -> the reference's global ones on ``ctx``'s
+    mesh (module docstring): every leaf averaged over the data axes, the
+    routers summed over the model axis. In place; returns ``grads``."""
+    data, model = data_groups(ctx), model_groups(ctx)
+    if not data and not model:
+        return grads
+    n_data = ctx.data_axes_size
+    for name, g in tree.flatten_with_names(grads).items():
+        if model and name.endswith("/router"):
+            _sum(g, model)
+        if data:
+            _sum(g, data).div_(n_data)
+    return grads
+
+
+@torch.no_grad()
+def global_sq_sums(grads, ctx) -> List[torch.Tensor]:
+    """Each leaf's float32 sum of squares in leaf order, an expert leaf's
+    summed over the model axis (one all-reduce for them all)."""
+    flat = tree.flatten_with_names(grads)
+    sums = {n: g.float().square().sum() for n, g in flat.items()}
+    model = model_groups(ctx)
+    experts = expert_leaves(flat) if model else []
+    if experts:
+        both = _sum(torch.stack([sums[n] for n in experts]), model)
+        sums.update(zip(experts, both.unbind()))
+    return list(sums.values())
+
+
+@torch.no_grad()
+def model_axis_max(values: List[torch.Tensor], ctx) -> List[torch.Tensor]:
+    """Each float32 0-d value's maximum over the model axis, in one
+    all-reduce."""
+    model = model_groups(ctx)
+    if not model or not values:
+        return values
+    both = torch.stack(values)
+    for g in model:
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=g)
+    return list(both.unbind())
+
+
+@torch.no_grad()
+def global_metrics(metrics: Dict[str, torch.Tensor], ctx
+                   ) -> Dict[str, torch.Tensor]:
+    """``model.lm_loss``'s metrics on this rank -> the reference's: every
+    metric averaged over the data axes but ``aux``, which is the first
+    data shard's, as the reference's jitted step returns it (ROADMAP §3:
+    its ``routed_ep`` declares the model-axis mean replicated over the
+    data axes). ``loss`` is the caller's to recombine."""
+    data = data_groups(ctx)
+    if not data:
+        return dict(metrics)
+    names = [n for n in metrics if n != "aux"]
+    first = data_rank(ctx) == 0
+    v = torch.stack([metrics[n].float() for n in names] +
+                    [metrics["aux"].float() if first else
+                     torch.zeros((), device=metrics["aux"].device)])
+    _sum(v, data)
+    out = {n: x / ctx.data_axes_size for n, x in zip(names, v[:-1])}
+    out["aux"] = v[-1]
+    return out
+
+
+@torch.no_grad()
+def gather_experts(state, ctx):
+    """A state tree (parameters, moments, error buffer) with this rank's
+    expert leaves (``local_experts``) -> the same tree with every expert
+    leaf whole, gathered over the model axis in rank order; every rank
+    takes part. Other leaves are the same tensors."""
+    model = model_groups(ctx)
+    if not model:
+        return state
+    group = model[0]
+    flat = tree.flatten_with_names(state)
+    out = dict(flat)
+    for name in expert_leaves(flat):
+        t = flat[name].contiguous()
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        out[name] = torch.cat(parts)
+    return tree.unflatten_like(state, out)
+

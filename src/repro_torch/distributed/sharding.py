@@ -3,15 +3,19 @@
 Port of the reference's ``distributed/sharding.py`` (MaxText-style
 logical axes) for the port's layouts, and its ``make_context``.
 
-``make_context`` given a live ``torch.distributed`` device mesh
-(``launch.mesh.make_host_mesh``) makes the context of the
-expert-parallel MoE path, as the reference's does: the mesh, its batch
-axes, the model axis and ``moe_impl="ep"``. That path places the only
-tensors that are split across ranks (each rank's experts, by
-``models.moe.local_experts``; its batch rows and sequence slice). The
+``make_context`` given a mesh makes the context of the expert-parallel
+MoE path, as the reference's does on any mesh: the mesh, its batch axes,
+the model axis and ``moe_impl="ep"``. A live ``torch.distributed``
+device mesh (``launch.mesh.make_host_mesh``) is what a run computes on;
+plain axis sizes (the dry-run's production mesh, one rank on each axis)
+give ``launch.mesh.OneRankMesh``, over which the dry-run counts
+``routed_ep`` and a training step on a mesh as one rank runs them. That
+path places the only tensors that are split across ranks (each rank's
+experts, by ``models.moe.local_experts``; its batch rows and sequence
+slice); ``distributed.data_parallel`` reduces the gradients. The
 partition rules below place nothing: they are kept as data, for the
 dry-run's records and for DTensor placements across cards (ROADMAP
-queue 1 item 16). A spec is a tuple with one entry per dimension: an
+queue 1 item 16 (b)). A spec is a tuple with one entry per dimension: an
 axis name, a tuple of axis names (the batch axes of a multi-pod mesh),
 or ``None`` (replicated); ``tuple()`` of the reference's
 ``PartitionSpec`` for the same leaf gives the same tuple. The rule
@@ -41,40 +45,36 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.launch.mesh import OneRankMesh
 from repro_torch.models.layers import ModelContext
 
 Spec = Tuple[Any, ...]
 AxisSizes = Mapping[str, int]
 
-_DRYRUN_EP = "ROADMAP queue 1 item 19 (the dry-run counts `routed_ep`)"
-_CARDS = "ROADMAP queue 1 item 16 (more than one card)"
+_FROM_MESH = ("make_context sets it from the mesh; other layouts wait "
+              "for ROADMAP queue 1 item 16 (b)")
+_HINTS = "the reference's layout hints wait for ROADMAP queue 1 item 16 (c)"
 
-#: the reference's ``ModelContext`` fields that a context made from plain
-#: axis sizes (the dry-run's) refuses, and the ROADMAP item that brings
-#: each. The mesh fields come with a live device mesh (``make_context``);
-#: the two layout hints of a sharded run are refused everywhere.
-REFERENCE_ONLY_CONTEXT = {
-    "moe_impl": _DRYRUN_EP,
-    "capacity_factor": _DRYRUN_EP,
-    "mesh": _DRYRUN_EP,
-    "model_axis": _DRYRUN_EP,
-    "data_axes": _DRYRUN_EP,
-    "seq_shard_residual": _CARDS,
-    "no_tp": _CARDS,
+#: the reference's ``ModelContext`` fields that a caller may not set, and
+#: why: the mesh fields come from the mesh, the two layout hints of a
+#: sharded run are not ported
+REFUSED_CONTEXT = {
+    "mesh": _FROM_MESH,
+    "model_axis": _FROM_MESH,
+    "data_axes": _FROM_MESH,
+    "seq_shard_residual": _HINTS,
+    "no_tp": _HINTS,
 }
-#: the fields a caller may set beside a live device mesh
-LIVE_MESH_FIELDS = ("moe_impl", "capacity_factor")
 
 
-def check_context_fields(kw: Mapping[str, Any], allow=()) -> None:
-    """Raise ``ValueError`` for a reference-only field not in ``allow``
-    or an unknown ``ModelContext`` field."""
+def check_context_fields(kw: Mapping[str, Any]) -> None:
+    """Raise ``ValueError`` for a refused (``REFUSED_CONTEXT``) or unknown
+    ``ModelContext`` field."""
     known = {f.name for f in dataclasses.fields(ModelContext)}
     for key in kw:
-        if key in REFERENCE_ONLY_CONTEXT and key not in allow:
-            raise ValueError(
-                f"context field {key!r} belongs to the reference only; "
-                f"{REFERENCE_ONLY_CONTEXT[key]} brings it")
+        if key in REFUSED_CONTEXT:
+            raise ValueError(f"context field {key!r} is not the caller's: "
+                             f"{REFUSED_CONTEXT[key]}")
         if key not in known:
             raise ValueError(f"unknown context field {key!r}; the port's "
                              f"ModelContext has {sorted(known)}")
@@ -84,21 +84,30 @@ def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw
                  ) -> ModelContext:
     """The port's ``ModelContext``.
 
-    Given a live ``DeviceMesh``, as the reference given a mesh: ``mesh``,
-    ``data_axes`` (those of ``pod`` and ``data`` that the mesh has),
-    ``model_axis="model"`` and ``moe_impl="ep"`` unless ``kw`` sets it.
-    Given ``None`` or plain axis sizes (the dry-run's), the single-device
-    context; a mesh field there, a layout hint anywhere, or an unknown
+    Given a mesh, as the reference given a mesh: ``mesh``, ``data_axes``
+    (those of ``pod`` and ``data`` that the mesh has),
+    ``model_axis="model"`` and ``moe_impl="ep"`` unless ``kw`` sets it. A
+    live ``DeviceMesh`` is taken as it is; plain axis sizes (the
+    dry-run's) must be one rank each and become a ``OneRankMesh``, a
+    count over more ranks raises ``ValueError`` (ROADMAP queue 1 item 16
+    (d)). ``None``: the single-device context. A refused or unknown
     field raises ``ValueError``."""
-    if isinstance(mesh, DeviceMesh):
-        check_context_fields(kw, allow=LIVE_MESH_FIELDS)
-        kw.setdefault("moe_impl", "ep")
-        return ModelContext(
-            mesh=mesh, model_axis="model",
-            data_axes=tuple(a for a in ("pod", "data")
-                            if a in mesh.mesh_dim_names), **kw)
     check_context_fields(kw)
-    return ModelContext(**kw)
+    if mesh is None:
+        return ModelContext(**kw)
+    if not isinstance(mesh, DeviceMesh):
+        sizes = dict(mesh)
+        if any(n != 1 for n in sizes.values()):
+            raise ValueError(
+                f"a dry-run mesh of {sizes}: the port counts one rank; "
+                f"counts over more ranks wait for ROADMAP queue 1 item 16 "
+                f"(d)")
+        mesh = OneRankMesh(tuple(sizes))
+    kw.setdefault("moe_impl", "ep")
+    return ModelContext(
+        mesh=mesh, model_axis="model",
+        data_axes=tuple(a for a in ("pod", "data")
+                        if a in mesh.mesh_dim_names), **kw)
 
 
 def _axis_size(axis_sizes: AxisSizes, axis) -> int:

@@ -99,12 +99,16 @@ reference's convention. The dense, MoE, SSM, hybrid, audio and
 local/global families, MLA and MTP (``deepseek-v3-671b``) and the VLM
 family (``llama-3.2-vision-90b``, its ``image_embeds`` an argument of
 every cell) are counted: all ten of the reference's architectures (the
-SSD scan has no host read and no data-dependent shape). The MoE
-family's routing is data-dependent: on ``meta`` tensors ``models.moe``
-splits each layer's ``T·k`` rows evenly over the experts
-(``moe.expert_rows``), where the reference's dry-run compiles
-``routed_ep``, every expert over a buffer of 1.25 times its even share
-(ROADMAP §3 states the difference). ``long_500k`` for the
+SSD scan has no host read and no data-dependent shape). A cell's context
+is ``sharding.make_context`` of the production mesh's axis sizes, as the
+reference's: a ``launch.mesh.OneRankMesh`` and ``moe_impl="ep"``, so a
+MoE layer counts ``routed_ep`` as the reference compiles it, every
+expert over its buffer of ``cap = ceil(T·k / E · capacity_factor)``
+rows, the exchange a copy, forward and backward (a train step on the
+mesh, whose gradient reductions over axes of one rank are nothing).
+``ctx_overrides`` may set ``moe_impl="dense"`` (the drop-free
+``routed``, counted under even load, ``moe.expert_rows``) and
+``capacity_factor``. ``long_500k`` for the
 full-attention archs (the reference's reason) and every multi-pod cell
 (one card has no multi-pod mesh) get ``skipped`` records.
 """

@@ -12,7 +12,10 @@ takes.
 ``make_host_mesh`` is the mesh a run computes on: a
 ``torch.distributed`` device mesh over the live process group, which
 ``sharding.make_context`` turns into the context of the expert-parallel
-MoE path (``models.moe.routed_ep``).
+MoE path (``models.moe.routed_ep``) and of a training step on a mesh
+(``distributed.data_parallel``). ``OneRankMesh`` is the dry-run's: the
+same calls answered for one rank with no process group, so that the
+dry-run counts what a run on the production mesh runs.
 """
 from __future__ import annotations
 
@@ -49,6 +52,26 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
         raise ValueError("one card: no multi-pod mesh")
     return Mesh(("data", "model"), (1, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class OneRankMesh:
+    """A mesh of one rank on every axis and no process group: the mesh of
+    a context made from plain axis sizes (``sharding.make_context``, the
+    dry-run's), as the reference's dry-run compiles on its mesh. It
+    answers the ``DeviceMesh`` calls the model makes; ``get_group`` is
+    ``None``, over which ``models.moe.routed_ep``'s exchange is a copy
+    and the gradient reductions are nothing."""
+    mesh_dim_names: Tuple[str, ...] = ("data", "model")
+
+    def size(self, dim=None) -> int:
+        return 1
+
+    def get_local_rank(self, mesh_dim=None) -> int:
+        return 0
+
+    def get_group(self, mesh_dim=None):
+        return None
 
 
 #: the process group's backend for each device type

@@ -1,7 +1,8 @@
 """Import the reference package's LM and ViT parameters, and its LM
 training state, into the port's layout, and export the port's LM
 parameters (or gradients) to the reference's. On a mesh,
-``local_expert_params`` then keeps each rank's experts.
+``local_expert_params`` (``local_expert_state`` for a training state)
+then keeps each rank's experts.
 
 The reference keeps each stage's super-block of layers stacked along a
 leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
@@ -101,6 +102,19 @@ def local_expert_params(params: Params, ctx) -> Params:
     for key, shared in params.items():
         if key.endswith("_shared"):
             out[key] = {name: layer(p) for name, p in shared.items()}
+    return out
+
+
+def local_expert_state(state: Mapping[str, Any], ctx) -> dict:
+    """A training state (``train_step.make_train_state``'s, whole) ->
+    this rank's: the parameters, both moments and the error buffer cut by
+    ``local_expert_params``; ``step`` as it is."""
+    out = dict(state)
+    out["params"] = local_expert_params(state["params"], ctx)
+    out["opt"] = {k: local_expert_params(v, ctx)
+                  for k, v in state["opt"].items()}
+    if "err" in state:
+        out["err"] = local_expert_params(state["err"], ctx)
     return out
 
 

@@ -297,9 +297,25 @@ def mtp_input(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
     return torch.cat([h, e], dim=-1) @ p["proj"]
 
 
+#: ``lm_loss``'s weights of the MTP and load-balance terms (the reference's)
+MTP_WEIGHT, AUX_WEIGHT = 0.3, 0.001
+
+
+def total_loss(ce: torch.Tensor, aux: torch.Tensor,
+               mtp: Optional[torch.Tensor] = None, *,
+               mtp_weight: float = MTP_WEIGHT,
+               aux_weight: float = AUX_WEIGHT) -> torch.Tensor:
+    """``ce + mtp_weight * mtp + aux_weight * aux``, in ``lm_loss``'s
+    order (no MTP term without ``mtp``)."""
+    loss = ce
+    if mtp is not None:
+        loss = loss + mtp_weight * mtp
+    return loss + aux_weight * aux
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, ctx: ModelContext, *, mtp_weight: float = 0.3,
-            aux_weight: float = 0.001
+            cfg: ModelConfig, ctx: ModelContext, *,
+            mtp_weight: float = MTP_WEIGHT, aux_weight: float = AUX_WEIGHT
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S + 1]`` (and
     ``batch["image_embeds"]`` for the VLM family): the first S tokens
@@ -318,8 +334,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, aux = forward(params, inputs, cfg, ctx,
                           image_embeds=batch.get("image_embeds"))
-    loss = fused_ce(hidden, params["unembed"], targets, cfg.vocab_size)
-    metrics = {"ce": loss, "aux": aux}
+    ce = fused_ce(hidden, params["unembed"], targets, cfg.vocab_size)
+    metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
         hm = mtp_input(params, hidden, targets, cfg)
         positions = torch.arange(hm.shape[1], device=hm.device)[None, :]
@@ -328,8 +344,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
         mtp = fused_ce(hm, params["unembed"], targets[:, 1:],
                        cfg.vocab_size)
         metrics["mtp"] = mtp
-        loss = loss + mtp_weight * mtp
-    loss = loss + aux_weight * aux
+    loss = total_loss(ce, aux, metrics.get("mtp"), mtp_weight=mtp_weight,
+                      aux_weight=aux_weight)
     metrics["loss"] = loss
     return loss, metrics
 

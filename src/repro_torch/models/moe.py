@@ -17,22 +17,29 @@ Port of the reference's ``models/moe.py`` (``init_moe`` ``:45``,
   (token, slot) pairs beyond it are dropped, ``all_to_all_single`` over
   the model-axis group sends each buffer to the rank that holds its
   expert and brings the outputs back. Its shapes are fixed by ``cap``,
-  so it makes no host read.
+  so it makes no host read. It has a backward (a training step on a
+  mesh): the exchanges run in reverse, the sequence slice and gather
+  return the input's gradient whole on every rank, and the router's
+  gradient, partial on each rank, is summed over the model axis by
+  ``distributed.data_parallel``.
 
-No atomics on either route: the combine is a gather and a sum, so a run
-on the card gives the same bits every time. Both return (y, aux) where
+No atomics on either route's forward: the combine is a gather and a
+sum, so a run on the card gives the same bits every time; a backward
+adds one term to each row it writes but ``routed_ep``'s discarded spare
+row, so it repeats its bits too. Both return (y, aux) where
 aux is the switch-style load-balance loss, float32. ``moe_block`` takes
 ``routed_ep`` when ``ctx.moe_impl == "ep"`` and ``ctx.mesh`` is set, as
 the reference's does.
 
-On ``meta`` tensors (the dry-run's counting, ``launch.dryrun_lib``) the
-expert choices have no values, so the per-expert counts come from a
+The dry-run (``launch.dryrun_lib``, ``meta`` tensors) counts
+``routed_ep`` as the reference's dry-run compiles it: its context's mesh
+is ``launch.mesh.OneRankMesh``, one rank and no process group, whose
+exchange is a copy; every expert runs over its ``cap`` rows. ``routed``
+on ``meta`` tensors (a context without a mesh, or ``moe_impl="dense"``)
+has no expert choices to count, so its per-expert counts come from a
 stated routing model instead of the one host read: even load, ``T·k //
 E`` rows an expert and one more for each of the first ``T·k % E``
-experts (``expert_rows``). The SwiGLU FLOPs of a layer are then those of
-its ``T·k`` rows, as on the card whatever the split; the reference's
-dry-run compiles ``routed_ep``, every expert over a buffer of 1.25 times
-its even share, and the difference is stated in ROADMAP §3.
+experts (``expert_rows``).
 """
 from __future__ import annotations
 
@@ -175,6 +182,97 @@ def _expert_ffn(h: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return torch.bmm(F.silu(torch.bmm(h, w1)) * torch.bmm(h, w3), w2)
 
 
+def _all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``all_to_all_single`` of equal blocks over ``group``; over the
+    dry-run's one-rank mesh (``launch.mesh.OneRankMesh``, no group) the
+    exchange of one rank with itself, a copy."""
+    if group is None:
+        out.copy_(x)
+    else:
+        dist.all_to_all_single(out, x, group=group)
+
+
+class _Exchange(torch.autograd.Function):
+    """x: [N, d] in M equal blocks, block j to rank j of ``group`` ->
+    ``[N + pad, d]``: the blocks that arrive, in rank order, then ``pad``
+    zero rows. The exchange is its own transpose: the backward sends the
+    gradient of the first N rows back the same way."""
+
+    @staticmethod
+    def forward(fctx, x, group, pad):
+        fctx.group, fctx.pad = group, pad
+        n = x.shape[0]
+        out = x.new_empty((n + pad,) + tuple(x.shape[1:]))
+        _all_to_all(out[:n], x.contiguous(), group)
+        out[n:].zero_()
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        n = g.shape[0] - fctx.pad
+        out = g.new_empty((n,) + tuple(g.shape[1:]))
+        _all_to_all(out, g[:n].contiguous(), fctx.group)
+        return out, None, None
+
+
+class _ModelMean(torch.autograd.Function):
+    """The mean of a value over the ranks of ``group`` (M of them). Every
+    rank's loss reads the mean, so the gradient of a rank's own term is
+    g / M, with no all-reduce: the terms' gradients meet where the
+    parameters' gradients are summed (``distributed.data_parallel``)."""
+
+    @staticmethod
+    def forward(fctx, v, group, M):
+        fctx.M = M
+        out = v.clone()
+        if group is not None:
+            dist.all_reduce(out, group=group)
+        return out / M
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.M, None, None
+
+
+def _gather_seq(y: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+class _SeqSlice(torch.autograd.Function):
+    """x: [B, S, d], the same on every rank of ``group`` -> rank m's S/M
+    positions. Every rank computes the same loss from the gathered
+    output (``_SeqGather``), so the input's gradient is the gather of
+    each rank's slice gradient, not their sum."""
+
+    @staticmethod
+    def forward(fctx, x, group, m, M):
+        fctx.group = group
+        s = x.shape[1] // M
+        return x[:, m * s:(m + 1) * s].contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return _gather_seq(g, fctx.group), None, None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """y: [B, S/M, d] on rank m -> [B, S, d], every rank's positions in
+    rank order; the backward keeps rank m's positions of the (replicated)
+    gradient."""
+
+    @staticmethod
+    def forward(fctx, y, group, m):
+        fctx.m, fctx.s = m, y.shape[1]
+        return _gather_seq(y, group)
+
+    @staticmethod
+    def backward(fctx, g):
+        s = fctx.s
+        return g[:, fctx.m * s:(fctx.m + 1) * s].contiguous(), None, None
+
+
 def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism over ``ctx.model_axis`` on this rank.
@@ -185,9 +283,20 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     reference's global ``routed_ep`` at these rows, and aux averaged over
     the model axis. When ``S`` divides over the ``M`` ranks, each routes
     its ``S/M`` positions and the outputs are all-gathered; otherwise
-    every rank routes all of them. Each expert takes at most ``cap``
-    (``capacity``) of a rank's (token, slot) pairs, in token-major order;
-    the rest are dropped (weight 0). Forward only."""
+    every rank routes all of them, which only serving does (a decode
+    step): under autograd that case raises ``ValueError``, since each
+    rank's experts would take M copies of every gradient. Each expert
+    takes at most ``cap`` (``capacity``) of a rank's (token, slot) pairs,
+    in token-major order; the rest are dropped (weight 0).
+
+    The backward runs the exchanges in reverse and gathers the input's
+    gradient over the sequence slices (``_SeqSlice``/``_SeqGather``);
+    the router's gradient on a rank covers its S/M positions only and
+    is summed over the model axis with the other gradients
+    (``distributed.data_parallel.reduce_gradients``). Each kept pair
+    reads its own row and a dropped one the spare zero row, so the
+    backward of the gathers adds one term to each kept row (the spare
+    row's, all zero, are discarded): the same bits every run."""
     M = ctx.model_axis_size
     E, k = cfg.num_experts, cfg.experts_per_token
     if E % M:
@@ -196,49 +305,47 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     if p["w1"].shape[0] != El:
         raise ValueError(f"routed_ep wants this rank's {El} experts, got "
                          f"{p['w1'].shape[0]} (models.moe.local_experts)")
-    if torch.is_grad_enabled() and (x.requires_grad or
-                                    p["w1"].requires_grad):
-        raise NotImplementedError(
-            "routed_ep has no backward through the exchange (ROADMAP "
-            "queue 1 item 16)")
     group = ctx.mesh.get_group(ctx.model_axis)
+    m = ctx.mesh.get_local_rank(ctx.model_axis)
     B, S, d = x.shape
     seq_shard = S % M == 0 and S >= M   # the reference's tok_spec
-    if seq_shard:
-        m = ctx.mesh.get_local_rank(ctx.model_axis)
-        x = x[:, m * (S // M):(m + 1) * (S // M)]
+    if not seq_shard and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, p["router"], p["w1"], p["w3"],
+                                      p["w2"])):
+        raise ValueError(
+            f"routed_ep under autograd wants a sequence that divides over "
+            f"the model axis: {S} positions over {M} ranks would give each "
+            f"rank's experts {M} copies of every gradient")
+    if seq_shard and M > 1:
+        x = _SeqSlice.apply(x, group, m, M)
     bl, sl = x.shape[:2]
     T = bl * sl
     xt = x.reshape(T, d)
     gates, idx, aux = route(xt, p["router"], k)
-    dist.all_reduce(aux, group=group)
-    aux = aux / M
+    aux = _ModelMean.apply(aux, group, M)
     cap = capacity(T, cfg, ctx)
     ids = idx.reshape(-1)                               # [T*k]
     pos, keep = dispatch_slots(ids, E, cap)
     # kept (expert, slot) pairs are unique, so an index copy places them;
     # a dropped pair goes to the spare row E·cap, cut off below
     dest = torch.where(keep, ids * cap + pos, E * cap)
-    buf = xt.new_zeros(E * cap + 1, d)
-    buf.index_copy_(0, dest, xt[:, None].expand(T, k, d).reshape(T * k, d))
+    buf = xt.new_zeros(E * cap + 1, d).index_copy(
+        0, dest, xt[:, None].expand(T, k, d).reshape(T * k, d))
     # dispatch: [E, cap, d] in M blocks of E/M experts, block j to rank j;
     # rank i's block arrives as [M, E/M, cap, d] -> [E/M, M·cap, d]
-    recv = torch.empty(E * cap, d, dtype=xt.dtype, device=xt.device)
-    dist.all_to_all_single(recv, buf[:E * cap], group=group)
+    recv = _Exchange.apply(buf[:E * cap], group, 0)
     h = recv.view(M, El, cap, d).transpose(0, 1).reshape(El, M * cap, d)
     hidden = _expert_ffn(h, p["w1"], p["w3"], p["w2"])
     # return: [E/M, M·cap, d] -> [M, E/M, cap, d], block i to rank i;
-    # what comes back is [E, cap, d], the outputs for this rank's pairs
-    send = hidden.view(El, M, cap, d).transpose(0, 1).contiguous()
-    back = torch.empty_like(send)
-    dist.all_to_all_single(back, send, group=group)
-    rows = back.view(E * cap, d)[ids * cap + torch.clamp(pos, max=cap - 1)]
+    # what comes back is [E, cap, d], the outputs for this rank's pairs,
+    # and the spare zero row that the dropped pairs read
+    send = hidden.view(El, M, cap, d).transpose(0, 1).reshape(E * cap, d)
+    back = _Exchange.apply(send, group, 1)
     w = keep.to(xt.dtype) * gates.reshape(-1)
-    y = (rows * w[:, None]).reshape(T, k, d).sum(dim=1).reshape(bl, sl, d)
-    if seq_shard:
-        parts = [torch.empty_like(y) for _ in range(M)]
-        dist.all_gather(parts, y, group=group)
-        y = torch.cat(parts, dim=1)
+    y = (back.index_select(0, dest) * w[:, None]).reshape(T, k, d).sum(
+        dim=1).reshape(bl, sl, d)
+    if seq_shard and M > 1:
+        y = _SeqGather.apply(y, group, m)
     return y, aux
 
 

@@ -14,6 +14,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import data_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,12 +37,13 @@ def adamw_init(params, opt_dtype: str = "float32") -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def _global_norm(grads) -> torch.Tensor:
+def _global_norm(grads, ctx=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, leaf sums added in
-    the reference's leaf order."""
+    the reference's leaf order. On a mesh (``ctx``) the whole model's:
+    each whole leaf once, each rank's expert leaves summed over the
+    model axis (``data_parallel.global_sq_sums``)."""
     total = None
-    for g in tree.leaves(grads):
-        s = g.float().square().sum()
+    for s in data_parallel.global_sq_sums(grads, ctx):
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -55,11 +57,12 @@ def schedule(step: torch.Tensor, cfg: OptimizerConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, step: torch.Tensor,
-                 cfg: OptimizerConfig
+                 cfg: OptimizerConfig, ctx=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: returns (params, opt_state, {"grad_norm", "lr"}).
-    ``step`` is the int32 step counter before this update."""
-    gnorm = _global_norm(grads)
+    ``step`` is the int32 step counter before this update; ``ctx``, a
+    context on a mesh, makes the clip's norm the whole model's."""
+    gnorm = _global_norm(grads, ctx)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(step, cfg)

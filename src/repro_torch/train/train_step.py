@@ -13,6 +13,16 @@ parameters' device, with ``"image_embeds"`` ``[B, N, d]`` for the VLM
 family. The step runs eagerly; remat is the context's
 (``ModelContext(remat="full")`` recomputes each layer in the
 backward, as the reference's ``jax.checkpoint`` does).
+
+On a mesh (``ctx.mesh``: ``sharding.make_context`` of a ``data x model``
+device mesh) the step runs on every rank, as the reference's step jitted
+over the mesh: ``batch`` holds this rank's rows (``data_shard``), the
+state this rank's experts (``convert.local_expert_params``). The
+gradients are reduced to the global batch's before compression and
+AdamW (``distributed.data_parallel``), and the metrics are the
+reference's global values: ``ce`` (and ``mtp``) averaged over the data
+axes, ``aux`` the first data shard's, ``loss`` recombined from them,
+``grad_norm`` the whole model's.
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, data_parallel
 from repro_torch.models import model
 from repro_torch.models.layers import ModelContext, ShapesOnly, named_scope
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
@@ -74,6 +84,28 @@ def loss_and_grads(params, batch, cfg: ModelConfig, ctx: ModelContext
             tree.unflatten_like(params, dict(zip(live, grads))))
 
 
+def data_shard(batch: Dict[str, torch.Tensor], ctx: ModelContext,
+               microbatch: int = 0) -> Dict[str, torch.Tensor]:
+    """The rows of the global ``batch`` that this rank's step takes, in
+    the order it takes them: data shard ``d``'s ``B/D`` rows. With
+    ``microbatch``, the reference's rows: it slices the global batch into
+    microbatches of ``microbatch`` rows and shards each over the data
+    axes, so shard ``d`` takes rows ``i·mb + d·mb/D`` to ``+ mb/D`` of
+    each microbatch ``i``. Without a mesh, ``batch`` itself."""
+    D = ctx.data_axes_size
+    if D == 1:
+        return batch
+    B = batch["tokens"].shape[0]
+    mb = microbatch or B
+    if B % mb or mb % D:
+        raise ValueError(f"batch {B} in microbatches of {mb} rows does not "
+                         f"shard over {D} data ranks")
+    d, per = data_parallel.data_rank(ctx), mb // D
+    rows = torch.cat([torch.arange(i + d * per, i + (d + 1) * per)
+                      for i in range(0, B, mb)])
+    return {k: v[rows.to(v.device)] for k, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, ctx: ModelContext,
                     opt_cfg: OptimizerConfig, *,
                     grad_compression: bool = False,
@@ -82,19 +114,29 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
     slices of the batch in order, with the reference's arithmetic: the
     first slice's gradients start the sum, each later slice's are added
     in the gradients' own dtype, and loss, metrics and gradients are
-    scaled by 1/n at the end."""
+    scaled by 1/n at the end. On a mesh ``microbatch`` counts the global
+    batch's rows, as the reference's: a rank's slices are ``microbatch
+    / D`` of its rows (``data_shard`` orders them), and a
+    ``microbatch`` that does not divide over the D data ranks raises
+    ``ValueError``."""
+    D = ctx.data_axes_size
+    if microbatch % D:
+        raise ValueError(f"microbatch {microbatch} does not divide over "
+                         f"{D} data ranks")
+    local_mb = microbatch // D
+    mesh = data_parallel.on_mesh(ctx)
 
     def grads_of(params, batch):
-        if not microbatch:
+        if not local_mb:
             return loss_and_grads(params, batch, cfg, ctx)
         B = batch["tokens"].shape[0]
-        if B % microbatch:
+        if B % local_mb:
             raise ValueError(f"batch {B} is not a multiple of microbatch "
-                             f"{microbatch}")
-        n = B // microbatch
+                             f"{local_mb}")
+        n = B // local_mb
 
         def piece(i):
-            return {k: v[i * microbatch:(i + 1) * microbatch]
+            return {k: v[i * local_mb:(i + 1) * local_mb]
                     for k, v in batch.items()}
 
         (loss, metrics), grads = loss_and_grads(params, piece(0), cfg, ctx)
@@ -109,15 +151,21 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
 
     def train_step(state, batch):
         (_, metrics), grads = grads_of(state["params"], batch)
+        if mesh:
+            grads = data_parallel.reduce_gradients(grads, ctx)
+        if data_parallel.data_groups(ctx):
+            metrics = data_parallel.global_metrics(metrics, ctx)
+            metrics["loss"] = model.total_loss(
+                metrics["ce"], metrics["aux"], metrics.get("mtp"))
         new_state = dict(state)
         with named_scope(OPTIMIZER_SCOPE):
             if grad_compression:
                 grads, new_err = compression.compress_grads_with_feedback(
-                    grads, state["err"], model.layer_stacks(cfg))
+                    grads, state["err"], model.layer_stacks(cfg), ctx)
                 new_state["err"] = new_err
             params, opt, opt_metrics = adamw_update(
                 grads, state["opt"], state["params"], state["step"],
-                opt_cfg)
+                opt_cfg, ctx)
         new_state.update(params=params, opt=opt, step=state["step"] + 1)
         return new_state, dict(metrics, **opt_metrics)
 

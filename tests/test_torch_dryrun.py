@@ -10,6 +10,7 @@ zero."""
 import dataclasses
 import glob
 import json
+import math
 import os
 
 import jax
@@ -465,10 +466,40 @@ def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
     assert "[cached]" in capsys.readouterr().out
 
 
+#: context fields the dry-run takes, each with a value that changes what
+#: a MoE cell counts (the default is ``routed_ep`` at 1.25)
+ACCEPTED_CTX = {"moe_impl": "dense", "capacity_factor": 2.0}
+
+
 @pytest.mark.parametrize("key", ["no_tp", "moe_impl", "seq_shard_residual",
                                  "capacity_factor", "data_axes",
                                  "not_a_field"])
 def test_reference_only_and_unknown_ctx_keys_raise(key, tmp_path, capsys):
+    """The mesh's fields, the layout hints and unknown fields raise;
+    ``moe_impl`` and ``capacity_factor`` are the dry-run's to set, and
+    change a MoE cell's count by the expert rows they run: ``E·cap`` a
+    layer for ``routed_ep``, ``T·k`` for the drop-free ``routed``."""
+    if key in ACCEPTED_CTX:
+        arch, shape = "deepseek-moe-16b-smoke", "decode_32k"
+        cfg = get_config(arch)
+        base = dryrun_lib.run_cell(arch, shape)
+        rec = dryrun_lib.run_cell(arch, shape,
+                                  ctx_overrides={key: ACCEPTED_CTX[key]})
+        assert base["status"] == rec["status"] == "ok"
+        T = SHAPES[shape].global_batch
+        E, k = cfg.num_experts, cfg.experts_per_token
+
+        def rows(cf):
+            return E * math.ceil(T * k / E * cf)
+        new_rows = T * k if key == "moe_impl" else rows(2.0)
+        n_moe = cfg.num_layers - cfg.first_dense_layers
+        assert rec["cost"]["matmul_flops_per_chip"] - \
+            base["cost"]["matmul_flops_per_chip"] == \
+            6 * cfg.d_model * cfg.moe_d_ff * n_moe * (new_rows - rows(1.25))
+        ctx = sharding.make_context({"data": 1, "model": 1},
+                                    **{key: ACCEPTED_CTX[key]})
+        assert getattr(ctx, key) == ACCEPTED_CTX[key]
+        return
     with pytest.raises(ValueError, match=key):
         dryrun_lib.run_cell(SMOKE, "decode_32k", ctx_overrides={key: 1})
     with pytest.raises(ValueError,

@@ -9,7 +9,6 @@ reference's; the VLM family's (``llama-3.2-vision-90b``: 20 x [4
 self-attention + 1 cross-attention layer], the image embeddings an
 argument of every cell) the same way."""
 import dataclasses
-import math
 from functools import partial
 
 import jax
@@ -21,7 +20,6 @@ from repro.configs import get_config as jget_config
 from repro.distributed import sharding as jsharding
 from repro.launch import dryrun_lib as jdry
 from repro.launch import specs as jspecs
-from repro.models import layers as JL
 from repro.models import model as jmodel
 from repro_torch.common import hlo
 from repro_torch.configs import SHAPES, get_config
@@ -176,18 +174,6 @@ def stage_cells():
     return out
 
 
-def _expert_rows_gap(cfg, tokens: int) -> int:
-    """Rows the reference's compiled MoE layer runs through its experts
-    beyond the port's ``T·k``. The reference's ``sharding.make_context``
-    picks ``moe_impl="ep"`` on a mesh, so its dry-run compiles
-    ``routed_ep``: every expert over a buffer of ``cap = ceil(T·k / E ·
-    capacity_factor)`` rows (1.25 by default), ``E·cap`` rows in all; the
-    port's even load runs exactly ``T·k``."""
-    E, k = cfg.num_experts, cfg.experts_per_token
-    cap = max(1, math.ceil(tokens * k / E * JL.ModelContext().capacity_factor))
-    return E * cap - tokens * k
-
-
 def _attention_products(cfg, spec, B: int, S: int) -> int:
     """FLOPs of one application's QK^T and PV over S query rows: an MLA
     layer's at head dims ``dn + dr`` and ``dv``, a cross-attention
@@ -203,12 +189,9 @@ def _attention_products(cfg, spec, B: int, S: int) -> int:
 def _stage_gap(cfg, shape) -> int:
     """The matmul FLOPs the reference's compiled cell has beyond the
     port's, over a plan of attention, MLA and cross-attention layers
-    (ROADMAP §3):
+    (ROADMAP §3). Both count a MoE layer's ``routed_ep``, every expert
+    over its ``cap`` rows, so prefill and decode cells have no gap;
 
-    * each MoE layer's experts over ``_expert_rows_gap`` more rows, three
-      products of 2·d·moe_d_ff a row: once in prefill and decode, four
-      times in a train step (forward, the remat's recompute, the two
-      gradient products);
     * in a train step, each application's QK^T and PV once more
       (tests/test_torch_dryrun.py's dense gap; ``_attention_products``),
       and, under the reference's one ``jax.checkpoint`` per block, the
@@ -227,9 +210,6 @@ def _stage_gap(cfg, shape) -> int:
     gap = 0
     for st in cfg.plan():
         for j, spec in enumerate(st.layers):
-            if spec.ffn == "moe":
-                gap += st.repeat * (4 if train else 1) * 3 * 2 * \
-                    _expert_rows_gap(cfg, T) * cfg.d_model * cfg.moe_d_ff
             if not train:
                 continue
             gap += st.repeat * _attention_products(cfg, spec, B, S)
@@ -254,26 +234,22 @@ def _unused_argument_bytes(cfg, shape) -> int:
 
 def test_stage_gaps_are_the_stated_numbers():
     moe = get_config("deepseek-moe-16b-smoke")
-    # 1.25 x 1,048,576 x 2 / 8 = 327,680 rows an expert: a quarter more
-    assert _expert_rows_gap(moe, 32 * 32768) == 2 ** 21 // 4
-    # decode: 128 tokens, cap ceil(40) = 40, 320 rows for 256
-    assert _expert_rows_gap(moe, 128) == 64
-    assert _stage_gap(moe, SHAPES["prefill_32k"]) == 9 * 2 ** 31
-    assert _stage_gap(moe, SHAPES["decode_32k"]) == 2_359_296
-    assert _stage_gap(moe, SHAPES["train_4k"]) == \
-        4 * 2 ** 40 + 36 * 2 ** 31 == 4_475_355_922_432
+    # both count routed_ep's E·cap rows: prefill and decode agree
+    assert _stage_gap(moe, SHAPES["prefill_32k"]) == 0
+    assert _stage_gap(moe, SHAPES["decode_32k"]) == 0
+    assert _stage_gap(moe, SHAPES["train_4k"]) == 4 * 2 ** 40 \
+        == 4_398_046_511_104
     gemma = get_config("gemma3-4b-smoke")
     assert _stage_gap(gemma, SHAPES["prefill_32k"]) == 0
     assert _stage_gap(gemma, SHAPES["train_4k"]) == \
         4 * 2 ** 40 + 2 ** 35 == 4_432_406_249_472
     # four MLA layers' QK^T (24 wide) and PV (16) at 256 x 4096, 4 heads,
-    # the MoE rows, less the MTP loss's unembedding at 4095 positions
+    # less the MTP loss's unembedding at 4095 positions
     mla = get_config("deepseek-v3-671b-smoke")
-    assert _stage_gap(mla, SHAPES["prefill_32k"]) == 9 * 2 ** 31
-    assert _stage_gap(mla, SHAPES["decode_32k"]) == 2_359_296
+    assert _stage_gap(mla, SHAPES["prefill_32k"]) == 0
+    assert _stage_gap(mla, SHAPES["decode_32k"]) == 0
     assert _stage_gap(mla, SHAPES["train_4k"]) == \
-        5 * 2 ** 40 + 36 * 2 ** 31 - 256 * 4095 * 2 ** 15 \
-        == 5_540_516_200_448
+        5 * 2 ** 40 - 256 * 4095 * 2 ** 15 == 5_463_206_789_120
     assert _unused_argument_bytes(mla, SHAPES["decode_32k"]) == 90_624
     # two self-attention layers, two cross-attention layers against 8
     # image rows, and one FFN recompute a block of two
@@ -288,7 +264,8 @@ def test_stage_cells_equal_the_references(arch, shape, stage_cells):
     """The smoke cells of the two-stage families and the VLM family:
     argument bytes equal the reference's compiled cell's but for
     ``_unused_argument_bytes``; matmul FLOPs too, but for ``_stage_gap``
-    (0 in the prefill and decode cells of ``gemma3-4b`` and the VLM)."""
+    (0 in every prefill and decode cell: the MoE layers' ``routed_ep``
+    as the reference compiles it)."""
     (ref_flops, ref_args), rec = stage_cells[arch, shape]
     assert rec["status"] == "ok", rec.get("error")
     cfg = get_config(arch)

@@ -465,8 +465,16 @@ def test_launcher_resumed_run_equals_an_uninterrupted_one(tmp_path, capsys):
 
 def test_launcher_refuses_a_mesh_and_a_missing_card(tmp_path, capsys,
                                                     monkeypatch):
+    # a mesh with no initialised world of its size exits 2 with the reason
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert _launch(tmp_path, 1, "--data-parallel", "2") == 2
-    assert "no mesh" in capsys.readouterr().err
+    assert "needs an initialised world of 2 ranks" in \
+        capsys.readouterr().err
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    assert _launch(tmp_path, 1, "--data-parallel", "2") == 2
+    assert "WORLD_SIZE is 3" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert launch.main(["--steps", "1", "--ckpt", str(tmp_path)]) == 2
     assert "--device cpu" in capsys.readouterr().err

@@ -36,7 +36,7 @@ from repro.models import moe as JMOE
 from repro_torch.configs import get_config
 from repro_torch.device import use_device
 from repro_torch.distributed import sharding
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import OneRankMesh, make_host_mesh
 from repro_torch.models import convert, layers as L, moe
 from repro_torch.serve import engine
 
@@ -108,8 +108,14 @@ def test_make_context_on_a_live_mesh_picks_ep(mesh):
     plain = sharding.make_context(None)
     assert (plain.mesh, plain.moe_impl, plain.model_axis_size) == \
         (None, "dense", 1)
-    with pytest.raises(ValueError, match="the dry-run counts `routed_ep`"):
-        sharding.make_context({"data": 1, "model": 1}, moe_impl="ep")
+    # plain axis sizes (the dry-run's) give the one-rank stand-in
+    counted = sharding.make_context({"data": 1, "model": 1})
+    assert isinstance(counted.mesh, OneRankMesh)
+    assert (counted.moe_impl, counted.model_axis_size,
+            counted.data_axes_size, counted.mesh.get_group("model")) == \
+        ("ep", 1, 1, None)
+    with pytest.raises(ValueError, match="item 16 \\(d\\)"):
+        sharding.make_context({"data": 1, "model": 2})
     with pytest.raises(ValueError, match="moe_impl"):
         L.ModelContext(moe_impl="sparse")
 
@@ -168,6 +174,9 @@ def test_ep_without_drops_equals_routed(mesh):
 
 
 def test_routed_ep_refuses_the_wrong_experts_and_a_backward(mesh):
+    """The wrong experts raise; a backward runs on a world of one, and
+    one whose sequence does not divide over the model axis raises (a
+    stand-in mesh of two ranks: the check comes before any exchange)."""
     _, cfg = _cfgs("float32")
     p = moe.init_moe(torch.Generator().manual_seed(2), cfg)
     ctx = sharding.make_context(mesh)
@@ -175,8 +184,18 @@ def test_routed_ep_refuses_the_wrong_experts_and_a_backward(mesh):
     half = dict(p, w1=p["w1"][:4], w3=p["w3"][:4], w2=p["w2"][:4])
     with pytest.raises(ValueError, match="local_experts"):
         moe.routed_ep(x, half, cfg, ctx)
-    with pytest.raises(NotImplementedError, match="backward"):
-        moe.routed_ep(x.requires_grad_(), p, cfg, ctx)
+    xg = torch.randn(1, 3, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1)).requires_grad_()
+    y, aux = moe.routed_ep(xg, p, cfg, ctx)
+    (g,) = torch.autograd.grad(y.sum() + aux, [xg])
+    assert g.shape == xg.shape and bool(torch.isfinite(g).all())
+
+    class TwoRanks(OneRankMesh):
+        def size(self, dim=None):
+            return 2 if dim == 1 else 1
+    two = L.ModelContext(mesh=TwoRanks(), moe_impl="ep")
+    with pytest.raises(ValueError, match="divides over the model axis"):
+        moe.routed_ep(xg, half, cfg, two)
     # one rank holds every expert: nothing is cut or copied
     assert moe.local_experts(p, ctx) is p
     params = {"layers": [{"ffn": p}], "embed": x}
@@ -278,7 +297,7 @@ dist.init_process_group("gloo", store=dist.FileStore(sys.argv[3], world),
 from repro_torch.configs import get_config
 from repro_torch.device import set_device
 from repro_torch.distributed.sharding import make_context
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import OneRankMesh, make_host_mesh
 from repro_torch.models import convert, moe
 set_device("cpu")
 data = np.load(sys.argv[4])
