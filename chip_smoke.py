@@ -50,7 +50,9 @@ and prints no result line:
    heads of 128, ``zamba2-2.7b``'s 32/32 of 80, ``musicgen-medium``'s
    24/24 of 64, the VLM's 64/8 of 128, the MTP layer's 128/128 of 128 at
    1 x 511) and bf16 at 2 x 2048 (the first three, and the MTP layer at
-   2 x 2047). Each against the
+   2 x 2047); and at phase 23's heads of one rank of two (14/2 of 128:
+   bf16 and float32 at 2 x 1024, float32 at 1 x 512; the first two
+   timed too). Each against the
    plain PyTorch version on the card, with tests/test_kernels.py's
    tolerances (2e-2 in bf16, 2e-5 in f32), on inputs drawn so that the
    output is of the order of 1 (peaked attention); each call must move
@@ -118,7 +120,7 @@ and prints no result line:
    producer's error. A process-mode (forked) ``numpy-fast`` loader must
    deliver all 33 images byte-identical to the serial decode, and a
    process-mode ``cuda-batch`` loader must be refused. Then the paper's
-   protocols over the first 16 of the 33 images (the rare one
+   protocols over the first 14 of the 33 images (16 before phase 23; the rare one
    included), labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
    before and after the sweeps) and ``WorkerSweep`` in thread and
    process mode at workers 0, 2 and 8 (1 repeat), over
@@ -385,8 +387,8 @@ and prints no result line:
    at 2 x 2048 on the launcher's batches: ``deepseek-moe-16b`` at 4
    layers, ``mamba2-370m``, ``zamba2-2.7b`` and ``musicgen-medium`` at
    full depth, ``gemma3-4b`` at 6 layers and ``deepseek-v3-671b`` at
-   one dense MLA layer with MTP, 4 steps each: finite losses and
-   gradient norms, ``step`` 4, layer 0 moved, the launches of every
+   one dense MLA layer with MTP, 2 steps each (4 before phase 23): finite
+   losses and gradient norms, ``step`` 2, layer 0 moved, the launches of every
    step exact (8 wgmma, 0, 18 FFMA, 96 wgmma, 0, 1 wgmma) and the MoE
    layers' host reads (one a layer in the forward and one in its
    recompute); then an int8-compressed and a ``microbatch=1`` step of
@@ -394,10 +396,11 @@ and prints no result line:
    and peak; (c) each (b) cell counted by ``dryrun_lib.count_cell`` in a
    subprocess that never touches CUDA (started with the phase): the
    predicted peak within 0.85-1.15 of the measured one; (d) ``python
-   -m repro_torch.launch.train --arch <a>-smoke --steps 3`` for the
-   seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 6
+   -m repro_torch.launch.train --arch <a>-smoke --steps 2`` for the
+   seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 4
    steps, all at once beside (a), then (before (b)) that run resumed to
-   9, its step-6 checkpoint restored on the card bit for bit. A cross
+   6, its step-4 checkpoint restored on the card bit for bit (3, 6 and
+   9 steps before phase 23). A cross
    layer's one-element gate gradient, a sum whose terms cancel, is held
    in (a) by its terms: the gate broadcast to a [B, S, d] field of its
    value, whose gradient is checked leaf-wise. Phase 19 runs with the
@@ -485,7 +488,29 @@ and prints no result line:
    0.85-1.15) and phase 19's ``routed`` step of the same cell in the same
    run. The phase must end within 150 s.
 
-Before phases 3 to 11 and 14 to 22 the script releases cuBLAS's per-stream
+23. Tensor parallelism over the model axis: two ranks share the one
+   card, spawned as processes in a gloo world (NCCL refuses two ranks on
+   one device; ``make_host_mesh(1, 2, backend="gloo")``, the backend
+   printed), each holding its share of every leaf the model axis splits
+   (``convert.local_tp_params``: heads, FFN hidden units, vocabulary
+   rows) of ``qwen2-7b`` at full width and depth, random bf16 weights
+   from one seed. (a) A 2 x 1024 prefill and 8 greedy decode steps
+   through ``engine.generate``: exactly 28 ``flash_attention_wgmma``
+   launches a rank (14/2 heads of 128 a rank; phase 4 holds the kernel
+   there) and no other; each rank's peak device memory beside its
+   parameters' bytes (the whole leaves, half of each split one) and its
+   caches', below the whole model's; prefill tokens/s and decode ms a
+   step, figures of a card shared by two processes over gloo, not of
+   tensor parallelism. Then a float32 cut to 2 layers: the prefill's
+   logits the same on both ranks and within 1e-4 of the largest |logit|
+   of a world of one (the whole model in one process, rank 0), and the
+   generated ids equal. (b) One float32 training step's gradients at the
+   cut, 1 x 512, remat full: each leaf, gathered whole over the model
+   axis, within 1e-4 of its largest |element| (phase 19's bound) of a
+   world of one's, and the loss within 1e-5. The phase must end within
+   150 s.
+
+Before phases 3 to 11 and 14 to 23 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -511,16 +536,19 @@ and MTP's (``{"mla_serving_launches": ...}``), the VLM family's
 training (``{"lm_family_training_launches": ...}``), the example entry
 points' (``{"examples_launches": ...}``), expert-parallel serving's
 (``{"ep_serving_launches": ...}``), expert-parallel training's
-(``{"ep_training_launches": ...}``), the ``kernels`` JSON
+(``{"ep_training_launches": ...}``), tensor parallelism's
+(``{"tp_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
 ``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks,
 phase 18's float32 checks, phase 19's float32 checks and ``zamba2``
-steps, phase 21's float32 check and phase 22's float32 gradients;
+steps, phase 21's float32 check, phase 22's float32 gradients and phase 23's
+float32 prefills and gradients;
 ``flash_attention_wgmma``'s: phase 5's prefill, phase 11's steps, phase
 14's prefill, phase 15's ``musicgen`` prefill, phase 17's ``lm_loss``,
 phase 18's prefills, phase 19's steps, phase 20's ``serve_lm`` prefill,
-phase 21's prefills and phase 22's steps; the JPEG kernels' also count phase 20's ``quickstart`` and
+phase 21's prefills, phase 22's steps and phase 23's prefills; the
+JPEG kernels' also count phase 20's ``quickstart`` and
 ``serve_decode``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1261,10 +1289,11 @@ LOADER_HW = (224, 224)
 #: the sweeps' worker counts (0, 2, 4 and 8 until phase 19 needed the
 #: ~50 s that workers 4 took of the 1200 s run)
 PROTOCOL_WORKERS = (0, 2, 8)
-#: the protocols run over the corpus's first images (the rare one
-#: included): host entropy decode sets their time, and the whole script
-#: must end within its limit on a slow host
-PROTOCOL_IMAGES = 16
+#: the protocols run over the corpus's first images (the rare one, index
+#: 13, included): host entropy decode sets their time, and the whole
+#: script must end within its limit on a slow host (16 until phase 23
+#: needed the time)
+PROTOCOL_IMAGES = 14
 PHASE7_WATCHDOG_S = 900
 
 
@@ -1695,8 +1724,13 @@ def phase_flash():
         (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ - 1, mla.num_heads,
          mla.num_kv_heads, mla.head_dim)]
     serve_lm_path = (SERVE_LM_BATCH, SERVE_LM_PROMPT, *heads)
+    # phase 23's shapes: each rank's heads on a model axis of TP_RANKS,
+    # its bf16 prefill, float32 prefill and float32 training step
+    tp_heads = (cfg.num_heads // TP_RANKS, cfg.num_kv_heads // TP_RANKS,
+                cfg.head_dim)
+    tp_path = (TP_BATCH, TP_PROMPT, *tp_heads)
     serving = (path, moe_path, zamba_path, musicgen_path, vlm_path,
-               mtp_path, serve_lm_path, *train_bf16)
+               mtp_path, serve_lm_path, *train_bf16, tp_path)
     cases = [(path, bf16, True), (moe_path, bf16, True),
              (zamba_path, bf16, True), (musicgen_path, bf16, True),
              (vlm_path, bf16, True), (mtp_path, bf16, True),
@@ -1713,7 +1747,9 @@ def phase_flash():
              ((2, 100, 8, 2, 80), f32, False),
              ((2, 130, 4, 4, 48), bf16, True)] + \
         [(shape, f32, True) for shape in train_f32] + \
-        [(shape, bf16, True) for shape in train_bf16]
+        [(shape, bf16, True) for shape in train_bf16] + \
+        [(tp_path, bf16, True), (tp_path, f32, True),
+         ((1, TP_TRAIN_SEQ, *tp_heads), f32, True)]
     worst = {}
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = _flash_inputs(shape, dtype, seed=i)
@@ -1751,7 +1787,8 @@ def phase_flash():
                          (bf16, zamba_path), (bf16, musicgen_path),
                          (bf16, vlm_path), (bf16, mtp_path),
                          *((f32, shape) for shape in train_f32),
-                         *((bf16, shape) for shape in train_bf16)):
+                         *((bf16, shape) for shape in train_bf16),
+                         (bf16, tp_path), (f32, tp_path)):
         flops_per_s = spec.peak_bf16_flops if dtype == bf16 else \
             spec.peak_fp32_flops
         name = ops.flash_kernel_for(dtype, shape[-1])
@@ -4990,7 +5027,8 @@ FAMILY_TRAIN = {
                          {"flash_attention_wgmma": 1}),
 }
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 2048
-FAMILY_TRAIN_STEPS = 4
+#: 4 until phase 23 needed the time; step ms is the median of steps 2 on
+FAMILY_TRAIN_STEPS = 2
 #: the arch that also takes an int8-compressed and a microbatched step
 FAMILY_EXTRA_STEPS = "deepseek-moe-16b"
 #: (d) the launcher at each non-dense family's -smoke config
@@ -4998,6 +5036,10 @@ FAMILY_LAUNCHER_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b",
                          "mamba2-370m", "zamba2-2.7b", "musicgen-medium",
                          "gemma3-4b", "llama-3.2-vision-90b")
 FAMILY_RESUME_ARCH = "llama-3.2-vision-90b"
+#: (d)'s steps: each family's run, and the resumed arch's first run and
+#: its resume (3, and 6 then 9, until phase 23 needed the time)
+FAMILY_LAUNCHER_STEPS = 2
+FAMILY_RESUME_STEPS = (4, 6)
 FAMILY_COUNT_TIMEOUT_S = 240
 FAMILY_LAUNCHER_TIMEOUT_S = 240
 PHASE19_LIMIT_S = 300
@@ -5475,18 +5517,20 @@ def _family_peaks(procs, measured, card):
 
 def _family_launchers_start():
     """(d), started with the phase: ``python -m repro_torch.launch.train
-    --arch <a>-smoke --steps 3`` for each family, one subprocess each, all
-    at once, beside a 6-step run of ``FAMILY_RESUME_ARCH`` with a
-    checkpoint every 3. Returns (scratch directory, processes)."""
+    --arch <a>-smoke --steps FAMILY_LAUNCHER_STEPS`` for each family, one
+    subprocess each, all at once, beside a run of ``FAMILY_RESUME_ARCH``
+    to the first of ``FAMILY_RESUME_STEPS`` with a checkpoint every 3.
+    Returns (scratch directory, processes)."""
     import tempfile
     os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="family_launcher_",
                             dir=os.path.join(ROOT, "artifacts"))
-    procs = {f"{arch}-smoke --steps 3": _launcher(arch, 3,
-                                                  os.path.join(root, arch))
-             for arch in FAMILY_LAUNCHER_ARCHS}
-    procs[f"{FAMILY_RESUME_ARCH}-smoke --steps 6"] = _launcher(
-        FAMILY_RESUME_ARCH, 6, os.path.join(root, "resume"))
+    n = FAMILY_LAUNCHER_STEPS
+    procs = {f"{arch}-smoke --steps {n}": _launcher(
+        arch, n, os.path.join(root, arch)) for arch in FAMILY_LAUNCHER_ARCHS}
+    first = FAMILY_RESUME_STEPS[0]
+    procs[f"{FAMILY_RESUME_ARCH}-smoke --steps {first}"] = _launcher(
+        FAMILY_RESUME_ARCH, first, os.path.join(root, "resume"))
     return root, procs, time.perf_counter()
 
 
@@ -5519,21 +5563,23 @@ def _launcher_done(label, p, t0):
 
 
 def _family_launchers_finish(root, procs, t0):
-    """(d): the runs of ``_family_launchers_start``, then the 6-step run
-    resumed to 9 steps and its step-6 checkpoint restored on the card bit
-    for bit."""
+    """(d): the runs of ``_family_launchers_start``, then the first
+    ``FAMILY_RESUME_STEPS`` run resumed to the second and its last
+    checkpoint restored on the card bit for bit."""
     for label, p in procs.items():
         _launcher_done(label, p, t0)
     print(f"(d) {len(procs)} launcher runs at once: "
           f"{time.perf_counter() - t0} s")
     t1 = time.perf_counter()
     resume = os.path.join(root, "resume")
-    out = _launcher_done(f"{FAMILY_RESUME_ARCH}-smoke --steps 9",
-                         _launcher(FAMILY_RESUME_ARCH, 9, resume), t1)
-    check("resumed from step 6" in out,
-          "(d) the second run did not resume from step 6")
+    first, then = FAMILY_RESUME_STEPS
+    out = _launcher_done(f"{FAMILY_RESUME_ARCH}-smoke --steps {then}",
+                         _launcher(FAMILY_RESUME_ARCH, then, resume), t1)
+    check(f"resumed from step {first}" in out,
+          f"(d) the second run did not resume from step {first}")
     print(f"(d) the resumed run: {time.perf_counter() - t1} s")
-    _restored_on_card_bit_for_bit("(d)", os.path.join(resume, "step_6"),
+    _restored_on_card_bit_for_bit("(d)", os.path.join(resume,
+                                                      f"step_{first}"),
                                   f"{FAMILY_RESUME_ARCH}-smoke")
     shutil.rmtree(root)
 
@@ -6094,6 +6140,8 @@ def _ep_block_on_the_cpu(block, card):
 #: (a) float32 gradients at 1 x EP_TRAIN_CHECK_SEQ, phase 19 (a)'s cut of
 #: MOE_ARCH; (c) phase 19 (b)'s cut, batches, steps and launches
 EP_TRAIN_CHECK_SEQ = 512
+#: (c)'s plain bf16 steps (phase 19 (b)'s count before phase 23 cut it)
+EP_TRAIN_STEPS = 4
 #: (b) the block's gradients, card against CPU, of each leaf's largest
 #: |element| (phase 19's gradient bound)
 EP_BLOCK_GRAD_TOL = LM_GRAD_TOL
@@ -6355,7 +6403,7 @@ def _ep_train_block_on_the_cpu(block, card):
 
 
 def _ep_train_steps(ctx, card, profile):
-    """(c): bf16 AdamW steps through ``routed_ep``: ``FAMILY_TRAIN_STEPS``,
+    """(c): bf16 AdamW steps through ``routed_ep``: ``EP_TRAIN_STEPS``,
     one int8-compressed and one ``microbatch=1`` step, each MoE layer's
     forward, recompute and backward under the sync check. Returns (the
     launches, the cell's measurements)."""
@@ -6375,8 +6423,8 @@ def _ep_train_steps(ctx, card, profile):
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=10)   # the launcher's
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    state = convert.local_expert_state(make_train_state(
-        torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg), ctx)
+    state = convert.local_tp_state(make_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg), cfg, ctx)
     n_moe = sum(s.ffn == "moe" for s in model.layer_specs(cfg))
     print(f"(c) {MOE_ARCH} in {cfg.dtype}, {cfg.num_layers} layers "
           f"({n_moe} MoE): {sum(t.numel() for t in tree.leaves(state['params']))}"
@@ -6468,7 +6516,7 @@ def _ep_train_steps(ctx, card, profile):
     total = {}
     try:
         ms, got = run(make_train_step(cfg, ctx, opt_cfg), box,
-                      FAMILY_TRAIN_STEPS, f"{FAMILY_TRAIN_STEPS} steps")
+                      EP_TRAIN_STEPS, f"{EP_TRAIN_STEPS} steps")
         peak = torch.cuda.max_memory_allocated()
         for name, n in got.items():
             total[name] = total.get(name, 0) + n
@@ -6487,13 +6535,13 @@ def _ep_train_steps(ctx, card, profile):
             total[name] += n
     finally:
         moe.moe_block, layers.attn_block = real, real_attn
-    check(int(box["state"]["step"]) == FAMILY_TRAIN_STEPS + 2,
+    check(int(box["state"]["step"]) == EP_TRAIN_STEPS + 2,
           f"(c) step reads {int(box['state']['step'])}")
     med = statistics.median(ms[1:])
     tokens = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
     routed = MEASURED.get("family_train", {}).get(MOE_ARCH)
     print(f"(c) {MOE_ARCH} through routed_ep: step {med} ms (median of "
-          f"steps 2-{FAMILY_TRAIN_STEPS}), {tokens / med * 1e3} tokens/s, "
+          f"steps 2-{EP_TRAIN_STEPS}), {tokens / med * 1e3} tokens/s, "
           f"peak device memory {peak} bytes; compressed step {ms_c[0]} ms, "
           f"microbatched step {ms_m[0]} ms; phase 19's routed step of the "
           f"same cell in this run: "
@@ -6536,6 +6584,290 @@ def _ep_train_peak(proc, m, card):
           f"({terms['dominant']}), measured {m['step_s']} s a step, "
           f"bound_s / measured {terms['bound_s'] / m['step_s']} ({card})")
     check(lo <= ratio <= hi, f"(c) predicted/measured peak {ratio}")
+
+
+TP_ARCH = "qwen2-7b"            # full width and depth, bf16
+TP_RANKS = 2                    # model axis; both ranks on the one card
+TP_BATCH, TP_PROMPT, TP_NEW = 2, 1024, 8     # TP_NEW decode steps
+TP_CHECK_LAYERS = 2             # the float32 cut of (a) and (b)
+TP_TRAIN_SEQ = 512
+TP_RANK_TIMEOUT_S = 140
+PHASE23_LIMIT_S = 150
+
+TP_RANK = """\
+import dataclasses, gc, json, sys, time
+import numpy as np, torch, torch.distributed as dist
+rank, world, store, out, args = (int(sys.argv[1]), int(sys.argv[2]),
+                                 sys.argv[3], sys.argv[4],
+                                 json.loads(sys.argv[5]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+from repro_torch import tree
+from repro_torch.configs import get_config
+from repro_torch.device import set_device
+from repro_torch.distributed import data_parallel
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import make_context
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import convert, model
+from repro_torch.models.layers import ModelContext
+from repro_torch.serve import engine
+from repro_torch.train.train_step import loss_and_grads
+set_device("cuda")
+dev = torch.device("cuda", 0)
+mesh = make_host_mesh(1, world, backend="gloo")
+res = {"rank": rank, "backend": dist.get_backend(),
+       "model_rank": mesh.get_local_rank("model")}
+B, S, new = args["batch"], args["prompt"], args["new"]
+cache_len = S + new + 1
+
+
+def nbytes(t):
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def release():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def serve(cfg, params, ctx, prompt):
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launches()
+    timings = {}
+    ids = engine.generate(params, prompt, cfg, ctx, max_new_tokens=new + 1,
+                          cache_len=cache_len, timings=timings)
+    torch.cuda.synchronize()
+    return ids, dict(ops.LAUNCHES), timings
+
+
+# (a) bf16 at full width and depth: every rank makes the whole model from
+# one seed and keeps its share
+cfg = get_config(args["arch"])
+ctx = make_context(mesh)
+whole = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+split = TP.layout(cfg, ctx)
+flat = tree.flatten_with_names(whole)
+res["whole_bytes"] = nbytes(whole)
+res["split_bytes"] = sum(nbytes(flat[n]) for n in split)
+params = convert.local_tp_params(whole, cfg, ctx)
+del whole, flat
+release()
+res["param_bytes"] = nbytes(params)
+res["heads"] = [params["layers"][0]["attn"]["wq"].shape[1] // cfg.head_dim,
+                params["layers"][0]["attn"]["wk"].shape[1] // cfg.head_dim]
+prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                       generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+# first calls load the kernels and build cuBLAS handles: not measured
+engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                cache_len=cache_len)
+release()
+torch.cuda.reset_peak_memory_stats()
+ids, res["launches"], t = serve(cfg, params, ctx, prompt)
+res["peak"] = torch.cuda.max_memory_allocated()
+caches, _ = model.prefill(params, prompt, cfg, ctx, cache_len=cache_len)
+res["cache_bytes"] = nbytes(caches)
+del caches
+res["prefill_s"], res["decode_s"] = t["prefill_s"], t["decode_s"]
+res["ids"] = ids[:, :8].tolist()
+del params, ids
+release()
+
+# the float32 cut: the model axis against a world of one (rank 0 runs the
+# whole model in this process)
+cfg32 = dataclasses.replace(cfg, dtype="float32",
+                            num_layers=args["check_layers"])
+whole32 = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+p32 = convert.local_tp_params(whole32, cfg32, ctx)
+if rank:
+    del whole32
+ids32, res["launches32"], _ = serve(cfg32, p32, ctx, prompt)
+_, logits = model.prefill(p32, prompt, cfg32, ctx, cache_len=cache_len)
+parts = [torch.empty_like(logits) for _ in range(world)]
+dist.all_gather(parts, logits)
+res["logits_same"] = all(torch.equal(x, parts[0]) for x in parts)
+one = ModelContext()
+if rank == 0:
+    want_ids = engine.generate(whole32, prompt, cfg32, one,
+                               max_new_tokens=new + 1, cache_len=cache_len)
+    _, want = model.prefill(whole32, prompt, cfg32, one, cache_len=cache_len)
+    res["ids_equal"] = bool(torch.equal(ids32, want_ids))
+    res["logits_rel"] = ((logits - want).abs().max()
+                         / want.abs().max()).item()
+    res["logits_finite"] = bool(torch.isfinite(logits).all())
+    del want, want_ids
+del logits, ids32
+release()
+
+# (b) one float32 training step's gradients at the cut
+tokens = torch.randint(0, cfg32.vocab_size, (1, args["train_seq"] + 1),
+                       generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+batch = {"tokens": tokens}
+tctx = make_context(mesh, remat="full", q_chunk=256, k_chunk=256)
+split32 = TP.layout(cfg32, tctx)
+torch.cuda.synchronize()
+dist.barrier()
+ops.reset_launches()
+t0 = time.perf_counter()
+(loss, _), grads = loss_and_grads(p32, batch, cfg32, tctx)
+grads = data_parallel.reduce_gradients(grads, tctx, split32)
+torch.cuda.synchronize()
+res["train_s"] = time.perf_counter() - t0
+res["train_launches"] = dict(ops.LAUNCHES)
+got = tree.flatten_with_names(data_parallel.gather_split(grads, tctx,
+                                                         split32))
+res["loss"] = loss.item()
+del grads, p32
+release()
+if rank == 0:
+    (want_loss, _), want = loss_and_grads(
+        whole32, batch, cfg32, ModelContext(remat="full", q_chunk=256,
+                                            k_chunk=256))
+    want = tree.flatten_with_names(want)
+    worst, worst_name = -1.0, ""
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        rel = (got[name] - w).abs().max().item() / max(scale, 1e-30)
+        if rel > worst and scale > 0:
+            worst, worst_name = rel, name
+    res["grad_worst"], res["grad_worst_leaf"] = worst, worst_name
+    res["grad_leaves"] = len(want)
+    res["grads_finite"] = all(bool(torch.isfinite(g).all())
+                              for g in got.values())
+    res["want_loss"] = want_loss.item()
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def phase_tp():
+    """Phase 23: ``qwen2-7b`` tensor-parallel over a model axis of two
+    ranks sharing the card (spawned processes, gloo); returns the flash
+    kernels' launches of the ranks' main paths."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    print(f"== phase 23: {TP_ARCH} tensor-parallel over a model axis of "
+          f"{TP_RANKS} ranks sharing the card (gloo)")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held_report("phase 23")
+    cfg = get_config(TP_ARCH)
+    args = {"arch": TP_ARCH, "batch": TP_BATCH, "prompt": TP_PROMPT,
+            "new": TP_NEW, "check_layers": TP_CHECK_LAYERS,
+            "train_seq": TP_TRAIN_SEQ}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(TP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TP_RANK, str(r), str(TP_RANKS),
+             os.path.join(tmp, "store"), outs[r], json.dumps(args)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+            for r in range(TP_RANKS)]
+        try:
+            logs = [p.communicate(timeout=TP_RANK_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                  f"{log.strip().splitlines()[-6:]}")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    r0 = res[0]
+    hd = cfg.head_dim
+    print(f"process group: {r0['backend']}, {TP_RANKS} ranks on "
+          f"{torch.cuda.get_device_name(0)}; model-axis ranks "
+          f"{[r['model_rank'] for r in res]}")
+    check(all(r["backend"] == "gloo" for r in res) and
+          [r["model_rank"] for r in res] == list(range(TP_RANKS)),
+          f"backends {[r['backend'] for r in res]}")
+    n_layers = cfg.num_layers
+    for r in res:
+        heads = (cfg.num_heads // TP_RANKS, cfg.num_kv_heads // TP_RANKS)
+        want_bytes = r["whole_bytes"] - r["split_bytes"] + \
+            r["split_bytes"] // TP_RANKS
+        print(f"(a) rank {r['rank']}: {r['heads'][0]}/{r['heads'][1]} heads "
+              f"of {hd}; parameters {r['param_bytes']} bytes (whole leaves "
+              f"+ half of the split ones' {r['split_bytes']}: {want_bytes}; "
+              f"the whole model {r['whole_bytes']}), caches "
+              f"{r['cache_bytes']} bytes, peak device memory {r['peak']} "
+              f"bytes over generate ({card})")
+        check(tuple(r["heads"]) == heads, f"rank heads {r['heads']}")
+        check(r["param_bytes"] == want_bytes,
+              f"rank {r['rank']} holds {r['param_bytes']} bytes of "
+              f"parameters, want {want_bytes}")
+        check(r["param_bytes"] + r["cache_bytes"] <= r["peak"]
+              < r["whole_bytes"],
+              f"rank {r['rank']} peak {r['peak']} bytes")
+        check(r["launches"]["flash_attention_wgmma"] == n_layers and
+              sum(r["launches"].values()) == n_layers,
+              f"(a) rank {r['rank']} launched {r['launches']}, want "
+              f"{n_layers} flash_attention_wgmma")
+        n_dec = TP_BATCH * TP_NEW
+        print(f"(a) rank {r['rank']}: prefill {TP_BATCH * TP_PROMPT} tokens "
+              f"in {r['prefill_s']} s ({TP_BATCH * TP_PROMPT / r['prefill_s']}"
+              f" tokens/s), decode {TP_NEW} steps of {TP_BATCH} in "
+              f"{r['decode_s']} s ({r['decode_s'] / TP_NEW * 1e3} ms a "
+              f"step, {n_dec / r['decode_s']} tokens/s): figures of one card "
+              f"shared by {TP_RANKS} processes over gloo, not of tensor "
+              f"parallelism; launches {r['launches']}; first ids "
+              f"{r['ids'][0][:8]}")
+    check(all(r["ids"] == r0["ids"] for r in res),
+          "(a) the ranks generated different ids")
+    for r in res:
+        check(r["launches32"]["flash_attention"] == TP_CHECK_LAYERS and
+              sum(r["launches32"].values()) == TP_CHECK_LAYERS,
+              f"(a) float32 rank {r['rank']} launched {r['launches32']}")
+        check(r["train_launches"]["flash_attention"] == 2 * TP_CHECK_LAYERS
+              and sum(r["train_launches"].values()) == 2 * TP_CHECK_LAYERS,
+              f"(b) rank {r['rank']} launched {r['train_launches']}")
+    print(f"(a) float32 at {TP_CHECK_LAYERS} layers: logits the same on "
+          f"both ranks: {all(r['logits_same'] for r in res)}; max abs diff "
+          f"/ max |logit| against a world of one {r0['logits_rel']} (limit "
+          f"{LM_F32_REL_TOL}); ids equal: {r0['ids_equal']} ({card})")
+    check(all(r["logits_same"] for r in res) and r0["logits_finite"],
+          "(a) float32 logits differ between the ranks or are not finite")
+    check(r0["logits_rel"] < LM_F32_REL_TOL,
+          f"(a) float32 logits differ by {r0['logits_rel']}")
+    check(r0["ids_equal"], "(a) float32 ids differ from a world of one")
+    rel = abs(r0["loss"] - r0["want_loss"]) / abs(r0["want_loss"])
+    print(f"(b) float32 step at {TP_CHECK_LAYERS} layers, 1 x "
+          f"{TP_TRAIN_SEQ}: loss {r0['loss']} vs {r0['want_loss']} "
+          f"(relative {rel}, limit {LM_LOSS_RTOL}); worst gradient leaf "
+          f"{r0['grad_worst_leaf']}, {r0['grad_worst']} of its max |g| "
+          f"(limit {LM_GRAD_TOL}) over {r0['grad_leaves']} leaves; "
+          f"{[r['train_s'] for r in res]} s a rank; launches "
+          f"{r0['train_launches']} ({card})")
+    check(all(r["loss"] == r0["loss"] for r in res) and rel <= LM_LOSS_RTOL,
+          f"(b) loss differs by {rel}")
+    check(r0["grads_finite"] and r0["grad_worst"] <= LM_GRAD_TOL,
+          f"(b) gradient {r0['grad_worst_leaf']} differs by "
+          f"{r0['grad_worst']}")
+    launches = {
+        "flash_attention_wgmma": sum(r["launches"]["flash_attention_wgmma"]
+                                     for r in res),
+        "flash_attention": sum(r["launches32"]["flash_attention"] +
+                               r["train_launches"]["flash_attention"]
+                               for r in res)}
+    dt = time.perf_counter() - t_phase
+    print(f"phase 23: {dt} s (limit {PHASE23_LIMIT_S} s); launches "
+          f"{launches} ({card})")
+    check(dt <= PHASE23_LIMIT_S, f"phase 23 took {dt} s")
+    return launches
 
 
 def main() -> int:
@@ -6587,6 +6919,7 @@ def main() -> int:
         ep_launches = phase_ep(profile="--profile" in sys.argv[1:])
         ep_training_launches = phase_ep_train(
             profile="--profile" in sys.argv[1:])
+        tp_launches = phase_tp()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6599,8 +6932,9 @@ def main() -> int:
     # (phase 15), MLA and MTP (phase 17), the VLM family (phase 18) and
     # the non-dense families' training (phase 19), the example entry
     # points (phase 20), expert-parallel serving (phase 21) and training
-    # (phase 22)
-    for name, count in list(moe_launches.items()) + \
+    # (phase 22), and tensor parallelism (phase 23)
+    for name, count in list(tp_launches.items()) + \
+            list(moe_launches.items()) + \
             list(ssm_launches.items()) + list(mla_launches.items()) + \
             list(vlm_launches.items()) + \
             list(family_training_launches.items()) + \
@@ -6632,6 +6966,7 @@ def main() -> int:
     print(json.dumps({"examples_launches": MEASURED["examples"]}))
     print(json.dumps({"ep_serving_launches": ep_launches}))
     print(json.dumps({"ep_training_launches": ep_training_launches}))
+    print(json.dumps({"tp_launches": tp_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

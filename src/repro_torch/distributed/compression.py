@@ -20,10 +20,12 @@ The int8 bits are the reference's:
 * the same float32 divide by the scale, and ``torch.round`` rounds half
   to even as ``jnp.round`` does.
 
-On a mesh each rank holds its ``E/M`` experts of a MoE layer; their
-scale is the maximum over the whole leaf, as the reference computes it
-on the global gradient: the stacks' maxima are reduced over the model
-axis (``data_parallel.model_axis_max``). The error buffer stays local.
+On a mesh each rank holds its share of the leaves that the model axis
+splits (``tensor_parallel.layout``: the tensor-parallel leaves and each
+MoE layer's experts); their scale is the maximum over the whole leaf, as
+the reference computes it on the global gradient: the stacks' maxima
+are reduced over the model axis (``data_parallel.model_axis_max``). The
+error buffer stays local.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.distributed import data_parallel
+from repro_torch.distributed.tensor_parallel import cuts_of
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -70,12 +73,13 @@ def _stacks(names, layer_stacks: Sequence[str]) -> Dict[str, List[str]]:
 
 @torch.no_grad()
 def compress_grads_with_feedback(grads, error_buf,
-                                 layer_stacks: Sequence[str], ctx=None):
+                                 layer_stacks: Sequence[str], ctx=None,
+                                 split=None):
     """(compressed-then-dequantized grads in their own dtypes, new error
     buffer in its dtype); ``layer_stacks``: the reference's stack of
     each element of the trees' ``layers`` (module docstring); ``ctx``, a
-    context on a mesh, makes the expert leaves' scales the whole
-    leaves'."""
+    context on a mesh, makes the scales of the leaves that ``split``
+    names (``tensor_parallel.layout``) the whole leaves'."""
     flat_g = tree.flatten_with_names(grads)
     flat_e = tree.flatten_with_names(error_buf)
     stacks = list(_stacks(flat_g, layer_stacks).values())
@@ -86,11 +90,11 @@ def compress_grads_with_feedback(grads, error_buf,
     def amax(ts):
         return torch.stack([t.abs().max() for t in ts]).max()
     # a split leaf's stack: its maximum over the model axis first
-    experts = set(data_parallel.expert_leaves(flat_g)) \
+    parts = set(cuts_of(flat_g, split or {})) \
         if data_parallel.model_groups(ctx) else set()
-    split = [i for i, names in enumerate(stacks) if experts & set(names)]
-    whole = dict(zip(split, data_parallel.model_axis_max(
-        [amax(g32(stacks[i])) for i in split], ctx)))
+    cut = [i for i, names in enumerate(stacks) if parts & set(names)]
+    whole = dict(zip(cut, data_parallel.model_axis_max(
+        [amax(g32(stacks[i])) for i in cut], ctx)))
     new_g, new_e = {}, {}
     for i, names in enumerate(stacks):
         ts = g32(names)

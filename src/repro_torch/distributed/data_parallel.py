@@ -5,39 +5,45 @@ The reference jits its train step over the mesh with sharded inputs
 of the global batch, with the reductions XLA inserts. The port runs the
 step on every rank of a ``torch.distributed`` device mesh
 (``launch.mesh.make_host_mesh``, ``sharding.make_context``), each rank
-on its data shard's rows and with every leaf whole but each MoE layer's
-experts, cut to the rank's ``E/M`` by ``models.moe.local_experts``
-(*expert leaves*). What the reference's global values need:
+on its data shard's rows and with its share of the leaves that the model
+axis splits (*split leaves*, ``tensor_parallel.layout``: the
+tensor-parallel leaves and each MoE layer's experts, cut by
+``convert.local_tp_params``); every other leaf is whole. What the
+reference's global values need:
 
 * over the data axes, every gradient leaf is averaged: each rank's loss
   is the mean over its rows, and the shards hold equal rows;
-* over the model axis, the MoE routers' gradients are summed: each rank
-  routes its ``S/M`` positions (``models.moe.routed_ep``), so its router
-  gradient covers those only. Every other whole leaf (attention, the
-  dense FFNs, a MoE layer's ``ln`` and shared experts, which see the
-  whole sequence on every rank) has its whole gradient on every rank,
-  and each rank's experts the whole gradient from every rank's tokens
-  (the exchange's backward);
-* the global norm counts each whole leaf once and sums the expert
+* over the model axis, a whole leaf that a rank sees through its share
+  of the positions only has its gradient summed: the MoE routers (each
+  rank routes its ``S/M`` positions, ``models.moe.routed_ep``) and, with
+  the sequence-split residual (``ModelContext.seq_parallel``), every
+  whole leaf. The split leaves are not reduced over it: each rank's
+  share has its whole gradient (the collectives' backwards,
+  ``distributed.tensor_parallel`` and the exchange of ``routed_ep``),
+  and so has every other whole leaf, which sees the whole sequence on
+  every rank;
+* the global norm counts each whole leaf once and sums the split
   leaves' squares over the model axis (``global_sq_sums``);
 * an int8 scale is the maximum over a whole leaf: the maximum over the
-  model axis for the expert leaves (``model_axis_max``).
+  model axis for the split leaves (``model_axis_max``).
 
-An axis of one rank needs none of this, and nothing is called over it:
-the dry-run's ``launch.mesh.OneRankMesh`` (no process group) and a world
-of one run the step as one device does.
+With ``no_tp`` the model axis is a data axis and nothing is reduced over
+it as a model axis. An axis of one rank needs none of this, and nothing
+is called over it: the dry-run's ``launch.mesh.OneRankMesh`` (no process
+group) and a world of one run the step as one device does.
 """
 from __future__ import annotations
 
-import re
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Mapping
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.distributed.tensor_parallel import Cut, cuts_of
 
-_EXPERT = re.compile(r"(.*/)?ffn/w[123]$")
+#: split leaves by name (``tensor_parallel.layout``)
+Split = Mapping[str, Cut]
 
 
 def on_mesh(ctx) -> bool:
@@ -57,7 +63,11 @@ def data_groups(ctx) -> List:
 
 
 def model_groups(ctx) -> List:
-    return _groups(ctx, (ctx.model_axis,)) if on_mesh(ctx) else []
+    """The model axis's group where it has more than one rank and is not
+    a data axis (``no_tp``)."""
+    if not on_mesh(ctx) or ctx.no_tp:
+        return []
+    return _groups(ctx, (ctx.model_axis,))
 
 
 def data_rank(ctx) -> int:
@@ -71,15 +81,6 @@ def data_rank(ctx) -> int:
     return r
 
 
-def expert_leaves(flat: Dict[str, torch.Tensor]) -> List[str]:
-    """The names in ``flat`` (``tree.flatten_with_names`` of a parameter
-    tree, or of a state tree holding such trees) of the MoE layers'
-    expert leaves: ``w1``/``w3``/``w2`` of an ``ffn`` that has a
-    ``router``."""
-    return [n for n in flat if _EXPERT.fullmatch(n) and
-            n.rsplit("/", 1)[0] + "/router" in flat]
-
-
 def _sum(t: torch.Tensor, groups) -> torch.Tensor:
     for g in groups:
         dist.all_reduce(t, group=g)
@@ -87,16 +88,20 @@ def _sum(t: torch.Tensor, groups) -> torch.Tensor:
 
 
 @torch.no_grad()
-def reduce_gradients(grads, ctx):
+def reduce_gradients(grads, ctx, split: Split = None, seq: bool = False):
     """This rank's gradients -> the reference's global ones on ``ctx``'s
-    mesh (module docstring): every leaf averaged over the data axes, the
-    routers summed over the model axis. In place; returns ``grads``."""
+    mesh (module docstring): every leaf averaged over the data axes; over
+    the model axis the routers of ``routed_ep`` summed, and with ``seq``
+    (the step's residual was sequence-split) every leaf that ``split``
+    does not name. In place; returns ``grads``."""
     data, model = data_groups(ctx), model_groups(ctx)
     if not data and not model:
         return grads
+    split = split or {}
     n_data = ctx.data_axes_size
     for name, g in tree.flatten_with_names(grads).items():
-        if model and name.endswith("/router"):
+        if model and (name not in split if seq else
+                      ctx.moe_impl == "ep" and name.endswith("/router")):
             _sum(g, model)
         if data:
             _sum(g, data).div_(n_data)
@@ -104,16 +109,17 @@ def reduce_gradients(grads, ctx):
 
 
 @torch.no_grad()
-def global_sq_sums(grads, ctx) -> List[torch.Tensor]:
-    """Each leaf's float32 sum of squares in leaf order, an expert leaf's
-    summed over the model axis (one all-reduce for them all)."""
+def global_sq_sums(grads, ctx, split: Split = None) -> List[torch.Tensor]:
+    """Each leaf's float32 sum of squares in leaf order, a split leaf's
+    (``split``) summed over the model axis (one all-reduce for them
+    all)."""
     flat = tree.flatten_with_names(grads)
     sums = {n: g.float().square().sum() for n, g in flat.items()}
     model = model_groups(ctx)
-    experts = expert_leaves(flat) if model else []
-    if experts:
-        both = _sum(torch.stack([sums[n] for n in experts]), model)
-        sums.update(zip(experts, both.unbind()))
+    parts = list(cuts_of(flat, split or {})) if model else []
+    if parts:
+        both = _sum(torch.stack([sums[n] for n in parts]), model)
+        sums.update(zip(parts, both.unbind()))
     return list(sums.values())
 
 
@@ -153,22 +159,22 @@ def global_metrics(metrics: Dict[str, torch.Tensor], ctx
 
 
 @torch.no_grad()
-def gather_experts(state, ctx):
-    """A state tree (parameters, moments, error buffer) with this rank's
-    expert leaves (``local_experts``) -> the same tree with every expert
-    leaf whole, gathered over the model axis in rank order; every rank
-    takes part. Other leaves are the same tensors."""
+def gather_split(state, ctx, split: Split):
+    """A tree holding parameter-shaped trees (parameters, moments, error
+    buffer) with this rank's share of each split leaf (``split``) -> the
+    same tree with every split leaf whole, gathered over the model axis
+    in rank order along its split dimension; every rank takes part.
+    Other leaves are the same tensors."""
     model = model_groups(ctx)
     if not model:
         return state
     group = model[0]
     flat = tree.flatten_with_names(state)
     out = dict(flat)
-    for name in expert_leaves(flat):
+    for name, cut in cuts_of(flat, split).items():
         t = flat[name].contiguous()
         parts = [torch.empty_like(t)
                  for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, t, group=group)
-        out[name] = torch.cat(parts)
+        out[name] = torch.cat(parts, dim=cut.dim)
     return tree.unflatten_like(state, out)
-

@@ -3,24 +3,35 @@
 Port of the reference's ``distributed/sharding.py`` (MaxText-style
 logical axes) for the port's layouts, and its ``make_context``.
 
-``make_context`` given a mesh makes the context of the expert-parallel
-MoE path, as the reference's does on any mesh: the mesh, its batch axes,
-the model axis and ``moe_impl="ep"``. A live ``torch.distributed``
-device mesh (``launch.mesh.make_host_mesh``) is what a run computes on;
-plain axis sizes (the dry-run's production mesh, one rank on each axis)
-give ``launch.mesh.OneRankMesh``, over which the dry-run counts
-``routed_ep`` and a training step on a mesh as one rank runs them. That
-path places the only tensors that are split across ranks (each rank's
-experts, by ``models.moe.local_experts``; its batch rows and sequence
-slice); ``distributed.data_parallel`` reduces the gradients. The
-partition rules below place nothing: they are kept as data, for the
-dry-run's records and for DTensor placements across cards (ROADMAP
-queue 1 item 16 (b)). A spec is a tuple with one entry per dimension: an
-axis name, a tuple of axis names (the batch axes of a multi-pod mesh),
-or ``None`` (replicated); ``tuple()`` of the reference's
-``PartitionSpec`` for the same leaf gives the same tuple. The rule
-functions take the mesh as a mapping of axis sizes
-(``launch.mesh.Mesh.shape``).
+``make_context`` given a mesh makes the context a run on that mesh
+computes with, as the reference's does on any mesh: the mesh, its batch
+axes, the model axis and ``moe_impl="ep"``; with the ``no_tp`` hint the
+model axis becomes one more batch axis and the MoE layers run dense. A
+live ``torch.distributed`` device mesh (``launch.mesh.make_host_mesh``)
+is what a run computes on; plain axis sizes (the dry-run's production
+mesh, one rank on each axis) give ``launch.mesh.OneRankMesh``, over
+which the dry-run counts ``routed_ep`` and a training step on a mesh as
+one rank runs them.
+
+The model-axis entries of the partition rules below are put to work by
+``split_dim``: the leaves of the blocks it names (``TP_LEAVES``) split
+over the model axis on the dimension their rule gives it, a GQA
+self-attention block's only when its query and KV heads both divide
+over the axis (otherwise that block runs whole on every rank: the
+reference partitions its q rows instead, a layout with the same
+values). ``distributed.tensor_parallel.layout`` reads it for a config
+and a context, and the model (``models.layers``, ``models.model``,
+``models.moe``), the converter (``models.convert.local_tp_params``) and
+the training step's reductions (``distributed.data_parallel``) read
+that layout. Each MoE layer's experts split by ``models.moe``'s expert
+parallelism. The data axes keep whole leaves (the reference's FSDP
+entries, ``"data"`` on the d_model dims, wait for ROADMAP queue 1 item
+16 (e)); ``param_specs`` gives the reference's specs for the dry-run's
+records. A spec is a tuple with one entry per dimension: an axis name,
+a tuple of axis names (the batch axes of a multi-pod mesh), or ``None``
+(replicated); ``tuple()`` of the reference's ``PartitionSpec`` for the
+same leaf gives the same tuple. The rule functions take the mesh as a
+mapping of axis sizes (``launch.mesh.Mesh.shape``).
 
 Physical mesh axes:
   pod    - outer data parallelism across pods (multi-pod mesh only)
@@ -46,31 +57,33 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.launch.mesh import OneRankMesh
-from repro_torch.models.layers import ModelContext
 
 Spec = Tuple[Any, ...]
 AxisSizes = Mapping[str, int]
 
 _FROM_MESH = ("make_context sets it from the mesh; other layouts wait "
-              "for ROADMAP queue 1 item 16 (b)")
-_HINTS = "the reference's layout hints wait for ROADMAP queue 1 item 16 (c)"
+              "for ROADMAP queue 1 item 16 (e)")
 
 #: the reference's ``ModelContext`` fields that a caller may not set, and
-#: why: the mesh fields come from the mesh, the two layout hints of a
-#: sharded run are not ported
+#: why: the mesh fields come from the mesh
 REFUSED_CONTEXT = {
     "mesh": _FROM_MESH,
     "model_axis": _FROM_MESH,
     "data_axes": _FROM_MESH,
-    "seq_shard_residual": _HINTS,
-    "no_tp": _HINTS,
 }
+
+
+def _context_class():
+    # models.layers imports distributed.tensor_parallel, which imports
+    # this module: the class is looked up when a context is made
+    from repro_torch.models.layers import ModelContext
+    return ModelContext
 
 
 def check_context_fields(kw: Mapping[str, Any]) -> None:
     """Raise ``ValueError`` for a refused (``REFUSED_CONTEXT``) or unknown
     ``ModelContext`` field."""
-    known = {f.name for f in dataclasses.fields(ModelContext)}
+    known = {f.name for f in dataclasses.fields(_context_class())}
     for key in kw:
         if key in REFUSED_CONTEXT:
             raise ValueError(f"context field {key!r} is not the caller's: "
@@ -80,19 +93,23 @@ def check_context_fields(kw: Mapping[str, Any]) -> None:
                              f"ModelContext has {sorted(known)}")
 
 
-def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw
-                 ) -> ModelContext:
+def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw):
     """The port's ``ModelContext``.
 
     Given a mesh, as the reference given a mesh: ``mesh``, ``data_axes``
     (those of ``pod`` and ``data`` that the mesh has),
-    ``model_axis="model"`` and ``moe_impl="ep"`` unless ``kw`` sets it. A
-    live ``DeviceMesh`` is taken as it is; plain axis sizes (the
-    dry-run's) must be one rank each and become a ``OneRankMesh``, a
-    count over more ranks raises ``ValueError`` (ROADMAP queue 1 item 16
-    (d)). ``None``: the single-device context. A refused or unknown
-    field raises ``ValueError``."""
+    ``model_axis="model"`` and ``moe_impl="ep"`` unless ``kw`` sets it.
+    With ``no_tp`` (the reference's pure data-parallel remap) the model
+    axis joins the data axes and ``moe_impl`` is ``"dense"`` unless
+    ``kw`` sets it; ``"ep"`` with ``no_tp`` over a model axis of more
+    than one rank raises ``ValueError`` (its rows would differ on the
+    ranks that exchange them). A live ``DeviceMesh`` is taken as it is;
+    plain axis sizes (the dry-run's) must be one rank each and become a
+    ``OneRankMesh``, a count over more ranks raises ``ValueError``
+    (ROADMAP queue 1 item 16 (d)). ``None``: the single-device context.
+    A refused or unknown field raises ``ValueError``."""
     check_context_fields(kw)
+    ModelContext = _context_class()
     if mesh is None:
         return ModelContext(**kw)
     if not isinstance(mesh, DeviceMesh):
@@ -103,11 +120,19 @@ def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw
                 f"counts over more ranks wait for ROADMAP queue 1 item 16 "
                 f"(d)")
         mesh = OneRankMesh(tuple(sizes))
+    data_axes = tuple(a for a in ("pod", "data")
+                      if a in mesh.mesh_dim_names)
+    if kw.get("no_tp"):
+        data_axes += ("model",)
+        kw.setdefault("moe_impl", "dense")
+        if kw["moe_impl"] == "ep" and mesh.size(
+                mesh.mesh_dim_names.index("model")) > 1:
+            raise ValueError("no_tp spreads the batch over the model axis; "
+                             "moe_impl='ep' would exchange rows that "
+                             "differ on its ranks")
     kw.setdefault("moe_impl", "ep")
-    return ModelContext(
-        mesh=mesh, model_axis="model",
-        data_axes=tuple(a for a in ("pod", "data")
-                        if a in mesh.mesh_dim_names), **kw)
+    return ModelContext(mesh=mesh, model_axis="model", data_axes=data_axes,
+                        **kw)
 
 
 def _axis_size(axis_sizes: AxisSizes, axis) -> int:
@@ -201,12 +226,51 @@ def _map_named(fn, tree, name: str = ""):
     return fn(name, tree)
 
 
-def param_specs(params, axis_sizes: AxisSizes):
+def param_specs(params, axis_sizes: AxisSizes, no_tp: bool = False):
     """A spec tree matching the parameter tree (tensors of any device,
-    ``meta`` included): the reference's rule per leaf name, per layer."""
-    return _map_named(
-        lambda name, leaf: _spec_for_leaf(name, tuple(leaf.shape),
-                                          axis_sizes), params)
+    ``meta`` included): the reference's rule per leaf name, per layer;
+    with ``no_tp`` no leaf on the model axis."""
+    def spec(name, leaf):
+        rule = _RULES.get(name)
+        if rule is None:
+            return ()
+        shape = tuple(leaf.shape)
+        s = rule(shape)
+        if no_tp:
+            s = tuple(None if a == "model" else a for a in s)
+        return _guard(axis_sizes, s, shape)
+    return _map_named(spec, params)
+
+
+#: the leaves that tensor parallelism splits, by the block they are in
+#: (``split_dim``): the top level's vocabulary leaves, a GQA
+#: self-attention block's heads, a dense FFN's hidden units and a MoE
+#: FFN's shared experts. Every other leaf (norms, routers, gates, MLA,
+#: Mamba2, MTP and cross-attention) stays whole; a MoE layer's routed
+#: experts are its expert parallelism's (``models.moe.local_experts``)
+TP_LEAVES = {
+    "top": ("embed", "unembed"),
+    "attn": ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
+    "ffn": ("w1", "w3", "w2"),
+    "moe": ("sh_w1", "sh_w3", "sh_w2"),
+}
+
+
+def split_dim(name: str, block: Optional[str], shape: Tuple[int, ...],
+              model: int, heads: Tuple[int, ...] = ()) -> Optional[int]:
+    """The dimension of the whole leaf ``name`` (of ``shape``) in a block
+    of kind ``block`` that a model axis of ``model`` ranks splits, or
+    ``None`` (the leaf stays whole on every rank): the dimension of the
+    ``"model"`` entry of the leaf's rule in ``_RULES``, kept where the
+    axis divides it (``_guard``), for the leaves of ``TP_LEAVES[block]``.
+    An ``"attn"`` block's leaves split only when each of ``heads`` (its
+    query and KV heads) divides over the axis."""
+    if model == 1 or name not in TP_LEAVES.get(block, ()):
+        return None
+    if block == "attn" and any(h % model for h in heads):
+        return None
+    spec = _guard({"model": model, "data": 1}, _RULES[name](shape), shape)
+    return spec.index("model") if "model" in spec else None
 
 
 def batch_axes(axis_sizes: AxisSizes) -> Tuple[str, ...]:

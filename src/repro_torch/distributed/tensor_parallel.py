@@ -1,0 +1,398 @@
+"""Tensor parallelism over the model axis: what a rank holds and the
+collectives between its shards.
+
+The reference splits its large leaves over the mesh's ``model`` axis by
+its partition rules and lets XLA insert the collectives. The port holds
+each rank's shard of a leaf as a plain tensor and writes every
+collective out, each in a ``torch.autograd.Function``:
+
+* ``enter`` before a product whose columns are split (``wq``/``wk``/
+  ``wv``, ``w1``/``w3``, ``unembed``): the copy onto the axis (identity
+  forward, sum backward);
+* ``leave`` after a product whose rows are split (``wo``, ``w2``), and
+  after the vocabulary-split embedding lookup: the sum over the axis
+  (sum forward, identity backward).
+
+With the ``seq_shard_residual`` hint (``ModelContext.seq_parallel``) the
+residual between blocks is each rank's ``S/M`` positions ``[B, S/M,
+d]``: ``enter`` then gathers the sequence (its backward
+reduce-scatters) and ``leave`` reduce-scatters it (its backward
+gathers). A block that stays whole (its heads do not divide over the
+axis) gathers the sequence, runs whole and keeps its rank's positions
+(``gather_seq``, ``slice_seq``). Each rank then sees the leaves that
+are not split (the norms, the routers, a whole block's) through its own
+positions only, and the training step sums their gradients over the
+axis (``distributed.data_parallel.reduce_gradients``).
+
+``layout`` says which leaves of a config split, through
+``distributed.sharding.split_dim`` over the reference's rules; ``plan``
+says the same of a config's blocks for the model's functions. The
+vocabulary leaves split into ``Vp/M`` rows (``embed``) and columns
+(``unembed``): ``embed`` looks each token up on the rank that holds
+its row, ``gather_vocab`` gathers serving's float32 logits, and
+``vocab_ce`` reduces each chunk's maximum, sum of exponentials and
+target logit over the axis, so ``[B, S, Vp]`` is never formed whole.
+
+Over an axis of one rank (``launch.mesh.OneRankMesh``, a world of one,
+no mesh, or the ``no_tp`` hint) nothing splits and no collective runs.
+Every collective is one of ``all_reduce``, ``all_gather`` and
+``reduce_scatter``, which NCCL takes and gloo takes for CPU and CUDA
+tensors alike (``tools/probe_gloo_cuda.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree
+from repro_torch.distributed.sharding import split_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What a context splits of a config's blocks: ``ways`` ranks on the
+    model axis (1: nothing), this rank's index ``rank`` and the axis's
+    ``group``; whether the GQA self-attention blocks (``attn``), the dense
+    FFNs (``ffn``), the MoE layers' shared experts (``shared``) and the
+    vocabulary leaves (``vocab``) split; and whether the residual is
+    each rank's ``S/M`` positions (``seq``)."""
+    ways: int = 1
+    rank: int = 0
+    group: Any = None
+    attn: bool = False
+    ffn: bool = False
+    shared: bool = False
+    vocab: bool = False
+    seq: bool = False
+
+
+WHOLE = Plan()
+
+
+def ffn_width(cfg) -> int:
+    """A dense FFN's hidden width: the MoE family's leading dense layers
+    (and its MTP layer) are ``dense_d_ff`` wide, every other ``d_ff``
+    (``models.model._init_layer``)."""
+    return cfg.dense_d_ff if (cfg.family == "moe" and cfg.dense_d_ff) \
+        else cfg.d_ff
+
+
+def _heads(cfg):
+    return (cfg.num_heads, cfg.num_kv_heads)
+
+
+#: the families whose every block the sequence-split residual covers
+SEQ_FAMILIES = ("dense", "moe")
+
+
+def plan(cfg, ctx) -> Plan:
+    """``ctx``'s split of ``cfg``'s blocks (``Plan``), by ``split_dim`` at
+    the whole leaves' shapes. With ``ctx.seq_parallel`` a family outside
+    ``SEQ_FAMILIES``, MLA, MTP, the dense MoE route or a vocabulary that
+    does not split raises ``ValueError`` (ROADMAP queue 1 item 16)."""
+    M = 1 if ctx is None else ctx.tp_size
+    if M == 1:
+        return WHOLE
+    d, Vp = cfg.d_model, cfg.padded_vocab_size
+    hd = cfg.head_dim
+    H, KV = _heads(cfg)
+    out = Plan(
+        ways=M, rank=ctx.mesh.get_local_rank(ctx.model_axis),
+        group=ctx.mesh.get_group(ctx.model_axis),
+        attn=split_dim("wq", "attn", (d, H * hd), M, (H, KV)) is not None,
+        ffn=split_dim("w1", "ffn", (d, ffn_width(cfg)), M) is not None,
+        shared=bool(cfg.num_shared_experts) and split_dim(
+            "sh_w1", "moe", (d, cfg.moe_d_ff * cfg.num_shared_experts),
+            M) is not None,
+        vocab=split_dim("embed", "top", (Vp, d), M) is not None,
+        seq=ctx.seq_parallel)
+    if out.seq:
+        why = None
+        if cfg.family not in SEQ_FAMILIES or cfg.use_mla or cfg.mtp_depth:
+            why = f"{cfg.name} ({cfg.family})"
+        elif cfg.family == "moe" and ctx.moe_impl != "ep":
+            why = f"the {ctx.moe_impl!r} MoE route"
+        elif not out.vocab:
+            why = f"a vocabulary of {Vp} over {M} ranks"
+        if why:
+            raise ValueError(f"seq_shard_residual covers the dense and MoE "
+                             f"families' GQA blocks through routed_ep; not "
+                             f"{why} (ROADMAP queue 1 item 16)")
+    return out
+
+
+def for_sequence(ctx, seq: int):
+    """``ctx`` for a call over ``seq`` positions: the ``seq_shard_residual``
+    hint holds only where the positions divide over the model axis (the
+    reference's guard), so a decode step's one position is not split."""
+    if ctx is not None and ctx.seq_parallel and seq % ctx.tp_size:
+        return dataclasses.replace(ctx, seq_shard_residual=False)
+    return ctx
+
+
+# --------------------------------------------------------------------------
+# collectives over the model axis
+# --------------------------------------------------------------------------
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    t = t.contiguous()
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _all_gather(t: torch.Tensor, group, ways: int, dim: int
+                ) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(ways)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(t: torch.Tensor, group, ways: int, dim: int
+                    ) -> torch.Tensor:
+    parts = [c.contiguous() for c in t.chunk(ways, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, the sum over the axis backward."""
+
+    @staticmethod
+    def forward(fctx, x, tp):
+        fctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g.clone(), fctx.tp.group), None
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over the axis forward, identity backward (every rank goes
+    on from the same sum)."""
+
+    @staticmethod
+    def forward(fctx, x, tp):
+        return _all_reduce(x.clone(), tp.group)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """[B, S/M, ...] -> [B, S, ...], the ranks' positions in rank order;
+    backward: the sum over the axis of rank m's positions."""
+
+    @staticmethod
+    def forward(fctx, x, tp):
+        fctx.tp = tp
+        return _all_gather(x, tp.group, tp.ways, 1)
+
+    @staticmethod
+    def backward(fctx, g):
+        tp = fctx.tp
+        return _reduce_scatter(g, tp.group, tp.ways, 1), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """[B, S, ...] partial sums -> rank m's positions of their sum over
+    the axis; backward: the gradient's positions gathered."""
+
+    @staticmethod
+    def forward(fctx, x, tp):
+        fctx.tp = tp
+        return _reduce_scatter(x, tp.group, tp.ways, 1)
+
+    @staticmethod
+    def backward(fctx, g):
+        tp = fctx.tp
+        return _all_gather(g, tp.group, tp.ways, 1), None
+
+
+class _SliceSeq(torch.autograd.Function):
+    """[B, S, ...], the same on every rank -> rank m's S/M positions;
+    backward: the gradient at those positions, zero elsewhere."""
+
+    @staticmethod
+    def forward(fctx, x, tp):
+        fctx.tp, fctx.seq = tp, x.shape[1]
+        n = x.shape[1] // tp.ways
+        return x[:, tp.rank * n:(tp.rank + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        tp = fctx.tp
+        out = g.new_zeros((g.shape[0], fctx.seq) + tuple(g.shape[2:]))
+        n = g.shape[1]
+        out[:, tp.rank * n:(tp.rank + 1) * n] = g
+        return out, None
+
+
+def enter(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """The input of a column-split product: the sequence gathered under
+    ``tp.seq``, else ``x`` copied onto the axis."""
+    if tp.ways == 1:
+        return x
+    return _GatherSeq.apply(x, tp) if tp.seq else _Copy.apply(x, tp)
+
+
+def leave(y: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """The output of a row-split product, summed over the axis: this
+    rank's positions of the sum under ``tp.seq``."""
+    if tp.ways == 1:
+        return y
+    return _ScatterSeq.apply(y, tp) if tp.seq else _Sum.apply(y, tp)
+
+
+def gather_seq(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """Under ``tp.seq``, every rank's positions (``enter``'s gather); else
+    ``x``."""
+    return _GatherSeq.apply(x, tp) if tp.seq else x
+
+
+def slice_seq(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """Under ``tp.seq``, this rank's positions of a tensor that every rank
+    holds whole; else ``x``."""
+    return _SliceSeq.apply(x, tp) if tp.seq else x
+
+
+# --------------------------------------------------------------------------
+# the vocabulary leaves
+# --------------------------------------------------------------------------
+def embed(table: torch.Tensor, ids: torch.Tensor, tp: Plan
+          ) -> torch.Tensor:
+    """``table[ids]`` [B, S, d] (under ``tp.seq`` this rank's positions)
+    from this rank's rows of a vocabulary-split table: each rank looks up
+    the tokens in its rows, zero elsewhere, and the sum over the axis
+    (``leave``) has each token's row from the one rank that holds it.
+    (``plan`` refuses ``tp.seq`` where the vocabulary does not split.)"""
+    if not tp.vocab:
+        return table[ids]
+    n = table.shape[0]
+    local = ids.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return leave(torch.where(inside[..., None], rows, 0), tp)
+
+
+def gather_vocab(logits: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """[B, Vp/M] logits of this rank's vocabulary columns -> [B, Vp] on
+    every rank (serving; no gradient)."""
+    if not tp.vocab:
+        return logits
+    return _all_gather(logits, tp.group, tp.ways, -1)
+
+
+def vocab_ce(xc: torch.Tensor, unembed: torch.Tensor, tc: torch.Tensor,
+             vocab_size: int, tp: Plan) -> torch.Tensor:
+    """A chunk's cross-entropy ``[B, c]`` from this rank's ``Vp/M``
+    columns of ``unembed``, ``xc`` already on the axis (``enter``): the
+    maximum of the logits over the axis (no gradient), then the sums of
+    ``exp(logit - max)`` and of the target's logit (on the rank that holds
+    its column) over the axis. Columns past ``vocab_size`` are -1e30."""
+    n = unembed.shape[1]
+    logits = (xc @ unembed).float()
+    cols = tp.rank * n + torch.arange(n, device=xc.device)
+    logits = torch.where(cols < vocab_size, logits, -1e30)
+    top = _all_reduce(logits.detach().amax(dim=-1), tp.group,
+                      dist.ReduceOp.MAX)
+    sumexp = _Sum.apply(torch.exp(logits - top[..., None]).sum(dim=-1), tp)
+    local = tc - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    target = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    target = _Sum.apply(torch.where(inside, target, 0.0), tp)
+    return torch.log(sumexp) + top - target
+
+
+# --------------------------------------------------------------------------
+# what each rank holds
+# --------------------------------------------------------------------------
+class Cut(NamedTuple):
+    """A split leaf: the dimension split over the model axis and its whole
+    size."""
+    dim: int
+    size: int
+
+
+def _block_of(path: str, cfg, own) -> Optional[str]:
+    """The block kind (``sharding.TP_LEAVES``' keys, or ``None``) of the
+    leaf at ``path`` of the port's parameter tree: ``"top"`` for a
+    top-level leaf; under a layer's ``attn``, ``"attn"`` for a GQA
+    self-attention layer; under its ``ffn``, ``"ffn"`` or ``"moe"`` by the
+    layer's spec (``own``: the specs of ``params["layers"]``' entries);
+    ``None`` for the MTP module and anything else."""
+    parts = path.split("/")
+    if len(parts) == 1:
+        return "top"
+    if len(parts) < 4 or parts[-2] not in ("attn", "ffn"):
+        return None
+    outer, inner = parts[-4], parts[-3]
+    if outer == "layers":
+        spec = own[int(inner[1:-1])]
+    elif outer.endswith("_shared"):
+        spec = cfg.plan()[int(outer[len("stage"):-len("_shared")])].layers[
+            int(inner[len("layer"):])]
+    else:
+        return None
+    if parts[-2] == "attn":
+        return "attn" if spec.kind == "attn" else None
+    return {"dense": "ffn", "moe": "moe"}.get(spec.ffn)
+
+
+def layout(cfg, ctx) -> Dict[str, Cut]:
+    """The leaves of ``cfg``'s parameter tree that ``ctx`` splits over the
+    model axis, by their names in it (``tree.flatten_with_names``): each
+    leaf that ``sharding.split_dim`` splits, and under expert parallelism
+    (``moe_impl="ep"``) each MoE layer's expert leaves on their first
+    dimension (``models.moe.local_experts``). Empty over an axis of one
+    rank and with ``no_tp``."""
+    M = 1 if ctx is None or ctx.mesh is None else ctx.tp_size
+    if M == 1:
+        return {}
+    from repro_torch.models.layers import ShapesOnly
+    from repro_torch.models.model import init
+    # the specs of params["layers"]' entries: every application but a
+    # shared layer's
+    own = [spec for stage in cfg.plan() for _ in range(stage.repeat)
+           for spec in stage.layers if not spec.shared]
+    out = {}
+    for path, leaf in tree.flatten_with_names(init(ShapesOnly(), cfg)
+                                              ).items():
+        block, name = _block_of(path, cfg, own), path.rsplit("/", 1)[-1]
+        dim = split_dim(name, block, tuple(leaf.shape), M, _heads(cfg))
+        if dim is None and block == "moe" and ctx.moe_impl == "ep" and \
+                name in ("w1", "w3", "w2"):
+            dim = 0
+        if dim is not None:
+            out[path] = Cut(dim, leaf.shape[dim])
+    return out
+
+
+def cuts_of(names, split: Dict[str, Cut]) -> Dict[str, Cut]:
+    """The split leaves among ``names`` (a tree's leaf names, such as a
+    training state's ``opt/mu/layers/[3]/attn/wq``): each name whose
+    trailing part names a leaf of ``split``."""
+    out = {}
+    for name in names:
+        parts = name.split("/")
+        for i in range(len(parts)):
+            cut = split.get("/".join(parts[i:]))
+            if cut is not None:
+                out[name] = cut
+                break
+    return out
+
+
+def local(t: torch.Tensor, cut: Cut, rank: int, ways: int) -> torch.Tensor:
+    """Rank ``rank``'s part of the whole leaf ``t`` along ``cut.dim``, a
+    copy; a leaf that is not whole raises ``ValueError``."""
+    if t.shape[cut.dim] != cut.size:
+        raise ValueError(f"a leaf of {tuple(t.shape)} is not whole on "
+                         f"dimension {cut.dim} ({cut.size})")
+    n = cut.size // ways
+    return t.narrow(cut.dim, rank * n, n).clone()

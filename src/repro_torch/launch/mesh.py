@@ -11,8 +11,9 @@ takes.
 
 ``make_host_mesh`` is the mesh a run computes on: a
 ``torch.distributed`` device mesh over the live process group, which
-``sharding.make_context`` turns into the context of the expert-parallel
-MoE path (``models.moe.routed_ep``) and of a training step on a mesh
+``sharding.make_context`` turns into the context of tensor parallelism
+(``distributed.tensor_parallel``), the expert-parallel MoE path
+(``models.moe.routed_ep``) and a training step on a mesh
 (``distributed.data_parallel``). ``OneRankMesh`` is the dry-run's: the
 same calls answered for one rank with no process group, so that the
 dry-run counts what a run on the production mesh runs.
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -78,20 +79,23 @@ class OneRankMesh:
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
+def make_host_mesh(data: int = 1, model: int = 1,
+                   backend: Optional[str] = None) -> DeviceMesh:
     """A ``data`` x ``model`` device mesh over the live process group, axes
     ``("data", "model")``; rank ``d·model + m`` is at ``(d, m)``, where
     the reference's ``jax.make_mesh`` puts device ``d·model + m``.
 
-    With no process group yet and ``data·model == 1`` it starts a world
-    of one on an in-process ``HashStore`` (no socket, no environment
-    variables): NCCL on the card, gloo on the CPU, which is used only
-    when the caller asked for it (``use_device("cpu")``). More ranks need
-    a world of ``data·model`` ranks that the caller initialised; a group
-    of another size or of the other device's backend raises
-    ``ValueError``."""
+    ``backend`` is the process group's: by default NCCL on the card and
+    gloo on the CPU (``BACKENDS``); a caller may name gloo on the card,
+    which is how several ranks share one card (NCCL refuses two ranks on
+    one device). With no process group yet and ``data·model == 1`` it
+    starts a world of one on an in-process ``HashStore`` (no socket, no
+    environment variables); the CPU is used only when the caller asked
+    for it (``use_device("cpu")``). More ranks need a world of
+    ``data·model`` ranks that the caller initialised; a group of another
+    size or of another backend raises ``ValueError``."""
     dev = current_device()
-    backend = BACKENDS[dev.type]
+    backend = backend or BACKENDS[dev.type]
     n = data * model
     if not dist.is_initialized():
         if n != 1:
@@ -101,7 +105,7 @@ def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
             torch.cuda.set_device(dev)
         dist.init_process_group(
             backend, store=dist.HashStore(), rank=0, world_size=1,
-            device_id=dev if dev.type == "cuda" else None)
+            device_id=dev if backend == "nccl" else None)
     if dist.get_world_size() != n or dist.get_backend() != backend:
         raise ValueError(
             f"a {data} x {model} mesh on {dev} wants a {backend} world of "

@@ -26,17 +26,19 @@ the world taken from the environment ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``) and joined at ``--dist-init`` (default
 ``env://``; a ``file://`` URL needs no socket), NCCL on the cards and
 gloo on the CPU. Every rank makes the whole initial state from the same
-generator and keeps its experts (``convert.local_expert_state``), draws
-the global batch and takes its data shard's rows
-(``train_step.data_shard``); the MoE layers run ``routed_ep``. Only rank
-0 prints and writes checkpoints, which hold the reference's whole leaves
-(each rank's experts and their moments gathered over the model axis), so
-a checkpoint written on a mesh is one written without; a resume slices
-them again. A mesh without a world of ``D·M`` ranks exits 2 with the
+generator and keeps its share (``convert.local_tp_state``: its heads,
+FFN hidden units and vocabulary rows over the model axis, as the
+reference's launcher places the state by its partition rules, and its
+experts), draws the global batch and takes its data shard's rows
+(``train_step.data_shard``); the model runs tensor-parallel over the
+model axis and the MoE layers run ``routed_ep``. Only rank 0 prints and
+writes checkpoints, which hold the reference's whole leaves (each split
+leaf and its moments gathered over the model axis), so a checkpoint
+written on a mesh is one written without; a resume slices them again. A mesh without a world of ``D·M`` ranks exits 2 with the
 reason:
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
-      --arch deepseek-moe-16b-smoke --model-parallel 2 --device cpu
+      --arch qwen2-7b-smoke --model-parallel 2 --device cpu
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.device import add_device_flag, entry_device, use_device
 from repro_torch.distributed import data_parallel
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import make_context
 from repro_torch.launch.mesh import BACKENDS, make_host_mesh
 from repro_torch.models import convert
@@ -176,11 +179,12 @@ def train(args: argparse.Namespace, dev: torch.device, mesh=None) -> None:
     if step0 is not None:
         state = restored
         say(f"resumed from step {step0}")
-    state = convert.local_expert_state(state, ctx)
+    state = convert.local_tp_state(state, cfg, ctx)
+    split = TP.layout(cfg, ctx)
 
     def save(write, step, state):
         # every rank gathers; rank 0 writes the whole leaves
-        whole = data_parallel.gather_experts(state, ctx)
+        whole = data_parallel.gather_split(state, ctx, split)
         if first:
             write(step, whole)
 

@@ -1,8 +1,10 @@
 """Import the reference package's LM and ViT parameters, and its LM
 training state, into the port's layout, and export the port's LM
 parameters (or gradients) to the reference's. On a mesh,
-``local_expert_params`` (``local_expert_state`` for a training state)
-then keeps each rank's experts.
+``local_tp_params`` (``local_tp_state`` for a training state) then keeps
+each rank's share: its heads, FFN hidden units and vocabulary rows
+(``distributed.tensor_parallel``) and its experts
+(``local_expert_params``).
 
 The reference keeps each stage's super-block of layers stacked along a
 leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
@@ -35,8 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import moe as MOE
 from repro_torch.models.model import Params, layer_specs
+from repro_torch.tree import flatten_with_names, unflatten_like
 
 
 def to_tensor(a: Any, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -105,16 +109,38 @@ def local_expert_params(params: Params, ctx) -> Params:
     return out
 
 
-def local_expert_state(state: Mapping[str, Any], ctx) -> dict:
+def local_tp_params(params: Params, cfg: ModelConfig, ctx) -> Params:
+    """``params`` (the port's LM layout, every leaf whole) -> this rank's
+    share on ``ctx``'s mesh: each leaf that ``tensor_parallel.layout``
+    names cut to this rank's ``1/M`` along its split dimension (the
+    heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo``, the FFN's
+    and shared experts' hidden units, the vocabulary rows of ``embed``
+    and columns of ``unembed``) and, under expert parallelism, each MoE
+    layer's experts as ``local_expert_params`` cuts them. One call gives
+    a rank of a ``D x M`` mesh what the reference's device at its mesh
+    position holds on the model axis. Every other leaf is the same
+    tensor; a split leaf that is not whole raises ``ValueError``."""
+    split = TP.layout(cfg, ctx)
+    if not split:
+        return params
+    m, M = ctx.mesh.get_local_rank(ctx.model_axis), ctx.tp_size
+    flat = flatten_with_names(params)
+    return unflatten_like(params, {
+        name: TP.local(t, split[name], m, M) if name in split else t
+        for name, t in flat.items()})
+
+
+def local_tp_state(state: Mapping[str, Any], cfg: ModelConfig, ctx
+                   ) -> dict:
     """A training state (``train_step.make_train_state``'s, whole) ->
     this rank's: the parameters, both moments and the error buffer cut by
-    ``local_expert_params``; ``step`` as it is."""
+    ``local_tp_params``; ``step`` as it is."""
     out = dict(state)
-    out["params"] = local_expert_params(state["params"], ctx)
-    out["opt"] = {k: local_expert_params(v, ctx)
+    out["params"] = local_tp_params(state["params"], cfg, ctx)
+    out["opt"] = {k: local_tp_params(v, cfg, ctx)
                   for k, v in state["opt"].items()}
     if "err" in state:
-        out["err"] = local_expert_params(state["err"], ctx)
+        out["err"] = local_tp_params(state["err"], cfg, ctx)
     return out
 
 

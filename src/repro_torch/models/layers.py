@@ -43,6 +43,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -75,11 +76,17 @@ class ModelContext:
     Without a mesh (the default) every call runs on one device. ``mesh``
     is a ``torch.distributed.device_mesh.DeviceMesh`` over the live
     process group whose ``mesh_dim_names`` are the reference's axis names
-    (``launch.mesh.make_host_mesh``); with ``moe_impl="ep"`` a MoE block
-    then runs the expert-parallel path (``models.moe.routed_ep``) over
-    ``model_axis``, each rank holding its batch rows of ``data_axes`` and
-    its experts. Nothing else reads the mesh: attention and the dense
-    layers run replicated on every rank of the model axis."""
+    (``launch.mesh.make_host_mesh``, ``distributed.sharding
+    .make_context``); each rank holds its batch rows of ``data_axes``.
+    Over ``model_axis`` the model runs tensor-parallel
+    (``distributed.tensor_parallel``: each rank holds its heads, FFN
+    hidden units and vocabulary rows, ``tp_size`` ways), and with
+    ``moe_impl="ep"`` a MoE block runs the expert-parallel path
+    (``models.moe.routed_ep``), each rank holding its experts. The
+    reference's two layout hints: ``seq_shard_residual`` keeps each
+    rank's ``S/M`` positions of the residual between blocks
+    (``seq_parallel``); ``no_tp`` splits nothing over the model axis,
+    which ``make_context`` then adds to ``data_axes``."""
     mesh: Any = None
     model_axis: str = "model"
     data_axes: Tuple[str, ...] = ("data",)
@@ -96,6 +103,10 @@ class ModelContext:
     remat: str = "none"
     # positions per chunk of the SSD scan (``models.ssm.ssd_scan``)
     ssd_chunk: int = 256
+    # Megatron-style sequence parallelism of the residual between blocks
+    seq_shard_residual: bool = False
+    # pure data parallelism over the model axis too
+    no_tp: bool = False
 
     def __post_init__(self):
         if self.remat not in ("none", "full"):
@@ -112,6 +123,20 @@ class ModelContext:
     def model_axis_size(self) -> int:
         """Ranks along the model axis (1 without a mesh)."""
         return 1 if self.mesh is None else self._axis_size(self.model_axis)
+
+    @property
+    def tp_size(self) -> int:
+        """The ranks the model's split leaves are split over: the model
+        axis's, 1 with ``no_tp`` (``distributed.tensor_parallel``)."""
+        return 1 if self.no_tp else self.model_axis_size
+
+    @property
+    def seq_parallel(self) -> bool:
+        """Whether the residual between blocks is each rank's share of the
+        positions (``seq_shard_residual`` over more than one rank; a call
+        whose positions do not divide turns it off,
+        ``tensor_parallel.for_sequence``)."""
+        return self.seq_shard_residual and self.tp_size > 1
 
     @property
     def data_axes_size(self) -> int:
@@ -134,7 +159,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-           w2: torch.Tensor) -> torch.Tensor:
+           w2: torch.Tensor, split: Optional[TP.Plan] = None
+           ) -> torch.Tensor:
+    """``silu(x @ w1) * (x @ w3) @ w2``. With ``split`` (a
+    ``tensor_parallel.Plan``) the weights are this rank's hidden units:
+    ``x`` enters the model axis before the products and the partial
+    outputs leave it summed."""
+    if split is not None:
+        return TP.leave(swiglu(TP.enter(x, split), w1, w3, w2), split)
     h = F.silu(x @ w1) * (x @ w3)
     return h @ w2
 
@@ -355,15 +387,29 @@ def attn_block(
     and decode alike, no cache is read or returned, and the output is
     scaled by ``tanh(gate)``, taken in float32.
     """
-    B, S, d = x.shape
+    B, d = x.shape[0], x.shape[2]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cross = cross_kv is not None
+    tp = TP.plan(cfg, ctx)
+    split = tp.attn and not cross
+    if split:
+        # this rank's heads
+        h, kv = h // tp.ways, kv // tp.ways
+        if p["wq"].shape[1] != h * hd or p["wk"].shape[1] != kv * hd:
+            raise ValueError(
+                f"the attention leaves want this rank's {h} of "
+                f"{cfg.num_heads} heads (convert.local_tp_params), got "
+                f"wq {tuple(p['wq'].shape)}")
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    # the whole sequence, on the model axis when the heads are split
+    xn = TP.enter(xn, tp) if split else xn if cross else \
+        TP.gather_seq(xn, tp)
+    S = xn.shape[1]
 
     q = xn @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(B, S, h, hd)
-    cross = cross_kv is not None
     kv_src = cross_kv if cross else xn
     k = kv_src @ p["wk"]
     v = kv_src @ p["wv"]
@@ -400,6 +446,9 @@ def attn_block(
                         use_kernel=ctx.flash_kernel)
 
     y = out.reshape(B, S, h * hd) @ p["wo"]
+    # back to the residual's layout: summed over the model axis when the
+    # heads are split, this rank's positions of a whole block's output
+    y = TP.leave(y, tp) if split else y if cross else TP.slice_seq(y, tp)
     if cross:
         y = torch.tanh(p["gate"].float()).to(y.dtype) * y
     elif return_kv:
@@ -528,7 +577,9 @@ def init_ffn(gen: torch.Generator, cfg,
 def ffn_block(p: Params, x: torch.Tensor, cfg,
               ctx: Optional[ModelContext] = None) -> torch.Tensor:
     """Pre-norm SwiGLU residual block. ``ctx`` is the reference's
-    (``models/layers.py:489``), where it only places sharding
-    constraints; on one device the block computes the same either way."""
+    (``models/layers.py:489``); on a model axis whose ranks split the FFN
+    (``tensor_parallel.plan``) each rank holds its hidden units."""
+    tp = TP.plan(cfg, ctx)
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    return x + swiglu(xn, p["w1"], p["w3"], p["w2"])
+    return x + swiglu(xn, p["w1"], p["w3"], p["w2"],
+                      split=tp if tp.ffn else None)

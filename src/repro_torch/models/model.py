@@ -5,7 +5,13 @@ prefill, decode.
 Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``forward`` ``:133``, ``fused_ce`` ``:173``, ``lm_loss`` ``:201``,
 ``init_cache`` ``:255``, ``_fold_prefill_cache`` ``:272``, ``prefill``
-``:295``, ``decode_step`` ``:329``) for one device. The reference
+``:295``, ``decode_step`` ``:329``). On a context whose model axis
+splits the leaves (``distributed.tensor_parallel``) each rank holds its
+share of the heads, FFN hidden units and vocabulary rows
+(``convert.local_tp_params``): the embedding is looked up where each
+token's row lives, and the logits, gathered over the vocabulary, are
+the same on every rank; ``forward`` under the ``seq_shard_residual``
+hint returns this rank's share of the positions. The reference
 scans over stacked per-layer parameters; here ``params["layers"]`` is
 a list with one dict per layer and a Python loop walks it.
 
@@ -65,6 +71,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -72,6 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import current_device
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -216,7 +224,7 @@ def _apply_layer(spec: LayerSpec, p: Params, x: torch.Tensor, cfg, ctx, *,
         x, aux = MOE.moe_block(p["ffn"], x, cfg, ctx)
         return x, nc, aux
     if spec.ffn == "dense":
-        x = L.ffn_block(p["ffn"], x, cfg)
+        x = L.ffn_block(p["ffn"], x, cfg, ctx)
     return x, nc, None
 
 
@@ -227,9 +235,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             ctx: ModelContext, *, image_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (hidden [B, S, d], aux_loss); ``image_embeds``
-    ``[B, N, d]`` for the cross-attention layers."""
-    x = params["embed"][tokens]
+    ``[B, N, d]`` for the cross-attention layers. With the
+    ``seq_shard_residual`` hint on a model axis of M ranks that S
+    divides, ``hidden`` is this rank's S/M positions
+    (``tensor_parallel``)."""
     S = tokens.shape[1]
+    ctx = TP.for_sequence(ctx, S)
+    x = TP.embed(params["embed"], tokens, TP.plan(cfg, ctx))
     positions = torch.arange(S, device=x.device)[None, :]
     aux_total = torch.zeros((), device=x.device)
     for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
@@ -267,33 +279,47 @@ def _ce_chunk(xc, unembed, tc, vmask):
 
 
 def fused_ce(x: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
-             vocab_size: int, chunk: int = 512) -> torch.Tensor:
+             vocab_size: int, chunk: int = 512,
+             split: Optional[TP.Plan] = None) -> torch.Tensor:
     """Mean cross-entropy of ``x [B, S, d] @ unembed [d, Vp]`` against
     ``targets [B, S]``, logits past ``vocab_size`` (the padding) masked
     to -1e30. One chunk of ``chunk`` positions at a time, each under
     ``torch.utils.checkpoint``, so the backward recomputes a chunk's
     float32 logits instead of keeping them; ``chunk = S`` when S is
-    not a multiple of it or not above it."""
+    not a multiple of it or not above it. With ``split`` (a
+    ``tensor_parallel.Plan`` whose vocabulary splits) ``unembed`` is this
+    rank's ``Vp/M`` columns: ``x`` enters the model axis (its positions
+    gathered under ``split.seq``) and each chunk's reductions run over
+    it (``tensor_parallel.vocab_ce``)."""
+    if split is not None:
+        x = TP.enter(x, split)
     B, S, _ = x.shape
     if S % chunk or S <= chunk:
         chunk = S
-    vmask = torch.arange(unembed.shape[1], device=x.device) < vocab_size
     targets = targets.long()
-    losses = [checkpoint(_ce_chunk, x[:, i:i + chunk], unembed,
-                         targets[:, i:i + chunk], vmask,
+    if split is not None:
+        fn, extra = TP.vocab_ce, (vocab_size, split)
+    else:
+        fn = _ce_chunk
+        extra = (torch.arange(unembed.shape[1], device=x.device)
+                 < vocab_size,)
+    losses = [checkpoint(fn, x[:, i:i + chunk], unembed,
+                         targets[:, i:i + chunk], *extra,
                          use_reentrant=False, preserve_rng_state=False)
               for i in range(0, S, chunk)]
     return torch.stack(losses).mean()               # [n, B, chunk]
 
 
 def mtp_input(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, split: TP.Plan = TP.WHOLE) -> torch.Tensor:
     """The MTP layer's input ``[B, S - 1, d]``: the final hidden state of
     positions 0..S-2 and the embedding of their next tokens
-    (``targets[:, :-1]``), each normed, concatenated and projected."""
+    (``targets[:, :-1]``; ``split``: the embedding's split), each normed,
+    concatenated and projected."""
     p = params["mtp"]
     h = L.rms_norm(hidden[:, :-1], p["ln_h"], cfg.norm_eps)
-    e = L.rms_norm(params["embed"][targets[:, :-1]], p["ln_e"], cfg.norm_eps)
+    e = L.rms_norm(TP.embed(params["embed"], targets[:, :-1], split),
+                   p["ln_e"], cfg.norm_eps)
     return torch.cat([h, e], dim=-1) @ p["proj"]
 
 
@@ -334,20 +360,31 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, aux = forward(params, inputs, cfg, ctx,
                           image_embeds=batch.get("image_embeds"))
-    ce = fused_ce(hidden, params["unembed"], targets, cfg.vocab_size)
+    tp = TP.plan(cfg, TP.for_sequence(ctx, inputs.shape[1]))
+    vocab = tp if tp.vocab else None
+    ce = fused_ce(hidden, params["unembed"], targets, cfg.vocab_size,
+                  split=vocab)
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
-        hm = mtp_input(params, hidden, targets, cfg)
+        # the MTP module stays whole on every rank of the model axis
+        hm = mtp_input(params, hidden, targets, cfg, tp)
         positions = torch.arange(hm.shape[1], device=hm.device)[None, :]
-        hm, _, _ = _apply_layer(MTP_SPEC, params["mtp"], hm, cfg, ctx,
-                                positions=positions)
+        hm, _, _ = _apply_layer(MTP_SPEC, params["mtp"], hm, cfg,
+                                _whole(ctx), positions=positions)
         mtp = fused_ce(hm, params["unembed"], targets[:, 1:],
-                       cfg.vocab_size)
+                       cfg.vocab_size, split=vocab)
         metrics["mtp"] = mtp
     loss = total_loss(ce, aux, metrics.get("mtp"), mtp_weight=mtp_weight,
                       aux_weight=aux_weight)
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _whole(ctx: ModelContext) -> ModelContext:
+    """``ctx`` with nothing split over the model axis (the MTP layer's)."""
+    if ctx.tp_size == 1:
+        return ctx
+    return dataclasses.replace(ctx, no_tp=True, seq_shard_residual=False)
 
 
 # --------------------------------------------------------------------------
@@ -361,11 +398,16 @@ def cache_rows(spec: LayerSpec, cache_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               device: Optional[torch.device] = None) -> Cache:
+               device: Optional[torch.device] = None,
+               ctx: Optional[ModelContext] = None) -> Cache:
     """Zeroed caches, one per application: (k, v) for attention, the
     latent (c_kv, k_pe) for MLA, (conv tail, state) for Mamba2, () for
-    cross-attention."""
+    cross-attention. On a model axis whose ranks split the attention
+    (``ctx``, ``tensor_parallel.plan``), (k, v) hold this rank's KV
+    heads."""
     dev = device or current_device()
+    tp = TP.plan(cfg, ctx)
+    kv = cfg.num_kv_heads // tp.ways if tp.attn else cfg.num_kv_heads
     dt = getattr(torch, cfg.dtype)
     caches: Cache = []
     for spec in layer_specs(cfg):
@@ -380,7 +422,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
             shapes = [(batch, rows, cfg.kv_lora_rank),
                       (batch, rows, cfg.qk_rope_head_dim)]
         else:
-            shapes = [(batch, rows, cfg.num_kv_heads, cfg.head_dim)] * 2
+            shapes = [(batch, rows, kv, cfg.head_dim)] * 2
         caches.append(tuple(torch.zeros(shape, dtype=dt, device=dev)
                             for shape in shapes))
     return caches
@@ -418,18 +460,27 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             image_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[Cache, torch.Tensor]:
     """Teacher-forced pass emitting decode caches + last-position logits
-    (float32, [B, padded_vocab])."""
-    x = params["embed"][tokens]
+    (float32, [B, padded_vocab], the same on every rank of a model
+    axis)."""
     S = tokens.shape[1]
+    ctx = TP.for_sequence(ctx, S)
+    tp = TP.plan(cfg, ctx)
+    x = TP.embed(params["embed"], tokens, tp)
     positions = torch.arange(S, device=x.device)[None, :]
     caches: Cache = []
     for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
         x, raw, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
                                  cross_kv=image_embeds, return_cache=True)
         caches.append(_fold_prefill_cache(spec, raw, cfg, cache_len))
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = (x[:, -1] @ params["unembed"]).float()
-    return caches, logits
+    x = L.rms_norm(TP.gather_seq(x, tp), params["final_ln"], cfg.norm_eps)
+    return caches, _logits(x[:, -1], params["unembed"], tp)
+
+
+def _logits(x: torch.Tensor, unembed: torch.Tensor, tp: TP.Plan
+            ) -> torch.Tensor:
+    """float32 [B, padded_vocab] of x [B, d], gathered over the model
+    axis where the vocabulary splits."""
+    return TP.gather_vocab((x @ unembed).float(), tp)
 
 
 def decode_step(params: Params, caches: Cache, token: torch.Tensor,
@@ -439,7 +490,9 @@ def decode_step(params: Params, caches: Cache, token: torch.Tensor,
     """One serve step: token [B, 1] at position ``pos``. Writes the
     attention and MLA caches in place and returns the caches (a Mamba2
     layer's replaced) with the float32 logits."""
-    x = params["embed"][token]
+    ctx = TP.for_sequence(ctx, token.shape[1])
+    tp = TP.plan(cfg, ctx)
+    x = TP.embed(params["embed"], token, tp)
     positions = torch.full(token.shape, pos, device=x.device)
     new_caches: Cache = []
     for spec, p, c in zip(layer_specs(cfg), layer_params(params, cfg),
@@ -449,5 +502,4 @@ def decode_step(params: Params, caches: Cache, token: torch.Tensor,
                                 cross_kv=image_embeds)
         new_caches.append(nc)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = (x[:, -1] @ params["unembed"]).float()
-    return new_caches, logits
+    return new_caches, _logits(x[:, -1], params["unembed"], tp)

@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -282,7 +283,10 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     (``local_experts``). -> (y [B_local, S, d], aux): the values of the
     reference's global ``routed_ep`` at these rows, and aux averaged over
     the model axis. When ``S`` divides over the ``M`` ranks, each routes
-    its ``S/M`` positions and the outputs are all-gathered; otherwise
+    its ``S/M`` positions and the outputs are all-gathered; with the
+    sequence-split residual (``ctx.seq_parallel``) ``x`` and ``y`` are
+    already this rank's S/M positions, the same slice, and nothing is
+    sliced or gathered here; otherwise
     every rank routes all of them, which only serving does (a decode
     step): under autograd that case raises ``ValueError``, since each
     rank's experts would take M copies of every gradient. Each expert
@@ -308,7 +312,9 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     group = ctx.mesh.get_group(ctx.model_axis)
     m = ctx.mesh.get_local_rank(ctx.model_axis)
     B, S, d = x.shape
-    seq_shard = S % M == 0 and S >= M   # the reference's tok_spec
+    presliced = ctx.seq_parallel        # the residual's own slice
+    # the reference's tok_spec
+    seq_shard = presliced or (S % M == 0 and S >= M)
     if not seq_shard and torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, p["router"], p["w1"], p["w3"],
                                       p["w2"])):
@@ -316,7 +322,7 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
             f"routed_ep under autograd wants a sequence that divides over "
             f"the model axis: {S} positions over {M} ranks would give each "
             f"rank's experts {M} copies of every gradient")
-    if seq_shard and M > 1:
+    if seq_shard and M > 1 and not presliced:
         x = _SeqSlice.apply(x, group, m, M)
     bl, sl = x.shape[:2]
     T = bl * sl
@@ -344,7 +350,7 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     w = keep.to(xt.dtype) * gates.reshape(-1)
     y = (back.index_select(0, dest) * w[:, None]).reshape(T, k, d).sum(
         dim=1).reshape(bl, sl, d)
-    if seq_shard and M > 1:
+    if seq_shard and M > 1 and not presliced:
         y = _SeqGather.apply(y, group, m)
     return y, aux
 
@@ -353,7 +359,9 @@ def moe_block(p: Params, x: torch.Tensor, cfg, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE residual block: x + shared experts + routed experts.
     ``routed_ep`` when ``ctx`` asks for it (``moe_impl="ep"`` on a mesh),
-    else the drop-free ``routed``."""
+    else the drop-free ``routed``. On a model axis whose ranks split the
+    shared experts (``tensor_parallel.plan``) each rank holds their
+    hidden units."""
     B, S, d = x.shape
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
     if ctx is not None and ctx.moe_impl == "ep" and ctx.mesh is not None:
@@ -362,5 +370,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg, ctx=None
         r, aux = routed(xn.reshape(B * S, d), p, cfg)
         r = r.reshape(B, S, d)
     if cfg.num_shared_experts:
-        return x + L.swiglu(xn, p["sh_w1"], p["sh_w3"], p["sh_w2"]) + r, aux
+        tp = TP.plan(cfg, ctx)
+        sh = L.swiglu(xn, p["sh_w1"], p["sh_w3"], p["sh_w2"],
+                      split=tp if tp.shared else None)
+        return x + sh + r, aux
     return x + r, aux

@@ -3,7 +3,10 @@
 Port of the reference's ``serve/engine.py``. The steps run eagerly (the
 reference jits them); ``generate`` runs on ``current_device()`` — the
 card unless the caller asked for the CPU — and refuses parameters that
-live elsewhere.
+live elsewhere. With a context on a mesh (``sharding.make_context``)
+and each rank's share of the parameters (``convert.local_tp_params``)
+every rank of the model axis calls it on the same prompt and gets the
+same ids: the logits are gathered over the vocabulary.
 """
 from __future__ import annotations
 

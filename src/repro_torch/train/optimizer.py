@@ -37,13 +37,14 @@ def adamw_init(params, opt_dtype: str = "float32") -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def _global_norm(grads, ctx=None) -> torch.Tensor:
+def _global_norm(grads, ctx=None, split=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, leaf sums added in
     the reference's leaf order. On a mesh (``ctx``) the whole model's:
-    each whole leaf once, each rank's expert leaves summed over the
-    model axis (``data_parallel.global_sq_sums``)."""
+    each whole leaf once, each rank's share of a split leaf
+    (``split``, ``tensor_parallel.layout``) summed over the model axis
+    (``data_parallel.global_sq_sums``)."""
     total = None
-    for s in data_parallel.global_sq_sums(grads, ctx):
+    for s in data_parallel.global_sq_sums(grads, ctx, split):
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -57,12 +58,13 @@ def schedule(step: torch.Tensor, cfg: OptimizerConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, step: torch.Tensor,
-                 cfg: OptimizerConfig, ctx=None
+                 cfg: OptimizerConfig, ctx=None, split=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: returns (params, opt_state, {"grad_norm", "lr"}).
     ``step`` is the int32 step counter before this update; ``ctx``, a
-    context on a mesh, makes the clip's norm the whole model's."""
-    gnorm = _global_norm(grads, ctx)
+    context on a mesh, and ``split``, the leaves its model axis splits,
+    make the clip's norm the whole model's."""
+    gnorm = _global_norm(grads, ctx, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(step, cfg)

@@ -17,12 +17,13 @@ backward, as the reference's ``jax.checkpoint`` does).
 On a mesh (``ctx.mesh``: ``sharding.make_context`` of a ``data x model``
 device mesh) the step runs on every rank, as the reference's step jitted
 over the mesh: ``batch`` holds this rank's rows (``data_shard``), the
-state this rank's experts (``convert.local_expert_params``). The
-gradients are reduced to the global batch's before compression and
-AdamW (``distributed.data_parallel``), and the metrics are the
-reference's global values: ``ce`` (and ``mtp``) averaged over the data
-axes, ``aux`` the first data shard's, ``loss`` recombined from them,
-``grad_norm`` the whole model's.
+state this rank's share of the leaves the model axis splits (its heads,
+FFN hidden units, vocabulary rows and experts:
+``convert.local_tp_state``). The gradients are reduced to the global
+batch's before compression and AdamW (``distributed.data_parallel``),
+and the metrics are the reference's global values: ``ce`` (and ``mtp``)
+averaged over the data axes, ``aux`` the first data shard's, ``loss``
+recombined from them, ``grad_norm`` the whole model's.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import compression, data_parallel
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import model
 from repro_torch.models.layers import ModelContext, ShapesOnly, named_scope
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
@@ -118,13 +120,22 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
     batch's rows, as the reference's: a rank's slices are ``microbatch
     / D`` of its rows (``data_shard`` orders them), and a
     ``microbatch`` that does not divide over the D data ranks raises
-    ``ValueError``."""
+    ``ValueError``. So does the dense MoE route over more than one data
+    rank (the ``no_tp`` hint's default): its load-balance aux is the
+    reference's over the global batch, which is not ported (ROADMAP
+    queue 1 item 16)."""
     D = ctx.data_axes_size
     if microbatch % D:
         raise ValueError(f"microbatch {microbatch} does not divide over "
                          f"{D} data ranks")
+    if D > 1 and ctx.moe_impl == "dense" and any(
+            spec.ffn == "moe" for spec in model.layer_specs(cfg)):
+        raise ValueError(f"{cfg.name}: the dense MoE route's load-balance "
+                         f"aux over {D} data ranks is the global batch's; "
+                         f"not ported (ROADMAP queue 1 item 16)")
     local_mb = microbatch // D
     mesh = data_parallel.on_mesh(ctx)
+    split = TP.layout(cfg, ctx)
 
     def grads_of(params, batch):
         if not local_mb:
@@ -152,7 +163,9 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
     def train_step(state, batch):
         (_, metrics), grads = grads_of(state["params"], batch)
         if mesh:
-            grads = data_parallel.reduce_gradients(grads, ctx)
+            seq = TP.for_sequence(
+                ctx, batch["tokens"].shape[1] - 1).seq_parallel
+            grads = data_parallel.reduce_gradients(grads, ctx, split, seq)
         if data_parallel.data_groups(ctx):
             metrics = data_parallel.global_metrics(metrics, ctx)
             metrics["loss"] = model.total_loss(
@@ -161,11 +174,11 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
         with named_scope(OPTIMIZER_SCOPE):
             if grad_compression:
                 grads, new_err = compression.compress_grads_with_feedback(
-                    grads, state["err"], model.layer_stacks(cfg), ctx)
+                    grads, state["err"], model.layer_stacks(cfg), ctx, split)
                 new_state["err"] = new_err
             params, opt, opt_metrics = adamw_update(
                 grads, state["opt"], state["params"], state["step"],
-                opt_cfg, ctx)
+                opt_cfg, ctx, split)
         new_state.update(params=params, opt=opt, step=state["step"] + 1)
         return new_state, dict(metrics, **opt_metrics)
 

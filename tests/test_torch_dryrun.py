@@ -469,16 +469,31 @@ def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
 #: context fields the dry-run takes, each with a value that changes what
 #: a MoE cell counts (the default is ``routed_ep`` at 1.25)
 ACCEPTED_CTX = {"moe_impl": "dense", "capacity_factor": 2.0}
+#: the reference's layout hints, which the dry-run takes and which change
+#: no count over its one rank: each with the overrides it counts as
+#: (``no_tp`` makes the MoE route dense unless the caller sets it)
+HINTS = {"no_tp": {"moe_impl": "dense"}, "seq_shard_residual": {}}
 
 
 @pytest.mark.parametrize("key", ["no_tp", "moe_impl", "seq_shard_residual",
                                  "capacity_factor", "data_axes",
                                  "not_a_field"])
 def test_reference_only_and_unknown_ctx_keys_raise(key, tmp_path, capsys):
-    """The mesh's fields, the layout hints and unknown fields raise;
-    ``moe_impl`` and ``capacity_factor`` are the dry-run's to set, and
-    change a MoE cell's count by the expert rows they run: ``E·cap`` a
-    layer for ``routed_ep``, ``T·k`` for the drop-free ``routed``."""
+    """The mesh's fields and unknown fields raise; ``moe_impl`` and
+    ``capacity_factor`` are the dry-run's to set, and change a MoE cell's
+    count by the expert rows they run: ``E·cap`` a layer for
+    ``routed_ep``, ``T·k`` for the drop-free ``routed``; the layout hints
+    are accepted and change no count over one rank."""
+    if key in HINTS:
+        arch, shape = "deepseek-moe-16b-smoke", "decode_32k"
+        rec = dryrun_lib.run_cell(arch, shape, ctx_overrides={key: True})
+        same = dryrun_lib.run_cell(arch, shape, ctx_overrides=HINTS[key])
+        assert rec["status"] == same["status"] == "ok"
+        assert rec["cost"] == same["cost"]
+        ctx = sharding.make_context({"data": 1, "model": 1}, **{key: True})
+        assert getattr(ctx, key) and ctx.tp_size == 1
+        assert not ctx.seq_parallel
+        return
     if key in ACCEPTED_CTX:
         arch, shape = "deepseek-moe-16b-smoke", "decode_32k"
         cfg = get_config(arch)

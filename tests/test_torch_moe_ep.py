@@ -102,9 +102,14 @@ def test_make_context_on_a_live_mesh_picks_ep(mesh):
     assert sharding.make_context(mesh, moe_impl="dense").moe_impl == "dense"
     assert sharding.make_context(mesh, capacity_factor=2.0
                                  ).capacity_factor == 2.0
-    for key in ("no_tp", "seq_shard_residual", "model_axis"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            sharding.make_context(mesh, **{key: 1})
+    with pytest.raises(ValueError, match="ROADMAP"):
+        sharding.make_context(mesh, model_axis="model")
+    # the reference's layout hints are the caller's: no_tp makes the model
+    # axis a data axis and the MoE route dense
+    hinted = sharding.make_context(mesh, no_tp=True, seq_shard_residual=True)
+    assert (hinted.no_tp, hinted.seq_shard_residual, hinted.moe_impl,
+            hinted.data_axes, hinted.tp_size, hinted.seq_parallel) == \
+        (True, True, "dense", ("data", "model"), 1, False)
     plain = sharding.make_context(None)
     assert (plain.mesh, plain.moe_impl, plain.model_axis_size) == \
         (None, "dense", 1)

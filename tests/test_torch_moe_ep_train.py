@@ -254,6 +254,7 @@ from repro_torch import tree
 from repro_torch.configs import get_config
 from repro_torch.device import set_device
 from repro_torch.distributed import data_parallel
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import make_context
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import convert, model
@@ -271,13 +272,13 @@ for tag, (arch, D, M, kw) in json.loads(sys.argv[6]).items():
                        k_chunk=%(chunk)d)
     whole = convert.import_reference_train_state(
         inputs["state", cfg.name, bool(kw.get("grad_compression"))], cfg)
-    state = convert.local_expert_state(whole, ctx)
+    state = convert.local_tp_state(whole, cfg, ctx)
     tokens = torch.from_numpy(inputs["tokens", arch])
     batch = ts.data_shard({"tokens": tokens}, ctx, kw.get("microbatch", 0))
     new, met = ts.make_train_step(
         cfg, ctx, OptimizerConfig(lr=%(lr)r, warmup_steps=10), **kw)(
             state, batch)
-    new = data_parallel.gather_experts(new, ctx)
+    new = data_parallel.gather_split(new, ctx, TP.layout(cfg, ctx))
     trees = {"params": new["params"], "mu": new["opt"]["mu"],
              "nu": new["opt"]["nu"]}
     if "err" in new:
@@ -451,7 +452,9 @@ def _tree(rec, tag, key):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_train_step_on_a_mesh_matches_the_references(runs, case):
-    """Every rank's step, its experts gathered, equals the reference's
+    """Every rank's step, its split leaves gathered (its experts, and the
+    heads, FFN hidden units and vocabulary rows that the model axis
+    splits), equals the reference's
     jitted step on the same mesh: loss, ce, aux and grad_norm (the
     reference's global values; aux the first data shard's), every
     parameter and both moments within the flip budget, and the error
