@@ -120,8 +120,8 @@ and prints no result line:
    producer's error. A process-mode (forked) ``numpy-fast`` loader must
    deliver all 33 images byte-identical to the serial decode, and a
    process-mode ``cuda-batch`` loader must be refused. Then the paper's
-   protocols over the first 14 of the 33 images (16 before phase 23; the rare one
-   included), labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
+   protocols over 10 of the 33 images (the first 9 and the rare one; 16
+   before phase 23, 14 before its FSDP part), labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
    before and after the sweeps) and ``WorkerSweep`` in thread and
    process mode at workers 0, 2 and 8 (1 repeat), over
    ``cuda-batch`` and ``numpy-fast``; ``cuda-batch`` must give skip
@@ -507,8 +507,21 @@ and prints no result line:
    generated ids equal. (b) One float32 training step's gradients at the
    cut, 1 x 512, remat full: each leaf, gathered whole over the model
    axis, within 1e-4 of its largest |element| (phase 19's bound) of a
-   world of one's, and the loss within 1e-5. The phase must end within
-   150 s.
+   world of one's, and the loss within 1e-5. (c) FSDP: the same two
+   ranks as a 2 x 1 mesh (``make_host_mesh(2, 1, backend="gloo")``),
+   each holding its data-axis block of every leaf whose rule has
+   ``"data"`` (``distributed.fsdp``: gathered layer by layer on use,
+   gradients reduce-scattered). (c1) One float32 gradient at the cut, 1
+   x 512 a rank: each rank's reduce-scattered block within 1e-5 of its
+   leaf's largest |element| of the same block of a world of one's
+   gradient on the global 2 x 512 batch, the loss within 1e-6, exactly 4
+   FFMA launches a rank. (c2) 2 bf16 AdamW steps at the cut, 1 x 2048 a
+   rank: each rank's parameter and moment bytes equal to the layout's
+   count (printed beside a world of one's), its peak device memory,
+   exactly 8 ``flash_attention_wgmma`` launches a rank, step ms (a
+   shared card's over gloo, not FSDP's), and a checkpoint gathered from
+   the blocks with a world of one's names and shapes. The phase must end
+   within 150 s.
 
 Before phases 3 to 11 and 14 to 23 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
@@ -1289,11 +1302,11 @@ LOADER_HW = (224, 224)
 #: the sweeps' worker counts (0, 2, 4 and 8 until phase 19 needed the
 #: ~50 s that workers 4 took of the 1200 s run)
 PROTOCOL_WORKERS = (0, 2, 8)
-#: the protocols run over the corpus's first images (the rare one, index
-#: 13, included): host entropy decode sets their time, and the whole
-#: script must end within its limit on a slow host (16 until phase 23
-#: needed the time)
-PROTOCOL_IMAGES = 14
+#: the protocols run over this many of the corpus's images, the first
+#: ones and the rare one (index 13): host entropy decode sets their time,
+#: and the whole script must end within its limit on a slow host (16
+#: until phase 23 needed the time, 14 until its FSDP part did)
+PROTOCOL_IMAGES = 10
 PHASE7_WATCHDOG_S = 900
 
 
@@ -1578,11 +1591,17 @@ def _loader_checks(corpus):
     platform = torch.cuda.get_device_name(0)
     paths = ["cuda-batch", "numpy-fast"]
     seconds = {}
+    keep = sorted(set(range(PROTOCOL_IMAGES - 1)) | {corpus.rare_index})
     sub = dataclasses.replace(
-        corpus, files=corpus.files[:PROTOCOL_IMAGES],
-        labels=corpus.labels[:PROTOCOL_IMAGES],
-        sizes=corpus.sizes[:PROTOCOL_IMAGES])
-    check(sub.rare_index < PROTOCOL_IMAGES, "the rare image is cut off")
+        corpus, files=[corpus.files[i] for i in keep],
+        labels=corpus.labels[keep], sizes=[corpus.sizes[i] for i in keep],
+        rare_index=keep.index(corpus.rare_index),
+        progressive_indices=[keep.index(i)
+                             for i in corpus.progressive_indices
+                             if i in keep])
+    check(len(sub.files) == PROTOCOL_IMAGES and
+          sub.files[sub.rare_index] == corpus.files[corpus.rare_index],
+          "the rare image is cut off")
 
     def timed(label, fn):
         t0 = time.perf_counter()
@@ -1749,7 +1768,10 @@ def phase_flash():
         [(shape, f32, True) for shape in train_f32] + \
         [(shape, bf16, True) for shape in train_bf16] + \
         [(tp_path, bf16, True), (tp_path, f32, True),
-         ((1, TP_TRAIN_SEQ, *tp_heads), f32, True)]
+         ((1, TP_TRAIN_SEQ, *tp_heads), f32, True),
+         # phase 23 (c2)'s bf16 steps: all heads on a data-axis rank
+         # ((c1)'s float32 1 x 512 is the case above at 1 x 512)
+         ((1, FSDP_SEQ, *heads), bf16, True)]
     worst = {}
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = _flash_inputs(shape, dtype, seed=i)
@@ -6593,6 +6615,11 @@ TP_CHECK_LAYERS = 2             # the float32 cut of (a) and (b)
 TP_TRAIN_SEQ = 512
 TP_RANK_TIMEOUT_S = 140
 PHASE23_LIMIT_S = 150
+# (c): FSDP over a data axis of the same two ranks (2 x 1)
+FSDP_GRAD_TOL = 1e-5            # of each leaf's largest |element|
+FSDP_LOSS_RTOL = 1e-6
+FSDP_SEQ = 2048                 # (c2)'s rows a rank: 1 x FSDP_SEQ
+FSDP_STEPS = 2                  # (c2)'s AdamW steps; the first warms up
 
 TP_RANK = """\
 import dataclasses, gc, json, sys, time
@@ -6615,7 +6642,11 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import convert, model
 from repro_torch.models.layers import ModelContext
 from repro_torch.serve import engine
-from repro_torch.train.train_step import loss_and_grads
+from repro_torch.train import OptimizerConfig
+from repro_torch.train.train_step import (data_shard, loss_and_grads,
+                                          make_train_state,
+                                          make_train_state_shapes,
+                                          make_train_step)
 set_device("cuda")
 dev = torch.device("cuda", 0)
 mesh = make_host_mesh(1, world, backend="gloo")
@@ -6742,16 +6773,193 @@ if rank == 0:
     res["grads_finite"] = all(bool(torch.isfinite(g).all())
                               for g in got.values())
     res["want_loss"] = want_loss.item()
+    # the loop's last leaf too: a whole float32 gradient
+    del want, want_loss, w
+del got
+if rank == 0:
+    del whole32
+release()
+
+# (c) FSDP: the same two ranks as a 2 x 1 mesh, each holding its data-axis
+# block of every leaf the reference cuts over "data"
+fmesh = make_host_mesh(world, 1, backend="gloo")
+res["data_rank"] = fmesh.get_local_rank("data")
+fctx = make_context(fmesh, remat="full", q_chunk=256, k_chunk=256)
+# (c1) float32 gradients at the cut on the global world x train_seq batch
+whole32 = model.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+fcuts32 = TP.layout(cfg32, fctx)
+pf = convert.local_tp_params(whole32, cfg32, fctx)
+if rank:
+    del whole32
+gtokens = torch.randint(0, cfg32.vocab_size, (world, args["train_seq"] + 1),
+                        generator=torch.Generator(device=dev).manual_seed(4),
+                        device=dev)
+torch.cuda.synchronize()
+dist.barrier()
+ops.reset_launches()
+t0 = time.perf_counter()
+(floss, _), fgrads = loss_and_grads(pf, data_shard({"tokens": gtokens}, fctx),
+                                    cfg32, fctx)
+fgrads = data_parallel.reduce_gradients(fgrads, fctx, fcuts32)
+torch.cuda.synchronize()
+res["fsdp_grad_s"] = time.perf_counter() - t0
+res["fsdp_launches32"] = dict(ops.LAUNCHES)
+res["fsdp_cut_leaves"] = len(fcuts32)
+mean = floss.clone()
+dist.all_reduce(mean)
+res["fsdp_loss"] = (mean / world).item()
+# every rank's blocks, gathered in rank order: block d is rank d's shard
+fgot = tree.flatten_with_names(data_parallel.gather_split(fgrads, fctx,
+                                                          fcuts32))
+del pf, fgrads
+release()
+if rank == 0:
+    (want_loss, _), want = loss_and_grads(
+        whole32, {"tokens": gtokens}, cfg32,
+        ModelContext(remat="full", q_chunk=256, k_chunk=256))
+    worst = [[-1.0, ""] for _ in range(world)]
+    for name, w in tree.flatten_with_names(want).items():
+        scale = w.abs().max().item()
+        cuts = fcuts32.get(name)
+        for d in range(world):
+            blk = (lambda t: TP.local_block(t, cuts, (0, 1), (d, world))) \
+                if cuts is not None else (lambda t: t)
+            rel = (blk(fgot[name]) - blk(w)).abs().max().item() / max(
+                scale, 1e-30)
+            if rel > worst[d][0] and scale > 0:
+                worst[d] = [rel, name]
+    res["fsdp_grad_worst"] = worst
+    res["fsdp_grads_finite"] = all(bool(torch.isfinite(g).all())
+                                   for g in fgot.values())
+    res["fsdp_want_loss"] = want_loss.item()
+    del want, whole32, w
+del fgot
+release()
+
+# (c2) bf16 AdamW steps at the cut, 1 x FSDP_SEQ a rank: the state made
+# whole from one seed, then cut to this rank's block
+cfg2 = dataclasses.replace(cfg, num_layers=args["check_layers"])
+opt_cfg = OptimizerConfig(warmup_steps=10)
+shapes = make_train_state_shapes(cfg2, opt_cfg)
+fcuts = TP.layout(cfg2, fctx)
+res["fsdp_whole_state_bytes"] = nbytes(shapes["params"]) + nbytes(
+    shapes["opt"])
+# the count from the layout: a data-cut leaf's bytes over the axis
+flat = tree.flatten_with_names({"params": shapes["params"],
+                                "opt": shapes["opt"]})
+cut = TP.cuts_of(flat, fcuts)
+res["fsdp_layout_state_bytes"] = sum(
+    t.numel() * t.element_size() // (
+        world if n in cut and cut[n].data is not None else 1)
+    for n, t in flat.items())
+state = convert.local_tp_state(make_train_state(
+    torch.Generator(device=dev).manual_seed(0), cfg2, opt_cfg), cfg2, fctx)
+release()
+res["fsdp_state_bytes"] = nbytes(state["params"]) + nbytes(state["opt"])
+step = make_train_step(cfg2, fctx, opt_cfg)
+tokens2 = torch.randint(0, cfg2.vocab_size, (world, args["fsdp_seq"] + 1),
+                        generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev)
+batch2 = data_shard({"tokens": tokens2}, fctx)
+torch.cuda.reset_peak_memory_stats()
+torch.cuda.synchronize()
+dist.barrier()
+ops.reset_launches()
+ms, losses = [], []
+for _ in range(args["fsdp_steps"]):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch2)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    losses.append(met["loss"].item())
+res["fsdp_launches"] = dict(ops.LAUNCHES)
+res["fsdp_peak"] = torch.cuda.max_memory_allocated()
+res["fsdp_step_ms"], res["fsdp_losses"] = ms, losses
+res["fsdp_steps_done"] = int(state["step"])
+# a checkpoint: every leaf gathered whole, a world of one's shapes
+ckpt = data_parallel.gather_split(state, fctx, fcuts)
+want_shapes = {n: tuple(t.shape)
+               for n, t in tree.flatten_with_names(shapes).items()}
+res["fsdp_ckpt_shapes_equal"] = {
+    n: tuple(t.shape) for n, t in tree.flatten_with_names(ckpt).items()
+} == want_shapes
+res["fsdp_ckpt_leaves"] = len(want_shapes)
+del ckpt, state
+release()
 with open(out, "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
 """
 
 
+def _fsdp_report(res, card):
+    """Phase 23 (c): the ranks' FSDP results, printed and checked."""
+    import statistics
+    r0 = res[0]
+    check([r["data_rank"] for r in res] == list(range(TP_RANKS)),
+          f"(c) data-axis ranks {[r['data_rank'] for r in res]}")
+    rel = abs(r0["fsdp_loss"] - r0["fsdp_want_loss"]) / abs(
+        r0["fsdp_want_loss"])
+    print(f"(c1) float32 gradients at {TP_CHECK_LAYERS} layers on the "
+          f"global {TP_RANKS} x {TP_TRAIN_SEQ} batch, each rank 1 x "
+          f"{TP_TRAIN_SEQ} and its data-axis block of "
+          f"{r0['fsdp_cut_leaves']} cut leaves: loss {r0['fsdp_loss']} vs a "
+          f"world of one's {r0['fsdp_want_loss']} (relative {rel}, limit "
+          f"{FSDP_LOSS_RTOL}); worst reduce-scattered block by rank "
+          f"{r0['fsdp_grad_worst']} of its leaf's max |g| (limit "
+          f"{FSDP_GRAD_TOL}); {[r['fsdp_grad_s'] for r in res]} s a rank; "
+          f"launches {[r['fsdp_launches32'] for r in res]} ({card})")
+    check(all(r["fsdp_loss"] == r0["fsdp_loss"] for r in res) and
+          rel <= FSDP_LOSS_RTOL, f"(c1) loss differs by {rel}")
+    check(r0["fsdp_grads_finite"] and all(
+        w <= FSDP_GRAD_TOL for w, _ in r0["fsdp_grad_worst"]),
+        f"(c1) gradient blocks differ: {r0['fsdp_grad_worst']}")
+    want = FSDP_STEPS * 2 * TP_CHECK_LAYERS
+    for r in res:
+        check(r["fsdp_launches32"]["flash_attention"] == 2 * TP_CHECK_LAYERS
+              and sum(r["fsdp_launches32"].values()) == 2 * TP_CHECK_LAYERS,
+              f"(c1) rank {r['rank']} launched {r['fsdp_launches32']}")
+        check(r["fsdp_launches"]["flash_attention_wgmma"] == want and
+              sum(r["fsdp_launches"].values()) == want,
+              f"(c2) rank {r['rank']} launched {r['fsdp_launches']}, want "
+              f"{want} flash_attention_wgmma")
+        after = statistics.median(r["fsdp_step_ms"][1:])
+        print(f"(c2) rank {r['rank']}: bf16 AdamW state (parameters + "
+              f"moments) {r['fsdp_state_bytes']} bytes, the layout's count "
+              f"{r['fsdp_layout_state_bytes']}, a world of one's "
+              f"{r['fsdp_whole_state_bytes']}; peak device memory "
+              f"{r['fsdp_peak']} bytes over {FSDP_STEPS} steps of 1 x "
+              f"{FSDP_SEQ} ({r['fsdp_peak'] / r['fsdp_state_bytes']} of the "
+              f"state); steps {r['fsdp_step_ms']} ms (after the first: "
+              f"{after} ms, a card shared by {TP_RANKS} "
+              f"processes over gloo, not FSDP's); losses "
+              f"{r['fsdp_losses']}; launches {r['fsdp_launches']}; "
+              f"checkpoint of {r['fsdp_ckpt_leaves']} whole leaves, a world "
+              f"of one's shapes: {r['fsdp_ckpt_shapes_equal']} ({card})")
+        check(r["fsdp_state_bytes"] == r["fsdp_layout_state_bytes"],
+              f"(c2) rank {r['rank']} holds {r['fsdp_state_bytes']} bytes "
+              f"of state, the layout counts {r['fsdp_layout_state_bytes']}")
+        check(r["fsdp_state_bytes"] < r["fsdp_whole_state_bytes"] and
+              r["fsdp_state_bytes"] <= r["fsdp_peak"],
+              f"(c2) rank {r['rank']} state {r['fsdp_state_bytes']}, peak "
+              f"{r['fsdp_peak']}")
+        check(r["fsdp_steps_done"] == FSDP_STEPS and all(
+            math.isfinite(x) for x in r["fsdp_losses"]),
+            f"(c2) rank {r['rank']} steps {r['fsdp_steps_done']}, losses "
+            f"{r['fsdp_losses']}")
+        check(r["fsdp_ckpt_shapes_equal"],
+              f"(c2) rank {r['rank']}'s gathered checkpoint differs in "
+              f"shapes from a world of one's")
+    check(all(r["fsdp_losses"] == r0["fsdp_losses"] for r in res),
+          "(c2) the ranks' losses differ")
+
+
 def phase_tp():
     """Phase 23: ``qwen2-7b`` tensor-parallel over a model axis of two
-    ranks sharing the card (spawned processes, gloo); returns the flash
-    kernels' launches of the ranks' main paths."""
+    ranks sharing the card (spawned processes, gloo), then FSDP over a
+    data axis of the same two ranks; returns the flash kernels' launches
+    of the ranks' main paths."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -6763,7 +6971,8 @@ def phase_tp():
     cfg = get_config(TP_ARCH)
     args = {"arch": TP_ARCH, "batch": TP_BATCH, "prompt": TP_PROMPT,
             "new": TP_NEW, "check_layers": TP_CHECK_LAYERS,
-            "train_seq": TP_TRAIN_SEQ}
+            "train_seq": TP_TRAIN_SEQ, "fsdp_seq": FSDP_SEQ,
+            "fsdp_steps": FSDP_STEPS}
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(TP_RANKS)]
         procs = [subprocess.Popen(
@@ -6857,11 +7066,15 @@ def phase_tp():
     check(r0["grads_finite"] and r0["grad_worst"] <= LM_GRAD_TOL,
           f"(b) gradient {r0['grad_worst_leaf']} differs by "
           f"{r0['grad_worst']}")
+    _fsdp_report(res, card)
     launches = {
         "flash_attention_wgmma": sum(r["launches"]["flash_attention_wgmma"]
+                                     + r["fsdp_launches"][
+                                         "flash_attention_wgmma"]
                                      for r in res),
         "flash_attention": sum(r["launches32"]["flash_attention"] +
-                               r["train_launches"]["flash_attention"]
+                               r["train_launches"]["flash_attention"] +
+                               r["fsdp_launches32"]["flash_attention"]
                                for r in res)}
     dt = time.perf_counter() - t_phase
     print(f"phase 23: {dt} s (limit {PHASE23_LIMIT_S} s); launches "

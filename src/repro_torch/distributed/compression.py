@@ -20,12 +20,13 @@ The int8 bits are the reference's:
 * the same float32 divide by the scale, and ``torch.round`` rounds half
   to even as ``jnp.round`` does.
 
-On a mesh each rank holds its share of the leaves that the model axis
-splits (``tensor_parallel.layout``: the tensor-parallel leaves and each
-MoE layer's experts); their scale is the maximum over the whole leaf, as
-the reference computes it on the global gradient: the stacks' maxima
-are reduced over the model axis (``data_parallel.model_axis_max``). The
-error buffer stays local.
+On a mesh each rank holds its block of the cut leaves
+(``tensor_parallel.layout``: over the model axis the tensor-parallel
+leaves and each MoE layer's experts, over the ``data`` axis the FSDP
+leaves); their scale is the maximum over the whole leaf, as the
+reference computes it on the global gradient: the maxima of the stacks
+that hold a cut leaf are reduced over both axes
+(``data_parallel.whole_max``). The error buffer stays the rank's block.
 """
 from __future__ import annotations
 
@@ -79,7 +80,7 @@ def compress_grads_with_feedback(grads, error_buf,
     buffer in its dtype); ``layer_stacks``: the reference's stack of
     each element of the trees' ``layers`` (module docstring); ``ctx``, a
     context on a mesh, makes the scales of the leaves that ``split``
-    names (``tensor_parallel.layout``) the whole leaves'."""
+    cuts (``tensor_parallel.layout``) the whole leaves'."""
     flat_g = tree.flatten_with_names(grads)
     flat_e = tree.flatten_with_names(error_buf)
     stacks = list(_stacks(flat_g, layer_stacks).values())
@@ -89,11 +90,12 @@ def compress_grads_with_feedback(grads, error_buf,
 
     def amax(ts):
         return torch.stack([t.abs().max() for t in ts]).max()
-    # a split leaf's stack: its maximum over the model axis first
+    # a cut leaf's stack: its maximum over the axes first
     parts = set(cuts_of(flat_g, split or {})) \
-        if data_parallel.model_groups(ctx) else set()
+        if data_parallel.model_groups(ctx) or \
+        data_parallel.fsdp_groups(ctx) else set()
     cut = [i for i, names in enumerate(stacks) if parts & set(names)]
-    whole = dict(zip(cut, data_parallel.model_axis_max(
+    whole = dict(zip(cut, data_parallel.whole_max(
         [amax(g32(stacks[i])) for i in cut], ctx)))
     new_g, new_e = {}, {}
     for i, names in enumerate(stacks):

@@ -5,27 +5,34 @@ The reference jits its train step over the mesh with sharded inputs
 of the global batch, with the reductions XLA inserts. The port runs the
 step on every rank of a ``torch.distributed`` device mesh
 (``launch.mesh.make_host_mesh``, ``sharding.make_context``), each rank
-on its data shard's rows and with its share of the leaves that the model
-axis splits (*split leaves*, ``tensor_parallel.layout``: the
-tensor-parallel leaves and each MoE layer's experts, cut by
-``convert.local_tp_params``); every other leaf is whole. What the
+on its data shard's rows and with its block of each cut leaf
+(``tensor_parallel.layout``, cut by ``convert.local_tp_params``): over
+the model axis the *split leaves* (the tensor-parallel leaves and each
+MoE layer's experts), over the data axis the *data-cut leaves* (FSDP,
+``distributed.fsdp``: the leaves whose rule has ``"data"``). What the
 reference's global values need:
 
 * over the data axes, every gradient leaf is averaged: each rank's loss
-  is the mean over its rows, and the shards hold equal rows;
+  is the mean over its rows, and the shards hold equal rows. A data-cut
+  leaf's gradient arrives already summed over the ``data`` axis (the
+  backward of its gather reduce-scatters it), so it is only divided,
+  and summed over the other data axes (``pod``; ``model`` under
+  ``no_tp``), whose ranks hold the same block; summing it over ``data``
+  again would multiply it by the axis's size;
 * over the model axis, a whole leaf that a rank sees through its share
   of the positions only has its gradient summed: the MoE routers (each
   rank routes its ``S/M`` positions, ``models.moe.routed_ep``) and, with
   the sequence-split residual (``ModelContext.seq_parallel``), every
-  whole leaf. The split leaves are not reduced over it: each rank's
-  share has its whole gradient (the collectives' backwards,
-  ``distributed.tensor_parallel`` and the exchange of ``routed_ep``),
-  and so has every other whole leaf, which sees the whole sequence on
-  every rank;
-* the global norm counts each whole leaf once and sums the split
-  leaves' squares over the model axis (``global_sq_sums``);
+  leaf the model axis does not split. The split leaves are not reduced
+  over it: each rank's share has its whole gradient (the collectives'
+  backwards, ``distributed.tensor_parallel`` and the exchange of
+  ``routed_ep``), and so has every other whole leaf, which sees the
+  whole sequence on every rank;
+* the global norm counts each leaf once: a split leaf's squares summed
+  over the model axis, a data-cut leaf's over the ``data`` axis, a leaf
+  cut on both over both (``global_sq_sums``);
 * an int8 scale is the maximum over a whole leaf: the maximum over the
-  model axis for the split leaves (``model_axis_max``).
+  model and ``data`` axes for a cut leaf (``whole_max``).
 
 With ``no_tp`` the model axis is a data axis and nothing is reduced over
 it as a model axis. An axis of one rank needs none of this, and nothing
@@ -40,10 +47,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
-from repro_torch.distributed.tensor_parallel import Cut, cuts_of
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.tensor_parallel import cuts_of
 
-#: split leaves by name (``tensor_parallel.layout``)
-Split = Mapping[str, Cut]
+#: cut leaves by name (``tensor_parallel.layout``)
+Split = Mapping[str, TP.Cuts]
 
 
 def on_mesh(ctx) -> bool:
@@ -70,6 +78,14 @@ def model_groups(ctx) -> List:
     return _groups(ctx, (ctx.model_axis,))
 
 
+def fsdp_groups(ctx) -> List:
+    """The ``data`` axis's group (the FSDP axis) where it has more than
+    one rank."""
+    if not on_mesh(ctx) or "data" not in ctx.mesh.mesh_dim_names:
+        return []
+    return _groups(ctx, ("data",))
+
+
 def data_rank(ctx) -> int:
     """This rank's index along the data axes together (row-major)."""
     if not on_mesh(ctx):
@@ -90,48 +106,62 @@ def _sum(t: torch.Tensor, groups) -> torch.Tensor:
 @torch.no_grad()
 def reduce_gradients(grads, ctx, split: Split = None, seq: bool = False):
     """This rank's gradients -> the reference's global ones on ``ctx``'s
-    mesh (module docstring): every leaf averaged over the data axes; over
-    the model axis the routers of ``routed_ep`` summed, and with ``seq``
-    (the step's residual was sequence-split) every leaf that ``split``
-    does not name. In place; returns ``grads``."""
+    mesh (module docstring): every leaf averaged over the data axes, a
+    data-cut leaf (``split``) summed over the data axes but ``data``;
+    over the model axis the routers of ``routed_ep`` summed, and with
+    ``seq`` (the step's residual was sequence-split) every leaf that
+    ``split`` does not cut over it. In place; returns ``grads``."""
     data, model = data_groups(ctx), model_groups(ctx)
     if not data and not model:
         return grads
-    split = split or {}
+    flat = tree.flatten_with_names(grads)
+    cuts = cuts_of(flat, split or {})
+    fsdp = fsdp_groups(ctx)
+    others = [g for g in data if g not in fsdp]
     n_data = ctx.data_axes_size
-    for name, g in tree.flatten_with_names(grads).items():
-        if model and (name not in split if seq else
+    for name, g in flat.items():
+        c = cuts.get(name)
+        split_here = c is not None and c.model is not None
+        if model and (not split_here if seq else
                       ctx.moe_impl == "ep" and name.endswith("/router")):
             _sum(g, model)
         if data:
-            _sum(g, data).div_(n_data)
+            cut_here = c is not None and c.data is not None and fsdp
+            _sum(g, others if cut_here else data).div_(n_data)
     return grads
 
 
 @torch.no_grad()
 def global_sq_sums(grads, ctx, split: Split = None) -> List[torch.Tensor]:
-    """Each leaf's float32 sum of squares in leaf order, a split leaf's
-    (``split``) summed over the model axis (one all-reduce for them
-    all)."""
+    """Each leaf's float32 sum of squares in leaf order, a cut leaf's
+    (``split``) summed over the axes that cut it: the model axis, the
+    ``data`` axis or both (one all-reduce a group for them all)."""
     flat = tree.flatten_with_names(grads)
     sums = {n: g.float().square().sum() for n, g in flat.items()}
-    model = model_groups(ctx)
-    parts = list(cuts_of(flat, split or {})) if model else []
-    if parts:
-        both = _sum(torch.stack([sums[n] for n in parts]), model)
-        sums.update(zip(parts, both.unbind()))
+    model, fsdp = model_groups(ctx), fsdp_groups(ctx)
+    by_groups: Dict[tuple, List[str]] = {}
+    for n, c in cuts_of(flat, split or {}).items():
+        groups = tuple((model if c.model is not None else []) +
+                       (fsdp if c.data is not None else []))
+        if groups:
+            by_groups.setdefault(groups, []).append(n)
+    for groups, names in by_groups.items():
+        both = _sum(torch.stack([sums[n] for n in names]), groups)
+        sums.update(zip(names, both.unbind()))
     return list(sums.values())
 
 
 @torch.no_grad()
-def model_axis_max(values: List[torch.Tensor], ctx) -> List[torch.Tensor]:
-    """Each float32 0-d value's maximum over the model axis, in one
-    all-reduce."""
-    model = model_groups(ctx)
-    if not model or not values:
+def whole_max(values: List[torch.Tensor], ctx) -> List[torch.Tensor]:
+    """Each float32 0-d value's maximum over the model and ``data`` axes,
+    in one all-reduce an axis: a cut leaf's whole maximum from its
+    blocks' (a value that an axis holds the same on every rank stays
+    what it is)."""
+    groups = model_groups(ctx) + fsdp_groups(ctx)
+    if not groups or not values:
         return values
     both = torch.stack(values)
-    for g in model:
+    for g in groups:
         dist.all_reduce(both, op=dist.ReduceOp.MAX, group=g)
     return list(both.unbind())
 
@@ -161,20 +191,20 @@ def global_metrics(metrics: Dict[str, torch.Tensor], ctx
 @torch.no_grad()
 def gather_split(state, ctx, split: Split):
     """A tree holding parameter-shaped trees (parameters, moments, error
-    buffer) with this rank's share of each split leaf (``split``) -> the
-    same tree with every split leaf whole, gathered over the model axis
-    in rank order along its split dimension; every rank takes part.
-    Other leaves are the same tensors."""
-    model = model_groups(ctx)
-    if not model:
+    buffer) with this rank's block of each cut leaf (``split``) -> the
+    same tree with every cut leaf whole: gathered over the ``data`` axis,
+    then over the model axis, in rank order along each cut dimension;
+    every rank takes part. Other leaves are the same tensors."""
+    model, fsdp = model_groups(ctx), fsdp_groups(ctx)
+    if not model and not fsdp:
         return state
-    group = model[0]
     flat = tree.flatten_with_names(state)
     out = dict(flat)
-    for name, cut in cuts_of(flat, split).items():
-        t = flat[name].contiguous()
-        parts = [torch.empty_like(t)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, t, group=group)
-        out[name] = torch.cat(parts, dim=cut.dim)
+    for name, c in cuts_of(flat, split).items():
+        t = flat[name]
+        for groups, cut in ((fsdp, c.data), (model, c.model)):
+            if groups and cut is not None:
+                t = TP._all_gather(t, groups[0],
+                                   dist.get_world_size(groups[0]), cut.dim)
+        out[name] = t
     return tree.unflatten_like(state, out)

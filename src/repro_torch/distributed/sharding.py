@@ -19,16 +19,21 @@ over the model axis on the dimension their rule gives it, a GQA
 self-attention block's only when its query and KV heads both divide
 over the axis (otherwise that block runs whole on every rank: the
 reference partitions its q rows instead, a layout with the same
-values). ``distributed.tensor_parallel.layout`` reads it for a config
-and a context, and the model (``models.layers``, ``models.model``,
-``models.moe``), the converter (``models.convert.local_tp_params``) and
-the training step's reductions (``distributed.data_parallel``) read
-that layout. Each MoE layer's experts split by ``models.moe``'s expert
-parallelism. The data axes keep whole leaves (the reference's FSDP
-entries, ``"data"`` on the d_model dims, wait for ROADMAP queue 1 item
-16 (e)); ``param_specs`` gives the reference's specs for the dry-run's
-records. A spec is a tuple with one entry per dimension: an axis name,
-a tuple of axis names (the batch axes of a multi-pod mesh), or ``None``
+values). Each MoE layer's experts split by ``models.moe``'s expert
+parallelism. The data-axis entries (``"data"`` on the d_model dims) are
+put to work by ``fsdp_dim``: every leaf whose rule has one is cut over
+the ``data`` axis on that dimension where the axis divides it, as the
+reference's launcher places its parameters, moments and error buffer
+(FSDP, ZeRO-3); only ``data`` is an FSDP axis (``pod`` replicates, and
+under ``no_tp`` the model ranks hold the same data shard).
+``distributed.tensor_parallel.layout`` reads both for a config and a
+context, and the model (``models.layers``, ``models.model``,
+``models.moe``, ``distributed.fsdp``'s gathers), the converter
+(``models.convert.local_tp_params``) and the training step's
+reductions (``distributed.data_parallel``) read that layout.
+``param_specs`` gives the reference's specs for the dry-run's records.
+A spec is a tuple with one entry per dimension: an axis name, a tuple
+of axis names (the batch axes of a multi-pod mesh), or ``None``
 (replicated); ``tuple()`` of the reference's ``PartitionSpec`` for the
 same leaf gives the same tuple. The rule functions take the mesh as a
 mapping of axis sizes (``launch.mesh.Mesh.shape``).
@@ -61,8 +66,10 @@ from repro_torch.launch.mesh import OneRankMesh
 Spec = Tuple[Any, ...]
 AxisSizes = Mapping[str, int]
 
-_FROM_MESH = ("make_context sets it from the mesh; other layouts wait "
-              "for ROADMAP queue 1 item 16 (e)")
+_FROM_MESH = ("make_context sets it from the mesh, on whose data and "
+              "model axes the partition rules place the leaves (ROADMAP "
+              "queue 1 items 16 (b), (e)); counts over more ranks wait "
+              "for item 16 (d)")
 
 #: the reference's ``ModelContext`` fields that a caller may not set, and
 #: why: the mesh fields come from the mesh
@@ -271,6 +278,20 @@ def split_dim(name: str, block: Optional[str], shape: Tuple[int, ...],
         return None
     spec = _guard({"model": model, "data": 1}, _RULES[name](shape), shape)
     return spec.index("model") if "model" in spec else None
+
+
+def fsdp_dim(name: str, shape: Tuple[int, ...], data: int
+             ) -> Optional[int]:
+    """The dimension of the whole leaf ``name`` (of ``shape``) that a
+    ``data`` axis of ``data`` ranks cuts (FSDP), or ``None`` (the leaf
+    stays whole on every data rank): the dimension of the ``"data"``
+    entry of the leaf's rule in ``_RULES``, kept where the axis divides
+    it (``_guard``). Any block's leaf: the counterpart of ``split_dim``
+    for the data axis."""
+    if data == 1 or name not in _RULES:
+        return None
+    spec = _guard({"data": data, "model": 1}, _RULES[name](shape), shape)
+    return spec.index("data") if "data" in spec else None
 
 
 def batch_axes(axis_sizes: AxisSizes) -> Tuple[str, ...]:

@@ -24,8 +24,10 @@ are not split (the norms, the routers, a whole block's) through its own
 positions only, and the training step sums their gradients over the
 axis (``distributed.data_parallel.reduce_gradients``).
 
-``layout`` says which leaves of a config split, through
-``distributed.sharding.split_dim`` over the reference's rules; ``plan``
+``layout`` says which leaves of a config a context cuts, through
+``distributed.sharding.split_dim`` over the model axis and
+``sharding.fsdp_dim`` over the data axis (FSDP, whose gathers are
+``distributed.fsdp``'s), both by the reference's rules; ``plan``
 says the same of a config's blocks for the model's functions. The
 vocabulary leaves split into ``Vp/M`` rows (``embed``) and columns
 (``unembed``): ``embed`` looks each token up on the rank that holds
@@ -42,13 +44,14 @@ tensors alike (``tools/probe_gloo_cuda.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import tree
-from repro_torch.distributed.sharding import split_dim
+from repro_torch.distributed.sharding import fsdp_dim, split_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,10 +316,17 @@ def vocab_ce(xc: torch.Tensor, unembed: torch.Tensor, tc: torch.Tensor,
 # what each rank holds
 # --------------------------------------------------------------------------
 class Cut(NamedTuple):
-    """A split leaf: the dimension split over the model axis and its whole
-    size."""
+    """A leaf cut over one axis: the dimension cut and its whole size."""
     dim: int
     size: int
+
+
+class Cuts(NamedTuple):
+    """A leaf's cuts: over the model axis (tensor or expert parallelism)
+    and over the data axis (FSDP, ``distributed.fsdp``); ``None`` where
+    the axis keeps it whole."""
+    model: Optional[Cut] = None
+    data: Optional[Cut] = None
 
 
 def _block_of(path: str, cfg, own) -> Optional[str]:
@@ -344,16 +354,32 @@ def _block_of(path: str, cfg, own) -> Optional[str]:
     return {"dense": "ffn", "moe": "moe"}.get(spec.ffn)
 
 
-def layout(cfg, ctx) -> Dict[str, Cut]:
-    """The leaves of ``cfg``'s parameter tree that ``ctx`` splits over the
-    model axis, by their names in it (``tree.flatten_with_names``): each
-    leaf that ``sharding.split_dim`` splits, and under expert parallelism
-    (``moe_impl="ep"``) each MoE layer's expert leaves on their first
-    dimension (``models.moe.local_experts``). Empty over an axis of one
-    rank and with ``no_tp``."""
+def data_ways(ctx) -> int:
+    """Ranks on the mesh's ``data`` axis, the FSDP axis (1 without a mesh
+    or without the axis)."""
+    if ctx is None or ctx.mesh is None or \
+            "data" not in ctx.mesh.mesh_dim_names:
+        return 1
+    return ctx.mesh.size(ctx.mesh.mesh_dim_names.index("data"))
+
+
+def layout(cfg, ctx) -> Dict[str, Cuts]:
+    """The leaves of ``cfg``'s parameter tree that ``ctx`` cuts, by their
+    names in it (``tree.flatten_with_names``), with their ``Cuts``: over
+    the model axis each leaf that ``sharding.split_dim`` splits and, under
+    expert parallelism (``moe_impl="ep"``), each MoE layer's expert leaves
+    on their first dimension (``models.moe.local_experts``); over the data
+    axis each leaf that ``sharding.fsdp_dim`` cuts. Empty over axes of one
+    rank; with ``no_tp`` nothing is cut over the model axis."""
     M = 1 if ctx is None or ctx.mesh is None else ctx.tp_size
-    if M == 1:
+    D = data_ways(ctx)
+    if M == 1 and D == 1:
         return {}
+    return _layout(cfg, M, D, ctx.moe_impl == "ep")
+
+
+@functools.lru_cache(maxsize=32)
+def _layout(cfg, M: int, D: int, ep: bool) -> Dict[str, Cuts]:
     from repro_torch.models.layers import ShapesOnly
     from repro_torch.models.model import init
     # the specs of params["layers"]' entries: every application but a
@@ -364,17 +390,21 @@ def layout(cfg, ctx) -> Dict[str, Cut]:
     for path, leaf in tree.flatten_with_names(init(ShapesOnly(), cfg)
                                               ).items():
         block, name = _block_of(path, cfg, own), path.rsplit("/", 1)[-1]
-        dim = split_dim(name, block, tuple(leaf.shape), M, _heads(cfg))
-        if dim is None and block == "moe" and ctx.moe_impl == "ep" and \
+        shape = tuple(leaf.shape)
+        dim = split_dim(name, block, shape, M, _heads(cfg))
+        if dim is None and M > 1 and block == "moe" and ep and \
                 name in ("w1", "w3", "w2"):
             dim = 0
-        if dim is not None:
-            out[path] = Cut(dim, leaf.shape[dim])
+        ddim = fsdp_dim(name, shape, D)
+        if dim is not None or ddim is not None:
+            out[path] = Cuts(
+                None if dim is None else Cut(dim, shape[dim]),
+                None if ddim is None else Cut(ddim, shape[ddim]))
     return out
 
 
-def cuts_of(names, split: Dict[str, Cut]) -> Dict[str, Cut]:
-    """The split leaves among ``names`` (a tree's leaf names, such as a
+def cuts_of(names, split: Dict[str, Cuts]) -> Dict[str, Cuts]:
+    """The cut leaves among ``names`` (a tree's leaf names, such as a
     training state's ``opt/mu/layers/[3]/attn/wq``): each name whose
     trailing part names a leaf of ``split``."""
     out = {}
@@ -389,10 +419,23 @@ def cuts_of(names, split: Dict[str, Cut]) -> Dict[str, Cut]:
 
 
 def local(t: torch.Tensor, cut: Cut, rank: int, ways: int) -> torch.Tensor:
-    """Rank ``rank``'s part of the whole leaf ``t`` along ``cut.dim``, a
-    copy; a leaf that is not whole raises ``ValueError``."""
+    """Rank ``rank``'s part of the leaf ``t``, whole along ``cut.dim``,
+    a copy; a leaf that is not whole there raises ``ValueError``."""
     if t.shape[cut.dim] != cut.size:
         raise ValueError(f"a leaf of {tuple(t.shape)} is not whole on "
                          f"dimension {cut.dim} ({cut.size})")
     n = cut.size // ways
     return t.narrow(cut.dim, rank * n, n).clone()
+
+
+def local_block(t: torch.Tensor, cuts: Cuts, model: Tuple[int, int],
+                data: Tuple[int, int]) -> torch.Tensor:
+    """The block of the whole leaf ``t`` that the rank at ``model`` and
+    ``data`` (each ``(rank, ways)`` on its axis) holds: its model-axis
+    part of its data-axis part, as the reference's device at the same
+    mesh position holds it."""
+    if cuts.model is not None:
+        t = local(t, cuts.model, *model)
+    if cuts.data is not None:
+        t = local(t, cuts.data, *data)
+    return t

@@ -106,6 +106,10 @@ MoE layer counts ``routed_ep`` as the reference compiles it, every
 expert over its buffer of ``cap = ceil(T·k / E · capacity_factor)``
 rows, the exchange a copy, forward and backward (a train step on the
 mesh, whose gradient reductions over axes of one rank are nothing).
+Over its one data rank FSDP (``distributed.fsdp``) cuts and gathers
+nothing either, so every leaf is counted whole; a count over a mesh of
+more ranks, where each rank holds the reference device's block on both
+axes, is ROADMAP queue 1 item 16 (d).
 ``ctx_overrides`` may set ``moe_impl="dense"`` (the drop-free
 ``routed``, counted under even load, ``moe.expert_rows``) and
 ``capacity_factor``. ``long_500k`` for the

@@ -26,19 +26,22 @@ the world taken from the environment ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``) and joined at ``--dist-init`` (default
 ``env://``; a ``file://`` URL needs no socket), NCCL on the cards and
 gloo on the CPU. Every rank makes the whole initial state from the same
-generator and keeps its share (``convert.local_tp_state``: its heads,
-FFN hidden units and vocabulary rows over the model axis, as the
-reference's launcher places the state by its partition rules, and its
-experts), draws the global batch and takes its data shard's rows
+generator and keeps its block, as the reference's launcher places the
+state by its partition rules (``convert.local_tp_state``): over the model
+axis its heads, FFN hidden units, vocabulary rows and experts, over the
+``data`` axis its FSDP block of the parameters, both moments and the
+error buffer. It draws the global batch and takes its data shard's rows
 (``train_step.data_shard``); the model runs tensor-parallel over the
-model axis and the MoE layers run ``routed_ep``. Only rank 0 prints and
-writes checkpoints, which hold the reference's whole leaves (each split
-leaf and its moments gathered over the model axis), so a checkpoint
-written on a mesh is one written without; a resume slices them again. A mesh without a world of ``D·M`` ranks exits 2 with the
+model axis, gathers each layer's leaves over the data axis on use, and
+the MoE layers run ``routed_ep``. Only rank 0 prints and writes
+checkpoints, which hold the reference's whole leaves (each cut leaf and
+its moments gathered over the data axis, then the model axis), so a
+checkpoint written on a mesh is one written without; a resume cuts them
+again. A mesh without a world of ``D·M`` ranks exits 2 with the
 reason:
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
-      --arch qwen2-7b-smoke --model-parallel 2 --device cpu
+      --arch qwen2-7b-smoke --data-parallel 2 --device cpu
 """
 from __future__ import annotations
 

@@ -2,9 +2,10 @@
 training state, into the port's layout, and export the port's LM
 parameters (or gradients) to the reference's. On a mesh,
 ``local_tp_params`` (``local_tp_state`` for a training state) then keeps
-each rank's share: its heads, FFN hidden units and vocabulary rows
-(``distributed.tensor_parallel``) and its experts
-(``local_expert_params``).
+each rank's block: over the model axis its heads, FFN hidden units and
+vocabulary rows (``distributed.tensor_parallel``) and its experts
+(``local_expert_params``), over the data axis its FSDP block of each
+leaf the reference cuts there (``distributed.fsdp``).
 
 The reference keeps each stage's super-block of layers stacked along a
 leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
@@ -111,30 +112,35 @@ def local_expert_params(params: Params, ctx) -> Params:
 
 def local_tp_params(params: Params, cfg: ModelConfig, ctx) -> Params:
     """``params`` (the port's LM layout, every leaf whole) -> this rank's
-    share on ``ctx``'s mesh: each leaf that ``tensor_parallel.layout``
-    names cut to this rank's ``1/M`` along its split dimension (the
-    heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo``, the FFN's
-    and shared experts' hidden units, the vocabulary rows of ``embed``
-    and columns of ``unembed``) and, under expert parallelism, each MoE
-    layer's experts as ``local_expert_params`` cuts them. One call gives
-    a rank of a ``D x M`` mesh what the reference's device at its mesh
-    position holds on the model axis. Every other leaf is the same
-    tensor; a split leaf that is not whole raises ``ValueError``."""
-    split = TP.layout(cfg, ctx)
-    if not split:
+    block on ``ctx``'s mesh (``tensor_parallel.layout``): over the model
+    axis each split leaf cut to this rank's ``1/M`` along its split
+    dimension (the heads' columns of ``wq``/``wk``/``wv`` and rows of
+    ``wo``, the FFN's and shared experts' hidden units, the vocabulary
+    rows of ``embed`` and columns of ``unembed``) and, under expert
+    parallelism, each MoE layer's experts as ``local_expert_params``
+    cuts them; over the data axis each leaf whose rule has ``"data"``
+    cut to this rank's ``1/D`` along that dimension (FSDP,
+    ``distributed.fsdp``). One call gives rank ``(d, m)`` of a ``D x M``
+    mesh the block that the reference's device at ``(d, m)`` holds.
+    Every other leaf is the same tensor; a cut leaf that is not whole
+    raises ``ValueError``."""
+    cuts = TP.layout(cfg, ctx)
+    if not cuts:
         return params
-    m, M = ctx.mesh.get_local_rank(ctx.model_axis), ctx.tp_size
+    D = TP.data_ways(ctx)
+    model = (ctx.mesh.get_local_rank(ctx.model_axis), ctx.tp_size)
+    data = (ctx.mesh.get_local_rank("data") if D > 1 else 0, D)
     flat = flatten_with_names(params)
     return unflatten_like(params, {
-        name: TP.local(t, split[name], m, M) if name in split else t
-        for name, t in flat.items()})
+        name: TP.local_block(t, cuts[name], model, data) if name in cuts
+        else t for name, t in flat.items()})
 
 
 def local_tp_state(state: Mapping[str, Any], cfg: ModelConfig, ctx
                    ) -> dict:
     """A training state (``train_step.make_train_state``'s, whole) ->
-    this rank's: the parameters, both moments and the error buffer cut by
-    ``local_tp_params``; ``step`` as it is."""
+    this rank's: the parameters, both moments and the error buffer cut on
+    both axes by ``local_tp_params``; ``step`` as it is."""
     out = dict(state)
     out["params"] = local_tp_params(state["params"], cfg, ctx)
     out["opt"] = {k: local_tp_params(v, cfg, ctx)

@@ -11,7 +11,13 @@ share of the heads, FFN hidden units and vocabulary rows
 (``convert.local_tp_params``): the embedding is looked up where each
 token's row lives, and the logits, gathered over the vocabulary, are
 the same on every rank; ``forward`` under the ``seq_shard_residual``
-hint returns this rank's share of the positions. The reference
+hint returns this rank's share of the positions. On a data axis of more
+than one rank each rank holds its block of the leaves the reference
+cuts over ``data`` (``distributed.fsdp``): a layer's are gathered just
+before it runs (inside the recomputed function under ``remat="full"``),
+a shared layer's at each application, ``unembed`` before the
+cross-entropy and the logits, the MTP module before its layer; prefill
+and decode gather the same way. The reference
 scans over stacked per-layer parameters; here ``params["layers"]`` is
 a list with one dict per layer and a Python loop walks it.
 
@@ -79,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import current_device
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -138,6 +145,22 @@ def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
                            if spec.shared else next(own))
     if next(own, None) is not None:
         raise ValueError(f"params hold more layers than {cfg.name}'s plan")
+    return out
+
+
+def layer_names(cfg: ModelConfig) -> List[str]:
+    """The name in the parameter tree of every application's parameters,
+    in ``layer_specs`` order: ``layers/[i]``, or ``stage{s}_shared/layer{j}``
+    for a shared layer (``layer_params``)."""
+    out, k = [], 0
+    for si, stage in enumerate(cfg.plan()):
+        for _ in range(stage.repeat):
+            for j, spec in enumerate(stage.layers):
+                if spec.shared:
+                    out.append(f"stage{si}_shared/layer{j}")
+                else:
+                    out.append(f"layers/[{k}]")
+                    k += 1
     return out
 
 
@@ -241,28 +264,31 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     (``tensor_parallel``)."""
     S = tokens.shape[1]
     ctx = TP.for_sequence(ctx, S)
+    fs = FS.plan(cfg, ctx)
     x = TP.embed(params["embed"], tokens, TP.plan(cfg, ctx))
     positions = torch.arange(S, device=x.device)[None, :]
     aux_total = torch.zeros((), device=x.device)
-    for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
+    for spec, name, p in zip(layer_specs(cfg), layer_names(cfg),
+                             layer_params(params, cfg)):
         if ctx.remat == "full":
             x, aux = checkpoint(_train_layer, spec, p, x, cfg, ctx,
-                                positions, image_embeds,
+                                positions, image_embeds, fs, name,
                                 use_reentrant=False,
                                 preserve_rng_state=False)
         else:
-            x, _, aux = _apply_layer(spec, p, x, cfg, ctx,
-                                     positions=positions,
-                                     cross_kv=image_embeds)
+            x, aux = _train_layer(spec, p, x, cfg, ctx, positions,
+                                  image_embeds, fs, name)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, aux_total
 
 
-def _train_layer(spec, p, x, cfg, ctx, positions, image_embeds):
-    x, _, aux = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                             cross_kv=image_embeds)
+def _train_layer(spec, p, x, cfg, ctx, positions, image_embeds, fs, name):
+    # the layer's data-cut leaves gathered here, inside the recomputed
+    # function under remat: the backward gathers them again
+    x, _, aux = _apply_layer(spec, FS.gather(p, name, fs), x, cfg, ctx,
+                             positions=positions, cross_kv=image_embeds)
     return x, aux
 
 
@@ -315,7 +341,8 @@ def mtp_input(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
     """The MTP layer's input ``[B, S - 1, d]``: the final hidden state of
     positions 0..S-2 and the embedding of their next tokens
     (``targets[:, :-1]``; ``split``: the embedding's split), each normed,
-    concatenated and projected."""
+    concatenated and projected (``params["mtp"]`` whole on the data
+    axis: ``lm_loss`` gathers it)."""
     p = params["mtp"]
     h = L.rms_norm(hidden[:, :-1], p["ln_h"], cfg.norm_eps)
     e = L.rms_norm(TP.embed(params["embed"], targets[:, :-1], split),
@@ -361,18 +388,22 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     hidden, aux = forward(params, inputs, cfg, ctx,
                           image_embeds=batch.get("image_embeds"))
     tp = TP.plan(cfg, TP.for_sequence(ctx, inputs.shape[1]))
+    fs = FS.plan(cfg, ctx)
     vocab = tp if tp.vocab else None
-    ce = fused_ce(hidden, params["unembed"], targets, cfg.vocab_size,
-                  split=vocab)
+    # gathered once over the data axis for both cross-entropies
+    unembed = FS.gather(params["unembed"], "unembed", fs)
+    ce = fused_ce(hidden, unembed, targets, cfg.vocab_size, split=vocab)
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
-        # the MTP module stays whole on every rank of the model axis
-        hm = mtp_input(params, hidden, targets, cfg, tp)
+        # the MTP module stays whole on every rank of the model axis, and
+        # is gathered over the data axis
+        pm = FS.gather(params["mtp"], "mtp", fs)
+        hm = mtp_input(dict(params, mtp=pm), hidden, targets, cfg, tp)
         positions = torch.arange(hm.shape[1], device=hm.device)[None, :]
-        hm, _, _ = _apply_layer(MTP_SPEC, params["mtp"], hm, cfg,
-                                _whole(ctx), positions=positions)
-        mtp = fused_ce(hm, params["unembed"], targets[:, 1:],
-                       cfg.vocab_size, split=vocab)
+        hm, _, _ = _apply_layer(MTP_SPEC, pm, hm, cfg, _whole(ctx),
+                                positions=positions)
+        mtp = fused_ce(hm, unembed, targets[:, 1:], cfg.vocab_size,
+                       split=vocab)
         metrics["mtp"] = mtp
     loss = total_loss(ce, aux, metrics.get("mtp"), mtp_weight=mtp_weight,
                       aux_weight=aux_weight)
@@ -464,22 +495,26 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     axis)."""
     S = tokens.shape[1]
     ctx = TP.for_sequence(ctx, S)
-    tp = TP.plan(cfg, ctx)
+    tp, fs = TP.plan(cfg, ctx), FS.plan(cfg, ctx)
     x = TP.embed(params["embed"], tokens, tp)
     positions = torch.arange(S, device=x.device)[None, :]
     caches: Cache = []
-    for spec, p in zip(layer_specs(cfg), layer_params(params, cfg)):
-        x, raw, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                                 cross_kv=image_embeds, return_cache=True)
+    for spec, name, p in zip(layer_specs(cfg), layer_names(cfg),
+                             layer_params(params, cfg)):
+        x, raw, _ = _apply_layer(spec, FS.gather(p, name, fs), x, cfg, ctx,
+                                 positions=positions, cross_kv=image_embeds,
+                                 return_cache=True)
         caches.append(_fold_prefill_cache(spec, raw, cfg, cache_len))
     x = L.rms_norm(TP.gather_seq(x, tp), params["final_ln"], cfg.norm_eps)
-    return caches, _logits(x[:, -1], params["unembed"], tp)
+    return caches, _logits(x[:, -1], params["unembed"], tp, fs)
 
 
-def _logits(x: torch.Tensor, unembed: torch.Tensor, tp: TP.Plan
-            ) -> torch.Tensor:
-    """float32 [B, padded_vocab] of x [B, d], gathered over the model
-    axis where the vocabulary splits."""
+def _logits(x: torch.Tensor, unembed: torch.Tensor, tp: TP.Plan,
+            fs: FS.Plan) -> torch.Tensor:
+    """float32 [B, padded_vocab] of x [B, d], ``unembed`` gathered over
+    the data axis and the logits over the model axis where the vocabulary
+    splits."""
+    unembed = FS.gather(unembed, "unembed", fs)
     return TP.gather_vocab((x @ unembed).float(), tp)
 
 
@@ -491,15 +526,15 @@ def decode_step(params: Params, caches: Cache, token: torch.Tensor,
     attention and MLA caches in place and returns the caches (a Mamba2
     layer's replaced) with the float32 logits."""
     ctx = TP.for_sequence(ctx, token.shape[1])
-    tp = TP.plan(cfg, ctx)
+    tp, fs = TP.plan(cfg, ctx), FS.plan(cfg, ctx)
     x = TP.embed(params["embed"], token, tp)
     positions = torch.full(token.shape, pos, device=x.device)
     new_caches: Cache = []
-    for spec, p, c in zip(layer_specs(cfg), layer_params(params, cfg),
-                          caches):
-        x, nc, _ = _apply_layer(spec, p, x, cfg, ctx, positions=positions,
-                                cache=c, cache_pos=pos,
+    for spec, name, p, c in zip(layer_specs(cfg), layer_names(cfg),
+                                layer_params(params, cfg), caches):
+        x, nc, _ = _apply_layer(spec, FS.gather(p, name, fs), x, cfg, ctx,
+                                positions=positions, cache=c, cache_pos=pos,
                                 cross_kv=image_embeds)
         new_caches.append(nc)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return new_caches, _logits(x[:, -1], params["unembed"], tp)
+    return new_caches, _logits(x[:, -1], params["unembed"], tp, fs)

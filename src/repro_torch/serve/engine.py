@@ -4,9 +4,14 @@ Port of the reference's ``serve/engine.py``. The steps run eagerly (the
 reference jits them); ``generate`` runs on ``current_device()`` — the
 card unless the caller asked for the CPU — and refuses parameters that
 live elsewhere. With a context on a mesh (``sharding.make_context``)
-and each rank's share of the parameters (``convert.local_tp_params``)
+and each rank's block of the parameters (``convert.local_tp_params``)
 every rank of the model axis calls it on the same prompt and gets the
-same ids: the logits are gathered over the vocabulary.
+same ids: the logits are gathered over the vocabulary. Each rank of the
+data axis serves its own rows (``train_step.data_shard``) and holds its
+FSDP block of the leaves the reference cuts over ``data``; the model
+gathers each layer's over the axis in prefill and in every decode step
+(``distributed.fsdp``), so every data rank calls it the same number of
+times.
 """
 from __future__ import annotations
 

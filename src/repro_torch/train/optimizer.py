@@ -40,9 +40,9 @@ def adamw_init(params, opt_dtype: str = "float32") -> Dict[str, Any]:
 def _global_norm(grads, ctx=None, split=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, leaf sums added in
     the reference's leaf order. On a mesh (``ctx``) the whole model's:
-    each whole leaf once, each rank's share of a split leaf
-    (``split``, ``tensor_parallel.layout``) summed over the model axis
-    (``data_parallel.global_sq_sums``)."""
+    each whole leaf once, each rank's block of a cut leaf (``split``,
+    ``tensor_parallel.layout``) summed over the model and ``data`` axes
+    that cut it (``data_parallel.global_sq_sums``)."""
     total = None
     for s in data_parallel.global_sq_sums(grads, ctx, split):
         total = s if total is None else total + s
@@ -62,8 +62,10 @@ def adamw_update(grads, opt_state, params, step: torch.Tensor,
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: returns (params, opt_state, {"grad_norm", "lr"}).
     ``step`` is the int32 step counter before this update; ``ctx``, a
-    context on a mesh, and ``split``, the leaves its model axis splits,
-    make the clip's norm the whole model's."""
+    context on a mesh, and ``split``, the leaves its axes cut, make the
+    clip's norm the whole model's. On a mesh every leaf is this rank's
+    block (FSDP: parameters and moments of the rank's block only), and
+    the update is elementwise."""
     gnorm = _global_norm(grads, ctx, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

@@ -17,10 +17,12 @@ backward, as the reference's ``jax.checkpoint`` does).
 On a mesh (``ctx.mesh``: ``sharding.make_context`` of a ``data x model``
 device mesh) the step runs on every rank, as the reference's step jitted
 over the mesh: ``batch`` holds this rank's rows (``data_shard``), the
-state this rank's share of the leaves the model axis splits (its heads,
-FFN hidden units, vocabulary rows and experts:
-``convert.local_tp_state``). The gradients are reduced to the global
-batch's before compression and AdamW (``distributed.data_parallel``),
+state this rank's block of each cut leaf (``convert.local_tp_state``):
+over the model axis its heads, FFN hidden units, vocabulary rows and
+experts, over the ``data`` axis its FSDP block of parameters, moments
+and error buffer, gathered layer by layer on use (``distributed.fsdp``).
+The gradients are reduced to the global batch's before compression and
+AdamW, which run on the blocks (``distributed.data_parallel``),
 and the metrics are the reference's global values: ``ce`` (and ``mtp``)
 averaged over the data axes, ``aux`` the first data shard's, ``loss``
 recombined from them, ``grad_norm`` the whole model's.

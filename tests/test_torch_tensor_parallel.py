@@ -1,25 +1,30 @@
 """Tensor parallelism over the model axis (``distributed.tensor_parallel``,
-``sharding.split_dim``, ``convert.local_tp_params``) against the
+``sharding.split_dim``, ``convert.local_tp_params``) and FSDP over the
+data axis (``distributed.fsdp``, ``sharding.fsdp_dim``) against the
 reference's partition rules at work, on the CPU.
 
-The reference runs in two subprocesses on 4 forced host devices each
-(the shard shapes and serving; the training steps), its calls jitted
+The reference runs in three subprocesses on 4 forced host devices each
+(the shard shapes, serving and the launcher's steps; each half of the
+training steps), its calls jitted
 with ``in_shardings`` from its ``param_specs`` over a ``(data,
 model)`` mesh with Auto axes: what each device holds (its
 ``NamedSharding.shard_shape``), prefill logits and greedy decode ids,
 one training step, and the launcher's steps. The port runs as spawned
 gloo ranks (a ``FileStore`` under the test's temporary directory, no
-socket), each rank holding its share of every split leaf; rank ``(d,
-m)`` is held to the reference's rows of data shard ``d``. Inputs come
-from numpy seeds; the reference's parameters and states reach the port
-through ``models.convert``.
+socket), each rank holding its block of every cut leaf (its share of
+each split leaf and, on a data axis of more than one rank, its FSDP
+block); rank ``(d, m)`` is held to the reference's rows of data shard
+``d``, and for some cases its own blocks to the reference device's
+shards at ``(d, m)``. Inputs come from numpy seeds; the reference's
+parameters and states reach the port through ``models.convert``.
 
 Configs: ``qwen2-7b-smoke`` (4 heads over 2 KV heads: split at M 2, whole
 attention at M 4, where the reference partitions the q rows instead), an
 8-head/4-KV variant of it (split at M 4), ``deepseek-moe-16b-smoke``
 (attention and shared experts split, experts through ``routed_ep``),
-and the full ``qwen2-7b`` and ``deepseek-moe-16b`` on ``meta`` tensors
-for the shard shapes.
+``deepseek-v3-671b-smoke`` (MLA and MTP) and ``mamba2-370m-smoke`` on a
+data axis, and the full ``qwen2-7b`` and ``deepseek-moe-16b`` on
+``meta`` tensors for the shard shapes.
 
 Tolerances: float32 logits within 1e-5 of the largest |logit| and ids
 equal; bf16 logits within 0.05; a training step's loss, ce and
@@ -60,6 +65,7 @@ from repro_torch.train import train_step as ts
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DENSE, MOE = "qwen2-7b-smoke", "deepseek-moe-16b-smoke"
+MLA, SSM = "deepseek-v3-671b-smoke", "mamba2-370m-smoke"
 #: the 8-head/4-KV variant of DENSE, whose heads divide over 4 ranks
 WIDE = {"num_heads": 8, "num_kv_heads": 4}
 TOL32, TOL_BF16, FLIP_BUDGET = 1e-5, 5e-2, 1e-3
@@ -94,12 +100,25 @@ TRAIN = {
     "dense-1x4-seq": (DENSE, {}, 1, 4, SEQ, {}),
     "dense-1x2-notp": (DENSE, {}, 1, 2, NO_TP, {}),
     "dense-2x2-notp": (DENSE, {}, 2, 2, NO_TP, {}),
+    # FSDP over the data axis
+    "dense-2x1": (DENSE, {}, 2, 1, {}, {}),
+    "dense-4x1": (DENSE, {}, 4, 1, {}, {}),
+    "dense-2x2-compressed": (DENSE, {}, 2, 2, {}, {"grad_compression": True}),
+    "moe-2x2": (MOE, {}, 2, 2, {}, {}),
+    "mla-2x1": (MLA, {}, 2, 1, {}, {}),
+    "ssm-2x1": (SSM, {}, 2, 1, {}, {}),
 }
+#: the training cases whose ranks' blocks are held to the reference
+#: devices' shards, after the conversion and after the step
+SHARDS = ("dense-2x2", "dense-4x1", "moe-2x2")
 STEP_B, STEP_S = 4, 16
 #: the full configs whose shard shapes are held, at these model axes
 FULL, FULL_M = ("qwen2-7b", "deepseek-moe-16b"), (2, 4)
-#: the launcher's run: bf16 (the config's), 1 x 2 ranks
+#: and at these data x model meshes (FSDP)
+FULL_DM = ((2, 1), (4, 1), (2, 2))
+#: the launcher's runs: bf16 (the config's), 1 x 2 and 2 x 1 ranks
 LAUNCH_B, LAUNCH_S, LAUNCH_STEPS = 2, 16, 4
+LAUNCH_MESHES = {"mp": (1, 2), "dp": (2, 1)}
 RANKS_TIMEOUT_S = 300
 
 REFERENCE = """
@@ -116,7 +135,8 @@ from repro.train import train_step as jts
 from repro_torch import tree
 inputs = pickle.load(open(sys.argv[1], "rb"))
 serve, train = json.loads(sys.argv[2]), json.loads(sys.argv[3])
-shapes_too, steps_too = sys.argv[4] == "1", bool(train)
+# sys.argv[4]: "1" to record the shapes and the launcher's steps too
+shapes_too = steps_too = sys.argv[4] == "1"
 out = {}
 
 
@@ -142,6 +162,14 @@ for arch in %(full)r if shapes_too else ():
         for n, s, p in zip(tree.flatten_with_names(shapes),
                            jax.tree_util.tree_leaves(shapes), specs):
             out[f"shape|{arch}|{M}|{n}"] = np.asarray(
+                NamedSharding(mesh, p).shard_shape(s.shape))
+    for D, M in %(full_dm)r:
+        mesh = mesh_of(D, M)
+        specs = jax.tree_util.tree_leaves(
+            param_specs(shapes, mesh), is_leaf=lambda x: isinstance(x, P))
+        for n, s, p in zip(tree.flatten_with_names(shapes),
+                           jax.tree_util.tree_leaves(shapes), specs):
+            out[f"shape|{arch}|{D}x{M}|{n}"] = np.asarray(
                 NamedSharding(mesh, p).shard_shape(s.shape))
 
 for tag, (arch, over, D, M, hints, dtype) in serve.items():
@@ -180,6 +208,21 @@ def record(tag, state, metrics):
         out[f"{tag}|metric|{k}"] = np.asarray(v, np.float32)
 
 
+def shards(tag, when, mesh, state, ss):
+    # each device's shard of params, mu and nu, by its mesh position
+    placed = jax.device_put(state, ss)
+    trees = {"params": placed["params"], "mu": placed["opt"]["mu"],
+             "nu": placed["opt"]["nu"]}
+    D, M = mesh.devices.shape
+    for k, t in trees.items():
+        for n, a in tree.flatten_with_names(t).items():
+            by_dev = {sh.device: sh.data for sh in a.addressable_shards}
+            for d in range(D):
+                for m in range(M):
+                    out[f"shard|{tag}|{when}|{k}|{d}{m}|{n}"] = np.asarray(
+                        by_dev[mesh.devices[d, m]], np.float32)
+
+
 def step_fn(cfg, D, M, hints, kw, state):
     mesh = mesh_of(D, M)
     ctx = make_context(mesh, remat="full", q_chunk=%(chunk)d,
@@ -192,34 +235,39 @@ def step_fn(cfg, D, M, hints, kw, state):
     fn = jax.jit(jts.make_train_step(
         cfg, ctx, jopt.OptimizerConfig(lr=%(lr)r, warmup_steps=10), **kw),
         in_shardings=(ss, None))
-    return mesh, fn
+    return mesh, fn, ss
 
 
 for tag, (arch, over, D, M, hints, kw) in train.items():
     cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
     state = inputs["state", tag]
-    mesh, fn = step_fn(cfg, D, M, hints, kw, state)
+    mesh, fn, ss = step_fn(cfg, D, M, hints, kw, state)
     with mesh:
         new, met = fn(state, {"tokens": jnp.asarray(inputs["tokens"])})
     record(f"train|{tag}", new, met)
+    if tag in %(shard_tags)r:
+        shards(tag, "init", mesh, state, ss)
+        shards(tag, "step", mesh, new, ss)
 
-# the launcher's run: bf16, (1, 2), from the port's initial state
-if steps_too:
+# the launcher's runs: bf16, from the port's initial state
+for run, (D, M) in (%(launch_meshes)r.items() if steps_too else ()):
     cfg = get_config(%(arch)r)
     state = inputs["launch_state"]
-    mesh, fn = step_fn(cfg, 1, 2, {}, {}, state)
+    mesh, fn, _ = step_fn(cfg, D, M, {}, {}, state)
     rng = np.random.RandomState(1)
     with mesh:
         for i in range(%(steps)d):
             tokens = rng.randint(0, cfg.vocab_size,
                                  size=(%(lb)d, %(ls)d + 1)).astype(np.int32)
             state, met = fn(state, {"tokens": jnp.asarray(tokens)})
-            out[f"launch|loss|{i + 1}"] = np.asarray(met["loss"],
-                                                     np.float32)
-    record("launch", state, {})
+            out[f"launch-{run}|loss|{i + 1}"] = np.asarray(met["loss"],
+                                                           np.float32)
+    record(f"launch-{run}", state, {})
 np.savez(sys.argv[5], **out)
-""" % dict(full=FULL, full_m=FULL_M, chunk=CHUNK, prompt=PROMPT, new=NEW,
-           lr=LR, arch=DENSE, steps=LAUNCH_STEPS, lb=LAUNCH_B, ls=LAUNCH_S)
+""" % dict(full=FULL, full_m=FULL_M, full_dm=FULL_DM, chunk=CHUNK,
+           prompt=PROMPT, new=NEW, lr=LR, arch=DENSE, steps=LAUNCH_STEPS,
+           lb=LAUNCH_B, ls=LAUNCH_S, shard_tags=SHARDS,
+           launch_meshes=LAUNCH_MESHES)
 
 RANK = """
 import dataclasses, json, pickle, sys
@@ -278,6 +326,16 @@ for tag, (arch, over, D, M, hints, kw) in train.items():
     new, met = ts.make_train_step(
         cfg, ctx, OptimizerConfig(lr=%(lr)r, warmup_steps=10), **kw)(
             state, batch)
+    if tag in %(shard_tags)r:
+        # this rank's blocks, in the reference's layout
+        for when, st in (("init", state), ("step", new)):
+            for k, t in (("params", st["params"]), ("mu", st["opt"]["mu"]),
+                         ("nu", st["opt"]["nu"])):
+                for n, a in tree.flatten_with_names(
+                        convert.export_reference_params(t, cfg)).items():
+                    out[f"shard|{tag}|{when}|{k}|{n}"] = a
+        out[f"shard|{tag}|at"] = np.asarray(
+            [mesh.get_local_rank("data"), mesh.get_local_rank("model")])
     new = data_parallel.gather_split(new, ctx, TP.layout(cfg, ctx))
     trees = {"params": new["params"], "mu": new["opt"]["mu"],
              "nu": new["opt"]["nu"]}
@@ -291,7 +349,7 @@ for tag, (arch, over, D, M, hints, kw) in train.items():
         out[f"train|{tag}|metric|{k}"] = v.numpy()
 np.savez(sys.argv[5], **out)
 dist.destroy_process_group()
-""" % dict(chunk=CHUNK, prompt=PROMPT, new=NEW, lr=LR)
+""" % dict(chunk=CHUNK, prompt=PROMPT, new=NEW, lr=LR, shard_tags=SHARDS)
 
 
 def _np(x) -> np.ndarray:
@@ -311,13 +369,15 @@ def _jcfg(arch, over, dtype):
     return dataclasses.replace(jget_config(arch), dtype=dtype, **over)
 
 
-def _launcher(tmp, name, steps):
-    """One launcher run over 2 gloo ranks (1 x 2), its checkpoints under
-    ``tmp/name``: the rank processes."""
+def _launcher(tmp, name, steps, mesh="mp"):
+    """One launcher run over 2 gloo ranks (``LAUNCH_MESHES[mesh]``), its
+    checkpoints under ``tmp/name``: the rank processes."""
     store = tmp / f"{name}.store"
+    D, M = LAUNCH_MESHES[mesh]
     return [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", DENSE,
-         "--device", "cpu", "--model-parallel", "2", "--batch",
+         "--device", "cpu", "--data-parallel", str(D), "--model-parallel",
+         str(M), "--batch",
          str(LAUNCH_B), "--seq", str(LAUNCH_S), "--steps", str(steps),
          "--ckpt-every", "2", "--ckpt", str(tmp / name), "--dist-init",
          f"file://{store}"], env=dict(_env(), RANK=str(rank),
@@ -398,12 +458,16 @@ def runs(tmp_path_factory):
     with open(path, "wb") as f:
         pickle.dump(inputs, f)
     env, serve, train = _env(), json.dumps(SERVE), json.dumps(TRAIN)
-    # two reference processes: the shapes and serving, the steps
+    # three reference processes: the shapes, serving and the launcher's
+    # steps; each half of the training steps
+    halves = [json.dumps({k: TRAIN[k] for k in sorted(TRAIN)[i::2]})
+              for i in range(2)]
     procs = [subprocess.Popen([sys.executable, "-c", REFERENCE, str(path),
                                *args, str(tmp / f"ref{i}.npz")], env=env,
                               cwd=tmp, stderr=subprocess.PIPE, text=True)
              for i, args in enumerate(((serve, "{}", "1"),
-                                       ("{}", train, "0")))]
+                                       ("{}", halves[0], "0"),
+                                       ("{}", halves[1], "0")))]
     outs = []
     for world in (2, 4):
         for rank in range(world):
@@ -413,18 +477,28 @@ def runs(tmp_path_factory):
                  str(tmp / f"store{world}"), str(path), str(outs[-1]),
                  serve, train], env=env, cwd=tmp, stderr=subprocess.PIPE,
                 text=True))
-    whole = _launcher(tmp, "whole", LAUNCH_STEPS)
-    first = _launcher(tmp, "resumed", 2)
+    # each mesh's runs: 4 steps; 2 steps, then resumed to 4
+    started = {f"{run}{mesh}": _launcher(tmp, f"{run}{mesh}",
+                                      LAUNCH_STEPS if run == "whole" else 2,
+                                      mesh)
+            for mesh in LAUNCH_MESHES for run in ("whole", "resumed")}
     try:
-        launched = {"whole": _wait(whole), "first": _wait(first)}
-        launched["resumed"] = _wait(_launcher(tmp, "resumed", LAUNCH_STEPS))
+        launched = {}
+        for mesh in LAUNCH_MESHES:
+            launched["whole" + mesh] = _wait(started["whole" + mesh])
+            launched["first" + mesh] = _wait(started["resumed" + mesh])
+            started["resumed" + mesh] = _launcher(tmp, "resumed" + mesh,
+                                                  LAUNCH_STEPS, mesh)
+        for mesh in LAUNCH_MESHES:
+            launched["resumed" + mesh] = _wait(started["resumed" + mesh])
         errs = [p.communicate(timeout=RANKS_TIMEOUT_S)[1] for p in procs]
     finally:
         for p in procs:
             p.kill()
     for p, err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
-    ref = {**np.load(tmp / "ref0.npz"), **np.load(tmp / "ref1.npz")}
+    ref = {k: v for i in range(3) for k, v in np.load(
+        tmp / f"ref{i}.npz").items()}
     return ref, [dict(np.load(o)) for o in outs], launched, tmp
 
 
@@ -444,19 +518,20 @@ def _outside(have: dict, want: dict, limit) -> tuple:
 
 
 class _Axis(OneRankMesh):
-    """A stand-in mesh: rank ``m`` of a model axis of ``M`` ranks, one
-    data rank and no process group (the layout needs no collective)."""
+    """A stand-in mesh: rank ``(d, m)`` of a ``D x M`` mesh (one data rank
+    unless ``D`` says more) and no process group (the layout needs no
+    collective)."""
 
-    def __init__(self, M, m):
+    def __init__(self, M, m, D=1, d=0):
         super().__init__()
-        object.__setattr__(self, "shape", (1, M))
-        object.__setattr__(self, "m", m)
+        object.__setattr__(self, "shape", (D, M))
+        object.__setattr__(self, "at", {"data": d, "model": m})
 
     def size(self, dim=None):
         return self.shape[dim]
 
     def get_local_rank(self, mesh_dim=None):
-        return self.m if mesh_dim == "model" else 0
+        return self.at[mesh_dim]
 
 
 # ------------------------------------------------------------ shard shapes
@@ -497,6 +572,72 @@ def test_each_rank_holds_the_references_shard_shapes(runs, arch, M):
     assert split >= M * (2 + 4 * cfg.num_layers)
 
 
+@pytest.mark.parametrize("D, M", FULL_DM, ids=lambda v: str(v))
+@pytest.mark.parametrize("arch", FULL)
+def test_each_data_rank_holds_the_references_fsdp_shard_shapes(runs, arch,
+                                                               D, M):
+    """Every rank ``(d, m)`` of a ``D x M`` mesh holds each leaf at the
+    shape of the reference's ``NamedSharding(mesh, param_specs(...))
+    .shard_shape`` on the same mesh (a stacked leaf without its repeat
+    axis): ``1/D`` of every leaf whose spec has ``data`` on a dimension
+    the axis divides, and on the model axis as at ``1 x M``. Full
+    configs, on ``meta`` tensors."""
+    ref = _sub(runs[0], f"shape|{arch}|{D}x{M}|")
+    cfg = get_config(arch)
+    whole = model.init(ShapesOnly(), cfg)
+    stacks = model.layer_stacks(cfg)
+    for d in range(D):
+        for m in range(M):
+            ctx = ModelContext(mesh=_Axis(M, m, D, d), moe_impl="ep")
+            flat = tree.flatten_with_names(convert.local_tp_params(
+                whole, cfg, ctx))
+            seen = set()
+            for name, t in flat.items():
+                parts = name.split("/")
+                if parts[0] == "layers":
+                    key = "/".join([stacks[int(parts[1][1:-1])]] + parts[2:])
+                    want = tuple(ref[key][1:])
+                else:
+                    key, want = name, tuple(ref[name])
+                seen.add(key)
+                assert tuple(t.shape) == want, (name, tuple(t.shape), want)
+            assert seen == set(ref)
+    layout = TP.layout(cfg, ModelContext(mesh=_Axis(M, 0, D, 0),
+                                         moe_impl="ep"))
+    data = [n for n, c in layout.items() if c.data is not None]
+    # every layer's attention and FFN leaves and unembed, over the data axis
+    assert len(data) >= 1 + 7 * cfg.num_layers, len(data)
+
+
+def test_fsdp_dim_follows_the_rules_and_divisibility():
+    """``fsdp_dim`` reads the data-axis entry of the reference's rule,
+    guarded by divisibility over the data axis alone, for any block's
+    leaf; a dim that the axis does not divide stays whole."""
+    cases = [
+        (("wq", (64, 32), 2), 0),
+        (("wo", (32, 64), 4), 1),
+        (("unembed", (64, 512), 2), 0),
+        (("embed", (512, 64), 2), None),                 # model only
+        (("w1", (8, 64, 32), 2), 1),                     # experts [E,d,ff]
+        (("w2", (8, 32, 64), 2), 2),                     # experts [E,ff,d]
+        (("w2", (32, 64), 2), 1),
+        (("proj", (128, 64), 4), 0),                     # MTP
+        (("wq_a", (64, 16), 2), 0),                      # MLA
+        (("out_proj", (96, 64), 2), 1),                  # Mamba2
+        (("wq", (6, 32), 4), None),                      # 6 over 4
+        (("wo", (32, 10), 4), None),                     # 10 over 4
+        (("w1", (8, 6, 32), 4), None),                   # 6 over 4
+        (("wq", (64, 32), 3), None),                     # 64 over 3
+        (("ln", (64,), 2), None),
+        (("router", (64, 8), 2), None),
+        (("gate", (), 2), None),
+        (("unknown", (64, 64), 2), None),
+        (("wq", (64, 32), 1), None),
+    ]
+    for args, want in cases:
+        assert sharding.fsdp_dim(*args) == want, args
+
+
 def test_split_dim_follows_the_rules_and_the_heads():
     """``split_dim`` reads the model-axis entry of the reference's rule,
     guarded by divisibility, for the leaves of the blocks it names; an
@@ -531,7 +672,9 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
     ``engine.generate``'s greedy ids equal the reference's in float32:
     the same on every rank. The KV cache holds each rank's KV heads where
     the heads split; at (1, 4) the smoke's 2 KV heads do not divide, and
-    its attention stays whole with the same values."""
+    its attention stays whole with the same values. On a data axis of two
+    ranks each rank holds its FSDP block of the d_model rows and gathers
+    each layer in prefill and decode."""
     ref, per_rank, _, _ = runs
     arch, over, D, M, hints, dtype = SERVE[case]
     got = [r for r in per_rank if f"serve|{case}|logits" in r]
@@ -553,10 +696,12 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
         kv = cfg.num_kv_heads // (M if heads else 1)
         assert tuple(r[f"serve|{case}|kv"])[2] == kv
         hd = cfg.head_dim
+        # the data axis cuts wq's d_model rows (FSDP)
         assert tuple(shapes["layers/[0]/attn/wq"]) == (
-            cfg.d_model, cfg.num_heads * hd // (M if heads else 1))
+            cfg.d_model // D, cfg.num_heads * hd // (M if heads else 1))
         vp = cfg.padded_vocab_size // (1 if hints.get("no_tp") else M)
         assert tuple(shapes["embed"]) == (vp, cfg.d_model)
+        assert tuple(shapes["unembed"]) == (cfg.d_model // D, vp)
 
 
 # ---------------------------------------------------------------- training
@@ -583,6 +728,34 @@ def test_train_step_matches_the_references_sharded_step(runs, case):
             assert out <= FLIP_BUDGET * total, (key, out, total)
         if kw.get("grad_compression"):
             _check_err(ref, r, f"train|{case}")
+
+
+@pytest.mark.parametrize("when", ("init", "step"))
+@pytest.mark.parametrize("case", SHARDS)
+def test_each_rank_holds_the_reference_devices_shards(runs, case, when):
+    """Rank ``(d, m)``'s own blocks of the parameters and both moments,
+    after ``convert.local_tp_state`` (``init``) and after one step
+    (``step``), equal the addressable shard of the reference's device at
+    ``(d, m)`` under its ``param_specs`` (a stacked leaf with its repeat
+    axis): every leaf's shape exactly, the values within 1e-5 of each
+    leaf's largest |value| but for the flip budget. A block order that
+    put the model axis's cut before the data axis's would fail here."""
+    ref, per_rank, _, _ = runs
+    _, _, D, M, _, _ = TRAIN[case]
+    got = [r for r in per_rank if f"shard|{case}|at" in r]
+    assert len(got) == D * M
+    assert sorted(tuple(r[f"shard|{case}|at"]) for r in got) == [
+        (d, m) for d in range(D) for m in range(M)]
+    for r in got:
+        d, m = r[f"shard|{case}|at"]
+        for key in ("params", "mu", "nu"):
+            have = _sub(r, f"shard|{case}|{when}|{key}|")
+            want = _sub(ref, f"shard|{case}|{when}|{key}|{d}{m}|")
+            for n, w in want.items():
+                assert have[n].shape == w.shape, (n, have[n].shape, w.shape)
+            out, total = _outside(have, want, lambda n, w: TOL32 * max(
+                np.abs(w).max(), 1e-30))
+            assert out <= FLIP_BUDGET * total, (key, d, m, out, total)
 
 
 def _check_err(ref, got, tag):
@@ -640,6 +813,33 @@ def test_hints_and_refusals_of_the_context():
 
 
 # ---------------------------------------------------------------- launcher
+def _check_launcher(runs, mesh):
+    ref, _, launched, tmp = runs
+    for run in ("whole", "first", "resumed"):
+        assert launched[run + mesh][1] == "", run
+    printed = {}
+    for run in ("whole", "first", "resumed"):
+        for line in launched[run + mesh][0].splitlines():
+            if line.startswith("step "):
+                step = int(line.split()[1])
+                printed[run, step] = float(line.split("loss=")[1].split()[0])
+    assert set(printed) == {("whole", 4), ("first", 2), ("resumed", 4)}
+    assert "resumed from step 2" in launched["resumed" + mesh][0]
+    for (_, step), loss in printed.items():
+        want = float(ref[f"launch-{mesh}|loss|{step}"])
+        assert abs(loss - want) <= TOL_BF16 * abs(want), (step, loss, want)
+    state, _ = restore_pytree(os.path.join(tmp / ("whole" + mesh), "step_4"),
+                              like=_launch_state())
+    cfg = get_config(DENSE)
+    for key, got in (("params", state["params"]),
+                     ("mu", state["opt"]["mu"]), ("nu", state["opt"]["nu"])):
+        have = tree.flatten_with_names(convert.export_reference_params(
+            got, cfg))
+        out, total = _outside(have, _sub(ref, f"launch-{mesh}|{key}|"),
+                              lambda n, w: TOL_BF16 * np.abs(w).max())
+        assert out <= FLIP_BUDGET * total, (key, out, total)
+
+
 def test_launcher_over_two_ranks_matches_the_references_steps(runs):
     """``python -m repro_torch.launch.train --model-parallel 2 --device
     cpu`` at ``qwen2-7b-smoke`` over 2 gloo ranks: rank 0 alone prints;
@@ -647,46 +847,45 @@ def test_launcher_over_two_ranks_matches_the_references_steps(runs):
     batches from the port's initial state (bf16), and its step-4
     checkpoint holds the reference's whole leaves within the bf16 bound
     and the flip budget."""
-    ref, _, launched, tmp = runs
-    for run in ("whole", "first", "resumed"):
-        assert launched[run][1] == "", run
-    printed = {}
-    for run in ("whole", "first", "resumed"):
-        for line in launched[run][0].splitlines():
-            if line.startswith("step "):
-                step = int(line.split()[1])
-                printed[run, step] = float(line.split("loss=")[1].split()[0])
-    assert set(printed) == {("whole", 4), ("first", 2), ("resumed", 4)}
-    assert "resumed from step 2" in launched["resumed"][0]
-    for (_, step), loss in printed.items():
-        want = float(ref[f"launch|loss|{step}"])
-        assert abs(loss - want) <= TOL_BF16 * abs(want), (step, loss, want)
-    state, _ = restore_pytree(os.path.join(tmp / "whole", "step_4"),
-                              like=_launch_state())
-    cfg = get_config(DENSE)
-    for key, got in (("params", state["params"]),
-                     ("mu", state["opt"]["mu"]), ("nu", state["opt"]["nu"])):
-        have = tree.flatten_with_names(convert.export_reference_params(
-            got, cfg))
-        out, total = _outside(have, _sub(ref, f"launch|{key}|"),
-                              lambda n, w: TOL_BF16 * np.abs(w).max())
-        assert out <= FLIP_BUDGET * total, (key, out, total)
+    _check_launcher(runs, "mp")
 
 
-def test_launcher_resumed_over_two_ranks_equals_an_uninterrupted_run(runs):
-    """2 steps, then a resume to 4, equals 4 uninterrupted steps byte for
-    byte; the checkpoints hold whole leaves (``wq`` of all 4 heads, the
-    whole vocabulary)."""
+def test_launcher_over_two_data_ranks_matches_the_references_steps(runs):
+    """The same at ``--data-parallel 2`` (FSDP): the reference's jitted
+    (2, 1) steps, each rank on one row and its block of the state."""
+    _check_launcher(runs, "dp")
+
+
+def _check_resumed(runs, mesh):
     _, _, _, tmp = runs
-    a, _ = restore_pytree(os.path.join(tmp / "whole", "step_4"))
-    b, _ = restore_pytree(os.path.join(tmp / "resumed", "step_4"))
+    a, _ = restore_pytree(os.path.join(tmp / ("whole" + mesh), "step_4"))
+    b, _ = restore_pytree(os.path.join(tmp / ("resumed" + mesh), "step_4"))
     assert set(a) == set(b) and int(a["step"]) == LAUNCH_STEPS
     for name in a:
         assert a[name].tobytes() == b[name].tobytes(), name
+    # whole leaves: a world of one's names and shapes
+    one = {n: tuple(t.shape)
+           for n, t in tree.flatten_with_names(_launch_state()).items()}
+    assert {n: a[n].shape for n in a} == one
     cfg = get_config(DENSE)
     for key in ("params", "opt/mu", "opt/nu"):
         assert a[f"{key}/layers/[0]/attn/wq"].shape == (
             cfg.d_model, cfg.num_heads * cfg.head_dim)
         assert a[f"{key}/embed"].shape == (cfg.padded_vocab_size,
                                            cfg.d_model)
-    assert sorted(os.listdir(tmp / "resumed")) == ["step_2", "step_4"]
+    assert sorted(os.listdir(tmp / ("resumed" + mesh))) == ["step_2",
+                                                            "step_4"]
+
+
+def test_launcher_resumed_over_two_ranks_equals_an_uninterrupted_run(runs):
+    """2 steps, then a resume to 4, equals 4 uninterrupted steps byte for
+    byte; the checkpoints hold whole leaves (``wq`` of all 4 heads, the
+    whole vocabulary), a world of one's names and shapes."""
+    _check_resumed(runs, "mp")
+
+
+def test_launcher_resumed_over_two_data_ranks_equals_an_uninterrupted_run(
+        runs):
+    """The same at ``--data-parallel 2``: the checkpoint gathers each
+    leaf's blocks over the data axis, and the resume cuts them again."""
+    _check_resumed(runs, "dp")
