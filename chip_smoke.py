@@ -120,8 +120,8 @@ and prints no result line:
    producer's error. A process-mode (forked) ``numpy-fast`` loader must
    deliver all 33 images byte-identical to the serial decode, and a
    process-mode ``cuda-batch`` loader must be refused. Then the paper's
-   protocols over 10 of the 33 images (the first 9 and the rare one; 16
-   before phase 23, 14 before its FSDP part), labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
+   protocols over 6 of the 33 images (the first 5 and the rare one; 16
+   before phase 23, 14 before its FSDP part, 10 before phase 24), labelled with the card's name: ``SingleThreadProtocol`` (2 repeats,
    before and after the sweeps) and ``WorkerSweep`` in thread and
    process mode at workers 0, 2 and 8 (1 repeat), over
    ``cuda-batch`` and ``numpy-fast``; ``cuda-batch`` must give skip
@@ -149,14 +149,15 @@ and prints no result line:
    first 5's (tests/test_system.py's bar). Then the pipeline: phase 3's
    33 images through ``cuda-batch`` in two loader threads (chunks of 8,
    shuffled, whole batches) and ``prefetch_to_device`` into
-   ``train`` for 6 steps, with an async save at step 3 and a final one:
+   ``train`` for 3 steps, with an async save at step 2 and a final
+   one:
    finite losses, 12 ``flash_attention`` launches a step,
    ``decode_batch`` launches equal to the ``jpeg.dequant_idct`` spans
    and ``ycbcr2rgb`` launches equal to the colour images decoded (the
    loader decodes ahead of the trainer). A restart builds a new loader
-   and state from the latest checkpoint and trains to step 8; every
-   batch's labels must be those of a loader never stopped. Then 2 steps
-   of the same pipeline at a 0.5 ms interpreter switch interval, and 2
+   and state from the latest checkpoint and trains to step 4; every
+   batch's labels must be those of a loader never stopped. Then 1 step
+   of the same pipeline at a 0.5 ms interpreter switch interval, and 1
    over ``numpy-fast`` with autotuned workers. Prints the step ms, the
    data wait and the input-pipeline share of each run. A watchdog ends
    a hung phase with tracebacks.
@@ -219,8 +220,8 @@ and prints no result line:
    Then one step with int8 gradient compression and one with
    ``microbatch=1`` (2 slices, twice the launches). (c) ``python -m
    repro_torch.launch.train --arch qwen2-7b-smoke`` in a subprocess for
-   6 steps with a checkpoint every 3, then again to 9: it must print
-   ``resumed from step 6``, and the step-6 checkpoint restored on the
+   2 steps, then again to 3 (6 and 9 before phase 24): it must print
+   ``resumed from step 2``, and the step-2 checkpoint restored on the
    card must equal its stored leaves bit for bit. Prints the phase's
    seconds.
 12. The invariant checker on the card's machine, with the launch
@@ -396,11 +397,11 @@ and prints no result line:
    and peak; (c) each (b) cell counted by ``dryrun_lib.count_cell`` in a
    subprocess that never touches CUDA (started with the phase): the
    predicted peak within 0.85-1.15 of the measured one; (d) ``python
-   -m repro_torch.launch.train --arch <a>-smoke --steps 2`` for the
-   seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 4
-   steps, all at once beside (a), then (before (b)) that run resumed to
-   6, its step-4 checkpoint restored on the card bit for bit (3, 6 and
-   9 steps before phase 23). A cross
+   -m repro_torch.launch.train --arch <a>-smoke --steps 1`` for the
+   seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 1
+   step, all at once beside (a), then (before (b)) that run resumed to
+   2, its step-1 checkpoint restored on the card bit for bit (3, 6 and
+   9 steps before phase 23; 2, 4 and 6 before phase 24). A cross
    layer's one-element gate gradient, a sum whose terms cancel, is held
    in (a) by its terms: the gate broadcast to a [B, S, d] field of its
    value, whose gradient is checked leaf-wise. Phase 19 runs with the
@@ -423,8 +424,9 @@ and prints no result line:
    in decode) and no other, ids equal to ``engine.generate`` called
    directly on the same seeded parameters and prompt; prints prefill
    and decode seconds and the peak device memory. ``serve_decode`` at
-   its defaults (2 workers, 4 clients x 60 zipf requests over 24
-   images, UCB) with ``/metrics`` on an ephemeral port: no failure,
+   its defaults but 30 requests a client (2 workers, 4 clients x 30
+   zipf requests over 24 images, UCB) with ``/metrics`` on an ephemeral
+   port: no failure,
    served plus shed equal to the requests, every arm pulled, one
    scrape; ``decode_batch`` and ``ycbcr2rgb`` launch (``cuda-fused``
    and ``cuda-batch`` serve a micro-batch through their shared batch
@@ -522,8 +524,35 @@ and prints no result line:
    shared card's over gloo, not FSDP's), and a checkpoint gathered from
    the blocks with a world of one's names and shapes. The phase must end
    within 150 s.
+24. Tensor parallelism for MLA, MTP, cross-attention and Mamba2: the
+   same two gloo ranks on the card (``make_host_mesh(1, 2,
+   backend="gloo")``), each building its block a top-level leaf or a
+   layer at a time from one seed, in turn (``model.init(...,
+   keep=convert.local_tp_keep(...))``: no rank holds a whole model),
+   its parameter bytes equal to the layout's count and below the whole
+   model's. (a) ``deepseek-v3-671b`` at full width, 1 dense and 1 MoE
+   MLA layer (all 256 experts through ``routed_ep``), bf16: a 2 x 1024
+   prefill and 8 greedy decode steps through ``engine.generate``, no
+   flash launch (MLA's q/k 192, v 128 take the plain loop); float32 at
+   1 MLA layer and the MTP module: the prefill's logits at 2 x 512 and
+   one step's loss (its MTP term included) and every gradient block at
+   1 x 512, remat full, against a world of one; exactly 1 FFMA launch
+   a rank in the step (the MTP layer). (b) ``llama-3.2-vision-90b`` at
+   5 layers (4 self, 1 cross; 1,600 stub image rows, the cross gate
+   opened): the same, 4 ``flash_attention_wgmma`` launches a rank in
+   the bf16 prefill, 4 FFMA in the float32 prefill and 8 in the step.
+   (c) ``zamba2-2.7b`` at full width and depth, bf16: 9 FFMA launches a
+   rank (the shared attention at 16/16 heads of 80); float32 at 2
+   super-blocks: 2 in the prefill, 4 in each step, the step with and
+   without ``seq_shard_residual``. Every run's ids equal on both ranks;
+   float32 logits within 1e-4 of the largest |logit|, the loss within
+   1e-5 and each rank's block of each gradient leaf within 1e-4 of that
+   leaf's largest |element| of the world of one's, which this process
+   computes first, one run at a time, and writes to the temporary
+   directory (one file a rank) while the ranks serve. Times are a
+   shared card's over gloo. The phase must end within 300 s.
 
-Before phases 3 to 11 and 14 to 23 the script releases cuBLAS's per-stream
+Before phases 3 to 11 and 14 to 24 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -550,17 +579,20 @@ training (``{"lm_family_training_launches": ...}``), the example entry
 points' (``{"examples_launches": ...}``), expert-parallel serving's
 (``{"ep_serving_launches": ...}``), expert-parallel training's
 (``{"ep_training_launches": ...}``), tensor parallelism's
-(``{"tp_launches": ...}``), the ``kernels`` JSON
+(``{"tp_launches": ...}``) and tensor parallelism's for the other
+blocks (``{"tp_family_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
 ``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks,
 phase 18's float32 checks, phase 19's float32 checks and ``zamba2``
-steps, phase 21's float32 check, phase 22's float32 gradients and phase 23's
-float32 prefills and gradients;
+steps, phase 21's float32 check, phase 22's float32 gradients, phase 23's
+float32 prefills and gradients and phase 24's ``zamba2`` prefill and
+float32 checks;
 ``flash_attention_wgmma``'s: phase 5's prefill, phase 11's steps, phase
 14's prefill, phase 15's ``musicgen`` prefill, phase 17's ``lm_loss``,
 phase 18's prefills, phase 19's steps, phase 20's ``serve_lm`` prefill,
-phase 21's prefills, phase 22's steps and phase 23's prefills; the
+phase 21's prefills, phase 22's steps, phase 23's prefills and phase
+24's VLM prefill; the
 JPEG kernels' also count phase 20's ``quickstart`` and
 ``serve_decode``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1305,8 +1337,9 @@ PROTOCOL_WORKERS = (0, 2, 8)
 #: the protocols run over this many of the corpus's images, the first
 #: ones and the rare one (index 13): host entropy decode sets their time,
 #: and the whole script must end within its limit on a slow host (16
-#: until phase 23 needed the time, 14 until its FSDP part did)
-PROTOCOL_IMAGES = 10
+#: until phase 23 needed the time, 14 until its FSDP part did, 10 until
+#: phase 24 did)
+PROTOCOL_IMAGES = 6
 PHASE7_WATCHDOG_S = 900
 
 
@@ -1748,8 +1781,23 @@ def phase_flash():
     tp_heads = (cfg.num_heads // TP_RANKS, cfg.num_kv_heads // TP_RANKS,
                 cfg.head_dim)
     tp_path = (TP_BATCH, TP_PROMPT, *tp_heads)
+    # phase 24's shapes, each rank's heads on a model axis of TPF_RANKS:
+    # the VLM's self-attention (32/4 of 128) and zamba2's shared attention
+    # (16/16 of 80) at the bf16 prefill and the float32 one, and in a
+    # float32 step of 1 x TPF_TRAIN_SEQ with V3's MTP layer (64/64 of
+    # 128, one position fewer), and zamba2's in its bf16 step
+    tpf_vlm, tpf_zamba, tpf_mtp = (
+        (c.num_heads // TPF_RANKS, c.num_kv_heads // TPF_RANKS, c.head_dim)
+        for c in (vlm, get_config("zamba2-2.7b"), mla))
+    tpf_bf16 = [(TPF_BATCH, TPF_PROMPT, *tpf_vlm),
+                (TPF_BATCH, TPF_PROMPT, *tpf_zamba),
+                (1, TPF_TRAIN_SEQ, *tpf_zamba)]
+    tpf_f32 = [(TPF_BATCH, TPF_CHECK_PROMPT, *tpf_vlm),
+               (TPF_BATCH, TPF_CHECK_PROMPT, *tpf_zamba),
+               (1, TPF_TRAIN_SEQ, *tpf_vlm), (1, TPF_TRAIN_SEQ, *tpf_zamba),
+               (1, TPF_TRAIN_SEQ - 1, *tpf_mtp)]
     serving = (path, moe_path, zamba_path, musicgen_path, vlm_path,
-               mtp_path, serve_lm_path, *train_bf16, tp_path)
+               mtp_path, serve_lm_path, *train_bf16, tp_path, *tpf_bf16)
     cases = [(path, bf16, True), (moe_path, bf16, True),
              (zamba_path, bf16, True), (musicgen_path, bf16, True),
              (vlm_path, bf16, True), (mtp_path, bf16, True),
@@ -1771,7 +1819,9 @@ def phase_flash():
          ((1, TP_TRAIN_SEQ, *tp_heads), f32, True),
          # phase 23 (c2)'s bf16 steps: all heads on a data-axis rank
          # ((c1)'s float32 1 x 512 is the case above at 1 x 512)
-         ((1, FSDP_SEQ, *heads), bf16, True)]
+         ((1, FSDP_SEQ, *heads), bf16, True)] + \
+        [(shape, bf16, True) for shape in tpf_bf16] + \
+        [(shape, f32, True) for shape in tpf_f32]
     worst = {}
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = _flash_inputs(shape, dtype, seed=i)
@@ -1810,7 +1860,9 @@ def phase_flash():
                          (bf16, vlm_path), (bf16, mtp_path),
                          *((f32, shape) for shape in train_f32),
                          *((bf16, shape) for shape in train_bf16),
-                         (bf16, tp_path), (f32, tp_path)):
+                         (bf16, tp_path), (f32, tp_path),
+                         *((bf16, shape) for shape in tpf_bf16),
+                         *((f32, shape) for shape in tpf_f32)):
         flops_per_s = spec.peak_bf16_flops if dtype == bf16 else \
             spec.peak_fp32_flops
         name = ops.flash_kernel_for(dtype, shape[-1])
@@ -2057,11 +2109,11 @@ def phase_lm(profile):
 VIT_MODEL = "100m"            # the example's ViT-100m, full width and depth
 VIT_BATCH = 16
 VIT_HW = (64, 64)
-VIT_STEPS = 6                 # the pipeline run: async save after step 3
-VIT_SAVE_EVERY = 3
-VIT_RESTART_STEPS = 2
+VIT_STEPS = 3                 # the pipeline run: async save after step 2
+VIT_SAVE_EVERY = 2
+VIT_RESTART_STEPS = 1
 VIT_LEARN_STEPS = 20
-VIT_SHARE_STEPS = 2
+VIT_SHARE_STEPS = 1
 VIT_WORKERS = 2
 VIT_SWITCH_INTERVAL_S = 5e-4
 VIT_LOSS_RTOL = 1e-5          # kernel route against the plain route
@@ -2395,7 +2447,7 @@ def _training_checks(corpus):
     del batch
 
     # the pipeline: cuda-batch in two loader threads, chunks of 8, through
-    # prefetch_to_device into the trainer, async save after step 3
+    # prefetch_to_device into the trainer, async save after step 2
     comps = {f: len(P.parse(f, headers_only=True).components)
              for f in corpus.files}
     spec = get_decoder("cuda-batch")
@@ -3190,6 +3242,11 @@ def _lm_train_steps(card):
     return {name: n for name, n in total.items() if n}
 
 
+#: (c)'s launcher runs: the first, then its resume (6 and 9 until phase
+#: 24 needed the time; a fresh process's start dominates either)
+LM_LAUNCHER_STEPS = (2, 3)
+
+
 def _lm_launcher():
     """(c): the launcher in a subprocess on the card, then its resume."""
     import tempfile
@@ -3198,7 +3255,8 @@ def _lm_launcher():
                             dir=os.path.join(ROOT, "artifacts"))
     env = dict(os.environ, PYTHONPATH=SRC)
     outs = []
-    for steps in (6, 9):
+    first = LM_LAUNCHER_STEPS[0]
+    for steps in LM_LAUNCHER_STEPS:
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -3211,9 +3269,10 @@ def _lm_launcher():
         check(r.returncode == 0, f"(c) the launcher exited {r.returncode}")
         outs.append(r.stdout)
         print(f"(c) --steps {steps}: {dt} s")
-    check("resumed from step 6" in outs[1],
-          "(c) the second run did not resume from step 6")
-    _restored_on_card_bit_for_bit("(c)", os.path.join(ckpt, "step_6"),
+    check(f"resumed from step {first}" in outs[1],
+          f"(c) the second run did not resume from step {first}")
+    _restored_on_card_bit_for_bit("(c)", os.path.join(ckpt,
+                                                      f"step_{first}"),
                                   "qwen2-7b-smoke")
     shutil.rmtree(ckpt)
 
@@ -5059,9 +5118,10 @@ FAMILY_LAUNCHER_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b",
                          "gemma3-4b", "llama-3.2-vision-90b")
 FAMILY_RESUME_ARCH = "llama-3.2-vision-90b"
 #: (d)'s steps: each family's run, and the resumed arch's first run and
-#: its resume (3, and 6 then 9, until phase 23 needed the time)
-FAMILY_LAUNCHER_STEPS = 2
-FAMILY_RESUME_STEPS = (4, 6)
+#: its resume (3, and 6 then 9, until phase 23 needed the time; 2, and 4
+#: then 6, until phase 24 did)
+FAMILY_LAUNCHER_STEPS = 1
+FAMILY_RESUME_STEPS = (1, 2)
 FAMILY_COUNT_TIMEOUT_S = 240
 FAMILY_LAUNCHER_TIMEOUT_S = 240
 PHASE19_LIMIT_S = 300
@@ -5617,7 +5677,10 @@ SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_NEW = 4, 32, 24
 SERVE_LM_ARGV = ["--arch", SERVE_LM_ARCH, "--batch", str(SERVE_LM_BATCH),
                  "--prompt-len", str(SERVE_LM_PROMPT), "--new-tokens",
                  str(SERVE_LM_NEW)]
-SERVE_DECODE_ARGV = ["--metrics-port", "0"]     # the example's defaults
+#: the example's defaults but 30 requests a client
+SERVE_DECODE_CLIENTS, SERVE_DECODE_REQUESTS = 4, 30
+SERVE_DECODE_ARGV = ["--metrics-port", "0", "--requests",
+                     str(SERVE_DECODE_REQUESTS)]
 CONTRIB_TOL = 32                # tests/test_codecs.py's bound
 EXAMPLE_TIMEOUT_S = 300         # the quickstart's own process
 PHASE20_LIMIT_S = 240
@@ -5708,11 +5771,14 @@ def _contrib_on_card(corpus):
     check(decoder_names() == list(PORT_PATHS) + list(contrib.available()),
           f"registry {decoder_names()}")
     ref = get_decoder("numpy-ref")
+    # the reference decodes once for every plugin
+    wants = [ref.fn(f) for f in corpus.files] if contrib.available() \
+        else []
     for name in contrib.available():
         dec = get_decoder(name)
         worst = 0
-        for i, f in enumerate(corpus.files):
-            img, want = dec.fn(f), ref.fn(f)
+        for i, (f, want) in enumerate(zip(corpus.files, wants)):
+            img = dec.fn(f)
             check(img.dtype == np.uint8 and img.shape == want.shape,
                   f"{name} image {i}: {img.shape} {img.dtype}")
             if i != corpus.rare_index:
@@ -5790,7 +5856,7 @@ def _serve_decode_on_card():
     out, launches, dt = drive("serve_decode",
                               lambda: serve_decode.main(SERVE_DECODE_ARGV))
     svc = out["stats"]["service"]
-    n_req = 4 * 60
+    n_req = SERVE_DECODE_CLIENTS * SERVE_DECODE_REQUESTS
     pulls = {k: v["pulls"] for k, v in out["stats"]["router"].items()}
     print(f"serve_decode: {dt} s; {svc['requests']} requests, "
           f"{svc['completed']} completed, {svc['shed']} shed, "
@@ -7083,6 +7149,566 @@ def phase_tp():
     return launches
 
 
+# ---------------------------------------------------------------- phase 24
+TPF_RANKS = 2                   # model axis; both ranks on the one card
+TPF_BATCH, TPF_PROMPT, TPF_NEW = 2, 1024, 8     # TPF_NEW decode steps
+TPF_CHECK_PROMPT = 512          # the float32 logits: TPF_BATCH x this
+TPF_TRAIN_SEQ = 512             # the float32 step: 1 x this
+#: each run: (tag, arch, the bf16 serving cut, the float32 cut, the
+#: float32 step's seq_shard_residual settings, whether one bf16
+#: make_train_step step follows at the float32 cut's depth, under the
+#: last of those settings)
+TPF_RUNS = (
+    # 1 dense + 1 MoE MLA layer (29.83 GB whole), all 256 experts through
+    # routed_ep; float32: 1 MLA layer and the MTP module (13.62 GB); no
+    # bf16 step: a rank's state (10.6 GB), its gradients, AdamW's new
+    # copy and its float32 temporaries of the vocabulary's rows ran out
+    # of the card's 79 GiB with two ranks (34.3 GiB allocated a rank)
+    ("a", "deepseek-v3-671b", dict(num_layers=2, first_dense_layers=1),
+     dict(num_layers=1, first_dense_layers=1), (False,), False),
+    # 4 self + 1 cross (12.76 GB whole in bf16, 25.52 GB in float32); no
+    # bf16 step: a rank's state at the cut is 31.9 GB (float32 moments)
+    ("b", "llama-3.2-vision-90b", dict(num_layers=5), dict(num_layers=5),
+     (False,), False),
+    # full width and depth (4.69 GB); float32 at 2 super-blocks
+    ("c", "zamba2-2.7b", {}, dict(num_layers=12), (False, True), True),
+)
+#: the flash launches a rank, from the code: (bf16 generate, float32
+#: prefill, one float32 step's gradient, the bf16 step). MLA takes the
+#: plain loop (q/k 192, v 128) and the MTP layer's GQA attention (64/64
+#: heads of 128 a rank) one FFMA launch a step; the VLM's 4 self-attention layers (32/4 heads of 128 a rank)
+#: one a prefill and two a step (forward and remat recompute), its cross
+#: layer the plain loop (Sq != Skv); zamba2's shared attention (16/16
+#: heads of 80 a rank) the FFMA kernel in bf16 too, at each of its 9
+#: applications (2 at the cut)
+TPF_LAUNCHES = {
+    "a": ({}, {}, {"flash_attention": 1}, None),
+    "b": ({"flash_attention_wgmma": 4}, {"flash_attention": 4},
+          {"flash_attention": 8}, None),
+    "c": ({"flash_attention": 9}, {"flash_attention": 2},
+          {"flash_attention": 4}, {"flash_attention": 4}),
+}
+#: the float32 global norm (the optimizer's, over the step's gradient
+#: blocks) against a world of one's, relative: each leaf's blocks lie
+#: within LM_GRAD_TOL of its max, most elements far closer
+TPF_NORM_RTOL = 1e-5
+#: the bf16 step's loss against the float32 world of one's (the same
+#: seeded numbers, rounded), relative: the CPU tests' bf16 bound
+TPF_BF16_RTOL = 5e-2
+TPF_RANK_TIMEOUT_S = 420
+PHASE24_LIMIT_S = 300
+
+TPF_RANK = """\
+import dataclasses, gc, json, os, sys, time
+import torch, torch.distributed as dist
+rank, world, store, out, tmp, args = (int(sys.argv[1]), int(sys.argv[2]),
+                                      sys.argv[3], sys.argv[4], sys.argv[5],
+                                      json.loads(sys.argv[6]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+import chip_smoke as C
+from repro_torch import tree
+from repro_torch.configs import get_config
+from repro_torch.device import set_device
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import make_context
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import convert, model
+from repro_torch.models.layers import ShapesOnly
+from repro_torch.serve import engine
+from repro_torch.train import OptimizerConfig
+from repro_torch.train.optimizer import global_norm
+from repro_torch.train.train_step import (make_grads_fn, make_train_state,
+                                          make_train_state_shapes,
+                                          make_train_step)
+set_device("cuda")
+dev = torch.device("cuda", 0)
+mesh = make_host_mesh(1, world, backend="gloo")
+ctx = make_context(mesh)
+res = {"rank": rank, "backend": dist.get_backend(),
+       "model_rank": mesh.get_local_rank("model"), "runs": {}}
+B, S, new = args["batch"], args["prompt"], args["new"]
+
+
+def wait_for(path):
+    deadline = time.monotonic() + args["wait_s"]
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"nothing at {path}")
+        time.sleep(0.1)
+
+
+# the phase's process holds the card for its worlds of one until "go"
+wait_for(os.path.join(tmp, "go"))
+
+
+def nbytes(t):
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def release():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def build(cfg, opt_cfg=None):
+    # each rank in turn makes the model (with opt_cfg: a train state) from
+    # one seed, a top-level leaf or a layer at a time, and keeps its block
+    # (convert.local_tp_keep): no rank holds the whole model, and one
+    # whole layer at most is made on the card at a time
+    out = None
+    for r in range(world):
+        if r == rank:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            keep = convert.local_tp_keep(cfg, ctx)
+            out = (model.init(gen, cfg, keep=keep) if opt_cfg is None else
+                   make_train_state(gen, cfg, opt_cfg, keep=keep))
+            if cfg.family == "vlm":
+                C._open_gates(out if opt_cfg is None else out["params"],
+                              cfg, 1)
+            release()
+        dist.barrier()
+    return out
+
+
+def sizes(r, key, cfg, params):
+    # this rank's bytes, the layout's count of them, the whole model's
+    cuts = TP.layout(cfg, ctx)
+    whole = tree.flatten_with_names(model.init(ShapesOnly(), cfg))
+    r[key] = {"rank": nbytes(params), "whole": nbytes(whole),
+              "layout": sum(t.numel() * t.element_size() // (
+                  world if n in cuts and cuts[n].model is not None else 1)
+                  for n, t in whole.items())}
+
+
+def images(cfg, b):
+    return ({"image_embeds": C._tpf_image(cfg, b)}
+            if cfg.family == "vlm" else {})
+
+
+def reference(tag):
+    path = os.path.join(tmp, f"{tag}_rank{rank}.pt")
+    wait_for(path)
+    return torch.load(path, mmap=True)
+
+
+for tag, arch, cut16, cut32, seqs, step16 in args["runs"]:
+    r = res["runs"][tag] = {}
+    t_run = time.perf_counter()
+    # bf16 serving at full width
+    cfg = dataclasses.replace(get_config(arch), **cut16)
+    t0 = time.perf_counter()
+    params = build(cfg)
+    r["build_s"] = time.perf_counter() - t0
+    sizes(r, "bytes", cfg, params)
+    prompt = C._tpf_tokens(cfg, B, S, 1)
+    img = images(cfg, B)
+    # first calls load the kernels and build cuBLAS handles: not measured
+    engine.generate(params, prompt[:, :64], cfg, ctx, max_new_tokens=2,
+                    **img)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    ops.reset_launches()
+    timings = {}
+    ids = engine.generate(params, prompt, cfg, ctx, max_new_tokens=new + 1,
+                          cache_len=S + new + 1, timings=timings, **img)
+    torch.cuda.synchronize()
+    r["launches"] = dict(ops.LAUNCHES)
+    r["peak"] = torch.cuda.max_memory_allocated()
+    r["prefill_s"], r["decode_s"] = timings["prefill_s"], timings["decode_s"]
+    r["ids"] = ids.tolist()
+    del params, ids, img
+    release()
+    r["bf16_s"] = time.perf_counter() - t_run
+    # float32 at the cut against a world of one
+    cfg32 = dataclasses.replace(get_config(arch), dtype="float32", **cut32)
+    p32 = build(cfg32)
+    sizes(r, "bytes32", cfg32, p32)
+    t0 = time.perf_counter()
+    ref = reference(tag)
+    r["wait_s"] = time.perf_counter() - t0
+    prompt = C._tpf_tokens(cfg32, B, args["check_prompt"], 1)
+    dist.barrier()
+    ops.reset_launches()
+    _, logits = model.prefill(p32, prompt, cfg32, ctx,
+                              cache_len=args["check_prompt"] + 1,
+                              **images(cfg32, B))
+    torch.cuda.synchronize()
+    r["launches32"] = dict(ops.LAUNCHES)
+    want = ref["logits"].to(dev)
+    r["logits_rel"] = ((logits - want).abs().max()
+                       / want.abs().max()).item()
+    r["logits_finite"] = bool(torch.isfinite(logits).all())
+    del logits, want
+    batch = {"tokens": C._tpf_tokens(cfg32, 1, args["train_seq"] + 1, 3),
+             **images(cfg32, 1)}
+    r["steps"] = {}
+    for seq in seqs:
+        tctx = make_context(mesh, remat="full", q_chunk=256, k_chunk=256,
+                            seq_shard_residual=seq)
+        split = TP.layout(cfg32, tctx)
+        # the training step's own gradient (make_train_step's): reduced
+        # over the axis, then the optimizer's global norm of the blocks
+        grads_fn = make_grads_fn(cfg32, tctx)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        met, grads = grads_fn(p32, batch)
+        torch.cuda.synchronize()
+        s = r["steps"][str(seq)] = {"s": time.perf_counter() - t0,
+                                    "launches": dict(ops.LAUNCHES),
+                                    "loss": met["loss"].item()}
+        s["norm"] = global_norm(grads, tctx, split).item()
+        # this rank's block of every leaf against the same block of the
+        # world of one's gradient, over that leaf's largest |element|
+        worst, leaf, finite = -1.0, "", True
+        for n, g in tree.flatten_with_names(grads).items():
+            w = ref["grads"][n].to(dev)
+            finite = finite and bool(torch.isfinite(g).all())
+            rel = (g - w).abs().max().item() / max(ref["scale"][n], 1e-30)
+            if rel > worst and ref["scale"][n] > 0:
+                worst, leaf = rel, n
+        s.update(grad_worst=worst, grad_leaf=leaf, grads_finite=finite,
+                 grad_leaves=len(ref["grads"]))
+        del grads, w
+        release()
+    r["want_loss"], r["want_norm"] = ref["loss"], ref["norm"]
+    del p32, ref, batch
+    release()
+    if step16:
+        # one bf16 AdamW step through make_train_step at the float32 cut's
+        # depth, under the last context above: this rank's block of the
+        # state, its launches, loss and the global norm
+        cfg16 = dataclasses.replace(get_config(arch), **cut32)
+        opt_cfg = OptimizerConfig(warmup_steps=10)
+        state = build(cfg16, opt_cfg)
+        shapes = tree.flatten_with_names(make_train_state_shapes(
+            cfg16, opt_cfg))
+        held = [n for n in shapes if n.split("/")[0] in ("params", "opt")]
+        cut = TP.cuts_of(held, TP.layout(cfg16, tctx))
+        r["state_bytes"] = {
+            "rank": nbytes([state["params"], state["opt"]]),
+            "whole": nbytes([shapes[n] for n in held]),
+            "layout": sum(nbytes(shapes[n]) // (
+                world if n in cut and cut[n].model is not None else 1)
+                for n in held)}
+        step = make_train_step(cfg16, tctx, opt_cfg)
+        batch = {"tokens": C._tpf_tokens(cfg16, 1, args["train_seq"] + 1, 3),
+                 **images(cfg16, 1)}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        r["step16"] = {"s": time.perf_counter() - t0,
+                       "launches": dict(ops.LAUNCHES),
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "loss": met["loss"].item(),
+                       "norm": met["grad_norm"].item(),
+                       "steps": int(state["step"]),
+                       "finite": all(bool(torch.isfinite(t).all())
+                                     for t in tree.leaves(state["params"])),
+                       "bytes_after": nbytes([state["params"],
+                                              state["opt"]])}
+        del state, batch, step
+        release()
+    r["run_s"] = time.perf_counter() - t_run
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def _tpf_tokens(cfg, b, s, seed):
+    """Seeded token ids ``[b, s]`` on the card (phase 24's ranks and its
+    world of one draw the same)."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         device=DEV)
+
+
+def _tpf_image(cfg, b):
+    """Stub patch embeddings ``[b, num_image_tokens, d_model]``, 0.1 x
+    normal from seed 2 (``_image_embeds``'), in the model dtype."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(2)
+    return (0.1 * torch.randn(b, cfg.num_image_tokens, cfg.d_model,
+                              generator=g, device=DEV)).to(
+        getattr(torch, cfg.dtype))
+
+
+def _tpf_reference(arch, cut32):
+    """A float32 world of one at the cut, in this process: the prefill's
+    logits at ``TPF_BATCH x TPF_CHECK_PROMPT``, one step's loss, global
+    norm and each gradient leaf's largest |element|, and every rank's
+    block of every gradient leaf (``tensor_parallel``'s layout over
+    ``TPF_RANKS``), all on the host."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut32)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), cfg)
+    if cfg.family == "vlm":
+        _open_gates(params, cfg, 1)
+    img = ({"image_embeds": _tpf_image(cfg, TPF_BATCH)}
+           if cfg.family == "vlm" else {})
+    _, logits = model.prefill(params, _tpf_tokens(cfg, TPF_BATCH,
+                                                  TPF_CHECK_PROMPT, 1),
+                              cfg, ModelContext(),
+                              cache_len=TPF_CHECK_PROMPT + 1, **img)
+    batch = {"tokens": _tpf_tokens(cfg, 1, TPF_TRAIN_SEQ + 1, 3)}
+    if img:
+        batch["image_embeds"] = _tpf_image(cfg, 1)
+    (loss, _), grads = loss_and_grads(
+        params, batch, cfg, ModelContext(remat="full", q_chunk=256,
+                                         k_chunk=256))
+    del params, img, batch
+    cuts = TP._layout(cfg, TPF_RANKS, 1, True)
+    norm = global_norm(grads).item()
+    out = [{"logits": logits.cpu(), "loss": loss.item(), "norm": norm,
+            "scale": {}, "grads": {}} for _ in range(TPF_RANKS)]
+    flat = tree.flatten_with_names(grads)
+    del grads
+    for n in list(flat):
+        g = flat.pop(n)
+        scale = g.abs().max().item()
+        for m, o in enumerate(out):
+            o["scale"][n] = scale
+            o["grads"][n] = (TP.local_block(g, cuts[n], (m, TPF_RANKS),
+                                            (0, 1)) if n in cuts
+                             else g).cpu()
+        del g
+    del logits
+    return out
+
+
+def _tpf_write(tmp, refs, errors):
+    """Each run's references, one file a rank (``{tag}_rank{m}.pt``), in
+    run order; each file appears whole (written, then renamed)."""
+    import torch
+    try:
+        for tag in [run[0] for run in TPF_RUNS]:
+            for m, ref in enumerate(refs.pop(tag)):
+                path = os.path.join(tmp, f"{tag}_rank{m}.pt")
+                torch.save(ref, path + ".part")
+                os.replace(path + ".part", path)
+    except Exception as e:  # noqa: BLE001 - the phase reports it
+        errors.append(f"{type(e).__name__}: {e}")
+
+
+def phase_tp_families():
+    """Phase 24: ``deepseek-v3-671b`` (MLA, MTP, routed experts),
+    ``llama-3.2-vision-90b`` (cross-attention) and ``zamba2-2.7b``
+    (Mamba2, shared attention) tensor-parallel over a model axis of two
+    ranks sharing the card (spawned processes, gloo), each built a layer
+    at a time from one seed; their float32 cuts against a world of one
+    computed first in this process. Returns the flash kernels' launches
+    of the ranks' main paths."""
+    import tempfile
+    import threading
+    import torch
+    print(f"== phase 24: MLA and MTP, cross-attention and Mamba2 "
+          f"tensor-parallel over a model axis of {TPF_RANKS} ranks sharing "
+          f"the card (gloo)")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held_report("phase 24")
+    args = {"batch": TPF_BATCH, "prompt": TPF_PROMPT, "new": TPF_NEW,
+            "check_prompt": TPF_CHECK_PROMPT, "train_seq": TPF_TRAIN_SEQ,
+            "runs": TPF_RUNS, "wait_s": TPF_RANK_TIMEOUT_S}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks start now and wait for "go": their imports overlap the
+        # worlds of one, which hold the card until then
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(TPF_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TPF_RANK, str(r), str(TPF_RANKS),
+             os.path.join(tmp, "store"), outs[r], tmp, json.dumps(args)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join((SRC, ROOT))),
+            cwd=ROOT) for r in range(TPF_RANKS)]
+        errors, writer = [], None
+        try:
+            refs = {}
+            for tag, arch, _, cut32, _, _ in TPF_RUNS:
+                t0 = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                refs[tag] = _tpf_reference(arch, cut32)
+                peak = torch.cuda.max_memory_allocated()
+                _release()
+                n = sum(t.numel() for t in refs[tag][0]["grads"].values())
+                print(f"({tag}) {arch} float32 world of one at {cut32}: "
+                      f"loss {refs[tag][0]['loss']}, "
+                      f"{len(refs[tag][0]['grads'])} gradient leaves, {n} "
+                      f"elements rank 0's blocks; "
+                      f"{time.perf_counter() - t0} s, peak device memory "
+                      f"{peak} bytes ({card})")
+            print(f"references: {shutil.disk_usage(tmp).free} bytes free "
+                  f"under {tmp}")
+            held_report("phase 24's ranks")
+            open(os.path.join(tmp, "go"), "w").close()
+            # the references are written while the ranks serve in bf16
+            # repro: ignore[torch-thread-no-device] -- host tensors only
+            writer = threading.Thread(target=_tpf_write,
+                                      args=(tmp, refs, errors))
+            writer.start()
+            logs = [p.communicate(timeout=TPF_RANK_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if writer is not None:
+                writer.join()
+        check(not errors, f"writing the references: {errors}")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                  f"{log.strip().splitlines()[-8:]}")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    print(f"process group: {res[0]['backend']}, {TPF_RANKS} ranks on "
+          f"{torch.cuda.get_device_name(0)}; model-axis ranks "
+          f"{[r['model_rank'] for r in res]}")
+    check(all(r["backend"] == "gloo" for r in res) and
+          [r["model_rank"] for r in res] == list(range(TPF_RANKS)),
+          f"backends {[r['backend'] for r in res]}")
+    launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    for tag, arch, cut16, cut32, seqs, _ in TPF_RUNS:
+        _tpf_report(tag, arch, cut16, cut32, seqs, [r["runs"][tag]
+                                                    for r in res],
+                    launches, card)
+    dt = time.perf_counter() - t_phase
+    print(f"phase 24: {dt} s (limit {PHASE24_LIMIT_S} s); launches "
+          f"{launches} ({card})")
+    check(dt <= PHASE24_LIMIT_S, f"phase 24 took {dt} s")
+    return launches
+
+
+def _tpf_report(tag, arch, cut16, cut32, seqs, runs, launches, card):
+    """Phase 24: one run's ranks, printed and checked; adds their
+    launches to ``launches``."""
+    want16, want32, want_step, want_bf16_step = TPF_LAUNCHES[tag]
+    r0 = runs[0]
+    for m, r in enumerate(runs):
+        for key, cut in (("bytes", cut16), ("bytes32", cut32)):
+            b = r[key]
+            print(f"({tag}) {arch} at {cut or 'full depth'}"
+                  f"{' float32' if key == 'bytes32' else ''}, rank {m}: "
+                  f"parameters {b['rank']} bytes, the layout's count "
+                  f"{b['layout']}, the whole model's {b['whole']}")
+            check(b["rank"] == b["layout"] and b["rank"] < b["whole"],
+                  f"({tag}) rank {m} holds {b} bytes")
+        print(f"({tag}) rank {m}: {r['run_s']} s in all, bf16 "
+              f"{r['bf16_s']} s, waited {r['wait_s']} s for the "
+              f"references; built in {r['build_s']} s; prefill "
+              f"{TPF_BATCH} x {TPF_PROMPT} in {r['prefill_s']} s, decode "
+              f"{TPF_NEW} steps in {r['decode_s']} s "
+              f"({r['decode_s'] / TPF_NEW * 1e3} ms a step): figures of one "
+              f"card shared by {TPF_RANKS} processes over gloo, not of "
+              f"tensor parallelism; peak device memory {r['peak']} bytes; "
+              f"launches {r['launches']} (want {want16}); first ids "
+              f"{r['ids'][0][:8]} ({card})")
+        for got, want, what in ((r["launches"], want16, "bf16 generate"),
+                                (r["launches32"], want32,
+                                 "float32 prefill")):
+            got = {k: v for k, v in got.items() if v}
+            check(got == want,
+                  f"({tag}) rank {m}'s {what} launched {got}, want {want}")
+            for k, v in got.items():
+                launches[k] += v
+    check(all(r["ids"] == r0["ids"] for r in runs),
+          f"({tag}) the ranks generated different ids")
+    print(f"({tag}) float32 at {cut32}: logits / max |logit| against a "
+          f"world of one {[r['logits_rel'] for r in runs]} (limit "
+          f"{LM_F32_REL_TOL}) ({card})")
+    check(all(r["logits_finite"] and r["logits_rel"] < LM_F32_REL_TOL
+              for r in runs), f"({tag}) float32 logits differ")
+    for seq in seqs:
+        steps = [r["steps"][str(seq)] for r in runs]
+        rel = [abs(s["loss"] - r0["want_loss"]) / abs(r0["want_loss"])
+               for s in steps]
+        norm = [abs(s["norm"] - r0["want_norm"]) / r0["want_norm"]
+                for s in steps]
+        print(f"({tag}) float32 step's gradient at {cut32}, 1 x "
+              f"{TPF_TRAIN_SEQ}{', seq_shard_residual' if seq else ''}: "
+              f"loss {[s['loss'] for s in steps]} vs {r0['want_loss']} "
+              f"(relative {rel}, limit {LM_LOSS_RTOL}); global norm "
+              f"{[s['norm'] for s in steps]} vs {r0['want_norm']} "
+              f"(relative {norm}, limit {TPF_NORM_RTOL}); worst gradient "
+              f"block a rank {[(s['grad_leaf'], s['grad_worst']) for s in steps]}"
+              f" of its leaf's max |g| (limit {LM_GRAD_TOL}) over "
+              f"{steps[0]['grad_leaves']} leaves; {[s['s'] for s in steps]} "
+              f"s a rank; launches {[s['launches'] for s in steps]} (want "
+              f"{want_step}) ({card})")
+        for m, s in enumerate(steps):
+            check(rel[m] <= LM_LOSS_RTOL,
+                  f"({tag}) rank {m}'s loss differs by {rel[m]}")
+            check(norm[m] <= TPF_NORM_RTOL,
+                  f"({tag}) rank {m}'s global norm differs by {norm[m]}")
+            check(s["grads_finite"] and s["grad_worst"] <= LM_GRAD_TOL,
+                  f"({tag}) rank {m}'s gradient {s['grad_leaf']} differs "
+                  f"by {s['grad_worst']}")
+            got = {k: v for k, v in s["launches"].items() if v}
+            check(got == want_step,
+                  f"({tag}) rank {m}'s step launched {got}, want "
+                  f"{want_step}")
+            for k, v in got.items():
+                launches[k] += v
+    if want_bf16_step is None:
+        return
+    steps = [r["step16"] for r in runs]
+    for m, (r, s) in enumerate(zip(runs, steps)):
+        b = r["state_bytes"]
+        got = {k: v for k, v in s["launches"].items() if v}
+        print(f"({tag}) bf16 make_train_step at {cut32}, 1 x "
+              f"{TPF_TRAIN_SEQ}{', seq_shard_residual' if seqs[-1] else ''}"
+              f", rank {m}: state (parameters + moments) {b['rank']} bytes, "
+              f"the layout's count {b['layout']}, a world of one's "
+              f"{b['whole']}; after the step {s['bytes_after']}; loss "
+              f"{s['loss']} (float32 world of one {r0['want_loss']}, "
+              f"limit {TPF_BF16_RTOL} relative), "
+              f"grad_norm {s['norm']} (float32 {r0['want_norm']}); "
+              f"{s['s']} s, peak device memory {s['peak']} bytes; launches "
+              f"{got} (want {want_bf16_step}) ({card})")
+        check(b["rank"] == b["layout"] == s["bytes_after"] and
+              b["rank"] < b["whole"],
+              f"({tag}) rank {m} holds {b} bytes of state, "
+              f"{s['bytes_after']} after the step")
+        check(s["steps"] == 1 and s["finite"] and
+              math.isfinite(s["loss"]) and math.isfinite(s["norm"]),
+              f"({tag}) rank {m}'s bf16 step: {s['steps']} steps, loss "
+              f"{s['loss']}, norm {s['norm']}, finite {s['finite']}")
+        rel = abs(s["loss"] - r0["want_loss"]) / abs(r0["want_loss"])
+        check(rel <= TPF_BF16_RTOL,
+              f"({tag}) rank {m}'s bf16 step loss {s['loss']} is {rel} "
+              f"from the float32 world of one's (limit {TPF_BF16_RTOL})")
+        check(got == want_bf16_step,
+              f"({tag}) rank {m}'s bf16 step launched {got}, want "
+              f"{want_bf16_step}")
+        for k, v in got.items():
+            launches[k] += v
+    check(all(s["loss"] == steps[0]["loss"] and
+              s["norm"] == steps[0]["norm"] for s in steps),
+          f"({tag}) the ranks' bf16 step metrics differ")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -7133,6 +7759,7 @@ def main() -> int:
         ep_training_launches = phase_ep_train(
             profile="--profile" in sys.argv[1:])
         tp_launches = phase_tp()
+        tp_family_launches = phase_tp_families()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7145,8 +7772,9 @@ def main() -> int:
     # (phase 15), MLA and MTP (phase 17), the VLM family (phase 18) and
     # the non-dense families' training (phase 19), the example entry
     # points (phase 20), expert-parallel serving (phase 21) and training
-    # (phase 22), and tensor parallelism (phase 23)
+    # (phase 22), and tensor parallelism (phases 23 and 24)
     for name, count in list(tp_launches.items()) + \
+            list(tp_family_launches.items()) + \
             list(moe_launches.items()) + \
             list(ssm_launches.items()) + list(mla_launches.items()) + \
             list(vlm_launches.items()) + \
@@ -7180,6 +7808,7 @@ def main() -> int:
     print(json.dumps({"ep_serving_launches": ep_launches}))
     print(json.dumps({"ep_training_launches": ep_training_launches}))
     print(json.dumps({"tp_launches": tp_launches}))
+    print(json.dumps({"tp_family_launches": tp_family_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,11 @@ reference's global values need:
   over it: each rank's share has its whole gradient (the collectives'
   backwards, ``distributed.tensor_parallel`` and the exchange of
   ``routed_ep``), and so has every other whole leaf, which sees the
-  whole sequence on every rank;
+  whole sequence on every rank (the whole leaves that feed only the
+  rank's heads, MLA's ``wq_a``/``wkv_a`` and their norms and Mamba2's
+  ``A_log``/``D``/``dt_bias``/``gnorm``, get every rank's heads'
+  gradient through ``tensor_parallel.share``, which copies nothing
+  under the sequence-split residual: their gradients are summed once);
 * the global norm counts each leaf once: a split leaf's squares summed
   over the model axis, a data-cut leaf's over the ``data`` axis, a leaf
   cut on both over both (``global_sq_sums``);

@@ -14,13 +14,14 @@ which the dry-run counts ``routed_ep`` and a training step on a mesh as
 one rank runs them.
 
 The model-axis entries of the partition rules below are put to work by
-``split_dim``: the leaves of the blocks it names (``TP_LEAVES``) split
-over the model axis on the dimension their rule gives it, a GQA
-self-attention block's only when its query and KV heads both divide
-over the axis (otherwise that block runs whole on every rank: the
-reference partitions its q rows instead, a layout with the same
-values). Each MoE layer's experts split by ``models.moe``'s expert
-parallelism. The data-axis entries (``"data"`` on the d_model dims) are
+``split_dim``: the leaves of the blocks it names (``TP_LEAVES``: the
+vocabulary, GQA self- and cross-attention, MLA, Mamba2, the dense FFN
+and the shared experts, the MTP layer's attention and FFN among them)
+split over the model axis on the dimension their rule gives it, a
+block with heads only when its heads divide over the axis (otherwise
+that block runs whole on every rank: the reference partitions its q
+rows instead, a layout with the same values). Each MoE layer's experts
+split by ``models.moe``'s expert parallelism. The data-axis entries (``"data"`` on the d_model dims) are
 put to work by ``fsdp_dim``: every leaf whose rule has one is cut over
 the ``data`` axis on that dimension where the axis divides it, as the
 reference's launcher places its parameters, moments and error buffer
@@ -250,14 +251,20 @@ def param_specs(params, axis_sizes: AxisSizes, no_tp: bool = False):
 
 
 #: the leaves that tensor parallelism splits, by the block they are in
-#: (``split_dim``): the top level's vocabulary leaves, a GQA
-#: self-attention block's heads, a dense FFN's hidden units and a MoE
-#: FFN's shared experts. Every other leaf (norms, routers, gates, MLA,
-#: Mamba2, MTP and cross-attention) stays whole; a MoE layer's routed
-#: experts are its expert parallelism's (``models.moe.local_experts``)
+#: (``split_dim``): the top level's vocabulary leaves, a GQA self- or
+#: cross-attention block's heads, an MLA block's heads (``wq_b``,
+#: ``wk_b``, ``wv_b`` columns, ``wo`` rows), a Mamba2 block's
+#: ``in_proj`` columns, conv channels and ``out_proj`` rows, a dense
+#: FFN's hidden units and a MoE FFN's shared experts. Every other leaf
+#: (norms, routers, gates, MLA's ``wq_a``/``wkv_a``, Mamba2's ``A_log``,
+#: ``D``, ``dt_bias``, ``gnorm``, the MTP module's ``proj``) stays whole;
+#: a MoE layer's routed experts are its expert parallelism's
+#: (``models.moe.local_experts``)
 TP_LEAVES = {
     "top": ("embed", "unembed"),
     "attn": ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
+    "mla": ("wq_b", "wk_b", "wv_b", "wo"),
+    "mamba": ("in_proj", "conv_w", "conv_b", "out_proj"),
     "ffn": ("w1", "w3", "w2"),
     "moe": ("sh_w1", "sh_w3", "sh_w2"),
 }
@@ -270,11 +277,12 @@ def split_dim(name: str, block: Optional[str], shape: Tuple[int, ...],
     ``None`` (the leaf stays whole on every rank): the dimension of the
     ``"model"`` entry of the leaf's rule in ``_RULES``, kept where the
     axis divides it (``_guard``), for the leaves of ``TP_LEAVES[block]``.
-    An ``"attn"`` block's leaves split only when each of ``heads`` (its
-    query and KV heads) divides over the axis."""
+    A block's leaves split only when each of ``heads`` (an attention
+    block's query and KV heads, an MLA block's heads, a Mamba2 block's
+    SSD heads; none for the other blocks) divides over the axis."""
     if model == 1 or name not in TP_LEAVES.get(block, ()):
         return None
-    if block == "attn" and any(h % model for h in heads):
+    if any(h % model for h in heads):
         return None
     spec = _guard({"model": model, "data": 1}, _RULES[name](shape), shape)
     return spec.index("model") if "model" in spec else None

@@ -7,22 +7,35 @@ each rank's shard of a leaf as a plain tensor and writes every
 collective out, each in a ``torch.autograd.Function``:
 
 * ``enter`` before a product whose columns are split (``wq``/``wk``/
-  ``wv``, ``w1``/``w3``, ``unembed``): the copy onto the axis (identity
-  forward, sum backward);
-* ``leave`` after a product whose rows are split (``wo``, ``w2``), and
-  after the vocabulary-split embedding lookup: the sum over the axis
-  (sum forward, identity backward).
+  ``wv``, ``w1``/``w3``, ``in_proj``, ``unembed``): the copy onto the
+  axis (identity forward, sum backward);
+* ``leave`` after a product whose rows are split (``wo``, ``w2``,
+  ``out_proj``), and after the vocabulary-split embedding lookup: the
+  sum over the axis (sum forward, identity backward);
+* ``share`` on a tensor that every rank computes alike from whole
+  leaves and that feeds the rank's heads (MLA's ``q_lat``, ``c_kv`` and
+  ``k_pe``; Mamba2's ``A_log``, ``D``, ``dt_bias`` and ``gnorm``): the
+  copy onto the axis, so that those whole leaves get the gradient of
+  every rank's heads;
+* ``gather_dim`` where a rank needs more than its block of a split
+  leaf's output or of the leaf itself (Mamba2's ``in_proj`` columns and
+  conv channels, cut in contiguous blocks that do not line up with the
+  heads): the gather over the axis (its backward reduce-scatters), and
+  ``norm_sum`` for a sum of squares over split units (Mamba2's gated
+  RMSNorm over ``d_inner``): the sum over the axis both ways.
 
 With the ``seq_shard_residual`` hint (``ModelContext.seq_parallel``) the
 residual between blocks is each rank's ``S/M`` positions ``[B, S/M,
 d]``: ``enter`` then gathers the sequence (its backward
 reduce-scatters) and ``leave`` reduce-scatters it (its backward
-gathers). A block that stays whole (its heads do not divide over the
-axis) gathers the sequence, runs whole and keeps its rank's positions
-(``gather_seq``, ``slice_seq``). Each rank then sees the leaves that
-are not split (the norms, the routers, a whole block's) through its own
-positions only, and the training step sums their gradients over the
-axis (``distributed.data_parallel.reduce_gradients``).
+gathers); MLA gathers at the block's input (``gather_seq``) and
+``share`` copies nothing. A block that stays whole (its heads do not
+divide over the axis) gathers the sequence, runs whole and keeps its
+rank's positions (``gather_seq``, ``slice_seq``). Each rank then sees
+the leaves that are not split (the norms, the routers, MLA's and
+Mamba2's whole leaves, a whole block's) through its own positions or
+heads only, and the training step sums their gradients over the axis
+(``distributed.data_parallel.reduce_gradients``), once.
 
 ``layout`` says which leaves of a config a context cuts, through
 ``distributed.sharding.split_dim`` over the model axis and
@@ -58,14 +71,18 @@ from repro_torch.distributed.sharding import fsdp_dim, split_dim
 class Plan:
     """What a context splits of a config's blocks: ``ways`` ranks on the
     model axis (1: nothing), this rank's index ``rank`` and the axis's
-    ``group``; whether the GQA self-attention blocks (``attn``), the dense
-    FFNs (``ffn``), the MoE layers' shared experts (``shared``) and the
-    vocabulary leaves (``vocab``) split; and whether the residual is
-    each rank's ``S/M`` positions (``seq``)."""
+    ``group``; whether the GQA self- and cross-attention blocks
+    (``attn``, the MTP layer's too), the MLA blocks (``mla``), the
+    Mamba2 blocks' heads (``mamba``), the dense FFNs (``ffn``), the MoE
+    layers' shared experts (``shared``) and the vocabulary leaves
+    (``vocab``) split; and whether the residual is each rank's ``S/M``
+    positions (``seq``)."""
     ways: int = 1
     rank: int = 0
     group: Any = None
     attn: bool = False
+    mla: bool = False
+    mamba: bool = False
     ffn: bool = False
     shared: bool = False
     vocab: bool = False
@@ -83,29 +100,38 @@ def ffn_width(cfg) -> int:
         else cfg.d_ff
 
 
-def _heads(cfg):
-    return (cfg.num_heads, cfg.num_kv_heads)
-
-
-#: the families whose every block the sequence-split residual covers
-SEQ_FAMILIES = ("dense", "moe")
+def _heads(cfg, block: Optional[str]) -> Tuple[int, ...]:
+    """The heads that must divide over the model axis for a block of kind
+    ``block`` to split (``sharding.split_dim``): an attention block's
+    query and KV heads, an MLA block's heads, a Mamba2 block's SSD
+    heads; none for the other blocks."""
+    return {"attn": (cfg.num_heads, cfg.num_kv_heads),
+            "mla": (cfg.num_heads,),
+            "mamba": (cfg.ssm_heads,)}.get(block, ())
 
 
 def plan(cfg, ctx) -> Plan:
     """``ctx``'s split of ``cfg``'s blocks (``Plan``), by ``split_dim`` at
-    the whole leaves' shapes. With ``ctx.seq_parallel`` a family outside
-    ``SEQ_FAMILIES``, MLA, MTP, the dense MoE route or a vocabulary that
-    does not split raises ``ValueError`` (ROADMAP queue 1 item 16)."""
+    the whole leaves' shapes. With ``ctx.seq_parallel`` the dense MoE
+    route or a vocabulary that does not split raises ``ValueError``:
+    every other block takes the sequence-split residual, split or whole
+    (ROADMAP queue 1 item 16)."""
     M = 1 if ctx is None else ctx.tp_size
     if M == 1:
         return WHOLE
     d, Vp = cfg.d_model, cfg.padded_vocab_size
     hd = cfg.head_dim
-    H, KV = _heads(cfg)
+    H = cfg.num_heads
+
+    def splits(name, block, shape):
+        return split_dim(name, block, shape, M, _heads(cfg, block)) \
+            is not None
     out = Plan(
         ways=M, rank=ctx.mesh.get_local_rank(ctx.model_axis),
         group=ctx.mesh.get_group(ctx.model_axis),
-        attn=split_dim("wq", "attn", (d, H * hd), M, (H, KV)) is not None,
+        attn=splits("wq", "attn", (d, H * hd)),
+        mla=cfg.use_mla and splits("wo", "mla", (H * cfg.v_head_dim, d)),
+        mamba=splits("out_proj", "mamba", (cfg.ssm_d_inner, d)),
         ffn=split_dim("w1", "ffn", (d, ffn_width(cfg)), M) is not None,
         shared=bool(cfg.num_shared_experts) and split_dim(
             "sh_w1", "moe", (d, cfg.moe_d_ff * cfg.num_shared_experts),
@@ -114,16 +140,14 @@ def plan(cfg, ctx) -> Plan:
         seq=ctx.seq_parallel)
     if out.seq:
         why = None
-        if cfg.family not in SEQ_FAMILIES or cfg.use_mla or cfg.mtp_depth:
-            why = f"{cfg.name} ({cfg.family})"
-        elif cfg.family == "moe" and ctx.moe_impl != "ep":
+        if cfg.family == "moe" and ctx.moe_impl != "ep":
             why = f"the {ctx.moe_impl!r} MoE route"
         elif not out.vocab:
             why = f"a vocabulary of {Vp} over {M} ranks"
         if why:
-            raise ValueError(f"seq_shard_residual covers the dense and MoE "
-                             f"families' GQA blocks through routed_ep; not "
-                             f"{why} (ROADMAP queue 1 item 16)")
+            raise ValueError(f"seq_shard_residual covers every family's "
+                             f"blocks, the MoE layers through routed_ep; "
+                             f"not {why} (ROADMAP queue 1 item 16)")
     return out
 
 
@@ -187,19 +211,35 @@ class _Sum(torch.autograd.Function):
         return g, None
 
 
-class _GatherSeq(torch.autograd.Function):
-    """[B, S/M, ...] -> [B, S, ...], the ranks' positions in rank order;
-    backward: the sum over the axis of rank m's positions."""
+class _SumBoth(torch.autograd.Function):
+    """The sum over the axis forward and backward: a sum of parts whose
+    consumers differ by rank, so that the gradient of each part is the
+    sum of every rank's."""
 
     @staticmethod
     def forward(fctx, x, tp):
         fctx.tp = tp
-        return _all_gather(x, tp.group, tp.ways, 1)
+        return _all_reduce(x.clone(), tp.group)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g.clone(), fctx.tp.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' blocks along ``dim``, in rank order (``[B, S/M, ...] ->
+    [B, S, ...]`` at dim 1); backward: the sum over the axis of rank m's
+    block."""
+
+    @staticmethod
+    def forward(fctx, x, tp, dim):
+        fctx.tp, fctx.dim = tp, dim
+        return _all_gather(x, tp.group, tp.ways, dim)
 
     @staticmethod
     def backward(fctx, g):
         tp = fctx.tp
-        return _reduce_scatter(g, tp.group, tp.ways, 1), None
+        return _reduce_scatter(g, tp.group, tp.ways, fctx.dim), None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -241,7 +281,7 @@ def enter(x: torch.Tensor, tp: Plan) -> torch.Tensor:
     ``tp.seq``, else ``x`` copied onto the axis."""
     if tp.ways == 1:
         return x
-    return _GatherSeq.apply(x, tp) if tp.seq else _Copy.apply(x, tp)
+    return _Gather.apply(x, tp, 1) if tp.seq else _Copy.apply(x, tp)
 
 
 def leave(y: torch.Tensor, tp: Plan) -> torch.Tensor:
@@ -255,7 +295,29 @@ def leave(y: torch.Tensor, tp: Plan) -> torch.Tensor:
 def gather_seq(x: torch.Tensor, tp: Plan) -> torch.Tensor:
     """Under ``tp.seq``, every rank's positions (``enter``'s gather); else
     ``x``."""
-    return _GatherSeq.apply(x, tp) if tp.seq else x
+    return _Gather.apply(x, tp, 1) if tp.seq else x
+
+
+def share(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """A tensor that every rank computes alike from whole leaves, before
+    the rank's heads: copied onto the axis, so that those leaves get the
+    gradient of every rank's heads; under ``tp.seq`` ``x`` as it is (the
+    training step sums the whole leaves' gradients over the axis)."""
+    return x if tp.ways == 1 or tp.seq else _Copy.apply(x, tp)
+
+
+def gather_dim(x: torch.Tensor, tp: Plan, dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim`` in rank order, the same
+    on every rank; backward: the sum over the axis of this rank's
+    block."""
+    return x if tp.ways == 1 else _Gather.apply(x, tp, dim)
+
+
+def norm_sum(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """The sum over the axis of each rank's part ``x`` (a sum of squares
+    over this rank's units), whose consumers differ by rank: the
+    backward sums too."""
+    return x if tp.ways == 1 else _SumBoth.apply(x, tp)
 
 
 def slice_seq(x: torch.Tensor, tp: Plan) -> torch.Tensor:
@@ -329,17 +391,29 @@ class Cuts(NamedTuple):
     data: Optional[Cut] = None
 
 
+#: a layer's ``attn`` leaves' block kind by its spec's kind
+_ATTN_BLOCK = {"attn": "attn", "cross_attn": "attn", "mla": "mla",
+               "mamba": "mamba"}
+
+
 def _block_of(path: str, cfg, own) -> Optional[str]:
     """The block kind (``sharding.TP_LEAVES``' keys, or ``None``) of the
     leaf at ``path`` of the port's parameter tree: ``"top"`` for a
-    top-level leaf; under a layer's ``attn``, ``"attn"`` for a GQA
-    self-attention layer; under its ``ffn``, ``"ffn"`` or ``"moe"`` by the
-    layer's spec (``own``: the specs of ``params["layers"]``' entries);
-    ``None`` for the MTP module and anything else."""
+    top-level leaf; under a layer's ``attn``, ``"attn"`` for a GQA self-
+    or cross-attention layer, ``"mla"`` or ``"mamba"``; under its
+    ``ffn``, ``"ffn"`` or ``"moe"`` by the layer's spec (``own``: the
+    specs of ``params["layers"]``' entries); the MTP module's layer
+    (``mtp/attn``, ``mtp/ffn``) as a GQA attention layer with a dense
+    FFN (``models.model.MTP_SPEC``); ``None`` for anything else (the MTP
+    module's ``proj`` and norms)."""
     parts = path.split("/")
     if len(parts) == 1:
         return "top"
-    if len(parts) < 4 or parts[-2] not in ("attn", "ffn"):
+    if parts[-2] not in ("attn", "ffn"):
+        return None
+    if len(parts) == 3 and parts[0] == "mtp":
+        return "attn" if parts[-2] == "attn" else "ffn"
+    if len(parts) < 4:
         return None
     outer, inner = parts[-4], parts[-3]
     if outer == "layers":
@@ -350,7 +424,7 @@ def _block_of(path: str, cfg, own) -> Optional[str]:
     else:
         return None
     if parts[-2] == "attn":
-        return "attn" if spec.kind == "attn" else None
+        return _ATTN_BLOCK.get(spec.kind)
     return {"dense": "ffn", "moe": "moe"}.get(spec.ffn)
 
 
@@ -391,7 +465,7 @@ def _layout(cfg, M: int, D: int, ep: bool) -> Dict[str, Cuts]:
                                               ).items():
         block, name = _block_of(path, cfg, own), path.rsplit("/", 1)[-1]
         shape = tuple(leaf.shape)
-        dim = split_dim(name, block, shape, M, _heads(cfg))
+        dim = split_dim(name, block, shape, M, _heads(cfg, block))
         if dim is None and M > 1 and block == "moe" and ep and \
                 name in ("w1", "w3", "w2"):
             dim = 0

@@ -3,9 +3,11 @@ training state, into the port's layout, and export the port's LM
 parameters (or gradients) to the reference's. On a mesh,
 ``local_tp_params`` (``local_tp_state`` for a training state) then keeps
 each rank's block: over the model axis its heads, FFN hidden units and
-vocabulary rows (``distributed.tensor_parallel``) and its experts
-(``local_expert_params``), over the data axis its FSDP block of each
-leaf the reference cuts there (``distributed.fsdp``).
+vocabulary rows (``distributed.tensor_parallel``: every leaf whose rule
+has ``"model"``, MLA's, Mamba2's, cross-attention's and the MTP layer's
+included) and its experts (``local_expert_params``), over the data axis
+its FSDP block of each leaf the reference cuts there
+(``distributed.fsdp``).
 
 The reference keeps each stage's super-block of layers stacked along a
 leading repeat axis (``stage{s}/layer{j}/{attn,ffn}/<name>`` of shape
@@ -115,25 +117,45 @@ def local_tp_params(params: Params, cfg: ModelConfig, ctx) -> Params:
     block on ``ctx``'s mesh (``tensor_parallel.layout``): over the model
     axis each split leaf cut to this rank's ``1/M`` along its split
     dimension (the heads' columns of ``wq``/``wk``/``wv`` and rows of
-    ``wo``, the FFN's and shared experts' hidden units, the vocabulary
-    rows of ``embed`` and columns of ``unembed``) and, under expert
-    parallelism, each MoE layer's experts as ``local_expert_params``
-    cuts them; over the data axis each leaf whose rule has ``"data"``
+    ``wo`` in self-, cross- and the MTP layer's attention, MLA's
+    ``wq_b``/``wk_b``/``wv_b`` columns and ``wo`` rows, Mamba2's
+    contiguous blocks of ``in_proj`` columns and conv channels and its
+    ``out_proj`` rows, the FFN's and shared experts' hidden units, the
+    vocabulary rows of ``embed`` and columns of ``unembed``) and, under
+    expert parallelism, each MoE layer's experts as
+    ``local_expert_params`` cuts them; over the data axis each leaf whose rule has ``"data"``
     cut to this rank's ``1/D`` along that dimension (FSDP,
     ``distributed.fsdp``). One call gives rank ``(d, m)`` of a ``D x M``
     mesh the block that the reference's device at ``(d, m)`` holds.
     Every other leaf is the same tensor; a cut leaf that is not whole
     raises ``ValueError``."""
+    return local_tp_keep(cfg, ctx)("", params)
+
+
+def local_tp_keep(cfg: ModelConfig, ctx):
+    """``keep(name, part)`` for ``model.init(..., keep=)``: ``part`` (a
+    leaf or a subtree of the port's LM layout, whole, at ``name`` in the
+    parameter tree; ``""``: the whole tree) -> this rank's block of it,
+    as ``local_tp_params`` cuts it, so that a rank makes its block from
+    a seed without holding the whole model."""
     cuts = TP.layout(cfg, ctx)
     if not cuts:
-        return params
+        return lambda name, part: part
     D = TP.data_ways(ctx)
     model = (ctx.mesh.get_local_rank(ctx.model_axis), ctx.tp_size)
     data = (ctx.mesh.get_local_rank("data") if D > 1 else 0, D)
-    flat = flatten_with_names(params)
-    return unflatten_like(params, {
-        name: TP.local_block(t, cuts[name], model, data) if name in cuts
-        else t for name, t in flat.items()})
+
+    def cut(name, t):
+        return TP.local_block(t, cuts[name], model, data) if name in cuts \
+            else t
+
+    def keep(name, part):
+        if isinstance(part, torch.Tensor):
+            return cut(name, part)
+        pre = f"{name}/" if name else ""
+        return unflatten_like(part, {
+            n: cut(pre + n, t) for n, t in flatten_with_names(part).items()})
+    return keep
 
 
 def local_tp_state(state: Mapping[str, Any], cfg: ModelConfig, ctx

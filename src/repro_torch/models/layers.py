@@ -386,12 +386,18 @@ def attn_block(
     k is rotated, attention is non-causal over the N rows in prefill
     and decode alike, no cache is read or returned, and the output is
     scaled by ``tanh(gate)``, taken in float32.
+
+    On a model axis whose ranks split the heads (``tensor_parallel.plan``)
+    each rank computes its heads, self- and cross-attention alike: ``x``
+    enters the axis, the image embeddings are read as they are (whole on
+    every rank, not sequence-split, no gradient), and the gate scales the
+    output after the sum over the axis.
     """
     B, d = x.shape[0], x.shape[2]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cross = cross_kv is not None
     tp = TP.plan(cfg, ctx)
-    split = tp.attn and not cross
+    split = tp.attn
     if split:
         # this rank's heads
         h, kv = h // tp.ways, kv // tp.ways
@@ -402,14 +408,16 @@ def attn_block(
                 f"wq {tuple(p['wq'].shape)}")
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     # the whole sequence, on the model axis when the heads are split
-    xn = TP.enter(xn, tp) if split else xn if cross else \
-        TP.gather_seq(xn, tp)
+    xn = TP.enter(xn, tp) if split else TP.gather_seq(xn, tp)
     S = xn.shape[1]
 
     q = xn @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(B, S, h, hd)
+    # the image embeddings are a batch input, whole on every rank and not
+    # sequence-split: no gradient flows into them, so they need no copy
+    # onto the axis (``enter`` would gather their image-token axis)
     kv_src = cross_kv if cross else xn
     k = kv_src @ p["wk"]
     v = kv_src @ p["wv"]
@@ -448,7 +456,7 @@ def attn_block(
     y = out.reshape(B, S, h * hd) @ p["wo"]
     # back to the residual's layout: summed over the model axis when the
     # heads are split, this rank's positions of a whole block's output
-    y = TP.leave(y, tp) if split else y if cross else TP.slice_seq(y, tp)
+    y = TP.leave(y, tp) if split else TP.slice_seq(y, tp)
     if cross:
         y = torch.tanh(p["gate"].float()).to(y.dtype) * y
     elif return_kv:
@@ -501,16 +509,39 @@ def mla_block(
     absorbed through ``wk_b``, the output through ``wv_b``), with the
     reference's casts: scores summed in the model dtype, softmax in
     float32 over the rows below ``cache_pos + S``, probabilities cast
-    to the cache's dtype."""
-    B, S, d = x.shape
+    to the cache's dtype.
+
+    On a model axis whose ranks split the heads (``tensor_parallel.plan``)
+    each rank computes its ``h/M`` heads from its columns of ``wq_b``,
+    ``wk_b`` and ``wv_b`` and its rows of ``wo``; ``wq_a``, ``q_ln``,
+    ``wkv_a`` and ``kv_ln`` stay whole, so ``q_lat``, ``c_kv`` and the
+    shared rope key ``k_pe`` are the same on every rank and enter the
+    axis (``share``) before the heads. Under the sequence-split residual
+    the block gathers its input's positions instead. The latent cache
+    stays whole on every rank."""
+    B, _, d = x.shape
     h = cfg.num_heads
     kvr = cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    tp = TP.plan(cfg, ctx)
+    split = tp.mla
+    if split:
+        h //= tp.ways
+        if p["wk_b"].shape[1] != h * dn:
+            raise ValueError(
+                f"the MLA leaves want this rank's {h} of {cfg.num_heads} "
+                f"heads (convert.local_tp_params), got wk_b "
+                f"{tuple(p['wk_b'].shape)}")
+    # the whole sequence on every rank
+    xn = TP.gather_seq(rms_norm(x, p["ln"], cfg.norm_eps), tp)
+    S = xn.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
 
-    q_lat = rms_norm(xn @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    def heads(t):
+        # a tensor of the whole leaves, into this rank's heads
+        return TP.share(t, tp) if split else t
+    q_lat = heads(rms_norm(xn @ p["wq_a"], p["q_ln"], cfg.norm_eps))
     q = (q_lat @ p["wq_b"]).reshape(B, S, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
@@ -542,9 +573,10 @@ def mla_block(
         wv_b = p["wv_b"].reshape(kvr, h, dv)
         out = torch.einsum("bshr,rhd->bshd", o_lat, wv_b)
     else:
-        k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, dn)
-        v = (c_kv @ p["wv_b"]).reshape(B, S, h, dv)
-        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, dr)],
+        c_h, pe_h = heads(c_kv), heads(k_pe)
+        k_nope = (c_h @ p["wk_b"]).reshape(B, S, h, dn)
+        v = (c_h @ p["wv_b"]).reshape(B, S, h, dv)
+        k = torch.cat([k_nope, pe_h[:, :, None, :].expand(B, S, h, dr)],
                       dim=-1)
         out = attention(torch.cat([q_nope, q_pe], dim=-1), k, v,
                         causal=True, scale=scale, q_chunk=ctx.q_chunk,
@@ -553,6 +585,9 @@ def mla_block(
                         use_kernel=ctx.flash_kernel)
 
     y = out.reshape(B, S, h * dv) @ p["wo"]
+    # summed over the model axis when the heads are split, this rank's
+    # positions of a whole block's output
+    y = TP.leave(y, tp) if split else TP.slice_seq(y, tp)
     if return_kv:
         new_cache = (c_kv, k_pe)
     return x + y, new_cache

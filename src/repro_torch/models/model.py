@@ -7,7 +7,8 @@ Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``init_cache`` ``:255``, ``_fold_prefill_cache`` ``:272``, ``prefill``
 ``:295``, ``decode_step`` ``:329``). On a context whose model axis
 splits the leaves (``distributed.tensor_parallel``) each rank holds its
-share of the heads, FFN hidden units and vocabulary rows
+share of the heads (GQA, cross-attention, MLA, Mamba2's SSD, the MTP
+layer's), FFN hidden units and vocabulary rows
 (``convert.local_tp_params``): the embedding is looked up where each
 token's row lives, and the logits, gathered over the vocabulary, are
 the same on every rank; ``forward`` under the ``seq_shard_residual``
@@ -77,7 +78,6 @@ Entry points:
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -167,7 +167,7 @@ def layer_names(cfg: ModelConfig) -> List[str]:
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init(gen: torch.Generator, cfg: ModelConfig, *, keep=None) -> Params:
     """Random parameters with the reference's scales: embed x0.02,
     unembed and projections /sqrt(fan_in), norms and biases zero, made
     on ``gen``'s device (``layers.ShapesOnly()`` for ``gen``: on the
@@ -176,30 +176,44 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     parameters instead (``models.convert``). A MoE layer's router and a
     Mamba2 layer's ``A_log``, ``D`` and ``dt_bias`` are float32 in any
     model dtype, as the reference's. With ``mtp_depth`` the MTP module
-    is ``params["mtp"]``."""
+    is ``params["mtp"]``.
+
+    ``keep(name, part)`` (``convert.local_tp_keep``: a rank's block)
+    takes each top-level leaf, each layer's parameters and the MTP module
+    as they are made, by their name in the tree (``embed``,
+    ``layers/[i]``, ``stage{s}_shared/layer{j}``, ``mtp``), and what it
+    returns is kept: the whole model is never held at once. The numbers
+    are those of a call without it."""
     layer_specs(cfg)                                # raises if not ported
+    keep = keep or (lambda name, part: part)
     dt = getattr(torch, cfg.dtype)
     Vp, d = cfg.padded_vocab_size, cfg.d_model
     params: Params = {
-        "embed": L.normal_param(gen, (Vp, d), dt, 0.02),
-        "unembed": L.normal_param(gen, (d, Vp), dt, 1.0 / d ** 0.5),
-        "final_ln": torch.zeros(d, dtype=dt, device=gen.device),
+        "embed": keep("embed", L.normal_param(gen, (Vp, d), dt, 0.02)),
+        "unembed": keep("unembed", L.normal_param(gen, (d, Vp), dt,
+                                                  1.0 / d ** 0.5)),
+        "final_ln": keep("final_ln", torch.zeros(d, dtype=dt,
+                                                 device=gen.device)),
         "layers": [],
     }
     for si, stage in enumerate(cfg.plan()):
-        shared = {f"layer{j}": _init_layer(gen, spec, cfg)
+        shared = {f"layer{j}": keep(f"stage{si}_shared/layer{j}",
+                                    _init_layer(gen, spec, cfg))
                   for j, spec in enumerate(stage.layers) if spec.shared}
         if shared:
             params[f"stage{si}_shared"] = shared
         for _ in range(stage.repeat):
-            params["layers"] += [_init_layer(gen, spec, cfg)
-                                 for spec in stage.layers if not spec.shared]
+            for spec in stage.layers:
+                if not spec.shared:
+                    params["layers"].append(keep(
+                        f"layers/[{len(params['layers'])}]",
+                        _init_layer(gen, spec, cfg)))
     if cfg.mtp_depth:
-        params["mtp"] = {
+        params["mtp"] = keep("mtp", {
             "proj": L.normal_param(gen, (2 * d, d), dt, 1.0 / (2 * d) ** 0.5),
             "ln_h": torch.zeros(d, dtype=dt, device=gen.device),
             "ln_e": torch.zeros(d, dtype=dt, device=gen.device),
-            **_init_layer(gen, MTP_SPEC, cfg)}
+            **_init_layer(gen, MTP_SPEC, cfg)})
     return params
 
 
@@ -316,9 +330,12 @@ def fused_ce(x: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
     ``tensor_parallel.Plan`` whose vocabulary splits) ``unembed`` is this
     rank's ``Vp/M`` columns: ``x`` enters the model axis (its positions
     gathered under ``split.seq``) and each chunk's reductions run over
-    it (``tensor_parallel.vocab_ce``)."""
+    it (``tensor_parallel.vocab_ce``). Positions of ``x`` past the
+    targets' are dropped (the MTP layer's last one under the
+    sequence-split residual, ``lm_loss``)."""
     if split is not None:
         x = TP.enter(x, split)
+    x = x[:, :targets.shape[1]]
     B, S, _ = x.shape
     if S % chunk or S <= chunk:
         chunk = S
@@ -342,11 +359,17 @@ def mtp_input(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
     positions 0..S-2 and the embedding of their next tokens
     (``targets[:, :-1]``; ``split``: the embedding's split), each normed,
     concatenated and projected (``params["mtp"]`` whole on the data
-    axis: ``lm_loss`` gathers it)."""
+    axis: ``lm_loss`` gathers it). Under ``split.seq`` ``hidden`` is
+    this rank's S/M positions and so is the input, of all S positions
+    (the last one's next token is ``targets[:, -1]``)."""
     p = params["mtp"]
-    h = L.rms_norm(hidden[:, :-1], p["ln_h"], cfg.norm_eps)
-    e = L.rms_norm(TP.embed(params["embed"], targets[:, :-1], split),
-                   p["ln_e"], cfg.norm_eps)
+    if split.seq:
+        h, nxt = hidden, targets
+    else:
+        h, nxt = hidden[:, :-1], targets[:, :-1]
+    h = L.rms_norm(h, p["ln_h"], cfg.norm_eps)
+    e = L.rms_norm(TP.embed(params["embed"], nxt, split), p["ln_e"],
+                   cfg.norm_eps)
     return torch.cat([h, e], dim=-1) @ p["proj"]
 
 
@@ -387,20 +410,24 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, aux = forward(params, inputs, cfg, ctx,
                           image_embeds=batch.get("image_embeds"))
-    tp = TP.plan(cfg, TP.for_sequence(ctx, inputs.shape[1]))
-    fs = FS.plan(cfg, ctx)
+    ctx = TP.for_sequence(ctx, inputs.shape[1])
+    tp, fs = TP.plan(cfg, ctx), FS.plan(cfg, ctx)
     vocab = tp if tp.vocab else None
     # gathered once over the data axis for both cross-entropies
     unembed = FS.gather(params["unembed"], "unembed", fs)
     ce = fused_ce(hidden, unembed, targets, cfg.vocab_size, split=vocab)
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
-        # the MTP module stays whole on every rank of the model axis, and
-        # is gathered over the data axis
+        # gathered over the data axis; its layer splits over the model
+        # axis as the model's GQA and dense FFN blocks do. Under the
+        # sequence-split residual the layer runs on all S positions, each
+        # rank's S/M of them: the last one (whose target is past the
+        # batch) changes no earlier position and leaves the loss
         pm = FS.gather(params["mtp"], "mtp", fs)
         hm = mtp_input(dict(params, mtp=pm), hidden, targets, cfg, tp)
-        positions = torch.arange(hm.shape[1], device=hm.device)[None, :]
-        hm, _, _ = _apply_layer(MTP_SPEC, pm, hm, cfg, _whole(ctx),
+        positions = torch.arange(hm.shape[1] * (tp.ways if tp.seq else 1),
+                                 device=hm.device)[None, :]
+        hm, _, _ = _apply_layer(MTP_SPEC, pm, hm, cfg, ctx,
                                 positions=positions)
         mtp = fused_ce(hm, unembed, targets[:, 1:], cfg.vocab_size,
                        split=vocab)
@@ -409,13 +436,6 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
                       aux_weight=aux_weight)
     metrics["loss"] = loss
     return loss, metrics
-
-
-def _whole(ctx: ModelContext) -> ModelContext:
-    """``ctx`` with nothing split over the model axis (the MTP layer's)."""
-    if ctx.tp_size == 1:
-        return ctx
-    return dataclasses.replace(ctx, no_tp=True, seq_shard_residual=False)
 
 
 # --------------------------------------------------------------------------
@@ -435,7 +455,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     latent (c_kv, k_pe) for MLA, (conv tail, state) for Mamba2, () for
     cross-attention. On a model axis whose ranks split the attention
     (``ctx``, ``tensor_parallel.plan``), (k, v) hold this rank's KV
-    heads."""
+    heads; where they split the Mamba2 heads, (conv tail, state) hold
+    this rank's (``ssm.init_mamba_cache``); the MLA latent stays whole
+    on every rank."""
     dev = device or current_device()
     tp = TP.plan(cfg, ctx)
     kv = cfg.num_kv_heads // tp.ways if tp.attn else cfg.num_kv_heads
@@ -443,7 +465,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     caches: Cache = []
     for spec in layer_specs(cfg):
         if spec.kind == "mamba":
-            caches.append(SSM.init_mamba_cache(cfg, batch, dt, device=dev))
+            caches.append(SSM.init_mamba_cache(
+                cfg, batch, dt, device=dev,
+                ways=tp.ways if tp.mamba else 1))
             continue
         if spec.kind == "cross_attn":
             caches.append(())

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -40,12 +41,19 @@ SsmCache = Tuple[torch.Tensor, torch.Tensor]
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """a: [..., T] -> S[..., i, j] = sum_{k=j+1..i} a_k (i >= j), -inf
-    else; the difference of two cumulative sums, as the reference's."""
+    else: column j of the ``[T, T]`` broadcast of ``a`` keeps ``a_k`` for
+    ``k > j`` and is summed cumulatively down the rows. The reference
+    takes the difference of two cumulative sums, the same values; its
+    rounding of a difference of two long sums put the float32 gradient
+    of ``A_log`` 8.0e-5 of its largest element from float64's at
+    ``zamba2-2.7b``'s width (2 super-blocks, 1 x 512), this form 1.8e-5
+    (``tools/probe_ssd_grad_noise.py`` on an H100)."""
     T = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
-    s = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=a.device))
-    return s.masked_fill(~mask, -math.inf)
+    ones = torch.ones(T, T, dtype=torch.bool, device=a.device)
+    x = a[..., :, None].expand(*a.shape, T)              # [..., k, j]: a_k
+    x = x.masked_fill(~torch.tril(ones, diagonal=-1), 0)
+    s = torch.cumsum(x, dim=-2)                          # [..., i, j]
+    return s.masked_fill(~torch.tril(ones), -math.inf)
 
 
 def _conv_channels(cfg) -> int:
@@ -162,6 +170,59 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def _rank_heads(cfg, tp: TP.Plan, p: Params, zxbcdt: torch.Tensor):
+    """This rank's share of a Mamba2 block split over the model axis
+    (``tp.mamba``). The reference cuts ``in_proj``'s columns ``[z | x |
+    B | C | dt]`` and the conv's ``x | B | C`` channels into contiguous
+    blocks, which do not line up with the heads; ``out_proj``'s rows and
+    the SSD's heads do. So the rank's block of the projection's columns
+    and of the conv leaves are gathered over the axis where the rule cut
+    them (the backward reduce-scatters), and the rank keeps its heads of
+    ``z``, ``x`` and ``dt`` with all of ``B`` and ``C`` (one group, as in
+    every config; several raise). Returns ``(z, xBC, dt, conv_w, conv_b,
+    A_log, D, dt_bias, gnorm)``: the conv's channels and weights are the
+    rank's ``x`` channels and then ``B`` and ``C``; the whole leaves
+    ``A_log`` ... ``gnorm``, the rank's heads' part, copied onto the
+    axis first (``share``)."""
+    if cfg.ssm_ngroups != 1:
+        raise NotImplementedError(
+            f"a Mamba2 block of {cfg.ssm_ngroups} B/C groups split over "
+            f"the model axis")
+    d_in, h, n = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
+    if zxbcdt.shape[-1] != 2 * d_in + 2 * n + h:         # a column block
+        zxbcdt = TP.gather_dim(zxbcdt, tp, -1)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if conv_b.shape[0] != d_in + 2 * n:                  # a channel block
+        # one gather for both: [K + 1, C/M] -> [K + 1, C]
+        conv = TP.gather_dim(torch.cat([conv_w, conv_b[None]]), tp, 1)
+        conv_w, conv_b = conv[:-1], conv[-1]
+    di, hl = d_in // tp.ways, h // tp.ways
+    mine = slice(tp.rank * di, (tp.rank + 1) * di)       # in d_inner
+    heads = slice(tp.rank * hl, (tp.rank + 1) * hl)
+
+    def xbc(t):
+        # t's [x | B | C] channels (last dim) -> the rank's
+        return torch.cat([t[..., mine], t[..., d_in:]], dim=-1)
+    z = zxbcdt[..., :d_in][..., mine]
+    xBC = xbc(zxbcdt[..., d_in:2 * d_in + 2 * n])
+    dtr = zxbcdt[..., 2 * d_in + 2 * n:][..., heads]
+    whole = [TP.share(p[k], tp)[heads] for k in ("A_log", "D", "dt_bias")]
+    return (z, xBC, dtr, xbc(conv_w), xbc(conv_b), *whole,
+            TP.share(p["gnorm"], tp)[mine])
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, d_in: int, eps: float,
+                tp: TP.Plan) -> torch.Tensor:
+    """``layers.rms_norm`` of the gated ``y`` over all of ``d_inner`` from
+    this rank's ``d_inner/M`` units: the sum of squares over the axis
+    (``norm_sum``, whose backward sums too: each rank's units depend on
+    every rank's)."""
+    dtype = y.dtype
+    y = y.float()
+    var = TP.norm_sum(y.square().sum(dim=-1, keepdim=True), tp) / d_in
+    return (y * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dtype)
+
+
 def mamba_block(
     p: Params, x: torch.Tensor, cfg, ctx, *,
     cache: Optional[SsmCache] = None,       # (conv_state, ssm_state)
@@ -170,27 +231,54 @@ def mamba_block(
     """Pre-norm Mamba2 residual block. ``cache`` given => one-token
     decode, returning new (conv tail, state) tensors; with
     ``return_state`` (prefill) the last K-1 rows of the conv input and
-    the final state."""
-    B_, S, d = x.shape
+    the final state.
+
+    On a model axis whose ranks split the SSD heads
+    (``tensor_parallel.plan``) each rank holds the reference device's
+    block of ``in_proj``, ``conv_w``, ``conv_b`` and ``out_proj`` and
+    computes its ``h/M`` heads (``_rank_heads``): ``x`` enters the axis,
+    the SSD runs on the rank's heads, the gated norm sums its squares
+    over the axis (``_gated_norm``) and ``out_proj``'s rows leave it
+    summed. Its caches hold the rank's heads: the state ``[B, h/M, p,
+    N]``, the conv tail the rank's ``x`` channels and then ``B`` and
+    ``C``."""
     d_in = cfg.ssm_d_inner
     g, n, h = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
     hd = cfg.ssm_head_dim
+    tp = TP.plan(cfg, ctx)
+    split = tp.mamba
+    if split and p["out_proj"].shape[0] != d_in // tp.ways:
+        raise ValueError(
+            f"the Mamba2 leaves want this rank's {h // tp.ways} of {h} "
+            f"heads (convert.local_tp_params), got out_proj "
+            f"{tuple(p['out_proj'].shape)}")
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    # the whole sequence, on the model axis when the heads are split
+    xn = TP.enter(xn, tp) if split else TP.gather_seq(xn, tp)
+    B_, S, d = xn.shape
     zxbcdt = xn @ p["in_proj"]
-    z, xBC, dtr = _split_proj(cfg, zxbcdt)
+    if split:
+        z, xBC, dtr, conv_w, conv_b, A_log, D, dt_bias, gnorm = \
+            _rank_heads(cfg, tp, p, zxbcdt)
+        d_in, h = d_in // tp.ways, h // tp.ways
+    else:
+        z, xBC, dtr = _split_proj(cfg, zxbcdt)
+        conv_w, conv_b = p["conv_w"], p["conv_b"]
+        A_log, D, dt_bias, gnorm = p["A_log"], p["D"], p["dt_bias"], \
+            p["gnorm"]
 
-    A = -torch.exp(p["A_log"])                           # [h]
-    dt = _softplus(dtr.float() + p["dt_bias"])
+    A = -torch.exp(A_log)                                # [h]
+    dt = _softplus(dtr.float() + dt_bias)
 
     new_cache = None
     if cache is None:
         xBC_raw = xBC
-        xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+        xBC = _causal_conv(xBC, conv_w, conv_b)
         xs = xBC[..., :d_in].reshape(B_, S, h, hd)
         Bm = xBC[..., d_in:d_in + g * n].reshape(B_, S, g, n)
         Cm = xBC[..., d_in + g * n:].reshape(B_, S, g, n)
         y, hfinal = ssd_scan(xs, dt, A, Bm, Cm, ctx.ssd_chunk)
-        y = y + p["D"][None, None, :, None] * xs.float()
+        y = y + D[None, None, :, None] * xs.float()
         if return_state:
             K = cfg.ssm_conv
             tail = xBC_raw[:, -(K - 1):] if K > 1 else xBC_raw[:, :0]
@@ -199,7 +287,7 @@ def mamba_block(
         conv_state, ssm_state = cache                    # [B,K-1,C],[B,h,hd,n]
         window = torch.cat([conv_state, xBC], dim=1)     # [B,K,C]
         yconv = torch.einsum("bkc,kc->bc", window.float(),
-                             p["conv_w"].float()) + p["conv_b"]
+                             conv_w.float()) + conv_b
         xBC1 = F.silu(yconv)[:, None, :]                 # [B,1,C] float32
         xs = xBC1[..., :d_in].reshape(B_, 1, h, hd)
         Bm = xBC1[..., d_in:d_in + g * n].reshape(B_, 1, g, n)
@@ -213,24 +301,33 @@ def mamba_block(
             * Bh[:, :, None, :].float()                  # [B,h,hd,n]
         ssm_state = ssm_state.float() * dA[..., None, None] + upd
         y = torch.einsum("bhpn,bhn->bhp", ssm_state, Ch.float())[:, None]
-        y = y + p["D"][None, None, :, None] * xs.float()
+        y = y + D[None, None, :, None] * xs.float()
         new_cache = (window[:, 1:], ssm_state)
 
     y = y.reshape(B_, S, d_in)
     y = y * F.silu(z.float())
-    y = L.rms_norm(y.to(x.dtype), p["gnorm"], cfg.norm_eps)
-    out = x + y @ p["out_proj"]
-    return out, new_cache
+    if split:
+        y = _gated_norm(y.to(x.dtype), gnorm, cfg.ssm_d_inner,
+                        cfg.norm_eps, tp)
+        return x + TP.leave(y @ p["out_proj"], tp), new_cache
+    y = L.rms_norm(y.to(x.dtype), gnorm, cfg.norm_eps)
+    # this rank's positions of a whole block's output
+    return x + TP.slice_seq(y @ p["out_proj"], tp), new_cache
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32, *,
-                     device: Optional[torch.device] = None) -> SsmCache:
+                     device: Optional[torch.device] = None,
+                     ways: int = 1) -> SsmCache:
     """Zeroed (conv tail [batch, K-1, C] in ``dtype``, state [batch, h,
-    head_dim, N] in float32)."""
-    conv_ch = _conv_channels(cfg)
+    head_dim, N] in float32); with ``ways`` ranks splitting the heads
+    (``tensor_parallel.Plan.mamba``) a rank's: ``h/ways`` heads, and the
+    tail's ``d_inner/ways`` ``x`` channels with ``B`` and ``C``
+    (``mamba_block``)."""
+    conv_ch = cfg.ssm_d_inner // ways + \
+        2 * cfg.ssm_ngroups * cfg.ssm_state
     return (
         torch.zeros(batch, cfg.ssm_conv - 1, conv_ch, dtype=dtype,
                     device=device),
-        torch.zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
-                    dtype=torch.float32, device=device),
+        torch.zeros(batch, cfg.ssm_heads // ways, cfg.ssm_head_dim,
+                    cfg.ssm_state, dtype=torch.float32, device=device),
     )

@@ -37,7 +37,7 @@ def adamw_init(params, opt_dtype: str = "float32") -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def _global_norm(grads, ctx=None, split=None) -> torch.Tensor:
+def global_norm(grads, ctx=None, split=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, leaf sums added in
     the reference's leaf order. On a mesh (``ctx``) the whole model's:
     each whole leaf once, each rank's block of a cut leaf (``split``,
@@ -66,7 +66,7 @@ def adamw_update(grads, opt_state, params, step: torch.Tensor,
     clip's norm the whole model's. On a mesh every leaf is this rank's
     block (FSDP: parameters and moments of the rank's block only), and
     the update is elementwise."""
-    gnorm = _global_norm(grads, ctx, split)
+    gnorm = global_norm(grads, ctx, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(step, cfg)

@@ -50,11 +50,13 @@ OPTIMIZER_SCOPE = "optimizer"
 
 def make_train_state(gen: torch.Generator, cfg: ModelConfig,
                      opt_cfg: OptimizerConfig, *,
-                     grad_compression: bool = False) -> Dict[str, Any]:
+                     grad_compression: bool = False,
+                     keep=None) -> Dict[str, Any]:
     """Random parameters from ``gen`` (on its device), zero moments in
     ``cfg.opt_dtype``, step 0 and, with compression, a zero bf16 error
-    buffer."""
-    params = model.init(gen, cfg)
+    buffer. ``keep`` as ``model.init``'s (``convert.local_tp_keep``: a
+    rank's block, made a layer at a time)."""
+    params = model.init(gen, cfg, keep=keep)
     state = {
         "params": params,
         "opt": adamw_init(params, cfg.opt_dtype),
@@ -110,11 +112,15 @@ def data_shard(batch: Dict[str, torch.Tensor], ctx: ModelContext,
     return {k: v[rows.to(v.device)] for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, ctx: ModelContext,
-                    opt_cfg: OptimizerConfig, *,
-                    grad_compression: bool = False,
-                    microbatch: int = 0) -> Callable:
-    """``microbatch > 0`` accumulates gradients over B / microbatch
+def make_grads_fn(cfg: ModelConfig, ctx: ModelContext, *,
+                  microbatch: int = 0) -> Callable:
+    """The training step's gradient: ``(params, batch) -> (metrics,
+    grads)``, what ``make_train_step``'s step hands to compression and
+    AdamW. On a mesh the gradients are reduced to the global batch's
+    (``data_parallel.reduce_gradients``) and the metrics are the global
+    ones, ``loss`` recombined from them.
+
+    ``microbatch > 0`` accumulates gradients over B / microbatch
     slices of the batch in order, with the reference's arithmetic: the
     first slice's gradients start the sum, each later slice's are added
     in the gradients' own dtype, and loss, metrics and gradients are
@@ -162,8 +168,8 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
         return ((loss * scale, {k: v * scale for k, v in metrics.items()}),
                 tree.tree_map(lambda g: g * scale, grads))
 
-    def train_step(state, batch):
-        (_, metrics), grads = grads_of(state["params"], batch)
+    def step_grads(params, batch):
+        (_, metrics), grads = grads_of(params, batch)
         if mesh:
             seq = TP.for_sequence(
                 ctx, batch["tokens"].shape[1] - 1).seq_parallel
@@ -172,6 +178,23 @@ def make_train_step(cfg: ModelConfig, ctx: ModelContext,
             metrics = data_parallel.global_metrics(metrics, ctx)
             metrics["loss"] = model.total_loss(
                 metrics["ce"], metrics["aux"], metrics.get("mtp"))
+        return metrics, grads
+
+    return step_grads
+
+
+def make_train_step(cfg: ModelConfig, ctx: ModelContext,
+                    opt_cfg: OptimizerConfig, *,
+                    grad_compression: bool = False,
+                    microbatch: int = 0) -> Callable:
+    """The step: ``make_grads_fn``'s gradient (``microbatch`` as there),
+    then, with ``grad_compression``, int8 compression with error
+    feedback, then AdamW, on this rank's blocks."""
+    grads_fn = make_grads_fn(cfg, ctx, microbatch=microbatch)
+    split = TP.layout(cfg, ctx)
+
+    def train_step(state, batch):
+        metrics, grads = grads_fn(state["params"], batch)
         new_state = dict(state)
         with named_scope(OPTIMIZER_SCOPE):
             if grad_compression:

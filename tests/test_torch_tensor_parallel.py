@@ -24,15 +24,25 @@ attention at M 4, where the reference partitions the q rows instead), an
 (attention and shared experts split, experts through ``routed_ep``),
 ``deepseek-v3-671b-smoke`` (MLA and MTP) and ``mamba2-370m-smoke`` on a
 data axis, and the full ``qwen2-7b`` and ``deepseek-moe-16b`` on
-``meta`` tensors for the shard shapes.
+``meta`` tensors for the shard shapes. The families whose leaves the
+model axis splits since the MLA, Mamba2, cross-attention and MTP split
+(``FAMILIES``: ``deepseek-v3-671b-smoke``, ``mamba2-370m-smoke``,
+``zamba2-2.7b-smoke``, ``llama-3.2-vision-90b-smoke``, each at the
+8-head/4-KV width on a model axis of 4) serve and take a step on (1, 2),
+(2, 2) and (1, 4), with and without ``seq_shard_residual``, their norms,
+gates and SSM leaves opened by seeded noise; ``gemma3-4b-smoke`` takes a
+step under the hint; the full configs of those four families are held
+to the reference's shard shapes at M 2 and 4.
 
 Tolerances: float32 logits within 1e-5 of the largest |logit| and ids
 equal; bf16 logits within 0.05; a training step's loss, ce and
 grad_norm within 1e-5 relative and every leaf within 1e-5 of its
 largest |value| but for 0.1% of a tree's elements (``FLIP_BUDGET``:
 the sign of a first step on a near-zero gradient,
-``tests/test_torch_moe_ep_train.py``'s budget); the launcher's bf16
-losses and leaves within 5e-2.
+``tests/test_torch_moe_ep_train.py``'s budget), and for the family
+cases every first-moment element within 1e-4 of its leaf's largest
+|value| (``MU_TOL``, no budget); the launcher's bf16 losses and leaves
+within 5e-2.
 """
 import dataclasses
 import json
@@ -68,7 +78,13 @@ DENSE, MOE = "qwen2-7b-smoke", "deepseek-moe-16b-smoke"
 MLA, SSM = "deepseek-v3-671b-smoke", "mamba2-370m-smoke"
 #: the 8-head/4-KV variant of DENSE, whose heads divide over 4 ranks
 WIDE = {"num_heads": 8, "num_kv_heads": 4}
+#: the families that split MLA, Mamba2, cross-attention and the MTP layer
+#: over the model axis, by a short tag
+FAMILIES = {"v3": MLA, "mamba": SSM, "zamba": "zamba2-2.7b-smoke",
+            "vlm": "llama-3.2-vision-90b-smoke"}
 TOL32, TOL_BF16, FLIP_BUDGET = 1e-5, 5e-2, 1e-3
+#: a first moment's bound, leaf by leaf and element by element
+MU_TOL = 1e-4
 CHUNK, LR = 8, 1e-3
 SEQ = {"seq_shard_residual": True}
 NO_TP = {"no_tp": True}
@@ -85,6 +101,13 @@ SERVE = {
     "moe-2x2-seq": (MOE, {}, 2, 2, SEQ, "float32"),
     "dense-2x2-notp": (DENSE, {}, 2, 2, NO_TP, "float32"),
 }
+for _f, _a in FAMILIES.items():
+    SERVE.update({
+        f"{_f}-1x2": (_a, {}, 1, 2, {}, "float32"),
+        f"{_f}-2x2": (_a, {}, 2, 2, {}, "float32"),
+        f"{_f}-1x4": (_a, WIDE, 1, 4, {}, "float32"),
+        f"{_f}-1x2-bf16": (_a, {}, 1, 2, {}, "bfloat16"),
+        f"{_f}-1x2-seq": (_a, {}, 1, 2, SEQ, "float32")})
 SERVE_B, PROMPT, NEW = 4, 16, 3
 #: one float32 training step: (arch, config overrides, data, model,
 #: context hints, step kwargs)
@@ -107,19 +130,37 @@ TRAIN = {
     "moe-2x2": (MOE, {}, 2, 2, {}, {}),
     "mla-2x1": (MLA, {}, 2, 1, {}, {}),
     "ssm-2x1": (SSM, {}, 2, 1, {}, {}),
+    # the local/global family under the hint
+    "gemma-1x2-seq": ("gemma3-4b-smoke", {}, 1, 2, SEQ, {}),
 }
+for _f, _a in FAMILIES.items():
+    for _h, _hints in (("", {}), ("-seq", SEQ)):
+        TRAIN.update({
+            f"{_f}-1x2{_h}": (_a, {}, 1, 2, _hints, {}),
+            f"{_f}-2x2{_h}": (_a, {}, 2, 2, _hints, {}),
+            f"{_f}-1x4{_h}": (_a, WIDE, 1, 4, _hints, {})})
+#: the training cases whose states are opened (zero-initialised norms,
+#: gates and biases and the SSM leaves moved by seeded noise)
+OPENED = tuple(t for t in TRAIN if t.split("-")[0] in FAMILIES or
+               t.startswith("gemma"))
 #: the training cases whose ranks' blocks are held to the reference
 #: devices' shards, after the conversion and after the step
-SHARDS = ("dense-2x2", "dense-4x1", "moe-2x2")
+SHARDS = ("dense-2x2", "dense-4x1", "moe-2x2") + tuple(
+    f"{f}-{mesh}" for f in FAMILIES for mesh in ("2x2", "1x4-seq"))
 STEP_B, STEP_S = 4, 16
 #: the full configs whose shard shapes are held, at these model axes
 FULL, FULL_M = ("qwen2-7b", "deepseek-moe-16b"), (2, 4)
+#: and the full configs of FAMILIES, at the same model axes
+FULL_FAMILIES = ("deepseek-v3-671b", "mamba2-370m", "zamba2-2.7b",
+                 "llama-3.2-vision-90b")
 #: and at these data x model meshes (FSDP)
 FULL_DM = ((2, 1), (4, 1), (2, 2))
 #: the launcher's runs: bf16 (the config's), 1 x 2 and 2 x 1 ranks
 LAUNCH_B, LAUNCH_S, LAUNCH_STEPS = 2, 16, 4
 LAUNCH_MESHES = {"mp": (1, 2), "dp": (2, 1)}
-RANKS_TIMEOUT_S = 300
+RANKS_TIMEOUT_S = 600
+#: the reference processes that share the training steps
+REF_TRAIN_PARTS = 4
 
 REFERENCE = """
 import os, sys
@@ -151,7 +192,7 @@ def shardings(mesh, t, no_tp=False):
         is_leaf=lambda x: isinstance(x, P))
 
 
-for arch in %(full)r if shapes_too else ():
+for arch in (%(full)r + %(full_families)r) if shapes_too else ():
     cfg = get_config(arch)
     shapes = jax.eval_shape(lambda k: model.init(k, cfg),
                             jax.random.PRNGKey(0))
@@ -163,7 +204,7 @@ for arch in %(full)r if shapes_too else ():
                            jax.tree_util.tree_leaves(shapes), specs):
             out[f"shape|{arch}|{M}|{n}"] = np.asarray(
                 NamedSharding(mesh, p).shard_shape(s.shape))
-    for D, M in %(full_dm)r:
+    for D, M in (%(full_dm)r if arch in %(full)r else ()):
         mesh = mesh_of(D, M)
         specs = jax.tree_util.tree_leaves(
             param_specs(shapes, mesh), is_leaf=lambda x: isinstance(x, P))
@@ -176,24 +217,35 @@ for tag, (arch, over, D, M, hints, dtype) in serve.items():
     cfg = dataclasses.replace(get_config(arch), dtype=dtype, **over)
     params = jax.tree_util.tree_map(jnp.asarray, inputs["params", tag])
     tokens = jnp.asarray(inputs["prompt"])
+    # the VLM's image embeddings, rows sharded as the tokens
+    img = ({"image_embeds": jnp.asarray(inputs["img", tag], cfg.dtype)}
+           if ("img", tag) in inputs else {})
     mesh = mesh_of(D, M)
     ctx = make_context(mesh, remat="none", q_chunk=%(chunk)d,
                        k_chunk=%(chunk)d, **hints)
     ps = shardings(mesh, params, ctx.no_tp)
     rows = NamedSharding(mesh, P(ctx.data_axes))
-    prefill = jax.jit(lambda p, t: model.prefill(
-        p, t, cfg, ctx, cache_len=%(prompt)d + %(new)d),
-        in_shardings=(ps, rows))
-    decode = jax.jit(lambda p, c, t, pos: model.decode_step(
-        p, c, t, pos, cfg, ctx))
+    prefill = jax.jit(lambda p, t, e: model.prefill(
+        p, t, cfg, ctx, cache_len=%(prompt)d + %(new)d, **e),
+        in_shardings=(ps, rows, {k: rows for k in img}))
+    decode = jax.jit(lambda p, c, t, pos, e: model.decode_step(
+        p, c, t, pos, cfg, ctx, **e))
+    if arch not in (%(dense)r, %(moe)r):
+        for n, s, p in zip(tree.flatten_with_names(params),
+                           jax.tree_util.tree_leaves(params),
+                           jax.tree_util.tree_leaves(
+                               param_specs(params, mesh),
+                               is_leaf=lambda x: isinstance(x, P))):
+            out[f"serve|{tag}|shard|{n}"] = np.asarray(
+                NamedSharding(mesh, p).shard_shape(s.shape))
     with mesh:
-        caches, logits = prefill(params, tokens)
+        caches, logits = prefill(params, tokens, img)
         ids = [np.asarray(jnp.argmax(logits, -1))]
         out[f"serve|{tag}|logits"] = np.asarray(logits, np.float32)
         for i in range(%(new)d - 1):
             caches, logits = decode(params, caches,
                                     jnp.asarray(ids[-1][:, None]),
-                                    jnp.int32(%(prompt)d + i))
+                                    jnp.int32(%(prompt)d + i), img)
             ids.append(np.asarray(jnp.argmax(logits, -1)))
     out[f"serve|{tag}|ids"] = np.stack(ids, 1)
 
@@ -242,8 +294,11 @@ for tag, (arch, over, D, M, hints, kw) in train.items():
     cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
     state = inputs["state", tag]
     mesh, fn, ss = step_fn(cfg, D, M, hints, kw, state)
+    batch = {"tokens": jnp.asarray(inputs["tokens"])}
+    if ("timg", tag) in inputs:
+        batch["image_embeds"] = jnp.asarray(inputs["timg", tag])
     with mesh:
-        new, met = fn(state, {"tokens": jnp.asarray(inputs["tokens"])})
+        new, met = fn(state, batch)
     record(f"train|{tag}", new, met)
     if tag in %(shard_tags)r:
         shards(tag, "init", mesh, state, ss)
@@ -264,7 +319,8 @@ for run, (D, M) in (%(launch_meshes)r.items() if steps_too else ()):
                                                            np.float32)
     record(f"launch-{run}", state, {})
 np.savez(sys.argv[5], **out)
-""" % dict(full=FULL, full_m=FULL_M, full_dm=FULL_DM, chunk=CHUNK,
+""" % dict(full=FULL, full_families=FULL_FAMILIES, full_m=FULL_M,
+           full_dm=FULL_DM, chunk=CHUNK, dense=DENSE, moe=MOE,
            prompt=PROMPT, new=NEW, lr=LR, arch=DENSE, steps=LAUNCH_STEPS,
            lb=LAUNCH_B, ls=LAUNCH_S, shard_tags=SHARDS,
            launch_meshes=LAUNCH_MESHES)
@@ -304,12 +360,17 @@ for tag, (arch, over, D, M, hints, dtype) in serve.items():
         out[f"serve|{tag}|shape|{n}"] = np.asarray(t.shape)
     d = ts.data_shard({"tokens": torch.arange(prompt.shape[0])}, ctx)
     rows = d["tokens"]
+    img = ({"image_embeds": torch.from_numpy(inputs["img", tag])[rows].to(
+        getattr(torch, dtype))} if ("img", tag) in inputs else {})
     caches, logits = model.prefill(params, prompt[rows], cfg, ctx,
-                                   cache_len=%(prompt)d + %(new)d)
+                                   cache_len=%(prompt)d + %(new)d, **img)
     out[f"serve|{tag}|logits"] = logits.float().numpy()
     out[f"serve|{tag}|kv"] = np.asarray(caches[0][0].shape)
+    for i, c in enumerate(caches):
+        for j, t in enumerate(c):
+            out[f"serve|{tag}|cache|{i}|{j}"] = np.asarray(t.shape)
     ids = engine.generate(params, prompt[rows], cfg, ctx,
-                          max_new_tokens=%(new)d)
+                          max_new_tokens=%(new)d, **img)
     out[f"serve|{tag}|ids"] = ids.numpy()
     out[f"serve|{tag}|rows"] = rows.numpy()
 for tag, (arch, over, D, M, hints, kw) in train.items():
@@ -321,8 +382,10 @@ for tag, (arch, over, D, M, hints, kw) in train.items():
                        k_chunk=%(chunk)d, **hints)
     whole = convert.import_reference_train_state(inputs["state", tag], cfg)
     state = convert.local_tp_state(whole, cfg, ctx)
-    batch = ts.data_shard({"tokens": torch.from_numpy(inputs["tokens"])},
-                          ctx, kw.get("microbatch", 0))
+    batch = {"tokens": torch.from_numpy(inputs["tokens"])}
+    if ("timg", tag) in inputs:
+        batch["image_embeds"] = torch.from_numpy(inputs["timg", tag])
+    batch = ts.data_shard(batch, ctx, kw.get("microbatch", 0))
     new, met = ts.make_train_step(
         cfg, ctx, OptimizerConfig(lr=%(lr)r, warmup_steps=10), **kw)(
             state, batch)
@@ -443,14 +506,30 @@ def runs(tmp_path_factory):
         inputs["params", tag] = made[key]
     for tag, (arch, over, _, _, _, kw) in TRAIN.items():
         compress = bool(kw.get("grad_compression"))
-        key = ("state", arch, json.dumps(over), compress)
+        key = ("state", arch, json.dumps(over), compress, tag in OPENED)
         if key not in made:
             jcfg = _jcfg(arch, over, "float32")
             made[key] = jax.tree_util.tree_map(
                 np.asarray, jax.jit(lambda k: jts.make_train_state(
                     k, jcfg, jopt.OptimizerConfig(),
                     grad_compression=compress))(jax.random.PRNGKey(0)))
+            if tag in OPENED:
+                made[key]["params"] = jax.tree_util.tree_map(
+                    lambda a: a if a.ndim > 1 else (
+                        a + 0.1 * rng.randn(*a.shape)).astype(a.dtype),
+                    made[key]["params"])
         inputs["state", tag] = made[key]
+    # the VLM's image embeddings, one draw a config and batch
+    for cases, batch, name in ((SERVE, SERVE_B, "img"),
+                               (TRAIN, STEP_B, "timg")):
+        for tag, (arch, *_rest) in cases.items():
+            cfg = get_config(arch)
+            if cfg.family == "vlm":
+                key = (name, arch)
+                if key not in made:
+                    made[key] = rng.randn(batch, cfg.num_image_tokens,
+                                          cfg.d_model).astype(np.float32)
+                inputs[name, tag] = made[key]
     inputs["tokens"] = rng.randint(0, 256, (STEP_B, STEP_S + 1)).astype(
         np.int32)
     inputs["launch_state"] = _launch_state_in_ref_layout()
@@ -458,16 +537,19 @@ def runs(tmp_path_factory):
     with open(path, "wb") as f:
         pickle.dump(inputs, f)
     env, serve, train = _env(), json.dumps(SERVE), json.dumps(TRAIN)
-    # three reference processes: the shapes, serving and the launcher's
-    # steps; each half of the training steps
-    halves = [json.dumps({k: TRAIN[k] for k in sorted(TRAIN)[i::2]})
-              for i in range(2)]
+    # the reference processes: the shapes, the launcher's steps and a
+    # third of serving; each other third of serving; each quarter of the
+    # training steps
+    def part(cases, i, n):
+        return json.dumps({k: cases[k] for k in sorted(cases)[i::n]})
+    args = ([(part(SERVE, 0, 3), "{}", "1")] +
+            [(part(SERVE, i, 3), "{}", "0") for i in (1, 2)] +
+            [("{}", part(TRAIN, i, REF_TRAIN_PARTS), "0")
+             for i in range(REF_TRAIN_PARTS)])
     procs = [subprocess.Popen([sys.executable, "-c", REFERENCE, str(path),
-                               *args, str(tmp / f"ref{i}.npz")], env=env,
+                               *a, str(tmp / f"ref{i}.npz")], env=env,
                               cwd=tmp, stderr=subprocess.PIPE, text=True)
-             for i, args in enumerate(((serve, "{}", "1"),
-                                       ("{}", halves[0], "0"),
-                                       ("{}", halves[1], "0")))]
+             for i, a in enumerate(args)]
     outs = []
     for world in (2, 4):
         for rank in range(world):
@@ -497,7 +579,7 @@ def runs(tmp_path_factory):
             p.kill()
     for p, err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
-    ref = {k: v for i in range(3) for k, v in np.load(
+    ref = {k: v for i in range(len(args)) for k, v in np.load(
         tmp / f"ref{i}.npz").items()}
     return ref, [dict(np.load(o)) for o in outs], launched, tmp
 
@@ -536,14 +618,15 @@ class _Axis(OneRankMesh):
 
 # ------------------------------------------------------------ shard shapes
 @pytest.mark.parametrize("M", FULL_M)
-@pytest.mark.parametrize("arch", FULL)
+@pytest.mark.parametrize("arch", FULL + FULL_FAMILIES)
 def test_each_rank_holds_the_references_shard_shapes(runs, arch, M):
     """Every rank of a 1 x M model axis holds each leaf at the shape of
     the reference's ``NamedSharding(mesh, param_specs(...)).shard_shape``
     on the same mesh (a stacked leaf without its repeat axis): 1/M of
     every leaf whose spec has ``model`` on a dimension (heads, FFN and
-    shared-expert hidden units, vocabulary, experts), the rest whole.
-    Full configs, on ``meta`` tensors."""
+    shared-expert hidden units, vocabulary, experts; MLA's, Mamba2's,
+    cross-attention's and the MTP layer's), the rest whole. Full
+    configs, on ``meta`` tensors."""
     ref = _sub(runs[0], f"shape|{arch}|{M}|")
     cfg = get_config(arch)
     whole = model.init(ShapesOnly(), cfg)
@@ -656,8 +739,22 @@ def test_split_dim_follows_the_rules_and_the_heads():
         (("embed", "top", (512, 64), 2), 0),
         (("unembed", "top", (64, 512), 2), 1),
         (("final_ln", "top", (64,), 2), None),
-        (("wq_b", None, (16, 64), 2), None),             # MLA stays whole
+        (("wq_b", None, (16, 64), 2), None),             # no block
         (("wq", "attn", (64, 64), 1, (4, 2)), None),
+        # MLA: the heads' columns of wq_b, wk_b, wv_b and rows of wo
+        (("wq_b", "mla", (16, 96), 2, (4,)), 1),
+        (("wv_b", "mla", (16, 64), 4, (4,)), 1),
+        (("wo", "mla", (64, 64), 2, (4,)), 0),
+        (("wq_a", "mla", (64, 16), 2, (4,)), None),      # whole
+        (("wk_b", "mla", (16, 64), 8, (4,)), None),      # 4 heads over 8
+        # Mamba2: in_proj columns, conv channels, out_proj rows
+        (("in_proj", "mamba", (64, 296), 2, (8,)), 1),
+        (("in_proj", "mamba", (64, 298), 4, (8,)), None),  # 298 over 4
+        (("conv_w", "mamba", (4, 160), 4, (8,)), 1),
+        (("conv_b", "mamba", (160,), 2, (8,)), 0),
+        (("out_proj", "mamba", (128, 64), 4, (8,)), 0),
+        (("A_log", "mamba", (8,), 2, (8,)), None),       # whole
+        (("out_proj", "mamba", (128, 64), 16, (8,)), None),  # 8 over 16
     ]
     for args, want in cases:
         assert sharding.split_dim(*args) == want, args
@@ -692,6 +789,9 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
         if dtype == "float32":
             np.testing.assert_array_equal(r[f"serve|{case}|ids"],
                                           want_ids[rows])
+        if arch not in (DENSE, MOE):
+            _check_family_layout(ref, r, case, cfg, D, M)
+            continue
         shapes = _sub(r, f"serve|{case}|shape|")
         kv = cfg.num_kv_heads // (M if heads else 1)
         assert tuple(r[f"serve|{case}|kv"])[2] == kv
@@ -702,6 +802,47 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
         vp = cfg.padded_vocab_size // (1 if hints.get("no_tp") else M)
         assert tuple(shapes["embed"]) == (vp, cfg.d_model)
         assert tuple(shapes["unembed"]) == (cfg.d_model // D, vp)
+
+
+def _check_family_layout(ref, r, case, cfg, D, M):
+    """A FAMILIES case's rank holds every leaf at the reference device's
+    shard shape (a stacked leaf without its repeat axis), and its caches
+    hold its heads: a GQA layer's KV heads, a Mamba2 layer's SSD heads
+    (the state ``[B, h/M, p, N]``, the conv tail its ``d_inner/M``
+    channels with ``B`` and ``C``), the MLA latent whole, a
+    cross-attention layer's none."""
+    want = _sub(ref, f"serve|{case}|shard|")
+    have = _sub(r, f"serve|{case}|shape|")
+    stacks = model.layer_stacks(cfg)
+    seen = set()
+    for name, shape in have.items():
+        parts = name.split("/")
+        if parts[0] == "layers":
+            key = "/".join([stacks[int(parts[1][1:-1])]] + parts[2:])
+            w = tuple(want[key][1:])
+        else:
+            key, w = name, tuple(want[name])
+        seen.add(key)
+        assert tuple(shape) == w, (case, name, tuple(shape), w)
+    assert seen == set(want)
+    B = SERVE_B // D
+    rows = PROMPT + NEW
+    for i, spec in enumerate(model.layer_specs(cfg)):
+        got = [tuple(r[f"serve|{case}|cache|{i}|{j}"]) for j in range(2)
+               if f"serve|{case}|cache|{i}|{j}" in r]
+        if spec.kind == "cross_attn":
+            wants = []
+        elif spec.kind == "mla":
+            wants = [(B, rows, cfg.kv_lora_rank),
+                     (B, rows, cfg.qk_rope_head_dim)]
+        elif spec.kind == "mamba":
+            wants = [(B, cfg.ssm_conv - 1, cfg.ssm_d_inner // M +
+                      2 * cfg.ssm_ngroups * cfg.ssm_state),
+                     (B, cfg.ssm_heads // M, cfg.ssm_head_dim,
+                      cfg.ssm_state)]
+        else:
+            wants = [(B, rows, cfg.num_kv_heads // M, cfg.head_dim)] * 2
+        assert got == wants, (case, i, got, wants)
 
 
 # ---------------------------------------------------------------- training
@@ -728,6 +869,40 @@ def test_train_step_matches_the_references_sharded_step(runs, case):
             assert out <= FLIP_BUDGET * total, (key, out, total)
         if kw.get("grad_compression"):
             _check_err(ref, r, f"train|{case}")
+
+
+#: the opened cases without routed experts, whose gradients no routing
+#: choice moves
+ROUTE_FREE = tuple(sorted(t for t in OPENED
+                          if get_config(TRAIN[t][0]).family != "moe"))
+
+
+@pytest.mark.parametrize("case", ROUTE_FREE)
+def test_family_step_moments_match_leaf_by_leaf(runs, case):
+    """The first moment after one step is ``(1 - b1)`` times the clipped
+    gradient, with no sign to flip: for the cases of ``FAMILIES`` and
+    ``gemma-1x2-seq`` without routed experts every rank's ``mu`` of every
+    leaf, its split leaves gathered, within 1e-4 of that leaf's largest
+    |value| (the card's gradient bound) with no element outside. A whole
+    leaf whose gradient a rank sees through its heads only (Mamba2's
+    ``A_log``, ``D``, ``dt_bias``, ``gnorm``) and is not summed over the
+    model axis fails here, where the tree-wide flip budget would hide a
+    small leaf. (In the MoE family a token whose expert choice or
+    capacity drop differs between two equally valid float32 orders moves
+    every gradient it reaches; there the flip budget holds and the loss
+    and grad_norm catch a missing sum: ``wkv_a``'s, MLA's.)"""
+    ref, per_rank, _, _ = runs
+    _, _, D, M, _, _ = TRAIN[case]
+    got = [r for r in per_rank if f"train|{case}|metric|loss" in r]
+    assert len(got) == D * M
+    want = _sub(ref, f"train|{case}|mu|")
+    for r in got:
+        have = _sub(r, f"train|{case}|mu|")
+        assert set(have) == set(want)
+        for n, w in want.items():
+            gap = np.abs(have[n] - w).max()
+            assert gap <= MU_TOL * max(np.abs(w).max(), 1e-30), (case, n,
+                                                                  gap)
 
 
 @pytest.mark.parametrize("when", ("init", "step"))
@@ -802,10 +977,15 @@ def test_hints_and_refusals_of_the_context():
     # the KV cache holds each rank's KV heads
     caches = model.init_cache(cfg, 1, 4, device="meta", ctx=plain)
     assert caches[0][0].shape == (1, 4, cfg.num_kv_heads // 2, cfg.head_dim)
-    with pytest.raises(ValueError, match="seq_shard_residual"):
-        TP.plan(get_config("gemma3-4b-smoke"), seq)
+    # every family takes the hint (the local/global family's step under
+    # it: the "gemma-1x2-seq" case); the dense MoE route and a vocabulary
+    # that does not split do not
+    for arch in ("gemma3-4b-smoke",) + tuple(FAMILIES.values()):
+        assert TP.plan(get_config(arch), seq).seq
     with pytest.raises(ValueError, match="MoE route"):
         TP.plan(get_config(MOE), dataclasses.replace(seq, moe_impl="dense"))
+    with pytest.raises(ValueError, match="vocabulary"):
+        TP.plan(cfg, dataclasses.replace(seq, mesh=_Axis(3, 1)))
     with pytest.raises(ValueError, match="local_tp_params"):
         L.attn_block(model.init(ShapesOnly(), cfg)["layers"][0]["attn"],
                      torch.zeros(1, 4, cfg.d_model, device="meta"), cfg,
