@@ -226,7 +226,8 @@ and prints no result line:
    seconds.
 12. The invariant checker on the card's machine, with the launch
    counters zeroed just before and read just after (it launches no
-   kernel): (a) ``python -m repro_torch.analysis check`` in a subprocess
+   kernel; (a)'s two runs and (b)'s two probe scripts run as four
+   subprocesses at once): (a) ``python -m repro_torch.analysis check`` in a subprocess
    from the repo root (``PYTHONPATH=src``) over its default roots
    (``src/repro_torch``, ``chip_smoke.py``, ``tools``) must exit 0 and
    print ``analysis clean``, and ``rules`` must list the nine ids; (b)
@@ -243,16 +244,21 @@ and prints no result line:
    card's name and power limit. Prints the phase's seconds.
 13. The dry-run on the card's machine (it launches no kernel; the
    launch counters are zeroed just before and read just after): (a)
-   ``python -m repro_torch.launch.dryrun --arch <arch> --force``, one
-   subprocess for each of the ten architectures, all started together,
-   into one scratch directory under ``artifacts/`` (never
-   ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells): each
-   must exit 0, together with 33 ``ok``, 7 ``skipped`` and 0 ``error``
-   pod records and 40 skipped multi-pod ones; prints the counting
-   seconds of ``deepseek-v3-671b``'s and ``llama-3.2-vision-90b``'s
-   cells and the matrix's wall seconds; the port's roofline view,
+   ``python -m repro_torch.launch.dryrun --arch <arch> --force`` with
+   ``--single-pod-only`` and with ``--multi-pod-only``, one subprocess
+   for each of the ten architectures and the two meshes, all twenty at
+   once, into one scratch directory under ``artifacts/`` (never
+   ``artifacts/dryrun_torch/``, which phase 10 holds at zero cells):
+   each must exit 0, together with
+   33 ``ok``, 7 ``skipped`` and 0 ``error`` records on each mesh (the
+   pod's one card and a rank of the reference's 2 x 16 x 16 multi-pod
+   mesh, whose every ``ok`` record has 512 devices and whose train
+   cells count collectives); prints the counting seconds of
+   ``deepseek-v3-671b``'s and ``llama-3.2-vision-90b``'s cells, each
+   multi-pod cell's compute, memory and collective seconds, peak and
+   collectives, and the matrix's wall seconds; the port's roofline view,
    pointed at that directory in this process, must read ``pod ok=33
-   skipped=7 err=0; multipod ok=0`` and print the 33 cells' rows. (b) ``run_cell``
+   skipped=7 err=0; multipod ok=33`` and print the 33 cells' rows. (b) ``run_cell``
    of ``qwen2-7b`` x ``train_4k`` and the counts of (c) and (d), made in
    this process beside the live CUDA context, must leave
    ``torch.cuda.memory_allocated()``, the allocator's count of
@@ -399,9 +405,9 @@ and prints no result line:
    predicted peak within 0.85-1.15 of the measured one; (d) ``python
    -m repro_torch.launch.train --arch <a>-smoke --steps 1`` for the
    seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 1
-   step, all at once beside (a), then (before (b)) that run resumed to
-   2, its step-1 checkpoint restored on the card bit for bit (3, 6 and
-   9 steps before phase 23; 2, 4 and 6 before phase 24). A cross
+   step, all at once beside (a), then that run resumed to 2 beside (b),
+   its step-1 checkpoint restored on the card bit for bit after (b).
+   A cross
    layer's one-element gate gradient, a sum whose terms cancel, is held
    in (a) by its terms: the gate broadcast to a [B, S, d] field of its
    value, whose gradient is checked leaf-wise. Phase 19 runs with the
@@ -522,8 +528,15 @@ and prints no result line:
    count (printed beside a world of one's), its peak device memory,
    exactly 8 ``flash_attention_wgmma`` launches a rank, step ms (a
    shared card's over gloo, not FSDP's), and a checkpoint gathered from
-   the blocks with a world of one's names and shapes. The phase must end
-   within 150 s.
+   the blocks with a world of one's names and shapes. Each rank records
+   the collectives of its first step through the seam
+   (``distributed.collectives.recording``); the dry-run's count of the
+   same step at that rank's coordinates of a 2 x 1 mesh
+   (``launch.mesh.RankMesh``, counted in this process while the ranks
+   run) must equal them exactly, by kind and group size (count and
+   operand bytes), and equal the rank's argument bytes (its state and
+   rows), and the rank's peak device memory must lie within 0.85-1.15 of
+   the count's peak. The phase must end within 150 s.
 24. Tensor parallelism for MLA, MTP, cross-attention and Mamba2: the
    same two gloo ranks on the card (``make_host_mesh(1, 2,
    backend="gloo")``), each building its block a top-level leaf or a
@@ -3389,15 +3402,27 @@ def start(out, timeout):
 def phase_analysis():
     """Phase 12: the invariant checker over the port on the card's
     machine, and the two runtime facts behind its device rules; returns
-    the launches during the phase (none)."""
+    the launches during the phase (none). The checker's two runs and the
+    two probe scripts run as four subprocesses at once."""
+    import tempfile
     import torch
     from repro_torch.kernels import ops
     print("== phase 12: the invariant checker on the card's machine")
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     ops.reset_launches()
-    _analysis_check()
-    _fork_probe()
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {"check": _analysis_start("check"),
+                   "rules": _analysis_start("rules")}
+        started.update(_fork_probe_start(tmp))
+        try:
+            _analysis_check(started)
+            _fork_probe(started)
+        finally:
+            for p, _, _ in started.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     _thread_probe()
     _sync_in_loop_ms()
     torch.cuda.synchronize()
@@ -3409,28 +3434,41 @@ def phase_analysis():
     return launches
 
 
-def _analysis_cli(*argv):
-    env = dict(os.environ, PYTHONPATH=SRC)
+def _started(argv, timeout, cwd=None, env=None):
+    """(a running process, its start time, its time limit)."""
+    return (subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter(), timeout)
+
+
+def _finished(started, what):
+    """Wait for a ``_started`` process within its limit (a hang fails):
+    (its ``CompletedProcess``, its seconds)."""
+    p, t0, timeout = started
     try:
-        return subprocess.run(
-            [sys.executable, "-m", "repro_torch.analysis", *argv], cwd=ROOT,
-            env=env, capture_output=True, text=True,
-            timeout=ANALYSIS_TIMEOUT_S)
+        out, err = p.communicate(timeout=max(
+            1.0, timeout - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired as e:
-        raise SmokeFailure(f"repro_torch.analysis {argv} hung: {e}")
+        raise SmokeFailure(f"{what} hung: {e}")
+    return (subprocess.CompletedProcess(p.args, p.returncode, out, err),
+            time.perf_counter() - t0)
 
 
-def _analysis_check():
+def _analysis_start(*argv):
+    return _started([sys.executable, "-m", "repro_torch.analysis", *argv],
+                    ANALYSIS_TIMEOUT_S, cwd=ROOT,
+                    env=dict(os.environ, PYTHONPATH=SRC))
+
+
+def _analysis_check(started):
     """(a): ``python -m repro_torch.analysis check`` from the repo root
     exits 0 with ``analysis clean``; ``rules`` lists the nine ids."""
-    t0 = time.perf_counter()
-    run = _analysis_cli("check")
-    dt = time.perf_counter() - t0
+    run, dt = _finished(started["check"], "repro_torch.analysis check")
     print(run.stdout.strip())
     check(run.returncode == 0 and "analysis clean" in run.stdout,
           f"(a) analysis check exited {run.returncode}: "
           f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
-    rules = _analysis_cli("rules")
+    rules, _ = _finished(started["rules"], "repro_torch.analysis rules")
     ids = [line for line in rules.stdout.splitlines()
            if line and not line.startswith(" ")]
     check(rules.returncode == 0 and len(ids) == 9 and
@@ -3445,50 +3483,50 @@ def _flagged(source, rule):
     return analyze_source(source, path="probe.py", only=[rule])
 
 
-def _fork_probe():
+def _fork_probe_start(tmp):
+    """(b)'s two probe scripts, written under ``tmp`` and started."""
+    out = {}
+    for method in ("fork", "spawn"):
+        script = os.path.join(tmp, f"probe_{method}.py")
+        with open(script, "w") as f:
+            f.write(FORK_PROBE.replace("{method}", method))
+        out[method] = _started([sys.executable, script,
+                                str(CHILD_TIMEOUT_S)], CHILD_TIMEOUT_S + 120)
+    return out
+
+
+def _fork_probe(started):
     """(b): with the parent holding a context, a forked child that
     touches CUDA fails with CUDA's re-initialisation error; under spawn
     it exits 0. The checker flags the fork source and not the spawn."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        for method in ("fork", "spawn"):
-            source = FORK_PROBE.replace("{method}", method)
-            script = os.path.join(tmp, f"probe_{method}.py")
-            with open(script, "w") as f:
-                f.write(source)
-            try:
-                run = subprocess.run(
-                    [sys.executable, script, str(CHILD_TIMEOUT_S)],
-                    capture_output=True, text=True,
-                    timeout=CHILD_TIMEOUT_S + 120)
-            except subprocess.TimeoutExpired as e:
-                raise SmokeFailure(f"(b) the {method} probe hung: {e}")
-            said = [line for line in run.stdout.splitlines()
-                    if line.startswith("child exit code")]
-            check(run.returncode == 0 and len(said) == 1,
-                  f"(b) the {method} probe exited {run.returncode}: "
+    for method in ("fork", "spawn"):
+        source = FORK_PROBE.replace("{method}", method)
+        run, _ = _finished(started[method], f"(b) the {method} probe")
+        said = [line for line in run.stdout.splitlines()
+                if line.startswith("child exit code")]
+        check(run.returncode == 0 and len(said) == 1,
+              f"(b) the {method} probe exited {run.returncode}: "
+              f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+        code = int(said[0].split()[-1])
+        found = _flagged(source, "torch-cuda-in-fork")
+        if method == "fork":
+            check(code != 0 and "re-initialize CUDA" in run.stderr,
+                  f"(b) the forked child exited {code} without CUDA's "
+                  f"re-initialisation error: {run.stderr[-2000:]}")
+            check(len(found) == 1 and "touch_cuda()" in found[0].message,
+                  f"(b) the checker did not flag the fork source: "
+                  f"{[f.render() for f in found]}")
+            error = [line for line in run.stderr.splitlines()
+                     if "re-initialize CUDA" in line][0]
+            print(f"(b) fork: child exit code {code}; {error.strip()}; "
+                  f"flagged: {found[0].render()}")
+        else:
+            check(code == 0 and "child sum 4.0" in run.stdout,
+                  f"(b) the spawned child exited {code}: "
                   f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
-            code = int(said[0].split()[-1])
-            found = _flagged(source, "torch-cuda-in-fork")
-            if method == "fork":
-                check(code != 0 and "re-initialize CUDA" in run.stderr,
-                      f"(b) the forked child exited {code} without CUDA's "
-                      f"re-initialisation error: {run.stderr[-2000:]}")
-                check(len(found) == 1 and "touch_cuda()" in
-                      found[0].message,
-                      f"(b) the checker did not flag the fork source: "
-                      f"{[f.render() for f in found]}")
-                error = [line for line in run.stderr.splitlines()
-                         if "re-initialize CUDA" in line][0]
-                print(f"(b) fork: child exit code {code}; {error.strip()}; "
-                      f"flagged: {found[0].render()}")
-            else:
-                check(code == 0 and "child sum 4.0" in run.stdout,
-                      f"(b) the spawned child exited {code}: "
-                      f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
-                check(found == [], f"(b) the checker flagged the spawn "
-                      f"source: {[f.render() for f in found]}")
-                print(f"(b) spawn: child exit code {code}, not flagged")
+            check(found == [], f"(b) the checker flagged the spawn "
+                  f"source: {[f.render() for f in found]}")
+            print(f"(b) spawn: child exit code {code}, not flagged")
 
 
 def _thread_probe():
@@ -3547,8 +3585,10 @@ def _sync_in_loop_ms(steps=50, reps=5):
 
 DRYRUN_TIMEOUT_S = 600          # the whole matrix, in subprocesses
 DRYRUN_MATRIX = {"pod": {"ok": 33, "skipped": 7, "error": 0},
-                 "multipod": {"ok": 0, "skipped": 40, "error": 0}}
-DRYRUN_FIRST_ROW = "pod ok=33 skipped=7 err=0; multipod ok=0"
+                 "multipod": {"ok": 33, "skipped": 7, "error": 0}}
+DRYRUN_FIRST_ROW = "pod ok=33 skipped=7 err=0; multipod ok=33"
+#: the multi-pod mesh's devices (2 x 16 x 16)
+DRYRUN_MULTIPOD_DEVICES = 512
 #: the cells this slice added to the matrix: their counting seconds print
 DRYRUN_NEW_ARCHS = ("deepseek-v3-671b", "llama-3.2-vision-90b")
 DRYRUN_CELL = ("qwen2-7b", "train_4k")      # (b): counted in this process
@@ -3585,10 +3625,11 @@ def phase_dryrun():
 
 def _dryrun_matrix():
     """(a): the whole matrix, one ``python -m repro_torch.launch.dryrun
-    --arch <arch>`` subprocess an architecture, all at once, into one
-    scratch directory (not artifacts/dryrun_torch/, which phase 10 holds
-    at zero cells), then the port's roofline view over it in this
-    process."""
+    --arch <arch>`` subprocess an architecture and mesh
+    (``--single-pod-only``, ``--multi-pod-only``), all at once, each
+    logging to a file of one scratch directory (not
+    artifacts/dryrun_torch/, which phase 10 holds at zero cells), then the
+    port's roofline view over it in this process."""
     import glob
     import tempfile
     from repro_torch.bench.views import roofline
@@ -3598,27 +3639,33 @@ def _dryrun_matrix():
     out = tempfile.mkdtemp(prefix="phase13_dryrun_",
                            dir=os.path.join(ROOT, "artifacts"))
     t0 = time.perf_counter()
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--force", "--out", out], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True,
-        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
-        for arch in all_archs()}
+    procs = {}
     try:
-        outputs = {arch: p.communicate(timeout=max(
-            1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))[0]
-            for arch, p in procs.items()}
+        for arch in all_archs():
+            for flag in ("--single-pod-only", "--multi-pod-only"):
+                log = os.path.join(out, f"{arch}{flag}.log")
+                with open(log, "w") as f:
+                    procs[arch, flag] = (subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.launch.dryrun",
+                         "--arch", arch, flag, "--force", "--out", out],
+                        stdout=f, stderr=subprocess.STDOUT,
+                        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT), log)
+        done = {}
+        for job, (p, log) in procs.items():
+            code = p.wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            with open(log) as f:
+                done[job] = (code, f.read())
     finally:
-        for p in procs.values():
+        for p, _ in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
     dt = time.perf_counter() - t0
-    for arch, p in procs.items():
-        last = outputs[arch].strip().splitlines()[-1:]
-        print(f"(a) dryrun --arch {arch}: exit {p.returncode}; {last}")
-        check(p.returncode == 0,
-              f"(a) the dry-run of {arch} exited {p.returncode}")
+    for (arch, flag), (code, log) in done.items():
+        last = log.strip().splitlines()[-1:]
+        print(f"(a) dryrun --arch {arch} {flag}: exit {code}; {last}")
+        check(code == 0, f"(a) the dry-run of {arch} {flag} exited {code}")
     got = {kind: {"ok": 0, "skipped": 0, "error": 0}
            for kind in DRYRUN_MATRIX}
     for path in sorted(glob.glob(os.path.join(out, "*.json"))):
@@ -3630,8 +3677,10 @@ def _dryrun_matrix():
                   + (f", counted in {rec['lower_s']} s"
                      if rec["status"] == "ok" else
                      f" ({rec.get('reason')})"))
-    print(f"(a) the matrix in {len(procs)} concurrent subprocesses: wall "
-          f"{dt} s; records {got}")
+        if rec["mesh_name"] == "multipod" and rec["status"] == "ok":
+            _dryrun_multipod_row(rec)
+    print(f"(a) the matrix in {len(done)} subprocesses, all at once, on "
+          f"{os.cpu_count()} CPUs: wall {dt} s; records {got}")
     check(got == DRYRUN_MATRIX, f"(a) records {got}, want {DRYRUN_MATRIX}")
     saved = roofline.DRYRUN_DIR
     roofline.DRYRUN_DIR = out
@@ -3648,6 +3697,29 @@ def _dryrun_matrix():
     check(len(cells) == DRYRUN_MATRIX["pod"]["ok"],
           f"(a) the roofline view has {len(cells)} cell rows")
     shutil.rmtree(out)
+
+
+def _dryrun_multipod_row(rec):
+    """(a): one multi-pod record's line, and its checks: the mesh's 512
+    devices, collectives in a train cell, the model FLOPs a chip."""
+    ro, mem, coll = rec["roofline"], rec["memory"], rec["collectives"]
+    kinds = {k: v["count"] for k, v in coll["by_kind"].items()}
+    print(f"(a) multipod {rec['arch']} x {rec['shape']} on "
+          f"{rec['mesh']}: compute_s {ro['compute_s']}, memory_s "
+          f"{ro['memory_s']}, collective_s {ro['collective_s']} "
+          f"({ro['dominant']}); peak {mem['peak_hbm_proxy_bytes']} B a "
+          f"rank (argument {mem['argument_bytes']}, fits "
+          f"{mem['fits_hbm']}); {coll['num_collectives']} collectives "
+          f"{kinds}, {coll['total_traffic_bytes']} B of traffic; counted "
+          f"in {rec['lower_s']} s")
+    check(rec["num_devices"] == DRYRUN_MULTIPOD_DEVICES,
+          f"(a) {rec['arch']} x {rec['shape']}: {rec['num_devices']} "
+          f"devices")
+    check(rec["shape"] != "train_4k" or coll["num_collectives"] > 0,
+          f"(a) {rec['arch']} x train_4k counted no collective")
+    check(rec["model_flops_per_chip"] * DRYRUN_MULTIPOD_DEVICES ==
+          rec["model_flops_total"],
+          f"(a) {rec['arch']} x {rec['shape']}: model FLOPs a chip")
 
 
 def _cuda_memory():
@@ -5183,6 +5255,7 @@ def phase_family_train(profile=False):
     torch.cuda.empty_cache()
     _allocator("expandable_segments:True")
     print("phase 19 allocator: expandable_segments:True")
+    resume = None
     try:
         launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
         for arch, (cut, want) in FAMILY_CHECK.items():
@@ -5191,8 +5264,7 @@ def phase_family_train(profile=False):
                 launches[name] += n
             _release()
         print(f"(a) done at {time.perf_counter() - t_phase} s")
-        _family_launchers_finish(*launchers)
-        print(f"(d) done at {time.perf_counter() - t_phase} s")
+        resume = _family_launchers_finish(*launchers)
         measured = {}
         for arch, (cut, want) in FAMILY_TRAIN.items():
             got, measured[arch] = _family_train_steps(arch, cut, want,
@@ -5201,12 +5273,15 @@ def phase_family_train(profile=False):
                 launches[name] += n
             _release()
         print(f"(b) done at {time.perf_counter() - t_phase} s")
+        _family_resume_finish(*resume)
+        print(f"(d) done at {time.perf_counter() - t_phase} s")
         _family_peaks(procs, measured, card)
         MEASURED["family_train"] = {arch: {"step_s": m["step_s"],
                                            "peak": m["peak"]}
                                     for arch, m in measured.items()}
     finally:
-        for p in list(procs.values()) + list(launchers[1].values()):
+        for p in list(procs.values()) + list(launchers[1].values()) + (
+                [resume[1]] if resume else []):
             if p.poll() is None:
                 p.kill()
                 p.wait()
@@ -5646,21 +5721,28 @@ def _launcher_done(label, p, t0):
 
 def _family_launchers_finish(root, procs, t0):
     """(d): the runs of ``_family_launchers_start``, then the first
-    ``FAMILY_RESUME_STEPS`` run resumed to the second and its last
-    checkpoint restored on the card bit for bit."""
+    ``FAMILY_RESUME_STEPS`` run's resumption to the second started, to
+    run beside (b). Returns (scratch directory, that process, its start)
+    for ``_family_resume_finish``."""
     for label, p in procs.items():
         _launcher_done(label, p, t0)
     print(f"(d) {len(procs)} launcher runs at once: "
           f"{time.perf_counter() - t0} s")
-    t1 = time.perf_counter()
-    resume = os.path.join(root, "resume")
+    return root, _launcher(FAMILY_RESUME_ARCH, FAMILY_RESUME_STEPS[1],
+                           os.path.join(root, "resume")), time.perf_counter()
+
+
+def _family_resume_finish(root, p, t1):
+    """(d): the resumed run of ``_family_launchers_finish`` must resume
+    from the first of ``FAMILY_RESUME_STEPS``; that checkpoint is then
+    restored on the card bit for bit."""
     first, then = FAMILY_RESUME_STEPS
-    out = _launcher_done(f"{FAMILY_RESUME_ARCH}-smoke --steps {then}",
-                         _launcher(FAMILY_RESUME_ARCH, then, resume), t1)
+    out = _launcher_done(f"{FAMILY_RESUME_ARCH}-smoke --steps {then}", p,
+                         t1)
     check(f"resumed from step {first}" in out,
           f"(d) the second run did not resume from step {first}")
-    print(f"(d) the resumed run: {time.perf_counter() - t1} s")
-    _restored_on_card_bit_for_bit("(d)", os.path.join(resume,
+    print(f"(d) the resumed run, beside (b): {time.perf_counter() - t1} s")
+    _restored_on_card_bit_for_bit("(d)", os.path.join(root, "resume",
                                                       f"step_{first}"),
                                   f"{FAMILY_RESUME_ARCH}-smoke")
     shutil.rmtree(root)
@@ -6700,7 +6782,7 @@ dist.init_process_group("gloo", store=dist.FileStore(store, world),
 from repro_torch import tree
 from repro_torch.configs import get_config
 from repro_torch.device import set_device
-from repro_torch.distributed import data_parallel
+from repro_torch.distributed import collectives, data_parallel
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import make_context
 from repro_torch.kernels import ops
@@ -6925,20 +7007,30 @@ res["fsdp_state_bytes"] = nbytes(state["params"]) + nbytes(state["opt"])
 step = make_train_step(cfg2, fctx, opt_cfg)
 tokens2 = torch.randint(0, cfg2.vocab_size, (world, args["fsdp_seq"] + 1),
                         generator=torch.Generator(device=dev).manual_seed(5),
-                        device=dev)
+                        device=dev, dtype=torch.int32)
 batch2 = data_shard({"tokens": tokens2}, fctx)
+# the step's arguments, as the dry-run counts them: the state and the rows
+res["fsdp_arg_bytes"] = nbytes(state) + nbytes(batch2)
 torch.cuda.reset_peak_memory_stats()
 torch.cuda.synchronize()
 dist.barrier()
 ops.reset_launches()
 ms, losses = [], []
-for _ in range(args["fsdp_steps"]):
+for i in range(args["fsdp_steps"]):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, met = step(state, batch2)
+    with collectives.recording() as tally:
+        state, met = step(state, batch2)
     torch.cuda.synchronize()
     ms.append((time.perf_counter() - t0) * 1e3)
     losses.append(met["loss"].item())
+    if i == 0:
+        # the first step's collectives through the seam, as the dry-run
+        # keys them: "<kind> <group size> count|operand_bytes"
+        res["fsdp_collectives"] = {
+            f"{kind} {ways} {what}": n
+            for (kind, ways), rec in tally.calls.items()
+            for what, n in zip(("count", "operand_bytes"), rec)}
 res["fsdp_launches"] = dict(ops.LAUNCHES)
 res["fsdp_peak"] = torch.cuda.max_memory_allocated()
 res["fsdp_step_ms"], res["fsdp_losses"] = ms, losses
@@ -6959,8 +7051,36 @@ dist.destroy_process_group()
 """
 
 
-def _fsdp_report(res, card):
-    """Phase 23 (c): the ranks' FSDP results, printed and checked."""
+def _fsdp_counts():
+    """Phase 23 (c2)'s first step counted by the dry-run at each rank's
+    coordinates of the 2 x 1 mesh (``launch.mesh.RankMesh``): the same
+    cut, rows, context and optimizer as the ranks'."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_context
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.train import OptimizerConfig
+    cfg = dataclasses.replace(get_config(TP_ARCH),
+                              num_layers=TP_CHECK_LAYERS)
+    shape = ShapeConfig("phase23_fsdp", "train", FSDP_SEQ, TP_RANKS)
+    out = []
+    for d in range(TP_RANKS):
+        ctx = make_context(RankMesh(("data", "model"), (TP_RANKS, 1),
+                                    (d, 0), one_rank_groups=True),
+                           remat="full", q_chunk=256, k_chunk=256)
+        t0 = time.perf_counter()
+        c = dryrun_lib.count_cell(cfg, shape, ctx,
+                                  opt_cfg=OptimizerConfig(warmup_steps=10))
+        c["count_s"] = time.perf_counter() - t0
+        out.append(c)
+    return out
+
+
+def _fsdp_report(res, card, counts):
+    """Phase 23 (c): the ranks' FSDP results, printed and checked, (c2)'s
+    against the dry-run's ``counts`` (``_fsdp_counts``)."""
     import statistics
     r0 = res[0]
     check([r["data_rank"] for r in res] == list(range(TP_RANKS)),
@@ -7019,6 +7139,27 @@ def _fsdp_report(res, card):
               f"shapes from a world of one's")
     check(all(r["fsdp_losses"] == r0["fsdp_losses"] for r in res),
           "(c2) the ranks' losses differ")
+    lo, hi = DRYRUN_PEAK_RATIO
+    for r in res:
+        c = counts[r["data_rank"]]
+        want = {k[len("collective "):]: v for k, v in c.items()
+                if k.startswith("collective ")}
+        ratio = c["peak_bytes"] / r["fsdp_peak"]
+        print(f"(c3) rank {r['rank']}: the first step's collectives "
+              f"through the seam {r['fsdp_collectives']}; the dry-run's "
+              f"count at ({r['data_rank']}, 0) of a {TP_RANKS} x 1 mesh "
+              f"{want} (counted in {c['count_s']} s); argument bytes "
+              f"{r['fsdp_arg_bytes']} vs {c['argument_bytes']}; predicted "
+              f"peak {c['peak_bytes']} bytes, measured {r['fsdp_peak']}, "
+              f"ratio {ratio} (bound {lo}-{hi}; {card})")
+        check(r["fsdp_collectives"] == want,
+              f"(c3) rank {r['rank']}'s collectives differ from the "
+              f"dry-run's")
+        check(r["fsdp_arg_bytes"] == c["argument_bytes"],
+              f"(c3) rank {r['rank']}'s arguments {r['fsdp_arg_bytes']} "
+              f"bytes, the dry-run's {c['argument_bytes']}")
+        check(lo <= ratio <= hi,
+              f"(c3) rank {r['rank']}: predicted/measured peak {ratio}")
 
 
 def phase_tp():
@@ -7048,6 +7189,8 @@ def phase_tp():
             env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
             for r in range(TP_RANKS)]
         try:
+            # (c3)'s counts, on the host while the ranks run
+            counts = _fsdp_counts()
             logs = [p.communicate(timeout=TP_RANK_TIMEOUT_S)[0]
                     for p in procs]
         finally:
@@ -7132,7 +7275,7 @@ def phase_tp():
     check(r0["grads_finite"] and r0["grad_worst"] <= LM_GRAD_TOL,
           f"(b) gradient {r0['grad_worst_leaf']} differs by "
           f"{r0['grad_worst']}")
-    _fsdp_report(res, card)
+    _fsdp_report(res, card, counts)
     launches = {
         "flash_attention_wgmma": sum(r["launches"]["flash_attention_wgmma"]
                                      + r["fsdp_launches"][

@@ -5,8 +5,9 @@ written by ``python -m repro_torch.launch.dryrun``; never the reference's
 TPU ones in artifacts/dryrun/), renders the single-pod table + the
 multi-pod shardability check, and names the dominant bottleneck per cell.
 The port's dry-run counts one H100 (``common.hw.H100_SXM``): its pod
-records are one card's, and its multi-pod records are all skipped. With
-no dry-run written yet the view reports zero cells.
+records are one card's, its multi-pod records one rank's of the
+reference's 2 x 16 x 16 mesh. With no dry-run written yet the view
+reports zero cells.
 """
 from __future__ import annotations
 

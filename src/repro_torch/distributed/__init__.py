@@ -1,5 +1,7 @@
-"""Distributed-training pieces of the port. One card so far: the
-gradient compression (``compression``), which a single device runs as
-the reference does before its all-reduce; the sharding rules as data
-(``sharding``), which the dry-run records; and the reference's elastic
-policy (``elastic``, a copy)."""
+"""Distributed-training pieces of the port: the sharding rules as data
+(``sharding``); tensor parallelism over the model axis
+(``tensor_parallel``), FSDP over the data axis (``fsdp``) and the
+training step's reductions (``data_parallel``); the one seam every
+collective goes through, live or counted by the dry-run
+(``collectives``); the int8 gradient compression (``compression``); and
+the reference's elastic policy (``elastic``, a copy)."""

@@ -40,8 +40,9 @@ reference's global values need:
 
 With ``no_tp`` the model axis is a data axis and nothing is reduced over
 it as a model axis. An axis of one rank needs none of this, and nothing
-is called over it: the dry-run's ``launch.mesh.OneRankMesh`` (no process
-group) and a world of one run the step as one device does.
+is called over it: a world of one runs the step as one device does. Every
+reduction goes through ``distributed.collectives``: over the dry-run's
+``launch.mesh.RankMesh`` (no process group) it is counted, not run.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.tensor_parallel import cuts_of
 
@@ -102,8 +104,12 @@ def data_rank(ctx) -> int:
 
 
 def _sum(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` summed over ``groups`` in place (the seam reduces a
+    contiguous copy of a strided tensor); returns ``t``."""
     for g in groups:
-        dist.all_reduce(t, group=g)
+        r = C.all_reduce(t, g)
+        if r is not t:
+            t.copy_(r)
     return t
 
 
@@ -166,7 +172,7 @@ def whole_max(values: List[torch.Tensor], ctx) -> List[torch.Tensor]:
         return values
     both = torch.stack(values)
     for g in groups:
-        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=g)
+        both = C.all_reduce(both, g, dist.ReduceOp.MAX)
     return list(both.unbind())
 
 
@@ -208,7 +214,6 @@ def gather_split(state, ctx, split: Split):
         t = flat[name]
         for groups, cut in ((fsdp, c.data), (model, c.model)):
             if groups and cut is not None:
-                t = TP._all_gather(t, groups[0],
-                                   dist.get_world_size(groups[0]), cut.dim)
+                t = C.all_gather(t, groups[0], cut.dim)
         out[name] = t
     return tree.unflatten_like(state, out)

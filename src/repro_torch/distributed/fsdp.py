@@ -20,10 +20,12 @@ the backward gathers again and the whole leaves are not kept from the
 forward), ``unembed`` before the cross-entropy and the logits, and the
 MTP module before its layer; the gathered leaves are dropped after use.
 Prefill and decode gather the same way. Over a data axis of one rank
-(no mesh, ``launch.mesh.OneRankMesh``, a world of one) nothing is cut
-and nothing is gathered. The collectives are ``all_gather`` and
-``reduce_scatter``, which NCCL takes and gloo takes for CPU and CUDA
-tensors alike (``tools/probe_gloo_cuda.py``).
+(no mesh, a world of one, the dry-run's ``launch.mesh.RankMesh`` of a
+mesh with one data rank) nothing is cut and nothing is gathered. The
+collectives are ``all_gather`` and ``reduce_scatter``, through
+``distributed.collectives`` (counted over the dry-run's ``RankMesh``),
+which NCCL takes and gloo takes for CPU and CUDA tensors alike
+(``tools/probe_gloo_cuda.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import tensor_parallel as TP
 
 
@@ -70,12 +73,12 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(fctx, t, fs, dim):
         fctx.fs, fctx.dim = fs, dim
-        return TP._all_gather(t, fs.group, fs.ways, dim)
+        return C.all_gather(t, fs.group, dim)
 
     @staticmethod
     def backward(fctx, g):
         fs = fctx.fs
-        return TP._reduce_scatter(g, fs.group, fs.ways, fctx.dim), None, None
+        return C.reduce_scatter(g, fs.group, fctx.dim), None, None
 
 
 def gather(p, name: str, fs: Plan):

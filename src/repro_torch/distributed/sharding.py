@@ -9,9 +9,9 @@ axes, the model axis and ``moe_impl="ep"``; with the ``no_tp`` hint the
 model axis becomes one more batch axis and the MoE layers run dense. A
 live ``torch.distributed`` device mesh (``launch.mesh.make_host_mesh``)
 is what a run computes on; plain axis sizes (the dry-run's production
-mesh, one rank on each axis) give ``launch.mesh.OneRankMesh``, over
-which the dry-run counts ``routed_ep`` and a training step on a mesh as
-one rank runs them.
+meshes) give ``launch.mesh.RankMesh``, one rank of that mesh at its
+origin with no process group, over which the dry-run counts what that
+rank runs, its collectives counted (``distributed.collectives``).
 
 The model-axis entries of the partition rules below are put to work by
 ``split_dim``: the leaves of the blocks it names (``TP_LEAVES``: the
@@ -62,15 +62,14 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.launch.mesh import OneRankMesh
+from repro_torch.launch.mesh import RankMesh
 
 Spec = Tuple[Any, ...]
 AxisSizes = Mapping[str, int]
 
 _FROM_MESH = ("make_context sets it from the mesh, on whose data and "
               "model axes the partition rules place the leaves (ROADMAP "
-              "queue 1 items 16 (b), (e)); counts over more ranks wait "
-              "for item 16 (d)")
+              "queue 1 items 16 (b), (d), (e))")
 
 #: the reference's ``ModelContext`` fields that a caller may not set, and
 #: why: the mesh fields come from the mesh
@@ -101,7 +100,7 @@ def check_context_fields(kw: Mapping[str, Any]) -> None:
                              f"ModelContext has {sorted(known)}")
 
 
-def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw):
+def make_context(mesh: Union[None, AxisSizes, RankMesh, DeviceMesh], **kw):
     """The port's ``ModelContext``.
 
     Given a mesh, as the reference given a mesh: ``mesh``, ``data_axes``
@@ -111,23 +110,18 @@ def make_context(mesh: Union[None, AxisSizes, DeviceMesh], **kw):
     axis joins the data axes and ``moe_impl`` is ``"dense"`` unless
     ``kw`` sets it; ``"ep"`` with ``no_tp`` over a model axis of more
     than one rank raises ``ValueError`` (its rows would differ on the
-    ranks that exchange them). A live ``DeviceMesh`` is taken as it is;
-    plain axis sizes (the dry-run's) must be one rank each and become a
-    ``OneRankMesh``, a count over more ranks raises ``ValueError``
-    (ROADMAP queue 1 item 16 (d)). ``None``: the single-device context.
-    A refused or unknown field raises ``ValueError``."""
+    ranks that exchange them). A live ``DeviceMesh`` or a ``RankMesh``
+    is taken as it is; plain axis sizes (the dry-run's) become the
+    ``RankMesh`` of the rank at the mesh's origin. ``None``: the
+    single-device context. A refused or unknown field raises
+    ``ValueError``."""
     check_context_fields(kw)
     ModelContext = _context_class()
     if mesh is None:
         return ModelContext(**kw)
-    if not isinstance(mesh, DeviceMesh):
+    if not isinstance(mesh, (DeviceMesh, RankMesh)):
         sizes = dict(mesh)
-        if any(n != 1 for n in sizes.values()):
-            raise ValueError(
-                f"a dry-run mesh of {sizes}: the port counts one rank; "
-                f"counts over more ranks wait for ROADMAP queue 1 item 16 "
-                f"(d)")
-        mesh = OneRankMesh(tuple(sizes))
+        mesh = RankMesh(tuple(sizes), tuple(sizes.values()))
     data_axes = tuple(a for a in ("pod", "data")
                       if a in mesh.mesh_dim_names)
     if kw.get("no_tp"):

@@ -48,11 +48,13 @@ its row, ``gather_vocab`` gathers serving's float32 logits, and
 ``vocab_ce`` reduces each chunk's maximum, sum of exponentials and
 target logit over the axis, so ``[B, S, Vp]`` is never formed whole.
 
-Over an axis of one rank (``launch.mesh.OneRankMesh``, a world of one,
-no mesh, or the ``no_tp`` hint) nothing splits and no collective runs.
-Every collective is one of ``all_reduce``, ``all_gather`` and
-``reduce_scatter``, which NCCL takes and gloo takes for CPU and CUDA
-tensors alike (``tools/probe_gloo_cuda.py``).
+Over an axis of one rank (a world of one, no mesh, the dry-run's
+``launch.mesh.RankMesh`` of a 1 x 1 mesh, or the ``no_tp`` hint) nothing
+splits and no collective runs. Every collective is one of
+``all_reduce``, ``all_gather`` and ``reduce_scatter``, through
+``distributed.collectives`` (counted, not run, over the dry-run's
+``RankMesh``), which NCCL takes and gloo takes for CPU and CUDA tensors
+alike (``tools/probe_gloo_cuda.py``).
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import fsdp_dim, split_dim
 
 
@@ -163,28 +166,6 @@ def for_sequence(ctx, seq: int):
 # --------------------------------------------------------------------------
 # collectives over the model axis
 # --------------------------------------------------------------------------
-def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
-                ) -> torch.Tensor:
-    t = t.contiguous()
-    dist.all_reduce(t, op=op, group=group)
-    return t
-
-
-def _all_gather(t: torch.Tensor, group, ways: int, dim: int
-                ) -> torch.Tensor:
-    parts = [torch.empty_like(t) for _ in range(ways)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
-
-
-def _reduce_scatter(t: torch.Tensor, group, ways: int, dim: int
-                    ) -> torch.Tensor:
-    parts = [c.contiguous() for c in t.chunk(ways, dim=dim)]
-    out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=group)
-    return out
-
-
 class _Copy(torch.autograd.Function):
     """Identity forward, the sum over the axis backward."""
 
@@ -195,7 +176,7 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, g):
-        return _all_reduce(g.clone(), fctx.tp.group), None
+        return C.all_reduce(g.clone(), fctx.tp.group), None
 
 
 class _Sum(torch.autograd.Function):
@@ -204,7 +185,7 @@ class _Sum(torch.autograd.Function):
 
     @staticmethod
     def forward(fctx, x, tp):
-        return _all_reduce(x.clone(), tp.group)
+        return C.all_reduce(x.clone(), tp.group)
 
     @staticmethod
     def backward(fctx, g):
@@ -219,11 +200,11 @@ class _SumBoth(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, tp):
         fctx.tp = tp
-        return _all_reduce(x.clone(), tp.group)
+        return C.all_reduce(x.clone(), tp.group)
 
     @staticmethod
     def backward(fctx, g):
-        return _all_reduce(g.clone(), fctx.tp.group), None
+        return C.all_reduce(g.clone(), fctx.tp.group), None
 
 
 class _Gather(torch.autograd.Function):
@@ -234,12 +215,12 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, tp, dim):
         fctx.tp, fctx.dim = tp, dim
-        return _all_gather(x, tp.group, tp.ways, dim)
+        return C.all_gather(x, tp.group, dim)
 
     @staticmethod
     def backward(fctx, g):
         tp = fctx.tp
-        return _reduce_scatter(g, tp.group, tp.ways, fctx.dim), None, None
+        return C.reduce_scatter(g, tp.group, fctx.dim), None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -249,12 +230,12 @@ class _ScatterSeq(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, tp):
         fctx.tp = tp
-        return _reduce_scatter(x, tp.group, tp.ways, 1)
+        return C.reduce_scatter(x, tp.group, 1)
 
     @staticmethod
     def backward(fctx, g):
         tp = fctx.tp
-        return _all_gather(g, tp.group, tp.ways, 1), None
+        return C.all_gather(g, tp.group, 1), None
 
 
 class _SliceSeq(torch.autograd.Function):
@@ -350,7 +331,7 @@ def gather_vocab(logits: torch.Tensor, tp: Plan) -> torch.Tensor:
     every rank (serving; no gradient)."""
     if not tp.vocab:
         return logits
-    return _all_gather(logits, tp.group, tp.ways, -1)
+    return C.all_gather(logits, tp.group, -1)
 
 
 def vocab_ce(xc: torch.Tensor, unembed: torch.Tensor, tc: torch.Tensor,
@@ -364,8 +345,8 @@ def vocab_ce(xc: torch.Tensor, unembed: torch.Tensor, tc: torch.Tensor,
     logits = (xc @ unembed).float()
     cols = tp.rank * n + torch.arange(n, device=xc.device)
     logits = torch.where(cols < vocab_size, logits, -1e30)
-    top = _all_reduce(logits.detach().amax(dim=-1), tp.group,
-                      dist.ReduceOp.MAX)
+    top = C.all_reduce(logits.detach().amax(dim=-1), tp.group,
+                        dist.ReduceOp.MAX)
     sumexp = _Sum.apply(torch.exp(logits - top[..., None]).sum(dim=-1), tp)
     local = tc - tp.rank * n
     inside = (local >= 0) & (local < n)

@@ -1,5 +1,6 @@
-"""One-card dry-run CLI: count every (arch x shape) cell on ``meta``
-tensors and write the roofline artifacts.
+"""Dry-run CLI: count every (arch x shape) cell on ``meta`` tensors, for
+one rank of the pod mesh (one card) and of the multi-pod mesh (2 x 16 x
+16), and write the roofline artifacts.
 
 Port of the reference's ``launch/dryrun.py``. It needs no card and no
 placeholder devices (the port counts on ``meta`` tensors, see
@@ -7,6 +8,7 @@ placeholder devices (the port counts on ``meta`` tensors, see
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod-only
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
       --shape prefill_32k --ctx '{"fused_scopes": ["vmem_flash"]}' --tag flash
@@ -14,7 +16,8 @@ Usage:
 Records go to ``artifacts/dryrun_torch/{arch}__{shape}__{pod|multipod}[-tag].json``
 (``--out`` moves them), which ``python -m repro_torch.bench tables
 --only roofline`` reads. It prints a summary line and exits 1 if any
-cell is an error.
+cell is an error; then a line for each mesh counted (``pod:`` and
+``multipod:``).
 """
 import argparse
 import json
@@ -70,6 +73,14 @@ def main(argv=None) -> int:
     skipped = [r for r in results if r["status"] == "skipped"]
     print(f"\ndry-run: {len(ok)} ok, {len(skipped)} skipped, "
           f"{len(bad)} errors")
+    for mesh in ("pod", "multipod"):
+        mine = [r for r in results
+                if r["mesh_name"].split("-", 1)[0] == mesh]
+        if mine:
+            n = {k: sum(r["status"] == k for r in mine)
+                 for k in ("ok", "skipped", "error")}
+            print(f"  {mesh}: {n['ok']} ok, {n['skipped']} skipped, "
+                  f"{n['error']} errors")
     for r in bad:
         print(f"  ERROR {r['arch']} x {r['shape']}: {r['error'][:160]}")
     return 1 if bad else 0

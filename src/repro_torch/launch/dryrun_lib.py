@@ -1,9 +1,9 @@
 """Dry-run engine: count every (arch x shape) cell on ``meta`` tensors and
 write the roofline artifacts.
 
-Port of the reference's ``launch/dryrun_lib.py`` for one card. The
-reference lowers and compiles each cell with XLA and reads the compiled
-HLO (``common/hlo.py``); the port makes no HLO. It runs each cell's step
+Port of the reference's ``launch/dryrun_lib.py``, for one rank of a
+mesh of H100s. The reference lowers and compiles each cell with XLA and
+reads the compiled HLO (``common/hlo.py``); the port makes no HLO. It runs each cell's step
 (``make_train_step``, ``model.prefill``, ``model.decode_step``) on
 ``meta`` tensors, which carry shapes and dtypes and no memory, under one
 ``TorchDispatchMode`` (``Counter``) that sees every aten op and counts:
@@ -93,28 +93,53 @@ peak, so the cell's peak stays exact. ``tests/test_torch_dryrun.py`` holds both
 against ``unroll=True`` for one stage, ``test_torch_dryrun_stages.py``
 for two.
 
-Collectives are zero on one card; the keys stay. The roofline is
-``common.hw.roofline_terms`` at the card's dense bf16 rate, as the
-reference's convention. The dense, MoE, SSM, hybrid, audio and
-local/global families, MLA and MTP (``deepseek-v3-671b``) and the VLM
-family (``llama-3.2-vision-90b``, its ``image_embeds`` an argument of
-every cell) are counted: all ten of the reference's architectures (the
-SSD scan has no host read and no data-dependent shape). A cell's context
-is ``sharding.make_context`` of the production mesh's axis sizes, as the
-reference's: a ``launch.mesh.OneRankMesh`` and ``moe_impl="ep"``, so a
-MoE layer counts ``routed_ep`` as the reference compiles it, every
-expert over its buffer of ``cap = ceil(T·k / E · capacity_factor)``
-rows, the exchange a copy, forward and backward (a train step on the
-mesh, whose gradient reductions over axes of one rank are nothing).
-Over its one data rank FSDP (``distributed.fsdp``) cuts and gathers
-nothing either, so every leaf is counted whole; a count over a mesh of
-more ranks, where each rank holds the reference device's block on both
-axes, is ROADMAP queue 1 item 16 (d).
+A cell is counted for one rank of a mesh (``run_cell``'s ``mesh``, by
+default a production mesh of ``launch.mesh``: the pod record's one card,
+1 x 1, or the reference's multi-pod mesh, 2 x 16 x 16), the rank at its
+origin (``count_cell`` of a context on any ``RankMesh`` counts another).
+Its context is ``sharding.make_context`` of ``launch.mesh.RankMesh``,
+the rank with no process group, and ``moe_impl="ep"``, as the
+reference's; its arguments
+are the rank's own (``_build``): its block of the parameters and of the
+training state on both axes (``convert.local_tp_keep``: its heads, FFN
+units, vocabulary rows and experts over ``model``, its FSDP block over
+``data``), its rows of the batch over the data axes (``local_rows``:
+every row where the batch does not divide, as the reference's
+``batch_specs``), its caches by the port's heads and its rows of the
+VLM's image embeddings. The step then runs as that rank runs it, and
+every collective it calls goes through ``distributed.collectives``:
+over the stand-in's ``CountedGroup`` nothing moves and the result is
+made locally, and ``count`` tallies each by kind and group size (count
+and operand bytes; the forward, the backward and the remat recompute,
+a shared layer's FSDP gathers at each application). Those sums join the
+others in depth by repeat (every collective is a layer's, so linear in
+each stage's repeat); a replayed attention call has none. ``run_cell``
+writes them as the reference's ``collectives`` (``num_collectives``,
+``total_operand_bytes``, ``total_traffic_bytes`` by ``hlo.py``'s ring
+factors, ``by_kind``), and the roofline is ``common.hw.roofline_terms``
+at the card's dense bf16 rate, its ``collective_s`` the traffic over one
+NVLink link, as the reference's convention. Over an axis of one rank
+there is no group and nothing is called (the pod record's ``routed_ep``
+exchange is a copy, its reductions nothing). A live rank's own count
+(``count`` on its real tensors, under a live ``DeviceMesh``) equals the
+stand-in's at its coordinates (a ``RankMesh`` with ``one_rank_groups``,
+as a live mesh has a group on an axis of one rank);
+``tests/test_torch_dryrun_mesh.py`` holds them equal on gloo meshes.
+The dense, MoE, SSM, hybrid, audio and local/global families, MLA and
+MTP (``deepseek-v3-671b``) and the VLM family
+(``llama-3.2-vision-90b``, its ``image_embeds`` an argument of every
+cell) are counted: all ten of the reference's architectures (the
+SSD scan has no host read and no data-dependent shape). A MoE layer
+counts ``routed_ep`` as the reference compiles it, every expert over
+its buffer of ``cap = ceil(T·k / E · capacity_factor)`` rows of the
+rank's tokens. Where the port's layout is not the reference's (GQA
+heads that do not divide over the model axis run whole on every model
+rank, the MLA latent cache is whole on every rank, a batch of 1 is
+replicated), the port's is counted (ROADMAP §3).
 ``ctx_overrides`` may set ``moe_impl="dense"`` (the drop-free
 ``routed``, counted under even load, ``moe.expert_rows``) and
-``capacity_factor``. ``long_500k`` for the
-full-attention archs (the reference's reason) and every multi-pod cell
-(one card has no multi-pod mesh) get ``skipped`` records.
+``capacity_factor``. ``long_500k`` for the full-attention archs (the
+reference's reason) gets a ``skipped`` record on either mesh.
 """
 from __future__ import annotations
 
@@ -134,17 +159,17 @@ from repro_torch.common import hw
 from repro_torch.configs import SHAPES, get_config, list_configs, \
     shape_applicable
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shardlib
 from repro_torch.launch import specs as speclib
 from repro_torch.launch.mesh import Mesh, make_production_mesh
-from repro_torch.models import layers, model
+from repro_torch.models import convert, layers, model
 from repro_torch.models.layers import ModelContext, ShapesOnly, \
     current_scopes
 from repro_torch.train import OptimizerConfig
 from repro_torch.train.train_step import OPTIMIZER_SCOPE, \
-    make_train_state_shapes, make_train_step
+    make_train_state, make_train_step
 
-NO_MULTIPOD = "one card: no multi-pod mesh"
 #: the scope the plain attention loop's KV-block body runs in
 FLASH_SCOPE = "vmem_flash"
 
@@ -208,6 +233,9 @@ _RULES.update({op: _WRITE for op in _WRITE_OPS})
 _RULES.update({op: _GATHER for op in _GATHER_OPS})
 _RULES.update({op: _SCATTER for op in _SCATTER_OPS})
 _RULES.update({op: _SOFTMAX for op in _SOFTMAX_OPS})
+#: the namespaces of ``torch.distributed``'s ops, which a live rank's
+#: collectives dispatch as
+_COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional"})
 _POINTWISE_TAG = torch.Tag.pointwise
 _REDUCTION_TAG = getattr(torch.Tag, "reduction", None)
 
@@ -290,6 +318,8 @@ class Counter(TorchDispatchMode):
         # id(storage) -> [weakref, nbytes, flags]
         self._storages: Dict[int, list] = {}
         self.silent = False     # run ops without counting them
+        # the collectives called while counting (``count`` records them)
+        self.tally = collectives.Tally()
 
     # -- storages
     def _gone(self, key: int, nbytes: int) -> Callable:
@@ -331,7 +361,9 @@ class Counter(TorchDispatchMode):
     # -- dispatch
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if self.silent:
+        # a live rank's collectives are the seam's to count
+        # (``distributed.collectives``), not ops of their own
+        if self.silent or func.namespace in _COLLECTIVE_NAMESPACES:
             return out
         self.ops += 1
         outs = _outputs(out)
@@ -484,7 +516,7 @@ def count(fn: Callable, args: tuple, *,
     by the counts of one cell; None runs every call."""
     counter = Counter(fused_scopes)
     arg_bytes, arg_ids = _track_arguments(args, counter)
-    with counter:
+    with counter, collectives.recording(counter.tally):
         if memo is None:
             out = fn(*args)
         else:
@@ -501,28 +533,67 @@ def count(fn: Callable, args: tuple, *,
             out_bytes += st.nbytes()
             if id(st) in arg_ids:
                 alias_bytes += st.nbytes()
-    return {"flops": counter.flops, "matmul_flops": counter.matmul_flops,
-            "bytes": counter.bytes, "ops": counter.ops,
-            "argument_bytes": arg_bytes, "output_bytes": out_bytes,
-            "alias_bytes": alias_bytes, "peak_bytes": counter.peak,
-            "step_peak_bytes": counter.region_peak["step"],
-            "optimizer_peak_bytes": counter.region_peak[OPTIMIZER_SCOPE]}
+    out = {"flops": counter.flops, "matmul_flops": counter.matmul_flops,
+           "bytes": counter.bytes, "ops": counter.ops,
+           "argument_bytes": arg_bytes, "output_bytes": out_bytes,
+           "alias_bytes": alias_bytes, "peak_bytes": counter.peak,
+           "step_peak_bytes": counter.region_peak["step"],
+           "optimizer_peak_bytes": counter.region_peak[OPTIMIZER_SCOPE]}
+    for (kind, ways), (n, nbytes) in counter.tally.calls.items():
+        out[f"{_COLL} {kind} {ways} count"] = n
+        out[f"{_COLL} {kind} {ways} operand_bytes"] = nbytes
+    return out
+
+
+#: the prefix of a count's collective sums (``count``): one count and one
+#: operand-bytes sum a kind and group size, extrapolated by depth like
+#: every other sum
+_COLL = "collective"
+
+
+def collectives_of(counts: Dict[str, int]) -> dict:
+    """A count's (``count``, ``count_cell``) collectives as the record's
+    ``collectives`` (``distributed.collectives.summarize``)."""
+    calls: Dict[Tuple[str, int], list] = {}
+    for key, n in counts.items():
+        if key.startswith(_COLL + " "):
+            _, kind, ways, what = key.split(" ")
+            rec = calls.setdefault((kind, int(ways)), [0, 0])
+            rec[what == "operand_bytes"] = n
+    return collectives.summarize(calls)
 
 
 # ------------------------------------------------------------------ cells
+def local_rows(batch: int, ctx: ModelContext) -> int:
+    """The rows of a global batch of ``batch`` that a rank of ``ctx``'s
+    mesh takes: its share over the data axes, or every row where the
+    batch does not divide over them (replicated, as the reference's
+    ``batch_specs``: ``long_500k``'s batch of 1)."""
+    D = ctx.data_axes_size
+    return batch // D if batch % D == 0 else batch
+
+
 def _build(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
            opt_cfg: Optional[OptimizerConfig] = None,
            microbatch: int = 0) -> Tuple[Callable, tuple]:
-    """(step function, meta arguments) of one cell of ``cfg``."""
+    """(step function, meta arguments) of one cell of ``cfg`` on the rank
+    of ``ctx``'s mesh: its block of the parameters and of the training
+    state (``convert.local_tp_keep``), its rows of the batch and of the
+    VLM's image embeddings (``local_rows``) and its caches, by the port's
+    heads (``model.init_cache``)."""
+    keep = convert.local_tp_keep(cfg, ctx)
+    local = dataclasses.replace(shape,
+                                global_batch=local_rows(shape.global_batch,
+                                                        ctx))
     if shape.kind == "train":
         opt_cfg = opt_cfg or OptimizerConfig()
-        state = make_train_state_shapes(cfg, opt_cfg)
-        batch = speclib.train_batch_specs(cfg, shape)
+        state = make_train_state(ShapesOnly(), cfg, opt_cfg, keep=keep)
+        batch = speclib.train_batch_specs(cfg, local)
         return (make_train_step(cfg, ctx, opt_cfg, microbatch=microbatch),
                 (state, batch))
-    params = model.init(ShapesOnly(), cfg)
+    params = model.init(ShapesOnly(), cfg, keep=keep)
     if shape.kind == "prefill":
-        inputs = speclib.prefill_inputs(cfg, shape)
+        inputs = speclib.prefill_inputs(cfg, local)
 
         def fn(params, tokens, image_embeds=None):
             return model.prefill(params, tokens, cfg, ctx,
@@ -530,7 +601,7 @@ def _build(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
                                  image_embeds=image_embeds)
         args = (params, inputs["tokens"])
     elif shape.kind == "decode":
-        inputs = speclib.decode_inputs(cfg, shape)
+        inputs = speclib.decode_inputs(cfg, local, ctx=ctx)
 
         def fn(params, caches, token, pos, image_embeds=None):
             return model.decode_step(params, caches, token, pos, cfg, ctx,
@@ -627,8 +698,9 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
         out = dict(f0)
         for s, point in more.items():
             fs = at(_at_depth(cfg, point))
-            for k in out:
-                out[k] += (repeats[s] - base[s]) * (fs[k] - f0[k])
+            for k in set(out) | set(fs):
+                out[k] = out.get(k, 0) + (repeats[s] - base[s]) * (
+                    fs.get(k, 0) - f0.get(k, 0))
     # each region's peak is extrapolated on its own, their maximum is not
     # linear: the optimizer's grows faster and overtakes a deep cell's
     # backward (module docstring)
@@ -646,22 +718,22 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              mesh: Optional[Mesh] = None,
              ctx_overrides: Optional[dict] = None,
              unroll: bool = False) -> Dict[str, Any]:
-    """Count one cell; return the roofline artifact dict.
+    """Count one cell on the rank at the origin of ``mesh`` (by default
+    the production mesh, ``multi_pod``'s); return the roofline artifact
+    dict.
 
     ctx_overrides may carry the pseudo-keys ``fused_scopes`` (scope
     names whose ops the flash kernels keep on chip) and ``microbatch``;
     the rest override ModelContext fields, and a reference-only or
     unknown field raises ``ValueError``."""
     over, microbatch, fused = split_overrides(ctx_overrides)
-    if multi_pod:
-        return _skip(arch, shape_name, NO_MULTIPOD)
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return _skip(arch, shape_name, why)
     if mesh is None:
-        mesh = make_production_mesh()
+        mesh = make_production_mesh(multi_pod=multi_pod)
     n_dev = mesh.size
     t0 = time.perf_counter()
     try:
@@ -676,8 +748,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     t_count = time.perf_counter() - t0
 
     flops, bytes_accessed = c["flops"], c["bytes"]
-    coll = {"num_collectives": 0, "total_operand_bytes": 0,
-            "total_traffic_bytes": 0, "by_kind": {}}
+    coll = collectives_of(c)
     terms = hw.roofline_terms(flops, bytes_accessed,
                               coll["total_traffic_bytes"])
     mf_total = speclib.model_flops(cfg, shape)
@@ -720,7 +791,7 @@ def run_matrix(archs, shapes, *, multi_pod: bool, out_dir: str,
                force: bool = False, ctx_overrides: Optional[dict] = None,
                tag: str = "", unroll: bool = False) -> list:
     os.makedirs(out_dir, exist_ok=True)
-    mesh = None if multi_pod else make_production_mesh()
+    mesh = make_production_mesh(multi_pod=multi_pod)
     results = []
     mesh_name = ("multipod" if multi_pod else "pod") + (f"-{tag}" if tag
                                                         else "")

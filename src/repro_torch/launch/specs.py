@@ -46,12 +46,15 @@ def prefill_inputs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     return _with_image_embeds(cfg, B, {"tokens": _tokens(B, S)})
 
 
-def decode_inputs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+def decode_inputs(cfg: ModelConfig, shape: ShapeConfig, *,
+                  ctx=None) -> Dict[str, Any]:
     """One new token against a cache of length shape.seq_len, written at
-    the cache's last row."""
+    the cache's last row; the caches of a rank of ``ctx``'s mesh
+    (``model.init_cache``: its KV and Mamba2 heads where the model axis
+    splits them)."""
     B, S = shape.global_batch, shape.seq_len
     return _with_image_embeds(cfg, B, {
-        "caches": model.init_cache(cfg, B, S, device=META),
+        "caches": model.init_cache(cfg, B, S, device=META, ctx=ctx),
         "token": _tokens(B, 1),
         "pos": S - 1,
     })

@@ -33,8 +33,10 @@ the reference's does.
 
 The dry-run (``launch.dryrun_lib``, ``meta`` tensors) counts
 ``routed_ep`` as the reference's dry-run compiles it: its context's mesh
-is ``launch.mesh.OneRankMesh``, one rank and no process group, whose
-exchange is a copy; every expert runs over its ``cap`` rows. ``routed``
+is ``launch.mesh.RankMesh``, one rank of the mesh and no process group,
+whose exchanges and gathers are counted, not run
+(``distributed.collectives``; over a model axis of one rank the exchange
+is a copy); every expert runs over its ``cap`` rows. ``routed``
 on ``meta`` tensors (a context without a mesh, or ``moe_impl="dense"``)
 has no expert choices to count, so its per-expert counts come from a
 stated routing model instead of the one host read: even load, ``T·k //
@@ -47,9 +49,9 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 
@@ -91,12 +93,10 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # switch-style aux: E * sum_e f_e * P_e, f_e the share of the T
     # tokens' k choices that went to e (counted, so exact)
-    flat = idx.reshape(-1)
-    # meta tensors have no counts: an [E] stand-in of the counts' type.
-    # A one-hot sum, as the reference's, not bincount, which reads the
-    # largest id to the host on the card
-    counts = flat.new_empty(E) if flat.is_meta else \
-        _one_hot(flat, E).sum(1)
+    # a one-hot sum, as the reference's, not bincount, which reads the
+    # largest id to the host on the card (and runs on meta tensors, so
+    # the dry-run counts it as a rank runs it)
+    counts = _one_hot(idx.reshape(-1), E).sum(1)
     f = counts.float() / T
     aux = E * torch.sum(f * probs.mean(0))
     return gates.to(xt.dtype), idx, aux
@@ -184,13 +184,13 @@ def _expert_ffn(h: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def _all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
-    """``all_to_all_single`` of equal blocks over ``group``; over the
-    dry-run's one-rank mesh (``launch.mesh.OneRankMesh``, no group) the
+    """``all_to_all_single`` of equal blocks over ``group``
+    (``distributed.collectives``); over an axis of one rank (no group) the
     exchange of one rank with itself, a copy."""
     if group is None:
         out.copy_(x)
     else:
-        dist.all_to_all_single(out, x, group=group)
+        C.all_to_all_single(out, x, group)
 
 
 class _Exchange(torch.autograd.Function):
@@ -227,7 +227,7 @@ class _ModelMean(torch.autograd.Function):
         fctx.M = M
         out = v.clone()
         if group is not None:
-            dist.all_reduce(out, group=group)
+            out = C.all_reduce(out, group)
         return out / M
 
     @staticmethod
@@ -236,9 +236,7 @@ class _ModelMean(torch.autograd.Function):
 
 
 def _gather_seq(y: torch.Tensor, group) -> torch.Tensor:
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, y.contiguous(), group=group)
-    return torch.cat(parts, dim=1)
+    return C.all_gather(y, group, 1)
 
 
 class _SeqSlice(torch.autograd.Function):

@@ -45,14 +45,20 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in _walk(tree, ())]
 
 
+def _rebuild(tree, path: Tuple[str, ...], flat: Mapping[str, Any]):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, path + (str(k),), flat)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, path + (f"[{i}]",), flat)
+                          for i, v in enumerate(tree))
+    return flat["/".join(path)]
+
+
 def unflatten_like(like, flat: Mapping[str, Any]):
     """A tree of ``like``'s structure whose leaves are ``flat[name]``;
-    raises ``KeyError`` for a name ``flat`` lacks."""
-    def rebuild(tree, path: Tuple[str, ...]):
-        if isinstance(tree, dict):
-            return {k: rebuild(v, path + (str(k),)) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(rebuild(v, path + (f"[{i}]",))
-                              for i, v in enumerate(tree))
-        return flat["/".join(path)]
-    return rebuild(like, ())
+    raises ``KeyError`` for a name ``flat`` lacks. (A module-level
+    helper, not a nested function that calls itself: that would be a
+    reference cycle holding ``flat``'s tensors, such as a layer's
+    gathered FSDP leaves, until the garbage collector runs.)"""
+    return _rebuild(like, (), flat)

@@ -25,6 +25,7 @@ from repro.launch import dryrun_lib as jdry
 from repro.launch import specs as jspecs
 from repro_torch.bench.views import roofline
 from repro_torch.common import hlo, hw
+from repro_torch.distributed import collectives
 from repro_torch.configs import SHAPES, get_config, list_configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import use_device
@@ -125,8 +126,9 @@ def test_long_500k_is_skipped_with_the_references_reason(arch):
 def test_other_families_and_multi_pod_are_skipped():
     """Every architecture of the reference is counted: MLA with MTP and
     the VLM family too (their smoke cells are held to the reference's in
-    tests/test_torch_dryrun_stages.py); only multi-pod cells and
-    ``long_500k`` (below) are skipped."""
+    tests/test_torch_dryrun_stages.py), and on the multi-pod mesh too (a
+    rank of 2 x 16 x 16, tests/test_torch_dryrun_mesh.py); only
+    ``long_500k`` of the full-attention archs (below) is skipped."""
     assert list_configs() == jlist_configs() == dryrun_lib.all_archs()
     assert len(dryrun_lib.all_archs()) == 10
     # the MoE cells are counted (even load on meta tensors), MLA's and
@@ -136,9 +138,14 @@ def test_other_families_and_multi_pod_are_skipped():
         rec = dryrun_lib.run_cell(arch, "decode_32k")
         assert rec["status"] == "ok", rec.get("error")
     for arch in ("qwen2-7b", "deepseek-moe-16b", "deepseek-v3-671b"):
-        rec = dryrun_lib.run_cell(arch, "train_4k", multi_pod=True)
-        assert (rec["status"], rec["reason"]) == \
-            ("skipped", "one card: no multi-pod mesh")
+        rec = dryrun_lib.run_cell(arch, "decode_32k", multi_pod=True)
+        assert rec["status"] == "ok", rec.get("error")
+        assert (rec["mesh"], rec["num_devices"]) == \
+            ({"pod": 2, "data": 16, "model": 16}, 512)
+        assert rec["collectives"]["num_collectives"] > 0
+    rec = dryrun_lib.run_cell("qwen2-7b", "long_500k", multi_pod=True)
+    assert rec == jdry.run_cell("qwen2-7b", "long_500k", multi_pod=True)
+    assert rec["status"] == "skipped"
 
 
 # Depth by repeat against every layer counted. Train and prefill run at
@@ -442,7 +449,7 @@ def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
                         "--shape", "decode_32k", "--shape", "long_500k",
                         "--out", out])
     assert code == 0
-    assert "dry-run: 2 ok, 6 skipped, 0 errors" in capsys.readouterr().out
+    assert "dry-run: 4 ok, 4 skipped, 0 errors" in capsys.readouterr().out
     names = sorted(os.path.basename(p) for p in glob.glob(out + "/*.json"))
     assert names == sorted(f"{a}__{s}__{m}.json"
                            for a in (SMOKE, "llama-3.2-vision-90b")
@@ -450,14 +457,14 @@ def test_cli_writes_records_the_roofline_view_reads(tmp_path, monkeypatch,
                            for m in ("pod", "multipod"))
     recs = {n: json.load(open(os.path.join(out, n))) for n in names}
     for n, r in recs.items():
-        want = "ok" if n.endswith("__decode_32k__pod.json") else "skipped"
+        want = "ok" if "__decode_32k__" in n else "skipped"
         assert r["status"] == want, n
         assert r["mesh_name"] == n.split("__")[2][:-5]
     monkeypatch.setattr(roofline, "DRYRUN_DIR", out)
     monkeypatch.chdir(tmp_path)
     rows = roofline.run()
     assert rows[0] == ("roofline.matrix", 0.0,
-                       "pod ok=2 skipped=2 err=0; multipod ok=0")
+                       "pod ok=2 skipped=2 err=0; multipod ok=2")
     cell = [r for r in rows if r[0] == f"roofline.{SMOKE}.decode_32k"]
     assert len(cell) == 1 and cell[0][1] > 0
     # a second run reads the records back
@@ -541,16 +548,31 @@ def test_no_kernel_is_reached(monkeypatch):
 
 
 def test_the_mesh_is_one_card():
+    """The production meshes: the pod record's one card, and the
+    reference's multi-pod mesh (counted one rank at a time); a live mesh
+    of more than one rank, three axes too, needs a world of its size."""
     mesh = make_production_mesh()
     assert (mesh.shape, mesh.size) == ({"data": 1, "model": 1}, 1)
-    with pytest.raises(ValueError, match="one card"):
-        make_production_mesh(multi_pod=True)
+    multi = make_production_mesh(multi_pod=True)
+    assert (multi.shape, multi.size) == (
+        {"pod": 2, "data": 16, "model": 16}, 512)
+    ctx = sharding.make_context(multi.shape)
+    assert (ctx.data_axes, ctx.tp_size, ctx.data_axes_size,
+            ctx.mesh.coords) == (("pod", "data"), 16, 32, (0, 0, 0))
+    assert ctx.mesh.get_group("model") == collectives.CountedGroup(
+        "model", 16)
     with use_device("cpu"):
+        with pytest.raises(ValueError, match="2 x 1 x 2 mesh needs an "
+                           "initialised world of 4"):
+            make_host_mesh(data=1, model=2, pod=2)
+        assert not torch.distributed.is_initialized()
         try:
             host = make_host_mesh()
             assert dict(zip(host.mesh_dim_names, host.shape)) == \
                 {"data": 1, "model": 1}
             with pytest.raises(ValueError, match="world of 2"):
                 make_host_mesh(data=2)
+            with pytest.raises(ValueError, match="world of 4"):
+                make_host_mesh(data=2, pod=2)
         finally:
             torch.distributed.destroy_process_group()

@@ -36,7 +36,8 @@ from repro.models import moe as JMOE
 from repro_torch.configs import get_config
 from repro_torch.device import use_device
 from repro_torch.distributed import sharding
-from repro_torch.launch.mesh import OneRankMesh, make_host_mesh
+from repro_torch.distributed.collectives import CountedGroup
+from repro_torch.launch.mesh import RankMesh, make_host_mesh
 from repro_torch.models import convert, layers as L, moe
 from repro_torch.serve import engine
 
@@ -115,12 +116,16 @@ def test_make_context_on_a_live_mesh_picks_ep(mesh):
         (None, "dense", 1)
     # plain axis sizes (the dry-run's) give the one-rank stand-in
     counted = sharding.make_context({"data": 1, "model": 1})
-    assert isinstance(counted.mesh, OneRankMesh)
+    assert isinstance(counted.mesh, RankMesh)
     assert (counted.moe_impl, counted.model_axis_size,
             counted.data_axes_size, counted.mesh.get_group("model")) == \
         ("ep", 1, 1, None)
-    with pytest.raises(ValueError, match="item 16 \\(d\\)"):
-        sharding.make_context({"data": 1, "model": 2})
+    # more ranks: the stand-in of the rank at the origin, whose model
+    # axis's group is counted, not live
+    two = sharding.make_context({"data": 1, "model": 2})
+    assert (two.model_axis_size, two.mesh.get_local_rank("model"),
+            two.mesh.get_group("model"), two.mesh.get_group("data")) == \
+        (2, 0, CountedGroup("model", 2), None)
     with pytest.raises(ValueError, match="moe_impl"):
         L.ModelContext(moe_impl="sparse")
 
@@ -195,7 +200,7 @@ def test_routed_ep_refuses_the_wrong_experts_and_a_backward(mesh):
     (g,) = torch.autograd.grad(y.sum() + aux, [xg])
     assert g.shape == xg.shape and bool(torch.isfinite(g).all())
 
-    class TwoRanks(OneRankMesh):
+    class TwoRanks(RankMesh):
         def size(self, dim=None):
             return 2 if dim == 1 else 1
     two = L.ModelContext(mesh=TwoRanks(), moe_impl="ep")
@@ -302,7 +307,7 @@ dist.init_process_group("gloo", store=dist.FileStore(sys.argv[3], world),
 from repro_torch.configs import get_config
 from repro_torch.device import set_device
 from repro_torch.distributed.sharding import make_context
-from repro_torch.launch.mesh import OneRankMesh, make_host_mesh
+from repro_torch.launch.mesh import RankMesh, make_host_mesh
 from repro_torch.models import convert, moe
 set_device("cpu")
 data = np.load(sys.argv[4])

@@ -67,7 +67,7 @@ from repro_torch.checkpoint import restore_pytree
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.launch.mesh import OneRankMesh
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.models import convert, layers as L, model
 from repro_torch.models.layers import ModelContext, ShapesOnly
 from repro_torch.train import OptimizerConfig
@@ -599,7 +599,7 @@ def _outside(have: dict, want: dict, limit) -> tuple:
     return out, total
 
 
-class _Axis(OneRankMesh):
+class _Axis(RankMesh):
     """A stand-in mesh: rank ``(d, m)`` of a ``D x M`` mesh (one data rank
     unless ``D`` says more) and no process group (the layout needs no
     collective)."""
