@@ -219,8 +219,9 @@ and prints no result line:
    step ms (median of steps 2-6), tokens/s and the peak device memory.
    Then one step with int8 gradient compression and one with
    ``microbatch=1`` (2 slices, twice the launches). (c) ``python -m
-   repro_torch.launch.train --arch qwen2-7b-smoke`` in a subprocess for
-   2 steps, then again to 3 (6 and 9 before phase 24): it must print
+   repro_torch.launch.train --arch qwen2-7b-smoke``'s entry point in a
+   subprocess for 2 steps, then again to 3 in the same one (6 and 9
+   before phase 24): it must print
    ``resumed from step 2``, and the step-2 checkpoint restored on the
    card must equal its stored leaves bit for bit. Prints the phase's
    seconds.
@@ -402,11 +403,12 @@ and prints no result line:
    ``deepseek-moe-16b``; prints each cell's median step ms, tokens/s
    and peak; (c) each (b) cell counted by ``dryrun_lib.count_cell`` in a
    subprocess that never touches CUDA (started with the phase): the
-   predicted peak within 0.85-1.15 of the measured one; (d) ``python
-   -m repro_torch.launch.train --arch <a>-smoke --steps 1`` for the
-   seven non-dense families and ``llama-3.2-vision-90b-smoke`` for 1
-   step, all at once beside (a), then that run resumed to 2 beside (b),
-   its step-1 checkpoint restored on the card bit for bit after (b).
+   predicted peak within 0.85-1.15 of the measured one; (d) the
+   launcher's entry point (``launch.train.main``) at ``--arch
+   <a>-smoke --steps 1`` for the seven non-dense families
+   (``llama-3.2-vision-90b-smoke``'s run checkpointed), then that run
+   resumed to 2, in turn in one subprocess beside (a), its step-1
+   checkpoint restored on the card bit for bit after (a).
    A cross
    layer's one-element gate gradient, a sum whose terms cancel, is held
    in (a) by its terms: the gate broadcast to a [B, S, d] field of its
@@ -545,7 +547,7 @@ and prints no result line:
    its parameter bytes equal to the layout's count and below the whole
    model's. (a) ``deepseek-v3-671b`` at full width, 1 dense and 1 MoE
    MLA layer (all 256 experts through ``routed_ep``), bf16: a 2 x 1024
-   prefill and 8 greedy decode steps through ``engine.generate``, no
+   prefill and 4 greedy decode steps through ``engine.generate``, no
    flash launch (MLA's q/k 192, v 128 take the plain loop); float32 at
    1 MLA layer and the MTP module: the prefill's logits at 2 x 512 and
    one step's loss (its MTP term included) and every gradient block at
@@ -562,8 +564,21 @@ and prints no result line:
    1e-5 and each rank's block of each gradient leaf within 1e-4 of that
    leaf's largest |element| of the world of one's, which this process
    computes first, one run at a time, and writes to the temporary
-   directory (one file a rank) while the ranks serve. Times are a
-   shared card's over gloo. The phase must end within 300 s.
+   directory (one file a rank) while the ranks serve; (a)'s float32
+   check then decodes 4 greedy steps on its MLA latent cache cut over
+   the model axis, each step's logits against the world of one's and
+   each rank's cache bytes the layout's half ((d4)). (d), on the same
+   ranks, float32 against worlds of one: ``deepseek-moe-16b`` at 1
+   dense + 1 MoE layer, the step's gradient (1) under ``no_tp`` over
+   the 2 ranks as data ranks (the dense route's aux the global
+   batch's), (1) with the dense route under ``seq_shard_residual`` and
+   (2) through ``routed_ep`` at 1 x 511, every rank routing every
+   position (loss, global norm and 4,096 seeded elements of every
+   gradient block); (3) ``gemma3-4b`` at 6 layers under ``no_tp``, a
+   batch of 1 of 1,536 tokens and 8 decode steps on caches cut on the
+   sequence over the 2 ranks (each step's logits, the ids, each rank's
+   cache bytes the layout's half). Times are a shared card's over
+   gloo. The phase must end within 300 s.
 
 Before phases 3 to 11 and 14 to 24 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
@@ -3256,33 +3271,23 @@ def _lm_train_steps(card):
 
 
 #: (c)'s launcher runs: the first, then its resume (6 and 9 until phase
-#: 24 needed the time; a fresh process's start dominates either)
+#: 24 needed the time), in one process since PR 36 (``LAUNCHERS``)
 LM_LAUNCHER_STEPS = (2, 3)
 
 
 def _lm_launcher():
-    """(c): the launcher in a subprocess on the card, then its resume."""
+    """(c): the launcher on the card, then its resume, in turn in one
+    subprocess (``_launchers_start``)."""
     import tempfile
     os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="lm_launcher_",
                             dir=os.path.join(ROOT, "artifacts"))
-    env = dict(os.environ, PYTHONPATH=SRC)
-    outs = []
-    first = LM_LAUNCHER_STEPS[0]
-    for steps in LM_LAUNCHER_STEPS:
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "qwen2-7b-smoke", "--steps", str(steps), "--ckpt-every", "3",
-             "--ckpt", ckpt], capture_output=True, text=True, timeout=300,
-            env=env, cwd=ROOT)
-        dt = time.perf_counter() - t0
-        for line in (r.stdout + r.stderr).strip().splitlines()[-6:]:
-            print(f"(c) --steps {steps}: {line}")
-        check(r.returncode == 0, f"(c) the launcher exited {r.returncode}")
-        outs.append(r.stdout)
-        print(f"(c) --steps {steps}: {dt} s")
-    check(f"resumed from step {first}" in outs[1],
+    first, then = LM_LAUNCHER_STEPS
+    runs = {f"qwen2-7b-smoke --steps {n}": _launcher_argv("qwen2-7b", n, ckpt)
+            for n in LM_LAUNCHER_STEPS}
+    outs = _launchers_finish("(c)", *_launchers_start(runs), 300)
+    check(f"resumed from step {first}" in
+          outs[f"qwen2-7b-smoke --steps {then}"],
           f"(c) the second run did not resume from step {first}")
     _restored_on_card_bit_for_bit("(c)", os.path.join(ckpt,
                                                       f"step_{first}"),
@@ -3868,8 +3873,8 @@ def _capture_routes(fn):
     from repro_torch.models import moe
     real, records = moe.route, []
 
-    def route(xt, router, k):
-        gates, idx, aux = real(xt, router, k)
+    def route(xt, router, k, over=None):
+        gates, idx, aux = real(xt, router, k, over)
         top = torch.topk(torch.softmax(xt.float() @ router, dim=-1), k + 1,
                          dim=-1).values
         records.append({"idx": idx.sort(dim=-1).values,
@@ -5255,7 +5260,6 @@ def phase_family_train(profile=False):
     torch.cuda.empty_cache()
     _allocator("expandable_segments:True")
     print("phase 19 allocator: expandable_segments:True")
-    resume = None
     try:
         launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
         for arch, (cut, want) in FAMILY_CHECK.items():
@@ -5264,7 +5268,8 @@ def phase_family_train(profile=False):
                 launches[name] += n
             _release()
         print(f"(a) done at {time.perf_counter() - t_phase} s")
-        resume = _family_launchers_finish(*launchers)
+        _family_launchers_finish(*launchers)
+        print(f"(d) done at {time.perf_counter() - t_phase} s")
         measured = {}
         for arch, (cut, want) in FAMILY_TRAIN.items():
             got, measured[arch] = _family_train_steps(arch, cut, want,
@@ -5273,15 +5278,12 @@ def phase_family_train(profile=False):
                 launches[name] += n
             _release()
         print(f"(b) done at {time.perf_counter() - t_phase} s")
-        _family_resume_finish(*resume)
-        print(f"(d) done at {time.perf_counter() - t_phase} s")
         _family_peaks(procs, measured, card)
         MEASURED["family_train"] = {arch: {"step_s": m["step_s"],
                                            "peak": m["peak"]}
                                     for arch, m in measured.items()}
     finally:
-        for p in list(procs.values()) + list(launchers[1].values()) + (
-                [resume[1]] if resume else []):
+        for p in list(procs.values()) + [launchers[2]]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
@@ -5672,76 +5674,103 @@ def _family_peaks(procs, measured, card):
               f"(c) {arch}: predicted/measured peak {ratio}")
 
 
+#: launcher runs in one process, in turn: each is the launcher's entry
+#: point, ``launch.train.main(argv)``, as ``python -m
+#: repro_torch.launch.train`` calls it, its output captured by label. A
+#: resumed run reads the checkpoint that an earlier run of the list
+#: wrote. One process shares the imports and the card's context, and a
+#: fresh process's first steps on the card cost ~10-30 s (phase 11's
+#: launcher took 9.48 s a step, PR 36): until PR 36 phase 19's eight
+#: runs were eight processes and phase 11's two were two.
+LAUNCHERS = """\
+import contextlib, io, json, sys
+from repro_torch.launch import train
+out = {}
+for label, argv in json.loads(sys.argv[1]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    out[label] = [rc, buf.getvalue()]
+    print(label, "exit", rc, file=sys.stderr, flush=True)
+print(json.dumps(out))
+"""
+
+
+def _launcher_argv(arch, steps, ckpt):
+    return ["--arch", f"{arch}-smoke", "--steps", str(steps),
+            "--ckpt-every", "3", "--ckpt", ckpt]
+
+
+def _launchers_start(runs):
+    """``runs`` ({label: argv}, each label ending in ``--steps N``) in
+    turn in one subprocess (``LAUNCHERS``). Returns (runs, the process,
+    its start) for ``_launchers_finish``."""
+    p = subprocess.Popen(
+        [sys.executable, "-c", LAUNCHERS, json.dumps(list(runs.items()))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+    return runs, p, time.perf_counter()
+
+
+def _launchers_finish(label, runs, p, t0, timeout):
+    """Wait for ``_launchers_start``'s process (within ``timeout`` s of
+    its start): each run must exit 0 having done its steps. Returns
+    {label: output}."""
+    try:
+        out, err = p.communicate(timeout=max(
+            1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    check(p.returncode == 0, f"{label} the launchers' process exited "
+                             f"{p.returncode}: {err.strip()[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    check(list(got) == list(runs), f"{label} launcher runs {list(got)}")
+    outs = {}
+    for name, (rc, text) in got.items():
+        for line in text.strip().splitlines()[-3:]:
+            print(f"{label} {name}: {line}")
+        check(rc == 0, f"{label} the launcher at {name} exited {rc}")
+        steps = name.rsplit(" ", 1)[-1]
+        check(f"done: {steps} steps" in text,
+              f"{label} the launcher at {name} did not finish {steps} "
+              f"steps")
+        outs[name] = text
+    print(f"{label} {len(runs)} launcher runs in turn in one process: "
+          f"{time.perf_counter() - t0} s")
+    return outs
+
+
 def _family_launchers_start():
-    """(d), started with the phase: ``python -m repro_torch.launch.train
-    --arch <a>-smoke --steps FAMILY_LAUNCHER_STEPS`` for each family, one
-    subprocess each, all at once, beside a run of ``FAMILY_RESUME_ARCH``
-    to the first of ``FAMILY_RESUME_STEPS`` with a checkpoint every 3.
-    Returns (scratch directory, processes)."""
+    """(d), started with the phase: the launcher at ``--arch <a>-smoke
+    --steps FAMILY_LAUNCHER_STEPS`` for each family, a run of
+    ``FAMILY_RESUME_ARCH`` to the first of ``FAMILY_RESUME_STEPS`` with a
+    checkpoint every 3 (its family run), and that run's resumption to the
+    second, in turn in one subprocess (``_launchers_start``). Returns
+    (scratch directory, runs, the process, its start)."""
     import tempfile
     os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="family_launcher_",
                             dir=os.path.join(ROOT, "artifacts"))
     n = FAMILY_LAUNCHER_STEPS
-    procs = {f"{arch}-smoke --steps {n}": _launcher(
+    runs = {f"{arch}-smoke --steps {n}": _launcher_argv(
         arch, n, os.path.join(root, arch)) for arch in FAMILY_LAUNCHER_ARCHS}
-    first = FAMILY_RESUME_STEPS[0]
-    procs[f"{FAMILY_RESUME_ARCH}-smoke --steps {first}"] = _launcher(
-        FAMILY_RESUME_ARCH, first, os.path.join(root, "resume"))
-    return root, procs, time.perf_counter()
+    for steps in FAMILY_RESUME_STEPS:
+        runs[f"{FAMILY_RESUME_ARCH}-smoke --steps {steps}"] = _launcher_argv(
+            FAMILY_RESUME_ARCH, steps, os.path.join(root, "resume"))
+    return (root,) + _launchers_start(runs)
 
 
-def _launcher(arch, steps, ckpt):
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         f"{arch}-smoke", "--steps", str(steps), "--ckpt-every", "3",
-         "--ckpt", ckpt], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
-
-
-def _launcher_done(label, p, t0):
-    """Wait for one launcher run (within ``FAMILY_LAUNCHER_TIMEOUT_S`` of
-    ``t0``); it must exit 0 having done its steps. Returns its output."""
-    try:
-        out, _ = p.communicate(timeout=max(1.0, FAMILY_LAUNCHER_TIMEOUT_S - (
-            time.perf_counter() - t0)))
-    finally:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    for line in out.strip().splitlines()[-3:]:
-        print(f"(d) {label}: {line}")
-    check(p.returncode == 0, f"(d) the launcher at {label} exited "
-                             f"{p.returncode}")
-    steps = label.rsplit(" ", 1)[-1]
-    check(f"done: {steps} steps" in out,
-          f"(d) the launcher at {label} did not finish {steps} steps")
-    return out
-
-
-def _family_launchers_finish(root, procs, t0):
-    """(d): the runs of ``_family_launchers_start``, then the first
-    ``FAMILY_RESUME_STEPS`` run's resumption to the second started, to
-    run beside (b). Returns (scratch directory, that process, its start)
-    for ``_family_resume_finish``."""
-    for label, p in procs.items():
-        _launcher_done(label, p, t0)
-    print(f"(d) {len(procs)} launcher runs at once: "
-          f"{time.perf_counter() - t0} s")
-    return root, _launcher(FAMILY_RESUME_ARCH, FAMILY_RESUME_STEPS[1],
-                           os.path.join(root, "resume")), time.perf_counter()
-
-
-def _family_resume_finish(root, p, t1):
-    """(d): the resumed run of ``_family_launchers_finish`` must resume
-    from the first of ``FAMILY_RESUME_STEPS``; that checkpoint is then
-    restored on the card bit for bit."""
+def _family_launchers_finish(root, runs, p, t0):
+    """(d): the runs of ``_family_launchers_start``; the resumed run
+    must resume from the first of ``FAMILY_RESUME_STEPS``, and that
+    checkpoint is then restored on the card bit for bit."""
     first, then = FAMILY_RESUME_STEPS
-    out = _launcher_done(f"{FAMILY_RESUME_ARCH}-smoke --steps {then}", p,
-                         t1)
-    check(f"resumed from step {first}" in out,
+    outs = _launchers_finish("(d)", runs, p, t0, FAMILY_LAUNCHER_TIMEOUT_S)
+    check(f"resumed from step {first}" in
+          outs[f"{FAMILY_RESUME_ARCH}-smoke --steps {then}"],
           f"(d) the second run did not resume from step {first}")
-    print(f"(d) the resumed run, beside (b): {time.perf_counter() - t1} s")
     _restored_on_card_bit_for_bit("(d)", os.path.join(root, "resume",
                                                       f"step_{first}"),
                                   f"{FAMILY_RESUME_ARCH}-smoke")
@@ -7294,7 +7323,9 @@ def phase_tp():
 
 # ---------------------------------------------------------------- phase 24
 TPF_RANKS = 2                   # model axis; both ranks on the one card
-TPF_BATCH, TPF_PROMPT, TPF_NEW = 2, 1024, 8     # TPF_NEW decode steps
+#: TPF_NEW decode steps (8 until PR 36: zamba2's ran 0.4-2.2 s a step
+#: on the shared card over gloo, PR 36 made room for part (d))
+TPF_BATCH, TPF_PROMPT, TPF_NEW = 2, 1024, 4
 TPF_CHECK_PROMPT = 512          # the float32 logits: TPF_BATCH x this
 TPF_TRAIN_SEQ = 512             # the float32 step: 1 x this
 #: each run: (tag, arch, the bf16 serving cut, the float32 cut, the
@@ -7340,6 +7371,51 @@ TPF_NORM_RTOL = 1e-5
 TPF_BF16_RTOL = 5e-2
 TPF_RANK_TIMEOUT_S = 420
 PHASE24_LIMIT_S = 300
+#: (d4): the runs whose float32 check also decodes TPF_CHECK_NEW greedy
+#: steps from its prefill, logits against the world of one's at every
+#: step: V3's MLA latent cache cut over the model axis
+TPF_DECODE_RUNS, TPF_CHECK_NEW = ("a",), 4
+#: (d): the layouts the port once refused and the decode caches cut as
+#: the reference's ``cache_specs`` cuts them, float32 over the same two
+#: ranks, each against a world of one computed first in the phase's
+#: process: (tag, arch, cut, context fields, what runs). The MoE cut: 1
+#: dense + 1 MoE layer (64 experts, the dense route or routed_ep);
+#: gemma3-4b: 5 window + 1 global layer.
+TPF_D_MOE_CUT = dict(num_layers=2, first_dense_layers=1)
+TPF_D_RUNS = (
+    # (d1) the dense route over 2 data ranks (the no_tp hint's default):
+    # the global batch's load-balance aux
+    ("d1-notp", "deepseek-moe-16b", TPF_D_MOE_CUT, dict(no_tp=True),
+     "grads"),
+    # (d1) the dense route under seq_shard_residual over the model axis
+    ("d1-seq", "deepseek-moe-16b", TPF_D_MOE_CUT,
+     dict(moe_impl="dense", seq_shard_residual=True), "grads"),
+    # (d2) routed_ep under autograd at 1 x 511 (every rank routes every
+    # position; E/k: no pair drops, the world of one's dense route)
+    ("d2-odd", "deepseek-moe-16b", TPF_D_MOE_CUT,
+     dict(capacity_factor=64 / 6), "grads"),
+    # (d3) a batch of 1 over 2 data ranks: its caches cut on the sequence
+    ("d3-ctx", "gemma3-4b", dict(num_layers=6),
+     dict(no_tp=True, batch_replicated=True), "decode"),
+)
+#: (d1)'s batch (whole on each rank under the hint, a row a rank under
+#: no_tp), (d2)'s: tokens [b, s + 1]
+TPF_D_BATCH = {"d1-notp": (2, 512), "d1-seq": (2, 512), "d2-odd": (1, 511)}
+#: (d3): a prompt longer than the window (1,024), so that the ring's and
+#: the global cache's rows spread over both ranks, then greedy steps
+TPF_D_PROMPT, TPF_D_NEW = 1536, 8
+#: the flash launches a rank in (d): the MoE cut's attention (16/16
+#: heads of 128; 8/8 a rank where the model axis splits it) in float32,
+#: its two layers' forward and remat recompute; gemma3-4b's head dim 256
+#: and windows take the plain loop
+TPF_D_LAUNCHES = {"d1-notp": {"flash_attention": 4},
+                  "d1-seq": {"flash_attention": 4},
+                  "d2-odd": {"flash_attention": 4}, "d3-ctx": {}}
+#: (d)'s gradients: each leaf's block at TPF_D_SAMPLES seeded elements
+#: against the world of one's, over the leaf's largest |element| (a
+#: whole block of the MoE cut is ~4.5 GB a case: too much to write),
+#: beside the global norm, which every element enters
+TPF_D_SAMPLES = 4096
 
 TPF_RANK = """\
 import dataclasses, gc, json, os, sys, time
@@ -7364,6 +7440,7 @@ from repro_torch.models.layers import ShapesOnly
 from repro_torch.serve import engine
 from repro_torch.train import OptimizerConfig
 from repro_torch.train.optimizer import global_norm
+from repro_torch.train import train_step
 from repro_torch.train.train_step import (make_grads_fn, make_train_state,
                                           make_train_state_shapes,
                                           make_train_step)
@@ -7398,16 +7475,17 @@ def release():
     torch.cuda.empty_cache()
 
 
-def build(cfg, opt_cfg=None):
+def build(cfg, opt_cfg=None, kctx=None):
     # each rank in turn makes the model (with opt_cfg: a train state) from
     # one seed, a top-level leaf or a layer at a time, and keeps its block
-    # (convert.local_tp_keep): no rank holds the whole model, and one
-    # whole layer at most is made on the card at a time
+    # (convert.local_tp_keep; kctx: another context's): no rank holds the
+    # whole model, and one whole layer at most is made on the card at a
+    # time
     out = None
     for r in range(world):
         if r == rank:
             gen = torch.Generator(device=dev).manual_seed(0)
-            keep = convert.local_tp_keep(cfg, ctx)
+            keep = convert.local_tp_keep(cfg, kctx or ctx)
             out = (model.init(gen, cfg, keep=keep) if opt_cfg is None else
                    make_train_state(gen, cfg, opt_cfg, keep=keep))
             if cfg.family == "vlm":
@@ -7437,6 +7515,52 @@ def reference(tag):
     path = os.path.join(tmp, f"{tag}_rank{rank}.pt")
     wait_for(path)
     return torch.load(path, mmap=True)
+
+
+def cache_bytes(cfg, dctx, caches, B, cache_len):
+    # this rank's attention and MLA cache bytes, the layout's count of
+    # them (the batch-1 sequence cut over the data ranks, the MLA latent
+    # over the model axis) and a world of one's
+    specs = model.layer_specs(cfg)
+    D = dctx.data_axes_size if dctx.batch_replicated else 1
+    M = dctx.tp_size
+    out = {"rank": 0, "layout": 0, "whole": 0}
+    for spec, c in zip(specs, caches):
+        if spec.kind not in ("attn", "mla"):
+            continue
+        out["rank"] += nbytes(list(c))
+        rows = model.cache_rows(spec, cache_len)
+        if spec.kind == "mla":
+            w = B * rows * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 4
+            out["layout"] += w // M
+        else:
+            w = 2 * B * rows * cfg.num_kv_heads * cfg.head_dim * 4
+            out["layout"] += w // (D if rows % D == 0 else 1)
+        out["whole"] += w
+    return out
+
+
+def decode_check(cfg, dctx, params, caches, logits, S, n, want, cache_len):
+    # greedy steps from a prefill's caches and last logits: each step's
+    # logits against the world of one's (want: [n + 1, B, Vp] on the
+    # host, the prefill's first), the ids, this rank's cache bytes
+    out = {"cache": cache_bytes(cfg, dctx, caches, logits.shape[0],
+                                cache_len), "rel": [], "ids": []}
+    for i in range(n + 1):
+        w = want[i].to(dev)
+        out["rel"].append(((logits - w).abs().max()
+                           / w.abs().max()).item())
+        out["finite"] = out.get("finite", True) and bool(
+            torch.isfinite(logits).all())
+        ids = logits.argmax(-1)
+        out["ids"].append(ids.tolist())
+        out["ids_equal"] = out.get("ids_equal", True) and bool(
+            (ids == w.argmax(-1)).all())
+        if i < n:
+            caches, logits = model.decode_step(params, caches, ids[:, None],
+                                               S + i, cfg, dctx)
+    torch.cuda.synchronize()
+    return out
 
 
 for tag, arch, cut16, cut32, seqs, step16 in args["runs"]:
@@ -7476,18 +7600,25 @@ for tag, arch, cut16, cut32, seqs, step16 in args["runs"]:
     ref = reference(tag)
     r["wait_s"] = time.perf_counter() - t0
     prompt = C._tpf_tokens(cfg32, B, args["check_prompt"], 1)
+    new32 = args["check_new"] if tag in args["decode_runs"] else 0
     dist.barrier()
     ops.reset_launches()
-    _, logits = model.prefill(p32, prompt, cfg32, ctx,
-                              cache_len=args["check_prompt"] + 1,
-                              **images(cfg32, B))
+    caches, logits = model.prefill(p32, prompt, cfg32, ctx,
+                                   cache_len=args["check_prompt"] + 1
+                                   + new32, **images(cfg32, B))
     torch.cuda.synchronize()
     r["launches32"] = dict(ops.LAUNCHES)
     want = ref["logits"].to(dev)
     r["logits_rel"] = ((logits - want).abs().max()
                        / want.abs().max()).item()
     r["logits_finite"] = bool(torch.isfinite(logits).all())
-    del logits, want
+    if new32:
+        # (d4): greedy decode steps on this rank's cut of the caches
+        r["decode32"] = decode_check(cfg32, ctx, p32, caches, logits,
+                                     args["check_prompt"], new32,
+                                     ref["decode"],
+                                     args["check_prompt"] + 1 + new32)
+    del logits, want, caches
     batch = {"tokens": C._tpf_tokens(cfg32, 1, args["train_seq"] + 1, 3),
              **images(cfg32, 1)}
     r["steps"] = {}
@@ -7564,6 +7695,73 @@ for tag, arch, cut16, cut32, seqs, step16 in args["runs"]:
         del state, batch, step
         release()
     r["run_s"] = time.perf_counter() - t_run
+
+# (d): the layouts the port once refused, and the decode caches cut
+res["d"] = {}
+t_d = time.perf_counter()
+whole = {}
+for tag, arch, cut, fields, what in args["d_runs"]:
+    r = res["d"][tag] = {}
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+    dctx = make_context(mesh, remat="full", q_chunk=256, k_chunk=256,
+                        **fields)
+    if arch not in whole:
+        whole.clear()
+        release()
+        # every rank holds the whole model (no_tp's layout) and cuts it
+        # for each context
+        whole[arch] = build(cfg, kctx=make_context(mesh, no_tp=True))
+    params = convert.local_tp_params(whole[arch], cfg, dctx)
+    ref = reference(tag)
+    if what == "grads":
+        b, s = args["d_batch"][tag]
+        batch = train_step.data_shard(
+            {"tokens": C._tpf_tokens(cfg, b, s + 1, 5)}, dctx)
+        split = TP.layout(cfg, dctx)
+        grads_fn = make_grads_fn(cfg, dctx)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        met, grads = grads_fn(params, batch)
+        torch.cuda.synchronize()
+        r.update(s=time.perf_counter() - t0, launches=dict(ops.LAUNCHES),
+                 loss=met["loss"].item(), aux=met["aux"].item(),
+                 norm=global_norm(grads, dctx, split).item(),
+                 rows=list(batch["tokens"].shape), want_loss=ref["loss"],
+                 want_aux=ref["aux"], want_norm=ref["norm"])
+        worst, leaf, finite = -1.0, "", True
+        for n, g in tree.flatten_with_names(grads).items():
+            idx, vals, scale = ref["samples"][n]
+            finite = finite and bool(torch.isfinite(g).all())
+            got = g.reshape(-1)[idx.to(dev)].cpu()
+            rel = (got - vals).abs().max().item() / max(scale, 1e-30)
+            if rel > worst and scale > 0:
+                worst, leaf = rel, n
+        r.update(grad_worst=worst, grad_leaf=leaf, grads_finite=finite,
+                 grad_leaves=len(ref["samples"]))
+        del grads, batch
+    else:
+        prompt = C._tpf_tokens(cfg, 1, args["d_prompt"], 4)
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        caches, logits = model.prefill(params, prompt, cfg, dctx,
+                                       cache_len=args["d_prompt"]
+                                       + args["d_new"])
+        r.update(decode_check(cfg, dctx, params, caches, logits,
+                              args["d_prompt"], args["d_new"],
+                              ref["decode"],
+                              args["d_prompt"] + args["d_new"]))
+        r.update(s=time.perf_counter() - t0, launches=dict(ops.LAUNCHES))
+        del caches, logits
+    del params, ref
+    release()
+    r["run_s"] = time.perf_counter() - t_run
+whole.clear()
+release()
+res["d_s"] = time.perf_counter() - t_d
 with open(out, "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
@@ -7589,12 +7787,13 @@ def _tpf_image(cfg, b):
         getattr(torch, cfg.dtype))
 
 
-def _tpf_reference(arch, cut32):
+def _tpf_reference(arch, cut32, new=0):
     """A float32 world of one at the cut, in this process: the prefill's
-    logits at ``TPF_BATCH x TPF_CHECK_PROMPT``, one step's loss, global
-    norm and each gradient leaf's largest |element|, and every rank's
-    block of every gradient leaf (``tensor_parallel``'s layout over
-    ``TPF_RANKS``), all on the host."""
+    logits at ``TPF_BATCH x TPF_CHECK_PROMPT`` (with ``new``, those of
+    ``new`` greedy decode steps after it too, ``[new + 1, B, Vp]``), one
+    step's loss, global norm and each gradient leaf's largest |element|,
+    and every rank's block of every gradient leaf (``tensor_parallel``'s
+    layout over ``TPF_RANKS``), all on the host."""
     import dataclasses
     import torch
     from repro_torch import tree
@@ -7610,10 +7809,12 @@ def _tpf_reference(arch, cut32):
         _open_gates(params, cfg, 1)
     img = ({"image_embeds": _tpf_image(cfg, TPF_BATCH)}
            if cfg.family == "vlm" else {})
-    _, logits = model.prefill(params, _tpf_tokens(cfg, TPF_BATCH,
-                                                  TPF_CHECK_PROMPT, 1),
-                              cfg, ModelContext(),
-                              cache_len=TPF_CHECK_PROMPT + 1, **img)
+    caches, logits = model.prefill(
+        params, _tpf_tokens(cfg, TPF_BATCH, TPF_CHECK_PROMPT, 1), cfg,
+        ModelContext(), cache_len=TPF_CHECK_PROMPT + 1 + new, **img)
+    decode = _greedy_logits(params, caches, logits, cfg, ModelContext(),
+                            TPF_CHECK_PROMPT, new) if new else None
+    del caches
     batch = {"tokens": _tpf_tokens(cfg, 1, TPF_TRAIN_SEQ + 1, 3)}
     if img:
         batch["image_embeds"] = _tpf_image(cfg, 1)
@@ -7624,7 +7825,8 @@ def _tpf_reference(arch, cut32):
     cuts = TP._layout(cfg, TPF_RANKS, 1, True)
     norm = global_norm(grads).item()
     out = [{"logits": logits.cpu(), "loss": loss.item(), "norm": norm,
-            "scale": {}, "grads": {}} for _ in range(TPF_RANKS)]
+            "scale": {}, "grads": {}, "decode": decode}
+           for _ in range(TPF_RANKS)]
     flat = tree.flatten_with_names(grads)
     del grads
     for n in list(flat):
@@ -7640,12 +7842,85 @@ def _tpf_reference(arch, cut32):
     return out
 
 
+def _greedy_logits(params, caches, logits, cfg, ctx, S, n):
+    """The prefill's last logits and those of ``n`` greedy decode steps
+    after it, ``[n + 1, B, Vp]`` on the host."""
+    import torch
+    from repro_torch.models import model
+    out = [logits.cpu()]
+    for i in range(n):
+        caches, logits = model.decode_step(
+            params, caches, logits.argmax(-1)[:, None], S + i, cfg, ctx)
+        out.append(logits.cpu())
+    return torch.stack(out)
+
+
+def _tpf_d_references():
+    """(d)'s float32 worlds of one, in this process, each rank's: for a
+    gradient run, its loss and global norm and, for each leaf of the
+    rank's layout (``TPF_D_RUNS``' context over ``TPF_RANKS``), its
+    block's values at ``TPF_D_SAMPLES`` seeded elements with the whole
+    leaf's largest |element|; for (d3), the prefill's and
+    ``TPF_D_NEW`` greedy steps' logits. All on the host."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+    refs, made = {}, {}
+    tctx = ModelContext(remat="full", q_chunk=256, k_chunk=256)
+    for tag, arch, cut, fields, what in TPF_D_RUNS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        if arch not in made:
+            made.clear()
+            _release()
+            made[arch] = model.init(torch.Generator(device=DEV).manual_seed(
+                0), cfg)
+        params = made[arch]
+        if what != "grads":
+            caches, logits = model.prefill(
+                params, _tpf_tokens(cfg, 1, TPF_D_PROMPT, 4), cfg,
+                ModelContext(), cache_len=TPF_D_PROMPT + TPF_D_NEW)
+            want = _greedy_logits(params, caches, logits, cfg,
+                                  ModelContext(), TPF_D_PROMPT, TPF_D_NEW)
+            del caches, logits
+            refs[tag] = [{"decode": want} for _ in range(TPF_RANKS)]
+            continue
+        b, s = TPF_D_BATCH[tag]
+        (loss, met), grads = loss_and_grads(
+            params, {"tokens": _tpf_tokens(cfg, b, s + 1, 5)}, cfg, tctx)
+        M = 1 if fields.get("no_tp") else TPF_RANKS
+        ep = fields.get("moe_impl", "ep") == "ep" and M > 1
+        cuts = TP._layout(cfg, M, 1, ep) if M > 1 else {}
+        out = [{"loss": loss.item(), "aux": met["aux"].item(),
+                "norm": global_norm(grads).item(), "samples": {}}
+               for _ in range(TPF_RANKS)]
+        for i, (n, g) in enumerate(tree.flatten_with_names(grads).items()):
+            scale = g.abs().max().item()
+            for m, o in enumerate(out):
+                block = (TP.local_block(g, cuts[n], (m, M), (0, 1))
+                         if n in cuts else g).reshape(-1)
+                idx = torch.randint(
+                    0, block.numel(), (min(TPF_D_SAMPLES, block.numel()),),
+                    generator=torch.Generator().manual_seed(i))
+                o["samples"][n] = (idx, block[idx.to(block.device)].cpu(),
+                                   scale)
+        del grads
+        refs[tag] = out
+    made.clear()
+    return refs
+
+
 def _tpf_write(tmp, refs, errors):
     """Each run's references, one file a rank (``{tag}_rank{m}.pt``), in
     run order; each file appears whole (written, then renamed)."""
     import torch
     try:
-        for tag in [run[0] for run in TPF_RUNS]:
+        for tag in [run[0] for run in TPF_RUNS + TPF_D_RUNS]:
             for m, ref in enumerate(refs.pop(tag)):
                 path = os.path.join(tmp, f"{tag}_rank{m}.pt")
                 torch.save(ref, path + ".part")
@@ -7673,7 +7948,10 @@ def phase_tp_families():
     held_report("phase 24")
     args = {"batch": TPF_BATCH, "prompt": TPF_PROMPT, "new": TPF_NEW,
             "check_prompt": TPF_CHECK_PROMPT, "train_seq": TPF_TRAIN_SEQ,
-            "runs": TPF_RUNS, "wait_s": TPF_RANK_TIMEOUT_S}
+            "runs": TPF_RUNS, "wait_s": TPF_RANK_TIMEOUT_S,
+            "decode_runs": TPF_DECODE_RUNS, "check_new": TPF_CHECK_NEW,
+            "d_runs": TPF_D_RUNS, "d_batch": TPF_D_BATCH,
+            "d_prompt": TPF_D_PROMPT, "d_new": TPF_D_NEW}
     with tempfile.TemporaryDirectory() as tmp:
         # the ranks start now and wait for "go": their imports overlap the
         # worlds of one, which hold the card until then
@@ -7690,7 +7968,9 @@ def phase_tp_families():
             for tag, arch, _, cut32, _, _ in TPF_RUNS:
                 t0 = time.perf_counter()
                 torch.cuda.reset_peak_memory_stats()
-                refs[tag] = _tpf_reference(arch, cut32)
+                refs[tag] = _tpf_reference(
+                    arch, cut32,
+                    TPF_CHECK_NEW if tag in TPF_DECODE_RUNS else 0)
                 peak = torch.cuda.max_memory_allocated()
                 _release()
                 n = sum(t.numel() for t in refs[tag][0]["grads"].values())
@@ -7700,6 +7980,11 @@ def phase_tp_families():
                       f"elements rank 0's blocks; "
                       f"{time.perf_counter() - t0} s, peak device memory "
                       f"{peak} bytes ({card})")
+            t0 = time.perf_counter()
+            refs.update(_tpf_d_references())
+            _release()
+            print(f"(d) float32 worlds of one: {time.perf_counter() - t0} "
+                  f"s ({card})")
             print(f"references: {shutil.disk_usage(tmp).free} bytes free "
                   f"under {tmp}")
             held_report("phase 24's ranks")
@@ -7737,11 +8022,69 @@ def phase_tp_families():
         _tpf_report(tag, arch, cut16, cut32, seqs, [r["runs"][tag]
                                                     for r in res],
                     launches, card)
+    _tpf_d_report(res, launches, card)
     dt = time.perf_counter() - t_phase
     print(f"phase 24: {dt} s (limit {PHASE24_LIMIT_S} s); launches "
           f"{launches} ({card})")
     check(dt <= PHASE24_LIMIT_S, f"phase 24 took {dt} s")
     return launches
+
+
+def _tpf_decode_report(label, runs, card):
+    """A decode check of phase 24 (``decode_check`` in ``TPF_RANK``): the
+    logits at every step within ``LM_F32_REL_TOL`` of the world of
+    one's, the greedy ids its own and the ranks', each rank's cache
+    bytes the layout's count, below a world of one's."""
+    for m, d in enumerate(runs):
+        c = d["cache"]
+        print(f"{label} rank {m}: logits / max |logit| against a world of "
+              f"one at each step {d['rel']} (limit {LM_F32_REL_TOL}); ids "
+              f"{[i[0] for i in d['ids']]}; cache bytes {c['rank']}, the "
+              f"layout's count {c['layout']}, a world of one's "
+              f"{c['whole']} ({card})")
+        check(d["finite"] and max(d["rel"]) < LM_F32_REL_TOL,
+              f"{label} rank {m}'s decode logits differ: {d['rel']}")
+        check(d["ids_equal"], f"{label} rank {m}'s greedy ids differ")
+        check(c["rank"] == c["layout"] < c["whole"],
+              f"{label} rank {m} holds {c} cache bytes")
+    check(all(d["ids"] == runs[0]["ids"] for d in runs),
+          f"{label} the ranks decoded different ids")
+
+
+def _tpf_d_report(res, launches, card):
+    """Phase 24 (d): each item's ranks, printed and checked; adds their
+    launches to ``launches``."""
+    for tag, arch, cut, fields, what in TPF_D_RUNS:
+        runs = [r["d"][tag] for r in res]
+        label = f"(d) {tag} {arch} at {cut}, {fields}:"
+        for m, r in enumerate(runs):
+            got = {k: v for k, v in r["launches"].items() if v}
+            print(f"{label} rank {m}: {r['s']} s, {r['run_s']} s with its "
+                  f"build; launches {got} (want {TPF_D_LAUNCHES[tag]})")
+            check(got == TPF_D_LAUNCHES[tag],
+                  f"{label} rank {m} launched {got}")
+            for k, v in got.items():
+                launches[k] += v
+        if what == "decode":
+            _tpf_decode_report(label, runs, card)
+            continue
+        for m, r in enumerate(runs):
+            rel = abs(r["loss"] - r["want_loss"]) / abs(r["want_loss"])
+            norm = abs(r["norm"] - r["want_norm"]) / r["want_norm"]
+            print(f"{label} rank {m}: rows {r['rows']}; loss {r['loss']} vs "
+                  f"{r['want_loss']} (relative {rel}, limit {LM_LOSS_RTOL}); "
+                  f"aux {r['aux']} vs {r['want_aux']}; global norm "
+                  f"{r['norm']} vs {r['want_norm']} (relative {norm}, limit "
+                  f"{TPF_NORM_RTOL}); worst gradient block {r['grad_leaf']} "
+                  f"{r['grad_worst']} of its leaf's max |g| at "
+                  f"{TPF_D_SAMPLES} elements a leaf (limit {LM_GRAD_TOL}) "
+                  f"over {r['grad_leaves']} leaves ({card})")
+            check(rel <= LM_LOSS_RTOL and norm <= TPF_NORM_RTOL,
+                  f"{label} rank {m}: loss {rel}, norm {norm}")
+            check(r["grads_finite"] and 0 <= r["grad_worst"] <= LM_GRAD_TOL,
+                  f"{label} rank {m}'s gradient {r['grad_leaf']} differs by "
+                  f"{r['grad_worst']}")
+    print(f"(d): {[r['d_s'] for r in res]} s a rank ({card})")
 
 
 def _tpf_report(tag, arch, cut16, cut32, seqs, runs, launches, card):
@@ -7783,6 +8126,10 @@ def _tpf_report(tag, arch, cut16, cut32, seqs, runs, launches, card):
           f"{LM_F32_REL_TOL}) ({card})")
     check(all(r["logits_finite"] and r["logits_rel"] < LM_F32_REL_TOL
               for r in runs), f"({tag}) float32 logits differ")
+    if tag in TPF_DECODE_RUNS:
+        _tpf_decode_report(f"(d4) ({tag}) {arch} float32 at {cut32}, "
+                           f"{TPF_CHECK_NEW} decode steps:",
+                           [r["decode32"] for r in runs], card)
     for seq in seqs:
         steps = [r["steps"][str(seq)] for r in runs]
         rel = [abs(s["loss"] - r0["want_loss"]) / abs(r0["want_loss"])

@@ -330,12 +330,23 @@ def batch_specs(axis_sizes: AxisSizes, batch: Dict[str, Any],
 
 def cache_specs(caches, axis_sizes: AxisSizes):
     """Cache sharding, one pair per layer application: ``(k, v)``, each
-    ``[B, S, KV, D]``, or a Mamba2 layer's ``(conv tail [B, K-1, C],
-    state [B, h, p, n])``. The batch over the data axes; for batch 1
+    ``[B, S, KV, D]``, MLA's latent ``(c_kv [B, S, r], k_pe [B, S,
+    dr])``, or a Mamba2 layer's ``(conv tail [B, K-1, C], state [B, h,
+    p, n])``, whole. The batch over the data axes; for batch 1
     (long-context decode) dim 1 (the cache sequence) over them instead.
-    Dim 2 (KV heads) over ``model`` when divisible, else dim 1. The
-    reference's rule for its stacked ``[repeat, B, ...]`` caches,
-    without the leading repeat axis."""
+    Dim 2 (KV heads, the latent widths) over ``model`` when divisible,
+    else dim 1. The reference's rule for its stacked ``[repeat, B, ...]``
+    caches, without the leading repeat axis.
+
+    ``models.model.init_cache`` allocates a rank's part by these specs,
+    but for three entries: a batch-1 Mamba2 state keeps its heads
+    (dim 1) whole over the data axes and cuts them, not ``p``, over
+    ``model``; a conv tail cuts the rank's ``x`` channels with all of
+    ``B`` and ``C``; and where the KV heads do not divide over
+    ``model`` the port runs the block whole and keeps dim 1 whole over
+    ``model`` (ROADMAP §3). The batch-1 sequence cut over the data axes
+    (``layers.ContextSplit``), the KV heads and the MLA latent's last
+    dimension over ``model`` (``layers.latent_ways``) are the specs'."""
     baxes = batch_axes(axis_sizes)
     bsize = _axis_size(axis_sizes, baxes)
     msize = axis_sizes["model"]

@@ -115,10 +115,11 @@ def _heads(cfg, block: Optional[str]) -> Tuple[int, ...]:
 
 def plan(cfg, ctx) -> Plan:
     """``ctx``'s split of ``cfg``'s blocks (``Plan``), by ``split_dim`` at
-    the whole leaves' shapes. With ``ctx.seq_parallel`` the dense MoE
-    route or a vocabulary that does not split raises ``ValueError``:
-    every other block takes the sequence-split residual, split or whole
-    (ROADMAP queue 1 item 16)."""
+    the whole leaves' shapes. Every block takes the sequence-split
+    residual, split or whole: the dense MoE route gathers the positions
+    (``models.moe.moe_block``), and a vocabulary that does not split
+    embeds and scores each rank's positions against the whole leaves
+    (``embed``, ``models.model.fused_ce``)."""
     M = 1 if ctx is None else ctx.tp_size
     if M == 1:
         return WHOLE
@@ -141,16 +142,6 @@ def plan(cfg, ctx) -> Plan:
             M) is not None,
         vocab=split_dim("embed", "top", (Vp, d), M) is not None,
         seq=ctx.seq_parallel)
-    if out.seq:
-        why = None
-        if cfg.family == "moe" and ctx.moe_impl != "ep":
-            why = f"the {ctx.moe_impl!r} MoE route"
-        elif not out.vocab:
-            why = f"a vocabulary of {Vp} over {M} ranks"
-        if why:
-            raise ValueError(f"seq_shard_residual covers every family's "
-                             f"blocks, the MoE layers through routed_ep; "
-                             f"not {why} (ROADMAP queue 1 item 16)")
     return out
 
 
@@ -307,6 +298,14 @@ def slice_seq(x: torch.Tensor, tp: Plan) -> torch.Tensor:
     return _SliceSeq.apply(x, tp) if tp.seq else x
 
 
+def seq_sum(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """The sum over the axis of each rank's part of a value over its own
+    positions (a loss over a whole vocabulary, ``models.model.fused_ce``):
+    every rank goes on from the same sum, and each part's gradient is the
+    cotangent (``leave`` without the sequence split)."""
+    return _Sum.apply(x, tp)
+
+
 # --------------------------------------------------------------------------
 # the vocabulary leaves
 # --------------------------------------------------------------------------
@@ -315,9 +314,12 @@ def embed(table: torch.Tensor, ids: torch.Tensor, tp: Plan
     """``table[ids]`` [B, S, d] (under ``tp.seq`` this rank's positions)
     from this rank's rows of a vocabulary-split table: each rank looks up
     the tokens in its rows, zero elsewhere, and the sum over the axis
-    (``leave``) has each token's row from the one rank that holds it.
-    (``plan`` refuses ``tp.seq`` where the vocabulary does not split.)"""
+    (``leave``) has each token's row from the one rank that holds it. A
+    whole table under ``tp.seq`` looks up this rank's positions only."""
     if not tp.vocab:
+        if tp.seq:
+            n = ids.shape[1] // tp.ways
+            ids = ids[:, tp.rank * n:(tp.rank + 1) * n]
         return table[ids]
     n = table.shape[0]
     local = ids.long() - tp.rank * n

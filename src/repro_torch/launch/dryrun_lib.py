@@ -105,7 +105,8 @@ training state on both axes (``convert.local_tp_keep``: its heads, FFN
 units, vocabulary rows and experts over ``model``, its FSDP block over
 ``data``), its rows of the batch over the data axes (``local_rows``:
 every row where the batch does not divide, as the reference's
-``batch_specs``), its caches by the port's heads and its rows of the
+``batch_specs``), its caches by the port's heads (and by its rows of
+their sequence where the batch does not divide) and its rows of the
 VLM's image embeddings. The step then runs as that rank runs it, and
 every collective it calls goes through ``distributed.collectives``:
 over the stand-in's ``CountedGroup`` nothing moves and the result is
@@ -132,10 +133,13 @@ cell) are counted: all ten of the reference's architectures (the
 SSD scan has no host read and no data-dependent shape). A MoE layer
 counts ``routed_ep`` as the reference compiles it, every expert over
 its buffer of ``cap = ceil(T·k / E · capacity_factor)`` rows of the
-rank's tokens. Where the port's layout is not the reference's (GQA
-heads that do not divide over the model axis run whole on every model
-rank, the MLA latent cache is whole on every rank, a batch of 1 is
-replicated), the port's is counted (ROADMAP §3).
+rank's tokens. A batch that does not divide over the data axes
+(``long_500k``'s 1) is replicated, and its attention caches are cut on
+the sequence over them, as the reference's ``cache_specs`` cuts them;
+the MLA latent cache is cut over the model axis as there. Where the
+port's layout is not the reference's (GQA heads that do not divide over
+the model axis run whole on every model rank; a batch-1 Mamba2 state is
+whole over the data axes), the port's is counted (ROADMAP §3).
 ``ctx_overrides`` may set ``moe_impl="dense"`` (the drop-free
 ``routed``, counted under even load, ``moe.expert_rows``) and
 ``capacity_factor``. ``long_500k`` for the full-attention archs (the
@@ -568,7 +572,8 @@ def local_rows(batch: int, ctx: ModelContext) -> int:
     """The rows of a global batch of ``batch`` that a rank of ``ctx``'s
     mesh takes: its share over the data axes, or every row where the
     batch does not divide over them (replicated, as the reference's
-    ``batch_specs``: ``long_500k``'s batch of 1)."""
+    ``batch_specs``: ``long_500k``'s batch of 1; its decode caches are
+    then cut on the sequence, ``ModelContext.batch_replicated``)."""
     D = ctx.data_axes_size
     return batch // D if batch % D == 0 else batch
 
@@ -580,11 +585,15 @@ def _build(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
     of ``ctx``'s mesh: its block of the parameters and of the training
     state (``convert.local_tp_keep``), its rows of the batch and of the
     VLM's image embeddings (``local_rows``) and its caches, by the port's
-    heads (``model.init_cache``)."""
+    heads and, for a batch that does not divide over the data axes, its
+    rows of their sequence (``model.init_cache``)."""
     keep = convert.local_tp_keep(cfg, ctx)
     local = dataclasses.replace(shape,
                                 global_batch=local_rows(shape.global_batch,
                                                         ctx))
+    if shape.global_batch % ctx.data_axes_size:
+        # every data rank holds the batch: the caches' sequence is cut
+        ctx = dataclasses.replace(ctx, batch_replicated=True)
     if shape.kind == "train":
         opt_cfg = opt_cfg or OptimizerConfig()
         state = make_train_state(ShapesOnly(), cfg, opt_cfg, keep=keep)

@@ -11,7 +11,9 @@ S, KV, D]``, caches ``[B, S_cache, KV, D]``.
 ``attention`` has three cases, chosen by shape and device:
 
 * ``Sq == 1`` (decode): one query row against the cache in float32 with
-  ``kv_len`` masking, plain tensor ops;
+  ``kv_len`` masking, plain tensor ops; on a cache cut on the sequence
+  over ranks (``ContextSplit``) each rank's part of the softmax, merged
+  over them (``merge_softmax_parts``);
 * causal or full self-attention over a whole sequence on a CUDA device
   (``Sq == Skv``, offsets 0, no ``kv_len``, ``window == 0``, default
   scale, ``ctx.flash_kernel``): the hand-written flash kernel
@@ -41,8 +43,11 @@ import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import data_parallel
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops
 
@@ -86,7 +91,12 @@ class ModelContext:
     reference's two layout hints: ``seq_shard_residual`` keeps each
     rank's ``S/M`` positions of the residual between blocks
     (``seq_parallel``); ``no_tp`` splits nothing over the model axis,
-    which ``make_context`` then adds to ``data_axes``."""
+    which ``make_context`` then adds to ``data_axes``. The caller's
+    ``batch_replicated`` says that every data rank holds the whole batch
+    (one that does not divide over them, such as a long-context decode's
+    one row): the decode caches are then cut on the sequence over the
+    data axes, as the reference's ``cache_specs`` cuts them
+    (``context_ways``)."""
     mesh: Any = None
     model_axis: str = "model"
     data_axes: Tuple[str, ...] = ("data",)
@@ -107,6 +117,9 @@ class ModelContext:
     seq_shard_residual: bool = False
     # pure data parallelism over the model axis too
     no_tp: bool = False
+    # the batch is the same on every data rank (it does not divide over
+    # them): the decode caches are cut on the sequence instead
+    batch_replicated: bool = False
 
     def __post_init__(self):
         if self.remat not in ("none", "full"):
@@ -240,7 +253,14 @@ def attention(
     skip_noncausal: bool = False,
     scale: Optional[float] = None,
     use_kernel: bool = True,
+    kv_groups: Tuple = (),           # groups the KV rows are cut over
 ) -> torch.Tensor:
+    """softmax(q k^T · scale) v over ``[B, S, H, D]`` queries and ``[B,
+    S, KV, D]`` keys and values (module docstring). In a decode call
+    (``Sq == 1``) whose keys and values are this rank's rows of a cache
+    cut on the sequence over ``kv_groups`` (``kv_offset`` the global
+    position of its first row), each rank's part of the softmax is
+    combined over them (``softmax_parts``, ``merge_softmax_parts``)."""
     B, Sq, H, D = q.shape
     _, Skv, KV, Dv = v.shape
     rep = H // KV
@@ -261,6 +281,10 @@ def attention(
             torch.ones(Skv, dtype=torch.bool, device=dev)
         if window > 0 and kv_len is not None:
             valid &= (kv_len - 1 - k_idx) < window
+        if kv_groups:
+            out = merge_softmax_parts(*softmax_parts(s, valid, v.float()),
+                                      kv_groups)
+            return out.reshape(B, 1, H, Dv).to(v.dtype)
         s = torch.where(valid[None, None, None, :], s,
                         torch.tensor(-1e30, device=dev))
         p = torch.softmax(s, dim=-1)                 # f32 probabilities
@@ -322,6 +346,66 @@ def attention(
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dv)
                     .to(v.dtype))
     return outs[0] if nq == 1 else torch.cat(outs, dim=1)
+
+
+def softmax_parts(s: torch.Tensor, valid: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One rank's part of a decode softmax over its rows of the keys:
+    float32 scores ``s [B, KV, rep, K]``, ``valid [K]`` (the rows that
+    attend) and values ``v [B, K, KV, Dv]`` -> (the rows' maximum ``m``
+    ``[B, KV, rep]``, their sum of ``exp(s - m)`` ``l`` and the
+    unnormalised output ``o [B, KV, rep, Dv]``). A part whose rows are
+    all masked has ``m`` -1e30 and ``l``, ``o`` zero, not NaN."""
+    s = torch.where(valid[None, None, None, :], s,
+                    torch.tensor(-1e30, device=s.device))
+    m = s.amax(dim=-1)
+    p = torch.where(valid[None, None, None, :], torch.exp(s - m[..., None]),
+                    torch.zeros((), device=s.device))
+    return m, p.sum(dim=-1), torch.einsum("bgrk,bkgd->bgrd", p, v)
+
+
+def merge_softmax_parts(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                        groups) -> torch.Tensor:
+    """The softmax output ``[..., Dv]`` of the parts (``softmax_parts``)
+    that the ranks of ``groups`` hold, each over its own rows of one
+    key sequence: the maximum all-reduced, then each part's sum and
+    output rescaled to it and summed (one all-reduce a group for both),
+    through ``distributed.collectives``. The decode half of a
+    context-parallel attention over any axis: the data axes for a cache
+    cut on the sequence (``ContextSplit``)."""
+    top = m.clone()
+    for g in groups:
+        top = C.all_reduce(top, g, dist.ReduceOp.MAX)
+    c = torch.exp(m - top)
+    both = torch.cat([(l * c)[..., None], o * c[..., None]], dim=-1)
+    for g in groups:
+        both = C.all_reduce(both, g)
+    return both[..., 1:] / both[..., :1]
+
+
+class ContextSplit(tuple):
+    """An attention layer's decode cache ``(k, v)`` cut on its sequence
+    over the data axes (``models.model.init_cache`` where the batch does
+    not divide over them, the reference's ``cache_specs``): this data
+    rank's contiguous ``rows / D`` of the ring, whose global rows
+    ``attn_block`` writes and attends to (``context_cut``)."""
+
+
+def context_ways(ctx) -> int:
+    """The data ranks (D) over which the attention caches' sequence is
+    cut: D where the context's batch is the same on every one of more
+    than one data rank (``batch_replicated``), else 1 (each rank holds
+    its rows' whole caches)."""
+    if ctx is None or ctx.mesh is None or not ctx.batch_replicated:
+        return 1
+    return ctx.data_axes_size
+
+
+def context_cut(ctx) -> Tuple[int, int, Tuple]:
+    """(D, this rank's index over the data axes, their groups): the cut
+    of a ``ContextSplit`` cache."""
+    return (ctx.data_axes_size, data_parallel.data_rank(ctx),
+            tuple(data_parallel.data_groups(ctx)))
 
 
 # --------------------------------------------------------------------------
@@ -438,15 +522,26 @@ def attn_block(
                         k_chunk=ctx.k_chunk, use_kernel=ctx.flash_kernel)
     elif cache is not None:
         k_cache, v_cache = cache
-        s_cache = k_cache.shape[1]
+        # a cache cut on the sequence: this rank's rows lo..lo + n of the
+        # ring's D·n; a row another rank holds is written there
+        n, lo, groups = k_cache.shape[1], 0, ()
+        s_cache = n
+        if isinstance(cache, ContextSplit):
+            if S != 1:
+                raise ValueError(f"a cache cut on the sequence takes one "
+                                 f"position a step, got {S}")
+            D, dr, groups = context_cut(ctx)
+            s_cache, lo = D * n, dr * n
         wpos = cache_pos % s_cache      # ring position for windowed caches
-        k_cache[:, wpos:wpos + S] = k.to(k_cache.dtype)
-        v_cache[:, wpos:wpos + S] = v.to(v_cache.dtype)
-        new_cache = (k_cache, v_cache)
+        if lo <= wpos < lo + n:
+            k_cache[:, wpos - lo:wpos - lo + S] = k.to(k_cache.dtype)
+            v_cache[:, wpos - lo:wpos - lo + S] = v.to(v_cache.dtype)
+        new_cache = type(cache)((k_cache, v_cache))
         kv_len = min(cache_pos + S, s_cache)
         out = attention(q, k_cache, v_cache, causal=False, window=0,
-                        kv_len=kv_len, q_chunk=ctx.q_chunk,
-                        k_chunk=ctx.k_chunk, use_kernel=ctx.flash_kernel)
+                        kv_offset=lo, kv_len=kv_len, q_chunk=ctx.q_chunk,
+                        k_chunk=ctx.k_chunk, use_kernel=ctx.flash_kernel,
+                        kv_groups=groups)
     else:
         out = attention(q, k, v, causal=True, window=window,
                         q_chunk=ctx.q_chunk, k_chunk=ctx.k_chunk,
@@ -489,6 +584,69 @@ def init_mla(gen: torch.Generator, cfg) -> Params:
     }
 
 
+def latent_ways(cfg, tp: TP.Plan) -> int:
+    """The model-axis ranks over which an MLA layer's latent cache
+    ``(c_kv, k_pe)`` is cut on its last dimension (the reference's
+    ``cache_specs`` cuts ``kv_lora_rank`` and the rope dim where the axis
+    divides them): ``tp.ways`` where the axis splits the MLA heads and
+    divides both widths, else 1 (whole on every rank)."""
+    M = tp.ways
+    if M > 1 and tp.mla and cfg.kv_lora_rank % M == 0 and \
+            cfg.qk_rope_head_dim % M == 0:
+        return M
+    return 1
+
+
+def _blocks(x: torch.Tensor, dim: int, ways: int) -> torch.Tensor:
+    """``x`` with dimension ``dim`` as ``ways`` blocks, the block index
+    moved to the front (a block a rank, for ``all_to_all_single``)."""
+    shape = x.shape[:dim] + (ways, x.shape[dim] // ways) + x.shape[dim + 1:]
+    return x.reshape(shape).movedim(dim, 0).contiguous()
+
+
+def _exchange(x: torch.Tensor, tp: TP.Plan) -> torch.Tensor:
+    """``[M, ...]`` blocks, block j to rank j of the model axis -> the
+    blocks that arrive, in rank order (``distributed.collectives``)."""
+    out = torch.empty_like(x)
+    C.all_to_all_single(out, x, tp.group)
+    return out
+
+
+def _latent_decode(q_abs, q_pe, c_cache, pe_cache, kv_len, scale, tp):
+    """The absorbed MLA decode on a latent cache cut over the model axis:
+    this rank's ``h`` heads' ``q_abs [B, S, h, r]`` and ``q_pe [B, S, h,
+    dr]``, its ``1/M`` of the cache's ``r`` and ``dr`` -> ``o_lat [B, S,
+    h, r]`` of its heads. One all-to-all gives each rank every head's
+    query over its slice; the partial scores of every head over the
+    slice are reduce-scattered over the axis, each rank keeping its
+    heads' sums (the float32 scores ``[B, H, S, T]`` are what moves: a
+    row of them is ``H`` numbers against the cache's ``r + dr``); each
+    rank takes the reference's casts and softmax over its heads; the
+    probabilities, in the cache's dtype, are all-gathered, and ``a ·
+    c_kv`` over the slice is every head's slice of ``o_lat``; a second
+    all-to-all returns each rank its heads over the whole ``r``."""
+    B, S, h, r = q_abs.shape
+    M = tp.ways
+    rm = c_cache.shape[-1]
+    both = torch.cat([_blocks(q_abs, 3, M), _blocks(q_pe, 3, M)], dim=-1)
+    got = _exchange(both, tp)                  # [M, B, S, h, rm + dm]
+    q_all = got.movedim(0, 2).reshape(B, S, M * h, -1)
+    s_all = torch.einsum("bshr,btr->bhst", q_all[..., :rm].float(),
+                         c_cache.float()) + \
+        torch.einsum("bshd,btd->bhst", q_all[..., rm:].float(),
+                     pe_cache.float())
+    s_mine = C.reduce_scatter(s_all, tp.group, 1)   # [B, h, S, T]
+    s_mine = s_mine.to(q_abs.dtype).float() * scale
+    t_idx = torch.arange(c_cache.shape[1], device=q_abs.device)
+    s_mine = torch.where(t_idx < kv_len, s_mine,
+                         torch.tensor(-1e30, device=q_abs.device))
+    a = C.all_gather(torch.softmax(s_mine, dim=-1).to(c_cache.dtype),
+                     tp.group, 1)                    # [B, H, S, T]
+    o = torch.einsum("bhst,btr->bshr", a, c_cache)
+    back = _exchange(_blocks(o, 2, M), tp)     # [M, B, S, h, rm]
+    return back.permute(1, 2, 3, 0, 4).reshape(B, S, h, M * rm)
+
+
 def mla_block(
     p: Params, x: torch.Tensor, cfg, ctx: ModelContext, *,
     positions: Optional[torch.Tensor] = None,
@@ -517,8 +675,10 @@ def mla_block(
     ``wkv_a`` and ``kv_ln`` stay whole, so ``q_lat``, ``c_kv`` and the
     shared rope key ``k_pe`` are the same on every rank and enter the
     axis (``share``) before the heads. Under the sequence-split residual
-    the block gathers its input's positions instead. The latent cache
-    stays whole on every rank."""
+    the block gathers its input's positions instead. Where the axis
+    also divides both latent widths (``latent_ways``) each rank holds and
+    writes its ``1/M`` of the latent cache's last dimension, returns that
+    slice from a prefill, and decodes through ``_latent_decode``."""
     B, _, d = x.shape
     h = cfg.num_heads
     kvr = cfg.kv_lora_rank
@@ -552,24 +712,40 @@ def mla_block(
                       cfg.rope_theta)[:, :, 0]          # [B, S, dr]
 
     scale = 1.0 / math.sqrt(dn + dr)
+    ways = latent_ways(cfg, tp)
+
+    def mine(t):
+        # this rank's 1/M of a latent's last dimension
+        n = t.shape[-1] // ways
+        return t[..., tp.rank * n:(tp.rank + 1) * n] if ways > 1 else t
     new_cache = None
     if cache is not None:
         c_cache, pe_cache = cache
-        c_cache[:, cache_pos:cache_pos + S] = c_kv.to(c_cache.dtype)
-        pe_cache[:, cache_pos:cache_pos + S] = k_pe.to(pe_cache.dtype)
+        if c_cache.shape[-1] != kvr // ways:
+            raise ValueError(f"the MLA latent cache wants this rank's "
+                             f"{kvr // ways} of {kvr} (init_cache), got "
+                             f"{c_cache.shape[-1]}")
+        c_cache[:, cache_pos:cache_pos + S] = mine(c_kv).to(c_cache.dtype)
+        pe_cache[:, cache_pos:cache_pos + S] = mine(k_pe).to(pe_cache.dtype)
         new_cache = (c_cache, pe_cache)
         kv_len = cache_pos + S
         wk_b = p["wk_b"].reshape(kvr, h, dn)
         q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)
-        s_lat = torch.einsum("bshr,btr->bhst", q_abs,
-                             c_cache.to(q_abs.dtype))
-        s_pe = torch.einsum("bshd,btd->bhst", q_pe, pe_cache.to(q_pe.dtype))
-        s_all = (s_lat + s_pe).float() * scale
-        t_idx = torch.arange(c_cache.shape[1], device=x.device)
-        s_all = torch.where(t_idx < kv_len, s_all,
-                            torch.tensor(-1e30, device=x.device))
-        a = torch.softmax(s_all, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", a.to(c_cache.dtype), c_cache)
+        if ways > 1:
+            o_lat = _latent_decode(q_abs, q_pe, c_cache, pe_cache, kv_len,
+                                   scale, tp)
+        else:
+            s_lat = torch.einsum("bshr,btr->bhst", q_abs,
+                                 c_cache.to(q_abs.dtype))
+            s_pe = torch.einsum("bshd,btd->bhst", q_pe,
+                                pe_cache.to(q_pe.dtype))
+            s_all = (s_lat + s_pe).float() * scale
+            t_idx = torch.arange(c_cache.shape[1], device=x.device)
+            s_all = torch.where(t_idx < kv_len, s_all,
+                                torch.tensor(-1e30, device=x.device))
+            a = torch.softmax(s_all, dim=-1)
+            o_lat = torch.einsum("bhst,btr->bshr", a.to(c_cache.dtype),
+                                 c_cache)
         wv_b = p["wv_b"].reshape(kvr, h, dv)
         out = torch.einsum("bshr,rhd->bshd", o_lat, wv_b)
     else:
@@ -589,7 +765,7 @@ def mla_block(
     # positions of a whole block's output
     y = TP.leave(y, tp) if split else TP.slice_seq(y, tp)
     if return_kv:
-        new_cache = (c_kv, k_pe)
+        new_cache = (mine(c_kv), mine(k_pe))
     return x + y, new_cache
 
 

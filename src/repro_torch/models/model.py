@@ -412,7 +412,7 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
                           image_embeds=batch.get("image_embeds"))
     ctx = TP.for_sequence(ctx, inputs.shape[1])
     tp, fs = TP.plan(cfg, ctx), FS.plan(cfg, ctx)
-    vocab = tp if tp.vocab else None
+    vocab = tp if tp.vocab or tp.seq else None
     # gathered once over the data axis for both cross-entropies
     unembed = FS.gather(params["unembed"], "unembed", fs)
     ce = fused_ce(hidden, unembed, targets, cfg.vocab_size, split=vocab)
@@ -453,14 +453,24 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                ctx: Optional[ModelContext] = None) -> Cache:
     """Zeroed caches, one per application: (k, v) for attention, the
     latent (c_kv, k_pe) for MLA, (conv tail, state) for Mamba2, () for
-    cross-attention. On a model axis whose ranks split the attention
-    (``ctx``, ``tensor_parallel.plan``), (k, v) hold this rank's KV
-    heads; where they split the Mamba2 heads, (conv tail, state) hold
-    this rank's (``ssm.init_mamba_cache``); the MLA latent stays whole
-    on every rank."""
+    cross-attention, each this rank's part on ``ctx``'s mesh, as the
+    reference's ``cache_specs`` cuts them (``distributed.sharding``):
+    where the model axis splits the attention (``tensor_parallel.plan``)
+    (k, v) hold this rank's KV heads; where it splits the Mamba2 heads,
+    (conv tail, state) hold this rank's (``ssm.init_mamba_cache``); where
+    it splits the MLA heads and divides both latent widths, the latent
+    holds this rank's 1/M of its last dimension (``layers.latent_ways``).
+    Where the batch is the same on every one of D data ranks
+    (``ctx.batch_replicated``: it does not divide over them), each
+    attention layer's (k, v) whose rows divide over them holds this data
+    rank's contiguous ``rows / D`` of the sequence, a
+    ``layers.ContextSplit``; the Mamba2 state stays whole over the data
+    axes (the reference cuts its heads there, ROADMAP §3)."""
     dev = device or current_device()
     tp = TP.plan(cfg, ctx)
     kv = cfg.num_kv_heads // tp.ways if tp.attn else cfg.num_kv_heads
+    lat = L.latent_ways(cfg, tp)
+    D = L.context_ways(ctx)
     dt = getattr(torch, cfg.dtype)
     caches: Cache = []
     for spec in layer_specs(cfg):
@@ -474,21 +484,27 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
             continue
         rows = cache_rows(spec, cache_len)
         if spec.kind == "mla":
-            shapes = [(batch, rows, cfg.kv_lora_rank),
-                      (batch, rows, cfg.qk_rope_head_dim)]
-        else:
-            shapes = [(batch, rows, kv, cfg.head_dim)] * 2
-        caches.append(tuple(torch.zeros(shape, dtype=dt, device=dev)
-                            for shape in shapes))
+            caches.append(tuple(torch.zeros(
+                (batch, rows, n // lat), dtype=dt, device=dev)
+                for n in (cfg.kv_lora_rank, cfg.qk_rope_head_dim)))
+            continue
+        cut = D > 1 and rows % D == 0
+        shape = (batch, rows // D if cut else rows, kv, cfg.head_dim)
+        pair = tuple(torch.zeros(shape, dtype=dt, device=dev)
+                     for _ in range(2))
+        caches.append(L.ContextSplit(pair) if cut else pair)
     return caches
 
 
-def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int):
+def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int,
+                        ctx: Optional[ModelContext] = None):
     """Raw prefill (k, v) or MLA's (c_kv, k_pe) -> cache tensors of
     ``cache_rows`` rows, zero where no position was written: position t
     of the prompt goes to row ``t % rows``, so a sliding-window layer
     keeps the prompt's last ``rows`` positions on the ring
-    ``decode_step`` writes. A Mamba2 layer's (tail, state) -> the tail
+    ``decode_step`` writes. Where ``init_cache`` cuts an attention
+    layer's (k, v) on the sequence (``ctx.batch_replicated``), this data
+    rank's rows of that ring, a ``layers.ContextSplit``. A Mamba2 layer's (tail, state) -> the tail
     in the model dtype and the state; a cross-attention layer's () stays
     ()."""
     dt = getattr(torch, cfg.dtype)
@@ -507,7 +523,13 @@ def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int):
         if keep > head:                     # the rest wraps to row 0
             out[:, :keep - head] = t[:, S - keep + head:]
         return out
-    return tuple(ring(t) for t in raw)
+    folded = tuple(ring(t) for t in raw)
+    D = L.context_ways(ctx) if folded and spec.kind != "mla" else 1
+    if D > 1 and rows % D == 0:
+        n, d = rows // D, L.context_cut(ctx)[1]
+        return L.ContextSplit(t[:, d * n:(d + 1) * n].clone()
+                              for t in folded)
+    return folded
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -528,7 +550,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x, raw, _ = _apply_layer(spec, FS.gather(p, name, fs), x, cfg, ctx,
                                  positions=positions, cross_kv=image_embeds,
                                  return_cache=True)
-        caches.append(_fold_prefill_cache(spec, raw, cfg, cache_len))
+        caches.append(_fold_prefill_cache(spec, raw, cfg, cache_len, ctx))
     x = L.rms_norm(TP.gather_seq(x, tp), params["final_ln"], cfg.norm_eps)
     return caches, _logits(x[:, -1], params["unembed"], tp, fs)
 

@@ -21,7 +21,14 @@ Port of the reference's ``models/moe.py`` (``init_moe`` ``:45``,
   mesh): the exchanges run in reverse, the sequence slice and gather
   return the input's gradient whole on every rank, and the router's
   gradient, partial on each rank, is summed over the model axis by
-  ``distributed.data_parallel``.
+  ``distributed.data_parallel``. A sequence that does not divide over
+  the model axis is routed whole on every rank, the cotangent divided
+  by M (the reference's transpose of its replicated output).
+
+Over more than one data rank the dense route's load-balance aux is the
+global batch's, as the reference's ``routed_dense`` under GSPMD: the
+expert counts and the probabilities' sums are summed over the data
+axes (``global_aux``).
 
 No atomics on either route's forward: the combine is a gather and a
 sum, so a run on the card gives the same bits every time; a backward
@@ -46,12 +53,13 @@ experts (``expert_rows``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed import data_parallel
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 
@@ -82,10 +90,14 @@ def init_moe(gen: torch.Generator, cfg) -> Params:
     return p
 
 
-def route(xt: torch.Tensor, router: torch.Tensor, k: int
+def route(xt: torch.Tensor, router: torch.Tensor, k: int,
+          over: Optional["GlobalAux"] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xt: [T, d] -> (gates [T, k] in xt's dtype, idx [T, k] in
-    descending probability, as ``jax.lax.top_k`` orders them, aux)."""
+    descending probability, as ``jax.lax.top_k`` orders them, aux). With
+    ``over`` (``global_aux``) the aux is the global batch's: the expert
+    counts and the probabilities' sums are summed over its groups before
+    their product, and divided by the global token count."""
     T = xt.shape[0]
     E = router.shape[1]
     probs = torch.softmax(xt.float() @ router, dim=-1)           # [T, E]
@@ -97,9 +109,73 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int
     # largest id to the host on the card (and runs on meta tensors, so
     # the dry-run counts it as a rank runs it)
     counts = _one_hot(idx.reshape(-1), E).sum(1)
-    f = counts.float() / T
-    aux = E * torch.sum(f * probs.mean(0))
+    if over is None:
+        f = counts.float() / T
+        aux = E * torch.sum(f * probs.mean(0))
+    else:
+        # one float32 sum a group for both (the counts are exact below
+        # 2^24 and carry no gradient)
+        both = _GlobalSum.apply(torch.stack([counts.float(), probs.sum(0)]),
+                                over.groups, over.scale)
+        n = T * over.copies
+        aux = E * torch.sum((both[0] / n) * (both[1] / n))
     return gates.to(xt.dtype), idx, aux
+
+
+class GlobalAux(NamedTuple):
+    """Where the load-balance aux is the global batch's (``global_aux``):
+    the ``groups`` its sums run over, the ranks whose tokens they join
+    (``copies``: the global token count is ``copies`` times a rank's),
+    and the ``scale`` of its backward."""
+    groups: tuple
+    copies: int
+    scale: float
+
+
+class _GlobalSum(torch.autograd.Function):
+    """``v`` summed over ``groups``; backward: the cotangent times
+    ``scale``. Every rank computes the same global aux from the sum, so
+    a rank's own part gets ``scale`` times its cotangent: after the
+    training step averages the gradients over the data axes (D of them)
+    and sums the whole leaves' over a sequence-split model axis, that is
+    the gradient of the one global aux (``global_aux``)."""
+
+    @staticmethod
+    def forward(fctx, v, groups, scale):
+        fctx.scale = scale
+        out = v.clone()
+        for g in groups:
+            out = C.all_reduce(out, g)
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        return g * fctx.scale, None, None
+
+
+def global_aux(ctx, tp: TP.Plan, *inputs: torch.Tensor
+               ) -> Optional[GlobalAux]:
+    """The dense route's aux over the global batch (the reference's
+    ``routed_dense`` under GSPMD, ``models/moe.py:66-103``), where the
+    context's data axes have more than one rank: the sums run over the
+    data axes (``no_tp``'s model axis among them). A rank routes its
+    ``B/D`` rows at every position (under the sequence-split residual
+    the MoE layer gathers the positions, ``moe_block``), so the global
+    count is D times its own. Each of the D data ranks' losses holds the
+    whole aux and the step averages their gradients, so a rank's part
+    of the backward is scaled by D; on a sequence-split model axis of M
+    ranks, which compute the same aux from the same positions and whose
+    whole leaves' gradients the step sums, by D / M (no sum at all on
+    one data rank). ``None`` on one data rank of a residual that is not
+    sequence-split, and where none of ``inputs`` (the layer's input and
+    router) takes a gradient: serving discards the aux."""
+    groups = tuple(data_parallel.data_groups(ctx)) if ctx is not None \
+        else ()
+    if not (groups or tp.seq) or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in inputs):
+        return None
+    D = ctx.data_axes_size
+    return GlobalAux(groups, D, D / (tp.ways if tp.seq else 1))
 
 
 def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -122,13 +198,15 @@ def expert_rows(flat: torch.Tensor, num_experts: int) -> list:
     return torch.bincount(flat, minlength=num_experts).tolist()
 
 
-def routed(xt: torch.Tensor, p: Params, cfg
+def routed(xt: torch.Tensor, p: Params, cfg,
+           over: Optional[GlobalAux] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xt: [T, d] -> (the top-k combine of the routed experts [T, d],
-    aux). Each expert runs on the rows routed to it."""
+    aux; ``over`` as ``route``'s). Each expert runs on the rows routed
+    to it."""
     T, d = xt.shape
     k = cfg.experts_per_token
-    gates, idx, aux = route(xt, p["router"], k)
+    gates, idx, aux = route(xt, p["router"], k, over)
     flat = idx.reshape(-1)                          # [T*k], token-major
     order = torch.argsort(flat, stable=True)        # the pairs by expert
     # the one host read of the layer: the slices below need the counts
@@ -272,6 +350,21 @@ class _SeqGather(torch.autograd.Function):
         return g[:, fctx.m * s:(fctx.m + 1) * s].contiguous(), None, None
 
 
+class _Share(torch.autograd.Function):
+    """Identity forward; backward: the cotangent divided by ``M``, the
+    ranks that computed the same output (the reference's transpose of a
+    replicated ``out_specs``)."""
+
+    @staticmethod
+    def forward(fctx, y, M):
+        fctx.M = M
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.M, None
+
+
 def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism over ``ctx.model_axis`` on this rank.
@@ -284,10 +377,15 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     its ``S/M`` positions and the outputs are all-gathered; with the
     sequence-split residual (``ctx.seq_parallel``) ``x`` and ``y`` are
     already this rank's S/M positions, the same slice, and nothing is
-    sliced or gathered here; otherwise
-    every rank routes all of them, which only serving does (a decode
-    step): under autograd that case raises ``ValueError``, since each
-    rank's experts would take M copies of every gradient. Each expert
+    sliced or gathered here; otherwise every rank routes all of them, at
+    a ``cap`` of its ``B_local·S`` tokens (the reference's ``tok_spec``
+    without the model axis), and each rank's experts take M copies of
+    every row. The reference's ``out_specs`` replicate ``y`` there, so
+    its transpose divides the cotangent by M; here ``_Share`` does (the
+    expert gradients are then the sum of M parts of 1/M), and the
+    input's 1/M parts meet in the sum over the axis of its copy onto it
+    (``tensor_parallel.enter``), the router's in the training step's.
+    Each expert
     takes at most ``cap`` (``capacity``) of a rank's (token, slot) pairs,
     in token-major order; the rest are dropped (weight 0).
 
@@ -313,13 +411,10 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
     presliced = ctx.seq_parallel        # the residual's own slice
     # the reference's tok_spec
     seq_shard = presliced or (S % M == 0 and S >= M)
-    if not seq_shard and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, p["router"], p["w1"], p["w3"],
-                                      p["w2"])):
-        raise ValueError(
-            f"routed_ep under autograd wants a sequence that divides over "
-            f"the model axis: {S} positions over {M} ranks would give each "
-            f"rank's experts {M} copies of every gradient")
+    every = not seq_shard and M > 1         # every rank routes all of S
+    if every:
+        # the input's 1/M parts summed over the axis in the backward
+        x = TP.enter(x, TP.plan(cfg, ctx))
     if seq_shard and M > 1 and not presliced:
         x = _SeqSlice.apply(x, group, m, M)
     bl, sl = x.shape[:2]
@@ -350,6 +445,8 @@ def routed_ep(x: torch.Tensor, p: Params, cfg, ctx
         dim=1).reshape(bl, sl, d)
     if seq_shard and M > 1 and not presliced:
         y = _SeqGather.apply(y, group, m)
+    if every:
+        y = _Share.apply(y, M)
     return y, aux
 
 
@@ -357,18 +454,24 @@ def moe_block(p: Params, x: torch.Tensor, cfg, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE residual block: x + shared experts + routed experts.
     ``routed_ep`` when ``ctx`` asks for it (``moe_impl="ep"`` on a mesh),
-    else the drop-free ``routed``. On a model axis whose ranks split the
+    else the drop-free ``routed``, whose aux is the global batch's over
+    more than one data rank (``global_aux``); under the sequence-split
+    residual ``routed`` runs on every position, gathered over the model
+    axis, and returns the rank's. On a model axis whose ranks split the
     shared experts (``tensor_parallel.plan``) each rank holds their
     hidden units."""
     B, S, d = x.shape
+    tp = TP.plan(cfg, ctx)
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
     if ctx is not None and ctx.moe_impl == "ep" and ctx.mesh is not None:
         r, aux = routed_ep(xn, p, cfg, ctx)
     else:
-        r, aux = routed(xn.reshape(B * S, d), p, cfg)
-        r = r.reshape(B, S, d)
+        xw = TP.gather_seq(xn, tp)
+        Bw, Sw = xw.shape[:2]
+        r, aux = routed(xw.reshape(Bw * Sw, d), p, cfg,
+                        global_aux(ctx, tp, xw, p["router"]))
+        r = TP.slice_seq(r.reshape(Bw, Sw, d), tp)
     if cfg.num_shared_experts:
-        tp = TP.plan(cfg, ctx)
         sh = L.swiglu(xn, p["sh_w1"], p["sh_w3"], p["sh_w2"],
                       split=tp if tp.shared else None)
         return x + sh + r, aux

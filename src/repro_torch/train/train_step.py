@@ -128,19 +128,13 @@ def make_grads_fn(cfg: ModelConfig, ctx: ModelContext, *,
     batch's rows, as the reference's: a rank's slices are ``microbatch
     / D`` of its rows (``data_shard`` orders them), and a
     ``microbatch`` that does not divide over the D data ranks raises
-    ``ValueError``. So does the dense MoE route over more than one data
-    rank (the ``no_tp`` hint's default): its load-balance aux is the
-    reference's over the global batch, which is not ported (ROADMAP
-    queue 1 item 16)."""
+    ``ValueError``. The dense MoE route (the ``no_tp`` hint's default)
+    over more than one data rank takes the global batch's load-balance
+    aux, as the reference's (``models.moe.global_aux``)."""
     D = ctx.data_axes_size
     if microbatch % D:
         raise ValueError(f"microbatch {microbatch} does not divide over "
                          f"{D} data ranks")
-    if D > 1 and ctx.moe_impl == "dense" and any(
-            spec.ffn == "moe" for spec in model.layer_specs(cfg)):
-        raise ValueError(f"{cfg.name}: the dense MoE route's load-balance "
-                         f"aux over {D} data ranks is the global batch's; "
-                         f"not ported (ROADMAP queue 1 item 16)")
     local_mb = microbatch // D
     mesh = data_parallel.on_mesh(ctx)
     split = TP.layout(cfg, ctx)

@@ -167,6 +167,9 @@ REF_SHAPES = ("prefill_32k", "decode_32k", "train_4k")
 REF_CELLS = [(SMOKE, s, D, M) for s in REF_SHAPES
              for D, M in ((2, 2), (1, 4))] + \
     [(arch, s, 2, 2) for arch in ARCHS[1:] for s in REF_SHAPES]
+#: a decode cell of batch 1, whose caches the reference cuts on the
+#: sequence over the data axes (``cache_specs``), as the port does
+BATCH1_CELLS = [("gemma3-4b-smoke", "long_500k", 2, 2)]
 
 
 @pytest.fixture(scope="module")
@@ -191,14 +194,15 @@ def worlds(tmp_path_factory):
                  json.dumps(MESHES), json.dumps(ARCHS), shapes,
                  json.dumps(CAPACITY)], env=env, cwd=tmp,
                 stderr=subprocess.PIPE, text=True))
+    cells = REF_CELLS + BATCH1_CELLS
     refs = [subprocess.Popen([sys.executable, "-c", REFERENCE, json.dumps(
-        [c for c in REF_CELLS if (c[0], c[2:]) == group])], env=env,
+        [c for c in cells if (c[0], c[2:]) == group])], env=env,
         cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for group in dict.fromkeys((c[0], c[2:]) for c in REF_CELLS)]
+        for group in dict.fromkeys((c[0], c[2:]) for c in cells)]
     try:
         port = {(arch, shape, D, M): dryrun_lib.run_cell(
             arch, shape, mesh=Mesh(("data", "model"), (D, M)))
-            for arch, shape, D, M in REF_CELLS}
+            for arch, shape, D, M in cells}
         errs = [p.communicate(timeout=RANKS_TIMEOUT_S)[1] for p in procs]
         ref_outs = [r.communicate(timeout=RANKS_TIMEOUT_S) for r in refs]
     finally:
@@ -214,7 +218,7 @@ def worlds(tmp_path_factory):
     for o in outs:
         live.update(json.loads(o.read_text()))
     return live, {c: (port[c], ref["{}|{}|{}x{}".format(*c)])
-                  for c in REF_CELLS}
+                  for c in cells}
 
 
 def _collectives(counts):
@@ -406,16 +410,16 @@ def _mla_gap(cfg, shape, D: int, M: int):
     rank (their leaves enter the axis through ``TP.share``), 2·T·d·(q_lora
     + kv_lora + rope) and 2·B·d·(kv_lora + rope) a layer over the rank's
     rows, (1 - 1/M) of them more. A decode step's latent cache ``(c_kv,
-    k_pe)`` is whole on every rank, the reference cuts its last dimension
-    M ways (ROADMAP §3). ``jax.jit`` drops the arguments a cell does not
-    read: a prefill or decode step reads no MTP leaf, which the port's
-    arguments hold."""
+    k_pe)`` is cut as the reference cuts it, its last dimension M ways
+    (``layers.latent_ways``; until PR 36 it was whole, 335,544,320 B more
+    in V3's decode cell at 2 x 2). ``jax.jit`` drops the arguments a cell
+    does not read: a prefill or decode step reads no MTP leaf, which the
+    port's arguments hold."""
     B, S, L = shape.global_batch // D, shape.seq_len, cfg.num_layers
     d, lat = cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim
     nbytes = _mtp_bytes(cfg, D, M)
     if shape.kind == "decode":
         flops = L * 2 * B * d * lat * (M - 1) // M
-        nbytes += L * B * S * lat * 2 * (M - 1) // M
     else:
         flops = L * 2 * B * S * d * (cfg.q_lora_rank + lat) * (M - 1) // M
     return flops, nbytes
@@ -453,6 +457,21 @@ def _conv_tail_gap(cfg, shape, D: int, M: int):
     return L * 2 * B * K * ch, L * B * (K - 1) * ch * 2 + 4
 
 
+def _batch1_state_gap(cfg, D: int, M: int) -> int:
+    """The argument bytes that a rank of a D x M data x model mesh holds
+    beyond the reference's device in a decode cell of batch 1: the
+    reference's ``cache_specs`` cuts a Mamba2 layer's float32 state
+    ``[1, h, p, N]`` on its heads over the data axes (dimension 2 of its
+    stacked leaf) and on ``p`` over ``model``; the port keeps the heads
+    whole over the data axes and cuts them over ``model`` (``[1, h/M, p,
+    N]`` a rank): (1 - 1/D) of the rank's state more. The attention
+    caches are cut alike (``layers.ContextSplit``); the conv tail is
+    ``_conv_tail_gap``'s."""
+    n = sum(s.kind == "mamba" for s in model.layer_specs(cfg))
+    state = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4 // M
+    return n * state * (D - 1) // D
+
+
 def test_the_gaps_are_the_stated_numbers():
     cfg = get_config(SMOKE)
     assert _train_gap(cfg, SHAPES["train_4k"], 2, 2) == 1_099_511_627_776
@@ -463,8 +482,15 @@ def test_the_gaps_are_the_stated_numbers():
     assert _mtp_bytes(v3, 2, 2) == 27_136
     assert _mla_gap(v3, SHAPES["prefill_32k"], 2, 2) == \
         (9_663_676_416, 27_136)
-    assert _mla_gap(v3, SHAPES["decode_32k"], 2, 2) == \
-        (655_360, 335_544_320 + 27_136)
+    assert _mla_gap(v3, SHAPES["decode_32k"], 2, 2) == (655_360, 27_136)
+    # what a batch-1 rank of the multi-pod mesh still holds beyond the
+    # reference's device: the Mamba2 state's heads, whole over the 32
+    # data ranks where the reference cuts them (ROADMAP §3)
+    assert _batch1_state_gap(get_config("mamba2-370m"), 32, 16) == \
+        3_047_424
+    assert _batch1_state_gap(get_config("zamba2-2.7b"), 32, 16) == \
+        4_285_440
+    assert _batch1_state_gap(get_config("gemma3-4b"), 32, 16) == 0
     assert _mla_train_bound(v3, SHAPES["train_4k"], 2, 2) == \
         73_006_055_424
     mamba = get_config("mamba2-370m-smoke")
@@ -519,6 +545,24 @@ def test_the_count_against_the_references_compiled_cell(worlds, cell):
                            if sh.kind == "train" else 0), 0
     assert 0 <= flops - gap - ref_flops <= bound
     assert nbytes - nbytes_gap == ref_args
+
+
+@pytest.mark.parametrize("cell", BATCH1_CELLS, ids=_cell_id)
+def test_a_batch_1_cells_arguments_are_the_references(worlds, cell):
+    """A decode cell of batch 1 on 2 x 2: the rank at the origin's
+    argument bytes equal the reference's device 0's. Its caches are cut
+    on the sequence over the data axis (``layers.ContextSplit``) and on
+    the KV heads over the model axis, as the reference's
+    ``cache_specs`` cuts them; the token and the position are whole on
+    every rank. ``gemma3-4b-smoke`` has no Mamba2 state, which the port
+    keeps whole over the data axes (``_batch1_state_gap``)."""
+    arch, shape, D, M = cell
+    cfg = get_config(arch)
+    assert SHAPES[shape].global_batch % D and not (
+        cfg.num_heads % M or cfg.num_kv_heads % M)
+    rec, (_, ref_args, _) = worlds[1][cell]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["memory"]["argument_bytes"] == ref_args
 
 
 def test_the_references_collectives_are_its_partitioners(worlds):

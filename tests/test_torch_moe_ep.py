@@ -35,7 +35,7 @@ from repro.models import model as jmodel
 from repro.models import moe as JMOE
 from repro_torch.configs import get_config
 from repro_torch.device import use_device
-from repro_torch.distributed import sharding
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.collectives import CountedGroup
 from repro_torch.launch.mesh import RankMesh, make_host_mesh
 from repro_torch.models import convert, layers as L, moe
@@ -185,8 +185,10 @@ def test_ep_without_drops_equals_routed(mesh):
 
 def test_routed_ep_refuses_the_wrong_experts_and_a_backward(mesh):
     """The wrong experts raise; a backward runs on a world of one, and
-    one whose sequence does not divide over the model axis raises (a
-    stand-in mesh of two ranks: the check comes before any exchange)."""
+    one whose sequence does not divide over the model axis runs on a
+    stand-in mesh of two ranks (``meta`` tensors, the exchanges counted):
+    every rank routes every position, and the backward reaches the input
+    and each leaf (its values: ``tests/test_torch_moe_ep_train.py``)."""
     _, cfg = _cfgs("float32")
     p = moe.init_moe(torch.Generator().manual_seed(2), cfg)
     ctx = sharding.make_context(mesh)
@@ -200,12 +202,20 @@ def test_routed_ep_refuses_the_wrong_experts_and_a_backward(mesh):
     (g,) = torch.autograd.grad(y.sum() + aux, [xg])
     assert g.shape == xg.shape and bool(torch.isfinite(g).all())
 
-    class TwoRanks(RankMesh):
-        def size(self, dim=None):
-            return 2 if dim == 1 else 1
-    two = L.ModelContext(mesh=TwoRanks(), moe_impl="ep")
-    with pytest.raises(ValueError, match="divides over the model axis"):
-        moe.routed_ep(xg, half, cfg, two)
+    two = L.ModelContext(mesh=RankMesh(("data", "model"), (1, 2), (0, 1)),
+                         moe_impl="ep")
+    meta = {n: t.to("meta").requires_grad_() for n, t in half.items()}
+    xm = xg.detach().to("meta").requires_grad_()
+    with collectives.recording() as tally:
+        y, aux = moe.routed_ep(xm, meta, cfg, two)
+        grads = torch.autograd.grad(y.sum() + aux, [xm, meta["router"],
+                                                    meta["w1"]])
+    assert y.shape == xm.shape and [g.shape for g in grads] == [
+        xm.shape, meta["router"].shape, meta["w1"].shape]
+    # the exchanges both ways, and the input's gradient summed over the
+    # axis
+    assert tally.calls[("all-to-all", 2)][0] == 4
+    assert ("all-reduce", 2) in tally.calls
     # one rank holds every expert: nothing is cut or copied
     assert moe.local_experts(p, ctx) is p
     params = {"layers": [{"ffn": p}], "embed": x}

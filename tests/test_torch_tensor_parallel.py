@@ -809,8 +809,10 @@ def _check_family_layout(ref, r, case, cfg, D, M):
     shard shape (a stacked leaf without its repeat axis), and its caches
     hold its heads: a GQA layer's KV heads, a Mamba2 layer's SSD heads
     (the state ``[B, h/M, p, N]``, the conv tail its ``d_inner/M``
-    channels with ``B`` and ``C``), the MLA latent whole, a
-    cross-attention layer's none."""
+    channels with ``B`` and ``C``), the MLA latent's ``1/M`` of its last
+    dimension (the reference's ``cache_specs``: ``kv_lora_rank`` and the
+    rope dim cut over the model axis, which divides them and the heads
+    here), a cross-attention layer's none."""
     want = _sub(ref, f"serve|{case}|shard|")
     have = _sub(r, f"serve|{case}|shape|")
     stacks = model.layer_stacks(cfg)
@@ -833,8 +835,10 @@ def _check_family_layout(ref, r, case, cfg, D, M):
         if spec.kind == "cross_attn":
             wants = []
         elif spec.kind == "mla":
-            wants = [(B, rows, cfg.kv_lora_rank),
-                     (B, rows, cfg.qk_rope_head_dim)]
+            assert not (cfg.num_heads % M or cfg.kv_lora_rank % M or
+                        cfg.qk_rope_head_dim % M)
+            wants = [(B, rows, cfg.kv_lora_rank // M),
+                     (B, rows, cfg.qk_rope_head_dim // M)]
         elif spec.kind == "mamba":
             wants = [(B, cfg.ssm_conv - 1, cfg.ssm_d_inner // M +
                       2 * cfg.ssm_ngroups * cfg.ssm_state),
@@ -954,11 +958,14 @@ def _check_err(ref, got, tag):
     assert out == 0, ("err", out)
 
 
-def test_hints_and_refusals_of_the_context():
+def test_hints_of_the_context_reach_every_layout():
     """Both layout hints are the caller's: ``no_tp`` adds the model axis
     to the data axes and defaults the MoE route to dense, and splits
-    nothing; ``seq_shard_residual`` holds where the positions divide. The
-    mesh fields stay refused; the hint where it does not reach raises."""
+    nothing; ``seq_shard_residual`` holds where the positions divide,
+    for every family, under the dense MoE route and over a vocabulary
+    that does not split (those two steps are held to the reference's in
+    ``tests/test_torch_moe_ep_train.py``, ``GRADS``). The mesh fields
+    stay refused."""
     assert set(sharding.REFUSED_CONTEXT) == {"mesh", "model_axis",
                                              "data_axes"}
     two = _Axis(2, 1)
@@ -978,14 +985,21 @@ def test_hints_and_refusals_of_the_context():
     caches = model.init_cache(cfg, 1, 4, device="meta", ctx=plain)
     assert caches[0][0].shape == (1, 4, cfg.num_kv_heads // 2, cfg.head_dim)
     # every family takes the hint (the local/global family's step under
-    # it: the "gemma-1x2-seq" case); the dense MoE route and a vocabulary
-    # that does not split do not
+    # it: the "gemma-1x2-seq" case), the dense MoE route and a vocabulary
+    # that does not split included
     for arch in ("gemma3-4b-smoke",) + tuple(FAMILIES.values()):
         assert TP.plan(get_config(arch), seq).seq
-    with pytest.raises(ValueError, match="MoE route"):
-        TP.plan(get_config(MOE), dataclasses.replace(seq, moe_impl="dense"))
-    with pytest.raises(ValueError, match="vocabulary"):
-        TP.plan(cfg, dataclasses.replace(seq, mesh=_Axis(3, 1)))
+    dense = TP.plan(get_config(MOE), dataclasses.replace(
+        seq, moe_impl="dense"))
+    assert (dense.seq, dense.shared) == (True, True)
+    three = TP.plan(cfg, dataclasses.replace(seq, mesh=_Axis(3, 1)))
+    assert (three.seq, three.vocab, three.ways, three.rank) == \
+        (True, False, 3, 1)
+    # a whole vocabulary under the hint: the rank's positions looked up
+    ids = torch.arange(12)[None, :] % cfg.vocab_size
+    table = torch.arange(cfg.padded_vocab_size, dtype=torch.float32
+                         )[:, None].expand(-1, 2)
+    assert TP.embed(table, ids, three)[0, :, 0].tolist() == [4, 5, 6, 7]
     with pytest.raises(ValueError, match="local_tp_params"):
         L.attn_block(model.init(ShapesOnly(), cfg)["layers"][0]["attn"],
                      torch.zeros(1, 4, cfg.d_model, device="meta"), cfg,

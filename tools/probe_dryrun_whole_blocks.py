@@ -10,11 +10,12 @@ count, where the port's layout is not the reference's.
   and 15/16 of the blocks' matmul FLOPs: counted under a spy on
   ``layers.attn_block`` (the forward, and in a train cell the remat
   recompute; the backward's two passes are taken as twice those).
-* The MLA latent cache is whole on every rank; the reference cuts its
-  last dimension over ``model``: 15/16 of its bytes a decode cell.
-* ``long_500k``'s batch of 1 is replicated over the 32 data ranks; the
-  reference cuts its caches' sequence over them: 31/32 of the caches'
-  bytes and of the attention blocks' FLOPs.
+* ``long_500k``'s batch of 1 is replicated over the 32 data ranks, and
+  its attention caches are cut on the sequence over them as the
+  reference cuts them (``layers.ContextSplit``); the Mamba2 state stays
+  whole over them, where the reference cuts its heads: 31/32 of the
+  state's bytes. (The MLA latent cache is cut over ``model`` as the
+  reference's: nothing to price.)
 
 Usage (no card; ~1-2 min on a CPU):
   PYTHONPATH=src python tools/probe_dryrun_whole_blocks.py [--arch A ...]
@@ -99,27 +100,20 @@ def cell(arch: str, shape_name: str) -> dict:
     specs = model.layer_specs(cfg)
     attn_cache = _nbytes(t for s, c in zip(specs, caches)
                          if s.kind == "attn" for t in c)
-    mla_cache = _nbytes(t for s, c in zip(specs, caches)
-                        if s.kind == "mla" for t in c)
+    state = _nbytes(c[1] for s, c in zip(specs, caches) if s.kind == "mamba")
     extra_bytes, extra_flops = 0, 0
     if whole:
         leaves = whole_attention_leaves(cfg, ctx)
         per = 5 if shape.kind == "train" else 1     # + float32 mu, nu
-        # a replicated batch's caches are priced below, once
+        # a replicated batch's caches are cut on the sequence over the
+        # data axes, where the reference's are too (not over ``model``)
         cache = 0 if out["replicated_batch"] else attn_cache
         extra_bytes += (per * leaves + cache) * (M - 1) // M
-    if mla_cache and not out["replicated_batch"]:
-        extra_bytes += mla_cache * (M - 1) // M
-    if whole or out["replicated_batch"]:
         f = attention_flops(cfg, shape, ctx)
         f *= 2 if shape.kind == "train" else 1      # the backward's
-        if whole:
-            extra_flops += f * (M - 1) // M
-            f //= M
-        if out["replicated_batch"]:
-            extra_flops += f * (R - 1) // R
-            cache = _nbytes(t for c in caches for t in c)
-            extra_bytes += cache * (R - 1) // R
+        extra_flops += f * (M - 1) // M
+    if out["replicated_batch"]:
+        extra_bytes += state * (R - 1) // R
     out.update(extra_argument_bytes=extra_bytes,
                extra_matmul_flops=extra_flops)
     return out
