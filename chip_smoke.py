@@ -579,8 +579,27 @@ and prints no result line:
    sequence over the 2 ranks (each step's logits, the ids, each rank's
    cache bytes the layout's half). Times are a shared card's over
    gloo. The phase must end within 300 s.
+25. Context-parallel attention: ``qwen2-7b`` at full width cut to 2
+   layers over 8 gloo ranks sharing the card (``make_host_mesh(1, 8,
+   backend="gloo")``; its 4 KV heads do not divide over 8, so each rank
+   holds 1/8 of every attention leaf, attends with its rows of the
+   queries and decodes on caches cut on the sequence over the ranks).
+   bf16: ``engine.generate`` on 2 x 2048 at q chunks of 256 (one a
+   rank) and 4 greedy decode steps, the ids equal on every rank, each
+   rank's parameter bytes the layout's count and its caches 1/8 of a
+   world of one's, no flash launch (the rows take the chunked loop); a
+   prefill's collectives through the seam equal to the dry-run's count
+   of the same cell at (0, 0) and (0, 7). float32 against a world of one
+   that this process computes while the ranks serve: logits at 2 x 512
+   (q chunks of 64) and 4 greedy steps within 1e-5 of the largest
+   |logit|, ids equal; one step's gradient at 1 x 512 (loss within
+   1e-5, global norm within 1e-5, 4,096 seeded elements of each rank's
+   block of each leaf within 1e-5 of the leaf's largest |element|).
+   Then the chunked loop's time for one rank's rows, beside SDPA on the
+   same rows, the flash kernel over all rows and the bound. The phase
+   must end within 180 s.
 
-Before phases 3 to 11 and 14 to 24 the script releases cuBLAS's per-stream
+Before phases 3 to 11 and 14 to 25 the script releases cuBLAS's per-stream
 workspaces and the allocator's free blocks, then prints the device
 memory still held and the live CUDA tensors behind it, so that each
 phase's peak is its own.
@@ -607,8 +626,9 @@ training (``{"lm_family_training_launches": ...}``), the example entry
 points' (``{"examples_launches": ...}``), expert-parallel serving's
 (``{"ep_serving_launches": ...}``), expert-parallel training's
 (``{"ep_training_launches": ...}``), tensor parallelism's
-(``{"tp_launches": ...}``) and tensor parallelism's for the other
-blocks (``{"tp_family_launches": ...}``), the ``kernels`` JSON
+(``{"tp_launches": ...}``), tensor parallelism's for the other
+blocks (``{"tp_family_launches": ...}``) and context parallelism's
+(none, ``{"cp_launches": ...}``), the ``kernels`` JSON
 object (``flash_attention``'s launches: phase 5's float32 check, phase
 8's pipeline, phase 11's check, phase 14's float32 check, phase 15's
 ``zamba2`` prefill and float32 checks, phase 17's float32 MTP checks,
@@ -8199,6 +8219,543 @@ def _tpf_report(tag, arch, cut16, cut32, seqs, runs, launches, card):
           f"({tag}) the ranks' bf16 step metrics differ")
 
 
+# ---------------------------------------------------------------- phase 25
+CP_ARCH = "qwen2-7b"            # full width, depth cut to CP_LAYERS
+CP_LAYERS = 2
+#: the model axis: 4 KV heads do not divide over 8 (the smallest axis on
+#: which a full config's GQA block runs context-parallel); all 8 ranks
+#: share the card
+CP_RANKS = 8
+#: bf16 serving: CP_BATCH x CP_PROMPT at q chunks of CP_CHUNK (8 chunks:
+#: one a rank), then CP_NEW greedy decode steps on a cache of
+#: CP_CACHE_LEN rows (257 a rank)
+CP_BATCH, CP_PROMPT, CP_NEW, CP_CHUNK = 2, 2048, 4, 256
+CP_CACHE_LEN = CP_PROMPT + 8
+#: float32 against a world of one: logits at CP_BATCH x CP_CHECK_PROMPT
+#: (q chunks of CP_CHECK_CHUNK: one a rank) and CP_CHECK_NEW greedy
+#: steps on a cache of CP_CHECK_PROMPT + 8 rows, then one step's
+#: gradient at 1 x CP_TRAIN_SEQ
+CP_CHECK_PROMPT, CP_CHECK_CHUNK, CP_CHECK_NEW = 512, 64, 4
+CP_TRAIN_SEQ = 512
+#: the float32 bounds: logits over max |logit| at every step, each
+#: gradient block's sampled elements over its leaf's max |g|, the global
+#: norm and the loss relative
+CP_LOGITS_TOL = CP_GRAD_TOL = CP_NORM_RTOL = 1e-5
+CP_SAMPLES = 4096               # sampled elements of each gradient block
+CP_RANK_TIMEOUT_S = 240
+PHASE25_LIMIT_S = 180
+
+CP_RANK = """\
+import dataclasses, gc, json, os, sys, time
+import torch, torch.distributed as dist
+rank, world, store, out, tmp, args = (int(sys.argv[1]), int(sys.argv[2]),
+                                      sys.argv[3], sys.argv[4], sys.argv[5],
+                                      json.loads(sys.argv[6]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+import chip_smoke as C
+from repro_torch import tree
+from repro_torch.configs import get_config
+from repro_torch.device import set_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import make_context
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import convert, model
+from repro_torch.models.layers import ShapesOnly
+from repro_torch.serve import engine
+from repro_torch.train.optimizer import global_norm
+from repro_torch.train.train_step import make_grads_fn
+set_device("cuda")
+dev = torch.device("cuda", 0)
+mesh = make_host_mesh(1, world, backend="gloo")
+res = {"rank": rank, "backend": dist.get_backend(),
+       "model_rank": mesh.get_local_rank("model")}
+B, S, new, L = args["batch"], args["prompt"], args["new"], args["layers"]
+t_rank = time.perf_counter()
+
+
+def nbytes(t):
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def release():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def build(cfg, ctx):
+    # this rank's block, made from one seed a leaf or a layer at a time
+    # through the converter's cut (convert.local_tp_keep)
+    return model.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                      keep=convert.local_tp_keep(cfg, ctx))
+
+
+def sizes(cfg, ctx, params):
+    # this rank's bytes, the layout's count of them, the whole model's,
+    # and whether every GQA attention leaf is among the cut ones
+    cuts = TP.layout(cfg, ctx)
+    whole = tree.flatten_with_names(model.init(ShapesOnly(), cfg))
+    attn = [n for n in whole if "/attn/" in n and n.rsplit("/", 1)[1] in
+            ("wq", "wk", "wv", "wo", "bq", "bk", "bv")]
+    return {"rank": nbytes(params), "whole": nbytes(list(whole.values())),
+            "layout": sum(t.numel() * t.element_size() // (
+                world if n in cuts and cuts[n].model is not None else 1)
+                for n, t in whole.items()),
+            "attn_leaves": len(attn),
+            "attn_cut": all(n in cuts and cuts[n].model is not None
+                            for n in attn)}
+
+
+def cache_sizes(cfg, caches, b, rows):
+    kinds = sorted({type(c).__name__ for c in caches})
+    whole = L * 2 * b * rows * cfg.num_kv_heads * cfg.head_dim * \\
+        torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return {"rank": nbytes(caches), "whole": whole,
+            "layout": whole // world, "kinds": kinds}
+
+
+# (a) bf16 serving at full width
+cfg = dataclasses.replace(get_config(args["arch"]), num_layers=L)
+ctx = make_context(mesh, q_chunk=args["chunk"], k_chunk=args["chunk"])
+plan = TP.plan(cfg, ctx)
+res["plan"] = {"attn": plan.attn, "cp": plan.cp}
+params = build(cfg, ctx)
+res["bytes"] = sizes(cfg, ctx, params)
+prompt = C._tpf_tokens(cfg, B, S, 1)
+# first calls load cuBLAS and the gloo paths: not measured
+engine.generate(params, prompt, cfg, ctx, max_new_tokens=2,
+                cache_len=args["cache_len"])
+release()
+torch.cuda.reset_peak_memory_stats()
+dist.barrier()
+ops.reset_launches()
+timings = {}
+ids = engine.generate(params, prompt, cfg, ctx, max_new_tokens=new + 1,
+                      cache_len=args["cache_len"], timings=timings)
+torch.cuda.synchronize()
+res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+res["peak"] = torch.cuda.max_memory_allocated()
+res["prefill_s"], res["decode_s"] = timings["prefill_s"], timings["decode_s"]
+res["ids"] = ids.tolist()
+# one prefill at cache_len S (the dry-run's prefill cell): its
+# collectives through the seam and this rank's caches
+dist.barrier()
+ops.reset_launches()
+with collectives.recording() as tally:
+    caches, _ = model.prefill(params, prompt, cfg, ctx, cache_len=S)
+torch.cuda.synchronize()
+res["prefill_launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+res["collectives"] = {f"{kind} {ways} {what}": n
+                      for (kind, ways), rec in tally.calls.items()
+                      for what, n in zip(("count", "operand_bytes"), rec)}
+res["cache"] = cache_sizes(cfg, caches, B, S)
+del params, caches, ids
+release()
+res["bf16_s"] = time.perf_counter() - t_rank
+
+# (b) float32 at the cut against the world of one's (the phase's process
+# computes it while the ranks serve)
+cfg32 = dataclasses.replace(cfg, dtype="float32")
+cctx = make_context(mesh, q_chunk=args["check_chunk"],
+                    k_chunk=args["check_chunk"])
+p32 = build(cfg32, cctx)
+res["bytes32"] = sizes(cfg32, cctx, p32)
+path = os.path.join(tmp, f"rank{rank}.pt")
+t0 = time.perf_counter()
+deadline = time.monotonic() + args["wait_s"]
+while not os.path.exists(path):
+    if time.monotonic() > deadline:
+        raise TimeoutError(f"nothing at {path}")
+    time.sleep(0.1)
+res["wait_s"] = time.perf_counter() - t0
+ref = torch.load(path, mmap=True)
+P = args["check_prompt"]
+dist.barrier()
+ops.reset_launches()
+caches, logits = model.prefill(p32, C._tpf_tokens(cfg32, B, P, 1), cfg32,
+                               cctx, cache_len=P + 8)
+rel, same, finite, steps = [], True, True, []
+for i in range(args["check_new"] + 1):
+    w = ref["decode"][i].to(dev)
+    rel.append(((logits - w).abs().max() / w.abs().max()).item())
+    finite = finite and bool(torch.isfinite(logits).all())
+    got = logits.argmax(-1)
+    same = same and bool((got == w.argmax(-1)).all())
+    steps.append(got.tolist())
+    if i < args["check_new"]:
+        caches, logits = model.decode_step(p32, caches, got[:, None], P + i,
+                                           cfg32, cctx)
+torch.cuda.synchronize()
+res["check"] = {"rel": rel, "ids_equal": same, "finite": finite,
+                "ids": steps,
+                "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+                "cache": cache_sizes(cfg32, caches, B, P + 8)}
+del caches, logits, w
+# (c) one float32 step's gradient (make_train_step's, reduced) at 1 x
+# CP_TRAIN_SEQ, q chunks of the check's size: one a rank
+tctx = make_context(mesh, remat="full", q_chunk=args["check_chunk"],
+                    k_chunk=args["check_chunk"])
+batch = {"tokens": C._tpf_tokens(cfg32, 1, args["train_seq"] + 1, 3)}
+torch.cuda.synchronize()
+dist.barrier()
+ops.reset_launches()
+t0 = time.perf_counter()
+met, grads = make_grads_fn(cfg32, tctx)(p32, batch)
+torch.cuda.synchronize()
+g = {"s": time.perf_counter() - t0,
+     "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+     "loss": met["loss"].item(),
+     "norm": global_norm(grads, tctx, TP.layout(cfg32, tctx)).item()}
+worst, leaf, finite = -1.0, "", True
+for n, t in tree.flatten_with_names(grads).items():
+    idx, vals, scale = ref["samples"][n]
+    finite = finite and bool(torch.isfinite(t).all())
+    got = t.reshape(-1)[idx.to(dev)].cpu()
+    r = (got - vals).abs().max().item() / max(scale, 1e-30)
+    if r > worst and scale > 0:
+        worst, leaf = r, n
+g.update(worst=worst, leaf=leaf, finite=finite, leaves=len(ref["samples"]))
+res["grads"] = g
+del grads, p32, ref
+release()
+res["rank_s"] = time.perf_counter() - t_rank
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def _cp_reference():
+    """Phase 25's float32 world of one at the cut, in this process: the
+    prefill's logits at ``CP_BATCH x CP_CHECK_PROMPT`` and those of
+    ``CP_CHECK_NEW`` greedy steps after it, one step's loss and global
+    norm, and for each rank of ``CP_RANKS`` its block of every gradient
+    leaf (``tensor_parallel``'s layout) at ``CP_SAMPLES`` seeded elements
+    with the whole leaf's largest |element|; all on the host. Also the
+    world of one's flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config(CP_ARCH), num_layers=CP_LAYERS,
+                              dtype="float32")
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), cfg)
+    one = ModelContext(q_chunk=CP_CHECK_CHUNK, k_chunk=CP_CHECK_CHUNK)
+    ops.reset_launches()
+    caches, logits = model.prefill(
+        params, _tpf_tokens(cfg, CP_BATCH, CP_CHECK_PROMPT, 1), cfg, one,
+        cache_len=CP_CHECK_PROMPT + 8)
+    decode = _greedy_logits(params, caches, logits, cfg, one,
+                            CP_CHECK_PROMPT, CP_CHECK_NEW)
+    del caches, logits
+    (loss, _), grads = loss_and_grads(
+        params, {"tokens": _tpf_tokens(cfg, 1, CP_TRAIN_SEQ + 1, 3)}, cfg,
+        ModelContext(remat="full", q_chunk=CP_CHECK_CHUNK,
+                     k_chunk=CP_CHECK_CHUNK))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    del params
+    cuts = TP._layout(cfg, CP_RANKS, 1, True)
+    out = [{"decode": decode, "loss": loss.item(),
+            "norm": global_norm(grads).item(), "samples": {}}
+           for _ in range(CP_RANKS)]
+    for i, (n, g) in enumerate(tree.flatten_with_names(grads).items()):
+        scale = g.abs().max().item()
+        for m, o in enumerate(out):
+            block = (TP.local_block(g, cuts[n], (m, CP_RANKS), (0, 1))
+                     if n in cuts else g).reshape(-1)
+            idx = torch.randint(
+                0, block.numel(), (min(CP_SAMPLES, block.numel()),),
+                generator=torch.Generator().manual_seed(i))
+            o["samples"][n] = (idx, block[idx.to(block.device)].cpu(), scale)
+    del grads
+    return out, launches
+
+
+def _cp_counts():
+    """Phase 25's prefill cell counted by the dry-run at the first and
+    last rank's coordinates of the 1 x ``CP_RANKS`` mesh
+    (``launch.mesh.RankMesh``): the ranks' cut, rows and context."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_context
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import RankMesh
+    cfg = dataclasses.replace(get_config(CP_ARCH), num_layers=CP_LAYERS)
+    shape = ShapeConfig("phase25_prefill", "prefill", CP_PROMPT, CP_BATCH)
+    out = {}
+    for m in (0, CP_RANKS - 1):
+        ctx = make_context(RankMesh(("data", "model"), (1, CP_RANKS),
+                                    (0, m), one_rank_groups=True),
+                           q_chunk=CP_CHUNK, k_chunk=CP_CHUNK)
+        t0 = time.perf_counter()
+        c = dryrun_lib.count_cell(cfg, shape, ctx)
+        out[m] = ({k[len("collective "):]: v for k, v in c.items()
+                   if k.startswith("collective ")},
+                  time.perf_counter() - t0)
+    return out
+
+
+def _cp_write(tmp, refs, errors):
+    """Each rank's reference (``rank{m}.pt``), written, then renamed."""
+    import torch
+    try:
+        for m, ref in enumerate(refs):
+            path = os.path.join(tmp, f"rank{m}.pt")
+            torch.save(ref, path + ".part")
+            os.replace(path + ".part", path)
+    except Exception as e:  # noqa: BLE001 - the phase reports it
+        errors.append(f"{type(e).__name__}: {e}")
+
+
+def _cp_rows_ms(card):
+    """The chunked loop's time for one rank's rows of the bf16 prefill
+    (``CP_BATCH x CP_PROMPT/CP_RANKS`` query rows of all 28 heads at
+    ``q_offset = m · CP_PROMPT/CP_RANKS`` against all ``CP_PROMPT`` keys
+    and values of 4 KV heads, q and k chunks of ``CP_CHUNK``: the call
+    every context-parallel prefill makes), beside the flash kernel over
+    the whole sequence (a world of one's call), ``scaled_dot_product_
+    attention`` over the same rows with their causal mask, and the rows'
+    bound (their q, k, v and output bytes over the HBM rate, or every
+    block's QK^T and PV over the dense bf16 rate). Eager calls, CUDA
+    events."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cfg = get_config(CP_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = CP_PROMPT // CP_RANKS
+    g = torch.Generator(device=DEV).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEV,
+                           dtype=torch.bfloat16)
+    q, k, v = randn(CP_BATCH, CP_PROMPT, H, D), \
+        randn(CP_BATCH, CP_PROMPT, KV, D), randn(CP_BATCH, CP_PROMPT, KV, D)
+    out = {}
+    for m in (0, CP_RANKS - 1):
+        rows = q[:, m * n:(m + 1) * n].contiguous()
+        out[f"loop_ms_rank{m}"] = cuda_ms(lambda: L.attention(
+            rows, k, v, causal=True, q_offset=m * n, q_chunk=CP_CHUNK,
+            k_chunk=CP_CHUNK), iters=10, graph=False)
+        mask = (torch.arange(CP_PROMPT, device=DEV)[None, :]
+                <= m * n + torch.arange(n, device=DEV)[:, None])
+        qh = rows.transpose(1, 2)
+        kh = k.repeat_interleave(H // KV, 2).transpose(1, 2)
+        vh = v.repeat_interleave(H // KV, 2).transpose(1, 2)
+        out[f"sdpa_ms_rank{m}"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                   attn_mask=mask),
+            iters=10, graph=False)
+        # the loop against SDPA on these rows
+        got = L.attention(rows, k, v, causal=True, q_offset=m * n,
+                          q_chunk=CP_CHUNK, k_chunk=CP_CHUNK).float()
+        want = F.scaled_dot_product_attention(
+            qh.float(), kh.float(), vh.float(),
+            attn_mask=mask).transpose(1, 2)
+        out[f"loop_vs_sdpa_rank{m}"] = (got - want).abs().max().item()
+    ops.reset_launches()
+    out["flash_whole_ms"] = cuda_ms(lambda: L.attention(
+        q, k, v, causal=True, q_chunk=CP_CHUNK, k_chunk=CP_CHUNK), iters=10)
+    out["flash_launches"] = ops.LAUNCHES["flash_attention_wgmma"]
+    nbytes = 2 * (2 * CP_BATCH * n * H * D + 2 * CP_BATCH * CP_PROMPT * KV * D)
+    flops = 4 * CP_BATCH * H * n * CP_PROMPT * D
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        nbytes, flops, chip_spec().peak_bf16_flops)
+    print(f"(d) the chunked loop over one rank's rows ({CP_BATCH} x {n} of "
+          f"{H} heads of {D} at q_offset 0 and {(CP_RANKS - 1) * n}, against "
+          f"{CP_PROMPT} keys of {KV} heads, chunks of {CP_CHUNK}; bf16 in, "
+          f"float32 math): {out['loop_ms_rank0']} ms and "
+          f"{out[f'loop_ms_rank{CP_RANKS - 1}']} ms eager; "
+          f"scaled_dot_product_attention on the same rows with their causal "
+          f"mask {out['sdpa_ms_rank0']} / "
+          f"{out[f'sdpa_ms_rank{CP_RANKS - 1}']} ms (max abs difference "
+          f"{out['loop_vs_sdpa_rank0']}, "
+          f"{out[f'loop_vs_sdpa_rank{CP_RANKS - 1}']}); the rows' bound "
+          f"{out['bound_ms']} ms ({out['bound_by']}); the flash kernel "
+          f"over all {CP_PROMPT} rows (a world of one's call, "
+          f"{out['flash_launches']} wgmma launches timed) "
+          f"{out['flash_whole_ms']} ms ({card})")
+    return out
+
+
+def phase_cp():
+    """Phase 25: ``qwen2-7b`` at full width, cut to ``CP_LAYERS`` layers,
+    over a model axis of ``CP_RANKS`` ranks sharing the card (spawned
+    processes, gloo), where its 4 KV heads do not divide: the reference's
+    context-parallel attention (every attention leaf cut, the q rows
+    split, the decode caches cut on the sequence). bf16 serving, then
+    float32 logits, greedy steps and one step's gradient against a world
+    of one computed in this process while the ranks serve; the ranks'
+    recorded collectives against the dry-run's count of the same prefill;
+    the chunked loop's time for a rank's rows. Returns the ranks' flash
+    launches (none: their rows take the chunked loop)."""
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.configs import get_config
+    print(f"== phase 25: {CP_ARCH} at {CP_LAYERS} layers context-parallel "
+          f"over a model axis of {CP_RANKS} ranks sharing the card (gloo)")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    held_report("phase 25")
+    args = {"arch": CP_ARCH, "layers": CP_LAYERS, "batch": CP_BATCH,
+            "prompt": CP_PROMPT, "new": CP_NEW, "chunk": CP_CHUNK,
+            "cache_len": CP_CACHE_LEN, "check_prompt": CP_CHECK_PROMPT,
+            "check_chunk": CP_CHECK_CHUNK, "check_new": CP_CHECK_NEW,
+            "train_seq": CP_TRAIN_SEQ, "wait_s": CP_RANK_TIMEOUT_S}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"out{r}.json") for r in range(CP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", CP_RANK, str(r), str(CP_RANKS),
+             os.path.join(tmp, "store"), outs[r], tmp, json.dumps(args)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join((SRC, ROOT))),
+            cwd=ROOT) for r in range(CP_RANKS)]
+        errors, writer = [], None
+        try:
+            t0 = time.perf_counter()
+            refs, one_launches = _cp_reference()
+            _release()
+            print(f"float32 world of one at {CP_LAYERS} layers: loss "
+                  f"{refs[0]['loss']}, global norm {refs[0]['norm']}, "
+                  f"{len(refs[0]['samples'])} gradient leaves; flash "
+                  f"launches {one_launches}; {time.perf_counter() - t0} s "
+                  f"({card})")
+            # repro: ignore[torch-thread-no-device] -- host tensors only
+            writer = threading.Thread(target=_cp_write,
+                                      args=(tmp, refs, errors))
+            writer.start()
+            # the dry-run's count, on the host while the ranks run
+            counts = _cp_counts()
+            logs = [p.communicate(timeout=CP_RANK_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if writer is not None:
+                writer.join()
+        check(not errors, f"writing the references: {errors}")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                  f"{log.strip().splitlines()[-8:]}")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    cfg = get_config(CP_ARCH)
+    print(f"process group: {res[0]['backend']}, {CP_RANKS} ranks on "
+          f"{torch.cuda.get_device_name(0)}; model-axis ranks "
+          f"{[r['model_rank'] for r in res]}; plan {res[0]['plan']}")
+    check(all(r["backend"] == "gloo" for r in res) and
+          [r["model_rank"] for r in res] == list(range(CP_RANKS)),
+          f"backends {[r['backend'] for r in res]}")
+    check(all(r["plan"] == {"attn": False, "cp": True} for r in res),
+          f"plans {[r['plan'] for r in res]}")
+    launches = {}
+    for r in res:
+        m = r["rank"]
+        for key in ("bytes", "bytes32"):
+            b = r[key]
+            print(f"(a) rank {m}{' float32' if key == 'bytes32' else ''}: "
+                  f"parameters {b['rank']} bytes, the layout's count (whole "
+                  f"leaves + 1/{CP_RANKS} of the cut ones) {b['layout']}, "
+                  f"the whole model's {b['whole']}; its {b['attn_leaves']} "
+                  f"attention leaves cut: {b['attn_cut']}")
+            check(b["rank"] == b["layout"] < b["whole"] and b["attn_cut"],
+                  f"(a) rank {m} holds {b}")
+        for key, rows in (("cache", CP_PROMPT), ("check", None)):
+            c = r[key] if key == "cache" else r[key]["cache"]
+            print(f"(a) rank {m}: {'bf16' if key == 'cache' else 'float32'}"
+                  f" attention caches {c['rank']} bytes ({c['kinds']}), 1/"
+                  f"{CP_RANKS} of a world of one's {c['whole']}: "
+                  f"{c['layout']}")
+            check(c["rank"] == c["layout"] and c["kinds"] == ["ModelSplit"],
+                  f"(a) rank {m}'s caches {c}")
+        n_dec = CP_BATCH * CP_NEW
+        print(f"(a) rank {m}: prefill {CP_BATCH} x {CP_PROMPT} in "
+              f"{r['prefill_s']} s ({CP_BATCH * CP_PROMPT / r['prefill_s']} "
+              f"tokens/s), decode {CP_NEW} steps in {r['decode_s']} s "
+              f"({r['decode_s'] / CP_NEW * 1e3} ms a step, "
+              f"{n_dec / r['decode_s']} tokens/s): figures of one card "
+              f"shared by {CP_RANKS} processes over gloo, not of context "
+              f"parallelism; peak device memory {r['peak']} bytes; flash "
+              f"launches {r['launches']}, a prefill's "
+              f"{r['prefill_launches']}, the float32 check's "
+              f"{r['check']['launches']}, the step's "
+              f"{r['grads']['launches']}; {r['bf16_s']} s bf16, "
+              f"{r['rank_s']} s in all, waited {r['wait_s']} s for the "
+              f"reference; first ids {r['ids'][0][:8]} ({card})")
+        for got in (r["launches"], r["prefill_launches"],
+                    r["check"]["launches"], r["grads"]["launches"]):
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+    check(all(r["ids"] == res[0]["ids"] for r in res),
+          "(a) the ranks generated different ids")
+    # the rows take the chunked loop (q_offset, Sq != Skv): no kernel
+    check(not any(launches.values()), f"the ranks launched {launches}")
+    want = counts[0][0]
+    for r in res:
+        print(f"(a) rank {r['rank']}: a prefill's collectives through the "
+              f"seam {r['collectives']}")
+        check(r["collectives"] == want,
+              f"(a) rank {r['rank']}'s collectives differ from the "
+              f"dry-run's")
+    print(f"(a) the dry-run's count of the same prefill at (0, 0) and (0, "
+          f"{CP_RANKS - 1}) of a 1 x {CP_RANKS} mesh: {want} (counted in "
+          f"{counts[0][1]} s and {counts[CP_RANKS - 1][1]} s)")
+    check(counts[CP_RANKS - 1][0] == want,
+          "(a) the dry-run's counts differ between the ranks")
+    r0 = res[0]
+    for r in res:
+        c, g = r["check"], r["grads"]
+        print(f"(b) rank {r['rank']} float32 at {CP_LAYERS} layers, "
+              f"{CP_BATCH} x {CP_CHECK_PROMPT} and {CP_CHECK_NEW} greedy "
+              f"steps: logits / max |logit| against the world of one at "
+              f"each step {c['rel']} (limit {CP_LOGITS_TOL}); ids equal "
+              f"{c['ids_equal']} ({card})")
+        check(c["finite"] and max(c["rel"]) <= CP_LOGITS_TOL,
+              f"(b) rank {r['rank']}'s float32 logits differ: {c['rel']}")
+        check(c["ids_equal"] and c["ids"] == r0["check"]["ids"],
+              f"(b) rank {r['rank']}'s greedy ids differ")
+        loss = abs(g["loss"] - refs[0]["loss"]) / abs(refs[0]["loss"])
+        norm = abs(g["norm"] - refs[0]["norm"]) / refs[0]["norm"]
+        print(f"(c) rank {r['rank']} float32 step's gradient at 1 x "
+              f"{CP_TRAIN_SEQ}: loss {g['loss']} (relative {loss}), global "
+              f"norm {g['norm']} (relative {norm}, limit {CP_NORM_RTOL}); "
+              f"worst gradient block {g['leaf']} {g['worst']} of its leaf's "
+              f"max |g| at {CP_SAMPLES} elements a leaf (limit "
+              f"{CP_GRAD_TOL}) over {g['leaves']} leaves; {g['s']} s "
+              f"({card})")
+        check(loss <= LM_LOSS_RTOL and norm <= CP_NORM_RTOL,
+              f"(c) rank {r['rank']}: loss {loss}, norm {norm}")
+        check(g["finite"] and 0 <= g["worst"] <= CP_GRAD_TOL,
+              f"(c) rank {r['rank']}'s gradient {g['leaf']} differs by "
+              f"{g['worst']}")
+    MEASURED["cp"] = _cp_rows_ms(card)
+    dt = time.perf_counter() - t_phase
+    print(f"phase 25: {dt} s (limit {PHASE25_LIMIT_S} s); the ranks' "
+          f"launches {launches} ({card})")
+    check(dt <= PHASE25_LIMIT_S, f"phase 25 took {dt} s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -8250,6 +8807,7 @@ def main() -> int:
             profile="--profile" in sys.argv[1:])
         tp_launches = phase_tp()
         tp_family_launches = phase_tp_families()
+        cp_launches = phase_cp()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8299,6 +8857,7 @@ def main() -> int:
     print(json.dumps({"ep_training_launches": ep_training_launches}))
     print(json.dumps({"tp_launches": tp_launches}))
     print(json.dumps({"tp_family_launches": tp_family_launches}))
+    print(json.dumps({"cp_launches": cp_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

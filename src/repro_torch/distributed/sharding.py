@@ -17,10 +17,13 @@ The model-axis entries of the partition rules below are put to work by
 ``split_dim``: the leaves of the blocks it names (``TP_LEAVES``: the
 vocabulary, GQA self- and cross-attention, MLA, Mamba2, the dense FFN
 and the shared experts, the MTP layer's attention and FFN among them)
-split over the model axis on the dimension their rule gives it, a
-block with heads only when its heads divide over the axis (otherwise
-that block runs whole on every rank: the reference partitions its q
-rows instead, a layout with the same values). Each MoE layer's experts
+split over the model axis on the dimension their rule gives it, an
+MLA or Mamba2 block only when its heads divide over the axis (otherwise
+that block runs whole on every rank), a GQA block wherever the guard
+keeps the entry: where its KV heads do not divide, each rank computes
+its column blocks and attends with its rows of the queries, the
+reference's context-parallel route (``models.layers.attn_block``,
+``tensor_parallel.Plan.cp``). Each MoE layer's experts
 split by ``models.moe``'s expert parallelism. The data-axis entries (``"data"`` on the d_model dims) are
 put to work by ``fsdp_dim``: every leaf whose rule has one is cut over
 the ``data`` axis on that dimension where the axis divides it, as the
@@ -271,9 +274,9 @@ def split_dim(name: str, block: Optional[str], shape: Tuple[int, ...],
     ``None`` (the leaf stays whole on every rank): the dimension of the
     ``"model"`` entry of the leaf's rule in ``_RULES``, kept where the
     axis divides it (``_guard``), for the leaves of ``TP_LEAVES[block]``.
-    A block's leaves split only when each of ``heads`` (an attention
-    block's query and KV heads, an MLA block's heads, a Mamba2 block's
-    SSD heads; none for the other blocks) divides over the axis."""
+    A block's leaves split only when each of ``heads`` (an MLA block's
+    heads, a Mamba2 block's SSD heads; none for the other blocks, a GQA
+    attention block's included) divides over the axis."""
     if model == 1 or name not in TP_LEAVES.get(block, ()):
         return None
     if any(h % model for h in heads):
@@ -339,14 +342,14 @@ def cache_specs(caches, axis_sizes: AxisSizes):
     caches, without the leading repeat axis.
 
     ``models.model.init_cache`` allocates a rank's part by these specs,
-    but for three entries: a batch-1 Mamba2 state keeps its heads
-    (dim 1) whole over the data axes and cuts them, not ``p``, over
-    ``model``; a conv tail cuts the rank's ``x`` channels with all of
-    ``B`` and ``C``; and where the KV heads do not divide over
-    ``model`` the port runs the block whole and keeps dim 1 whole over
-    ``model`` (ROADMAP §3). The batch-1 sequence cut over the data axes
-    (``layers.ContextSplit``), the KV heads and the MLA latent's last
-    dimension over ``model`` (``layers.latent_ways``) are the specs'."""
+    but for two entries: a batch-1 Mamba2 state keeps its heads (dim 1)
+    whole over the data axes and cuts them, not ``p``, over ``model``;
+    a conv tail cuts the rank's ``x`` channels with all of ``B`` and
+    ``C`` (ROADMAP §3). The batch-1 sequence cut over the data axes, the
+    sequence cut over ``model`` where the KV heads do not divide over it
+    (both ``layers.ContextSplit``, ``layers.cache_axis``), the KV heads
+    and the MLA latent's last dimension over ``model``
+    (``layers.latent_ways``) are the specs'."""
     baxes = batch_axes(axis_sizes)
     bsize = _axis_size(axis_sizes, baxes)
     msize = axis_sizes["model"]

@@ -24,13 +24,23 @@ collective out, each in a ``torch.autograd.Function``:
   ``norm_sum`` for a sum of squares over split units (Mamba2's gated
   RMSNorm over ``d_inner``): the sum over the axis both ways.
 
+A GQA block whose KV heads do not divide over the axis runs
+context-parallel (``Plan.cp``, the reference's route where ``KV % M !=
+0``): its leaves are cut as the partition rules cut them (``wq``,
+``wk``, ``wv`` columns, ``wo`` rows), each rank computes its column
+block of q, k and v, ``to_rows`` exchanges q into the rank's ``S/M``
+rows of every head (an all-to-all; its backward is the inverse one),
+``gather_dim`` gathers k and v over their columns, and ``to_columns``
+returns the rows' output to its column block before ``wo``'s rows
+(``models.layers.attn_block``).
+
 With the ``seq_shard_residual`` hint (``ModelContext.seq_parallel``) the
 residual between blocks is each rank's ``S/M`` positions ``[B, S/M,
 d]``: ``enter`` then gathers the sequence (its backward
 reduce-scatters) and ``leave`` reduce-scatters it (its backward
 gathers); MLA gathers at the block's input (``gather_seq``) and
-``share`` copies nothing. A block that stays whole (its heads do not
-divide over the axis) gathers the sequence, runs whole and keeps its
+``share`` copies nothing. A block that stays whole (Mamba2 heads that do
+not divide over the axis) gathers the sequence, runs whole and keeps its
 rank's positions (``gather_seq``, ``slice_seq``). Each rank then sees
 the leaves that are not split (the norms, the routers, MLA's and
 Mamba2's whole leaves, a whole block's) through its own positions or
@@ -51,7 +61,8 @@ target logit over the axis, so ``[B, S, Vp]`` is never formed whole.
 Over an axis of one rank (a world of one, no mesh, the dry-run's
 ``launch.mesh.RankMesh`` of a 1 x 1 mesh, or the ``no_tp`` hint) nothing
 splits and no collective runs. Every collective is one of
-``all_reduce``, ``all_gather`` and ``reduce_scatter``, through
+``all_reduce``, ``all_gather``, ``reduce_scatter`` and
+``all_to_all_single``, through
 ``distributed.collectives`` (counted, not run, over the dry-run's
 ``RankMesh``), which NCCL takes and gloo takes for CPU and CUDA tensors
 alike (``tools/probe_gloo_cuda.py``).
@@ -75,7 +86,9 @@ class Plan:
     """What a context splits of a config's blocks: ``ways`` ranks on the
     model axis (1: nothing), this rank's index ``rank`` and the axis's
     ``group``; whether the GQA self- and cross-attention blocks
-    (``attn``, the MTP layer's too), the MLA blocks (``mla``), the
+    (the MTP layer's too) split their heads (``attn``: their KV heads
+    divide over the axis) or run context-parallel (``cp``: their leaves
+    split, their KV heads do not divide), the MLA blocks (``mla``), the
     Mamba2 blocks' heads (``mamba``), the dense FFNs (``ffn``), the MoE
     layers' shared experts (``shared``) and the vocabulary leaves
     (``vocab``) split; and whether the residual is each rank's ``S/M``
@@ -84,6 +97,7 @@ class Plan:
     rank: int = 0
     group: Any = None
     attn: bool = False
+    cp: bool = False
     mla: bool = False
     mamba: bool = False
     ffn: bool = False
@@ -105,11 +119,11 @@ def ffn_width(cfg) -> int:
 
 def _heads(cfg, block: Optional[str]) -> Tuple[int, ...]:
     """The heads that must divide over the model axis for a block of kind
-    ``block`` to split (``sharding.split_dim``): an attention block's
-    query and KV heads, an MLA block's heads, a Mamba2 block's SSD
-    heads; none for the other blocks."""
-    return {"attn": (cfg.num_heads, cfg.num_kv_heads),
-            "mla": (cfg.num_heads,),
+    ``block`` to split (``sharding.split_dim``): an MLA block's heads, a
+    Mamba2 block's SSD heads; none for the other blocks. A GQA block's
+    leaves split wherever the partition rules' guard keeps them split,
+    its heads dividing or not (``Plan.cp``)."""
+    return {"mla": (cfg.num_heads,),
             "mamba": (cfg.ssm_heads,)}.get(block, ())
 
 
@@ -130,10 +144,18 @@ def plan(cfg, ctx) -> Plan:
     def splits(name, block, shape):
         return split_dim(name, block, shape, M, _heads(cfg, block)) \
             is not None
+    # the reference's route: heads split where the KV heads divide
+    # (``H`` is a multiple of ``KV``), else the rows
+    kv_heads = cfg.num_kv_heads % M == 0
+    attn = splits("wq", "attn", (d, H * hd))
+    if splits("wk", "attn", (d, cfg.num_kv_heads * hd)) != attn:
+        raise NotImplementedError(
+            f"{cfg.name}: the model axis of {M} splits one of wq "
+            f"({H * hd} columns) and wk ({cfg.num_kv_heads * hd}) only")
     out = Plan(
         ways=M, rank=ctx.mesh.get_local_rank(ctx.model_axis),
         group=ctx.mesh.get_group(ctx.model_axis),
-        attn=splits("wq", "attn", (d, H * hd)),
+        attn=attn and kv_heads, cp=attn and not kv_heads,
         mla=cfg.use_mla and splits("wo", "mla", (H * cfg.v_head_dim, d)),
         mamba=splits("out_proj", "mamba", (cfg.ssm_d_inner, d)),
         ffn=split_dim("w1", "ffn", (d, ffn_width(cfg)), M) is not None,
@@ -229,23 +251,65 @@ class _ScatterSeq(torch.autograd.Function):
         return C.all_gather(g, tp.group, 1), None
 
 
-class _SliceSeq(torch.autograd.Function):
-    """[B, S, ...], the same on every rank -> rank m's S/M positions;
-    backward: the gradient at those positions, zero elsewhere."""
+class _Slice(torch.autograd.Function):
+    """A tensor the same on every rank -> rank m's block along ``dim``
+    (``[B, S, ...] -> [B, S/M, ...]`` at dim 1); backward: the gradient
+    in that block, zero elsewhere."""
 
     @staticmethod
-    def forward(fctx, x, tp):
-        fctx.tp, fctx.seq = tp, x.shape[1]
-        n = x.shape[1] // tp.ways
-        return x[:, tp.rank * n:(tp.rank + 1) * n].contiguous()
+    def forward(fctx, x, tp, dim):
+        fctx.tp, fctx.dim, fctx.size = tp, dim, x.shape[dim]
+        n = x.shape[dim] // tp.ways
+        return x[(slice(None),) * dim +
+                 (slice(tp.rank * n, (tp.rank + 1) * n),)].contiguous()
 
     @staticmethod
     def backward(fctx, g):
-        tp = fctx.tp
-        out = g.new_zeros((g.shape[0], fctx.seq) + tuple(g.shape[2:]))
-        n = g.shape[1]
-        out[:, tp.rank * n:(tp.rank + 1) * n] = g
-        return out, None
+        tp, dim = fctx.tp, fctx.dim
+        shape = list(g.shape)
+        shape[dim] = fctx.size
+        out = g.new_zeros(shape)
+        n = g.shape[dim]
+        out[(slice(None),) * dim +
+            (slice(tp.rank * n, (tp.rank + 1) * n),)] = g
+        return out, None, None
+
+
+def _columns_to_rows(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """[B, S, c], this rank's columns of every row -> [B, S/M, M·c], every
+    rank's columns (in rank order) of this rank's S/M contiguous rows:
+    block j of the rows goes to rank j in one all-to-all."""
+    B, S, c = x.shape
+    M = tp.ways
+    send = x.reshape(B, M, S // M, c).movedim(1, 0).contiguous()
+    got = torch.empty_like(send)
+    C.all_to_all_single(got, send, tp.group)
+    return got.permute(1, 2, 0, 3).reshape(B, S // M, M * c)
+
+
+def _rows_to_columns(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """The inverse of ``_columns_to_rows``: [B, S/M, M·c] -> [B, S, c]."""
+    B, n, Mc = x.shape
+    M = tp.ways
+    send = x.reshape(B, n, M, Mc // M).permute(2, 0, 1, 3).contiguous()
+    got = torch.empty_like(send)
+    C.all_to_all_single(got, send, tp.group)
+    return got.movedim(0, 1).reshape(B, M * n, Mc // M)
+
+
+class _Exchange(torch.autograd.Function):
+    """``_columns_to_rows`` (``rows``) or ``_rows_to_columns``; backward:
+    the other, its adjoint."""
+
+    @staticmethod
+    def forward(fctx, x, tp, rows):
+        fctx.tp, fctx.rows = tp, rows
+        return (_columns_to_rows if rows else _rows_to_columns)(x, tp)
+
+    @staticmethod
+    def backward(fctx, g):
+        back = _rows_to_columns if fctx.rows else _columns_to_rows
+        return back(g, fctx.tp), None, None
 
 
 def enter(x: torch.Tensor, tp: Plan) -> torch.Tensor:
@@ -295,7 +359,27 @@ def norm_sum(x: torch.Tensor, tp: Plan) -> torch.Tensor:
 def slice_seq(x: torch.Tensor, tp: Plan) -> torch.Tensor:
     """Under ``tp.seq``, this rank's positions of a tensor that every rank
     holds whole; else ``x``."""
-    return _SliceSeq.apply(x, tp) if tp.seq else x
+    return _Slice.apply(x, tp, 1) if tp.seq else x
+
+
+def slice_dim(x: torch.Tensor, tp: Plan, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor that every rank holds
+    alike; backward: the gradient in that block, zero elsewhere (each
+    rank's consumer sees its block only)."""
+    return x if tp.ways == 1 else _Slice.apply(x, tp, dim)
+
+
+def to_rows(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """``[B, S, c]``, this rank's column block of every position -> ``[B,
+    S/M, M·c]``, every column of this rank's ``S/M`` contiguous positions
+    (one all-to-all; backward the inverse): the query rows of a
+    context-parallel attention."""
+    return x if tp.ways == 1 else _Exchange.apply(x, tp, True)
+
+
+def to_columns(x: torch.Tensor, tp: Plan) -> torch.Tensor:
+    """The inverse of ``to_rows``: ``[B, S/M, M·c] -> [B, S, c]``."""
+    return x if tp.ways == 1 else _Exchange.apply(x, tp, False)
 
 
 def seq_sum(x: torch.Tensor, tp: Plan) -> torch.Tensor:

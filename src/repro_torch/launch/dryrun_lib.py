@@ -106,7 +106,8 @@ units, vocabulary rows and experts over ``model``, its FSDP block over
 ``data``), its rows of the batch over the data axes (``local_rows``:
 every row where the batch does not divide, as the reference's
 ``batch_specs``), its caches by the port's heads (and by its rows of
-their sequence where the batch does not divide) and its rows of the
+their sequence where the batch does not divide over the data axes or
+the KV heads over ``model``) and its rows of the
 VLM's image embeddings. The step then runs as that rank runs it, and
 every collective it calls goes through ``distributed.collectives``:
 over the stand-in's ``CountedGroup`` nothing moves and the result is
@@ -136,10 +137,12 @@ its buffer of ``cap = ceil(T·k / E · capacity_factor)`` rows of the
 rank's tokens. A batch that does not divide over the data axes
 (``long_500k``'s 1) is replicated, and its attention caches are cut on
 the sequence over them, as the reference's ``cache_specs`` cuts them;
-the MLA latent cache is cut over the model axis as there. Where the
-port's layout is not the reference's (GQA heads that do not divide over
-the model axis run whole on every model rank; a batch-1 Mamba2 state is
-whole over the data axes), the port's is counted (ROADMAP §3).
+the MLA latent cache is cut over the model axis as there, and a GQA
+block whose KV heads do not divide over the model axis runs the
+reference's context-parallel attention (its leaves cut, its query rows
+split, its decode caches' sequence cut over ``model``). Where the port's
+layout is not the reference's (a batch-1 Mamba2 state is whole over the
+data axes), the port's is counted (ROADMAP §3).
 ``ctx_overrides`` may set ``moe_impl="dense"`` (the drop-free
 ``routed``, counted under even load, ``moe.expert_rows``) and
 ``capacity_factor``. ``long_500k`` for the full-attention archs (the
@@ -585,8 +588,9 @@ def _build(cfg: ModelConfig, shape: ShapeConfig, ctx: ModelContext, *,
     of ``ctx``'s mesh: its block of the parameters and of the training
     state (``convert.local_tp_keep``), its rows of the batch and of the
     VLM's image embeddings (``local_rows``) and its caches, by the port's
-    heads and, for a batch that does not divide over the data axes, its
-    rows of their sequence (``model.init_cache``)."""
+    heads and, for a batch that does not divide over the data axes or KV
+    heads that do not divide over the model axis, its rows of their
+    sequence (``model.init_cache``)."""
     keep = convert.local_tp_keep(cfg, ctx)
     local = dataclasses.replace(shape,
                                 global_batch=local_rows(shape.global_batch,

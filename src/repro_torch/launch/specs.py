@@ -51,7 +51,8 @@ def decode_inputs(cfg: ModelConfig, shape: ShapeConfig, *,
     """One new token against a cache of length shape.seq_len, written at
     the cache's last row; the caches of a rank of ``ctx``'s mesh
     (``model.init_cache``: its KV and Mamba2 heads where the model axis
-    splits them)."""
+    splits them, its rows of an attention cache's sequence where the KV
+    heads do not divide over it)."""
     B, S = shape.global_batch, shape.seq_len
     return _with_image_embeds(cfg, B, {
         "caches": model.init_cache(cfg, B, S, device=META, ctx=ctx),

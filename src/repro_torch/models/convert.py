@@ -117,7 +117,9 @@ def local_tp_params(params: Params, cfg: ModelConfig, ctx) -> Params:
     block on ``ctx``'s mesh (``tensor_parallel.layout``): over the model
     axis each split leaf cut to this rank's ``1/M`` along its split
     dimension (the heads' columns of ``wq``/``wk``/``wv`` and rows of
-    ``wo`` in self-, cross- and the MTP layer's attention, MLA's
+    ``wo`` in self-, cross- and the MTP layer's attention, or their
+    contiguous column and row blocks where the KV heads do not divide
+    over the axis, MLA's
     ``wq_b``/``wk_b``/``wv_b`` columns and ``wo`` rows, Mamba2's
     contiguous blocks of ``in_proj`` columns and conv channels and its
     ``out_proj`` rows, the FFN's and shared experts' hidden units, the

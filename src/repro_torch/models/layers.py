@@ -12,8 +12,9 @@ S, KV, D]``, caches ``[B, S_cache, KV, D]``.
 
 * ``Sq == 1`` (decode): one query row against the cache in float32 with
   ``kv_len`` masking, plain tensor ops; on a cache cut on the sequence
-  over ranks (``ContextSplit``) each rank's part of the softmax, merged
-  over them (``merge_softmax_parts``);
+  over ranks (``ContextSplit``: over the data axes for a batch of 1, over
+  the model axis for a context-parallel block) each rank's part of the
+  softmax, merged over them (``merge_softmax_parts``);
 * causal or full self-attention over a whole sequence on a CUDA device
   (``Sq == Skv``, offsets 0, no ``kv_len``, ``window == 0``, default
   scale, ``ctx.flash_kernel``): the hand-written flash kernel
@@ -25,7 +26,9 @@ S, KV, D]``, caches ``[B, S_cache, KV, D]``.
   ``vmem_flash`` scope (``named_scope``), as the reference's does:
   the dry-run (``launch.dryrun_lib``), which counts on ``meta`` tensors
   and so always takes this loop, can count the scope's ops as the flash
-  kernels move them.
+  kernels move them. A context-parallel block's rows (``attn_block``:
+  ``S/M`` queries at ``q_offset = rank · S/M`` against all ``S`` keys)
+  take this loop on the card too.
 
 A training call (grad enabled, inputs that require grad) takes the
 same route. On the card its forward is the same one kernel launch and
@@ -385,10 +388,41 @@ def merge_softmax_parts(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
 
 class ContextSplit(tuple):
     """An attention layer's decode cache ``(k, v)`` cut on its sequence
-    over the data axes (``models.model.init_cache`` where the batch does
-    not divide over them, the reference's ``cache_specs``): this data
-    rank's contiguous ``rows / D`` of the ring, whose global rows
-    ``attn_block`` writes and attends to (``context_cut``)."""
+    over the axis that ``axis`` names (the reference's ``cache_specs``):
+    the data axes (``"data"``, ``models.model.init_cache`` where the
+    batch does not divide over them) or the model axis (``"model"``,
+    ``ModelSplit``, where the KV heads do not divide over it): this
+    rank's contiguous ``rows / W`` of the ring of the axis's ``W``
+    ranks, whose global rows ``attn_block`` writes and attends to
+    (``context_cut``)."""
+    axis = "data"
+
+
+class ModelSplit(ContextSplit):
+    """A ``ContextSplit`` over the model axis."""
+    axis = "model"
+
+
+def context_split(pair, axis: str) -> ContextSplit:
+    """``pair`` as the ``ContextSplit`` over ``axis``."""
+    return (ModelSplit if axis == "model" else ContextSplit)(pair)
+
+
+def cache_axis(cfg, ctx, rows: int) -> Optional[str]:
+    """The axis over which an attention layer's decode cache of ``rows``
+    rows is cut on its sequence, as the reference's ``cache_specs`` cuts
+    it, or ``None`` (whole): the data axes where the batch is the same
+    on each of their ``D`` ranks (``context_ways``) and ``rows`` divides
+    over them; else the model axis where the block runs
+    context-parallel (``tensor_parallel.Plan.cp``) and ``rows`` divides
+    over it."""
+    D = context_ways(ctx)
+    if D > 1 and rows % D == 0:
+        return "data"
+    tp = TP.plan(cfg, ctx)
+    if tp.cp and rows % tp.ways == 0:
+        return "model"
+    return None
 
 
 def context_ways(ctx) -> int:
@@ -401,11 +435,26 @@ def context_ways(ctx) -> int:
     return ctx.data_axes_size
 
 
-def context_cut(ctx) -> Tuple[int, int, Tuple]:
-    """(D, this rank's index over the data axes, their groups): the cut
-    of a ``ContextSplit`` cache."""
+def context_cut(ctx, axis: str = "data") -> Tuple[int, int, Tuple]:
+    """(the ranks W, this rank's index, their groups) of ``axis``: the
+    cut of a ``ContextSplit`` cache over the data axes or the model
+    axis."""
+    if axis == "model":
+        return (ctx.tp_size, ctx.mesh.get_local_rank(ctx.model_axis),
+                tuple(data_parallel.model_groups(ctx)))
     return (ctx.data_axes_size, data_parallel.data_rank(ctx),
             tuple(data_parallel.data_groups(ctx)))
+
+
+def row_split(S: int, q_chunk: int, ways: int) -> bool:
+    """Whether a context-parallel attention over ``S`` query positions
+    splits its rows over ``ways`` ranks: where its q chunks (``attention``'s
+    ``nq``, one chunk when ``q_chunk`` does not divide ``S``) divide over
+    them, as the reference's guard keeps the ``"model"`` entry of its
+    chunk axis; elsewhere every rank attends with every row."""
+    q_chunk = min(q_chunk, S)
+    nq = 1 if S % q_chunk else S // q_chunk
+    return nq % ways == 0
 
 
 # --------------------------------------------------------------------------
@@ -476,29 +525,50 @@ def attn_block(
     enters the axis, the image embeddings are read as they are (whole on
     every rank, not sequence-split, no gradient), and the gate scales the
     output after the sum over the axis.
+
+    Where the KV heads do not divide over the axis the block runs
+    context-parallel (``Plan.cp``, the reference's route): each rank
+    holds its column blocks of ``wq``, ``wk``, ``wv`` (and biases) and
+    rows of ``wo``, computes its column blocks of q, k and v from the
+    whole sequence, gathers k and v over their columns
+    (``tensor_parallel.gather_dim``) and exchanges q into its ``S/M``
+    contiguous rows of every head (``tensor_parallel.to_rows``) where
+    the q chunks divide over the axis (``row_split``; elsewhere q is
+    gathered and every rank attends with every row). RoPE is applied
+    after the exchange (a column block may cut a head), and the rows
+    attend at ``q_offset = rank · S/M``, so ``attention`` takes its
+    chunked loop. The output returns to its column block
+    (``to_columns``, or this rank's columns of every row) and meets
+    ``wo``'s rows; ``leave`` sums it over the axis. A decode step gathers
+    q, k and v over their columns, writes the new position on the rank
+    that holds its row of a cache cut on the sequence over the model
+    axis (``ModelSplit``; at a batch of 1 the cache is cut over the data
+    axes instead and whole over ``model``), and merges each rank's part
+    of the softmax over the axis (``merge_softmax_parts``).
     """
     B, d = x.shape[0], x.shape[2]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cross = cross_kv is not None
     tp = TP.plan(cfg, ctx)
-    split = tp.attn
-    if split:
-        # this rank's heads
-        h, kv = h // tp.ways, kv // tp.ways
-        if p["wq"].shape[1] != h * hd or p["wk"].shape[1] != kv * hd:
+    split, cp = tp.attn, tp.cp
+    if split or cp:
+        # this rank's heads, or its column blocks of every head
+        want = (h * hd // tp.ways, kv * hd // tp.ways)
+        if split:
+            h, kv = h // tp.ways, kv // tp.ways
+        if (p["wq"].shape[1], p["wk"].shape[1]) != want:
             raise ValueError(
-                f"the attention leaves want this rank's {h} of "
-                f"{cfg.num_heads} heads (convert.local_tp_params), got "
-                f"wq {tuple(p['wq'].shape)}")
+                f"the attention leaves want this rank's {want} columns "
+                f"of wq and wk (convert.local_tp_params), got wq "
+                f"{tuple(p['wq'].shape)}, wk {tuple(p['wk'].shape)}")
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    # the whole sequence, on the model axis when the heads are split
-    xn = TP.enter(xn, tp) if split else TP.gather_seq(xn, tp)
+    # the whole sequence, on the model axis when the leaves are split
+    xn = TP.enter(xn, tp) if split or cp else TP.gather_seq(xn, tp)
     S = xn.shape[1]
 
     q = xn @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, h, hd)
     # the image embeddings are a batch input, whole on every rank and not
     # sequence-split: no gradient flows into them, so they need no copy
     # onto the axis (``enter`` would gather their image-token axis)
@@ -507,31 +577,40 @@ def attn_block(
     v = kv_src @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
+    # a context-parallel block's rows: this rank's S/M from r0, or all
+    rows = cp and row_split(S, ctx.q_chunk, tp.ways)
+    r0 = tp.rank * (S // tp.ways) if rows else 0
+    if cp:
+        k, v = TP.gather_dim(k, tp, 2), TP.gather_dim(v, tp, 2)
+        q = TP.to_rows(q, tp) if rows else TP.gather_dim(q, tp, 2)
+    Sq = q.shape[1]
+    q = q.reshape(B, Sq, h, hd)
     k = k.reshape(B, kv_src.shape[1], kv, hd)
     v = v.reshape(B, kv_src.shape[1], kv, hd)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if not cross:
-        q = apply_rope(q, positions, cfg.rope_theta)
+        q = apply_rope(q, positions[..., r0:r0 + Sq], cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cross:
-        out = attention(q, k, v, causal=False, window=0, q_chunk=ctx.q_chunk,
-                        k_chunk=ctx.k_chunk, use_kernel=ctx.flash_kernel)
+        out = attention(q, k, v, causal=False, window=0, q_offset=r0,
+                        q_chunk=ctx.q_chunk, k_chunk=ctx.k_chunk,
+                        use_kernel=ctx.flash_kernel)
     elif cache is not None:
         k_cache, v_cache = cache
         # a cache cut on the sequence: this rank's rows lo..lo + n of the
-        # ring's D·n; a row another rank holds is written there
+        # ring's W·n; a row another rank holds is written there
         n, lo, groups = k_cache.shape[1], 0, ()
         s_cache = n
         if isinstance(cache, ContextSplit):
             if S != 1:
                 raise ValueError(f"a cache cut on the sequence takes one "
                                  f"position a step, got {S}")
-            D, dr, groups = context_cut(ctx)
-            s_cache, lo = D * n, dr * n
+            W, r, groups = context_cut(ctx, cache.axis)
+            s_cache, lo = W * n, r * n
         wpos = cache_pos % s_cache      # ring position for windowed caches
         if lo <= wpos < lo + n:
             k_cache[:, wpos - lo:wpos - lo + S] = k.to(k_cache.dtype)
@@ -543,15 +622,19 @@ def attn_block(
                         k_chunk=ctx.k_chunk, use_kernel=ctx.flash_kernel,
                         kv_groups=groups)
     else:
-        out = attention(q, k, v, causal=True, window=window,
+        out = attention(q, k, v, causal=True, window=window, q_offset=r0,
                         q_chunk=ctx.q_chunk, k_chunk=ctx.k_chunk,
                         skip_noncausal=ctx.attn_skip_noncausal,
                         use_kernel=ctx.flash_kernel)
 
-    y = out.reshape(B, S, h * hd) @ p["wo"]
+    out = out.reshape(B, Sq, h * hd)
+    if cp:
+        # back to this rank's column block of every position
+        out = TP.to_columns(out, tp) if rows else TP.slice_dim(out, tp, 2)
+    y = out @ p["wo"]
     # back to the residual's layout: summed over the model axis when the
-    # heads are split, this rank's positions of a whole block's output
-    y = TP.leave(y, tp) if split else TP.slice_seq(y, tp)
+    # leaves are split, this rank's positions of a whole block's output
+    y = TP.leave(y, tp) if split or cp else TP.slice_seq(y, tp)
     if cross:
         y = torch.tanh(p["gate"].float()).to(y.dtype) * y
     elif return_kv:

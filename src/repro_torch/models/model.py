@@ -8,7 +8,9 @@ Port of the reference's ``models/model.py`` (``init`` ``:55``,
 ``:295``, ``decode_step`` ``:329``). On a context whose model axis
 splits the leaves (``distributed.tensor_parallel``) each rank holds its
 share of the heads (GQA, cross-attention, MLA, Mamba2's SSD, the MTP
-layer's), FFN hidden units and vocabulary rows
+layer's; a GQA block whose KV heads do not divide over the axis its
+column blocks, and it attends with its rows of the queries), FFN hidden
+units and vocabulary rows
 (``convert.local_tp_params``): the embedding is looked up where each
 token's row lives, and the logits, gathered over the vocabulary, are
 the same on every rank; ``forward`` under the ``seq_shard_residual``
@@ -49,8 +51,10 @@ audio family's ``num_codebooks`` belongs to its frontend; the model does
 not read it, as in the reference.
 
 Caches are a list with one entry per application: an attention layer's
-``(k, v)``, each ``[B, rows, KV, head_dim]``, which ``decode_step``
-writes IN PLACE (each application of a shared layer keeps its own); an
+``(k, v)``, each ``[B, rows, KV, head_dim]`` (a rank's ``rows / W`` of
+them where ``init_cache`` cuts the sequence over W ranks), which
+``decode_step`` writes IN PLACE (each application of a shared layer
+keeps its own); an
 MLA layer's latent ``(c_kv [B, cache_len, kv_lora_rank], k_pe [B,
 cache_len, qk_rope_head_dim])``, also written in place; a Mamba2
 layer's ``(conv tail [B, K-1, C]`` in the model dtype, ``state [B,
@@ -460,17 +464,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     (conv tail, state) hold this rank's (``ssm.init_mamba_cache``); where
     it splits the MLA heads and divides both latent widths, the latent
     holds this rank's 1/M of its last dimension (``layers.latent_ways``).
-    Where the batch is the same on every one of D data ranks
-    (``ctx.batch_replicated``: it does not divide over them), each
-    attention layer's (k, v) whose rows divide over them holds this data
-    rank's contiguous ``rows / D`` of the sequence, a
-    ``layers.ContextSplit``; the Mamba2 state stays whole over the data
-    axes (the reference cuts its heads there, ROADMAP §3)."""
+    An attention layer's (k, v) may be cut on the sequence instead
+    (``layers.cache_axis``), each rank holding its contiguous ``rows /
+    W`` of the ring, a ``layers.ContextSplit``: over the D data ranks
+    where the batch is the same on every one of them
+    (``ctx.batch_replicated``: it does not divide over them), else over
+    the M model ranks where the attention runs context-parallel (its KV
+    heads do not divide over them). The Mamba2 state stays whole over
+    the data axes (the reference cuts its heads there, ROADMAP §3)."""
     dev = device or current_device()
     tp = TP.plan(cfg, ctx)
     kv = cfg.num_kv_heads // tp.ways if tp.attn else cfg.num_kv_heads
     lat = L.latent_ways(cfg, tp)
-    D = L.context_ways(ctx)
     dt = getattr(torch, cfg.dtype)
     caches: Cache = []
     for spec in layer_specs(cfg):
@@ -488,11 +493,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                 (batch, rows, n // lat), dtype=dt, device=dev)
                 for n in (cfg.kv_lora_rank, cfg.qk_rope_head_dim)))
             continue
-        cut = D > 1 and rows % D == 0
-        shape = (batch, rows // D if cut else rows, kv, cfg.head_dim)
+        axis = L.cache_axis(cfg, ctx, rows)
+        W = L.context_cut(ctx, axis)[0] if axis else 1
+        shape = (batch, rows // W, kv, cfg.head_dim)
         pair = tuple(torch.zeros(shape, dtype=dt, device=dev)
                      for _ in range(2))
-        caches.append(L.ContextSplit(pair) if cut else pair)
+        caches.append(L.context_split(pair, axis) if axis else pair)
     return caches
 
 
@@ -503,8 +509,9 @@ def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int,
     of the prompt goes to row ``t % rows``, so a sliding-window layer
     keeps the prompt's last ``rows`` positions on the ring
     ``decode_step`` writes. Where ``init_cache`` cuts an attention
-    layer's (k, v) on the sequence (``ctx.batch_replicated``), this data
-    rank's rows of that ring, a ``layers.ContextSplit``. A Mamba2 layer's (tail, state) -> the tail
+    layer's (k, v) on the sequence (``layers.cache_axis``: over the data
+    axes or the model axis), this rank's rows of that ring, a
+    ``layers.ContextSplit``. A Mamba2 layer's (tail, state) -> the tail
     in the model dtype and the state; a cross-attention layer's () stays
     ()."""
     dt = getattr(torch, cfg.dtype)
@@ -524,11 +531,13 @@ def _fold_prefill_cache(spec: LayerSpec, raw, cfg, cache_len: int,
             out[:, :keep - head] = t[:, S - keep + head:]
         return out
     folded = tuple(ring(t) for t in raw)
-    D = L.context_ways(ctx) if folded and spec.kind != "mla" else 1
-    if D > 1 and rows % D == 0:
-        n, d = rows // D, L.context_cut(ctx)[1]
-        return L.ContextSplit(t[:, d * n:(d + 1) * n].clone()
-                              for t in folded)
+    axis = L.cache_axis(cfg, ctx, rows) if folded and spec.kind != "mla" \
+        else None
+    if axis:
+        W, r, _ = L.context_cut(ctx, axis)
+        n = rows // W
+        return L.context_split(tuple(t[:, r * n:(r + 1) * n].clone()
+                                     for t in folded), axis)
     return folded
 
 

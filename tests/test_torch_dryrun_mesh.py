@@ -19,9 +19,12 @@ on 4 forced host devices, a ``(data, model)`` mesh with Auto axes (as
 cells here; their per-chip dot FLOPs (``hlo.analyze``) and argument
 bytes are held to the port's count, for the dense, MoE (``routed_ep``),
 MLA with MTP and Mamba2 families: equal, or off by the gaps that
-``_train_gap``, ``_whole_heads_gap``, ``_mla_gap`` and
-``_conv_tail_gap`` state (and, in an MLA train step, a residual within
-``_mla_train_bound``). The reference's collectives are not compared: its
+``_train_gap``, ``_mla_gap`` and ``_conv_tail_gap`` state (and, in an
+MLA train step, a residual within ``_mla_train_bound``). The dense
+smoke's 2 KV heads over a model axis of 4 run the reference's
+context-parallel attention (each rank its column blocks of the leaves
+and its rows of the queries, its rows of the decode caches' sequence):
+equal. The reference's collectives are not compared: its
 partitioner picks them (their kinds, counts and operands) where the
 port's layout names them (``PERF.md`` §7).
 """
@@ -55,8 +58,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMOKE = "qwen2-7b-smoke"
 ARCHS = (SMOKE, "deepseek-moe-16b-smoke", "deepseek-v3-671b-smoke",
          "mamba2-370m-smoke")
-#: (pod, data, model); pod 1 is a ("data", "model") mesh
-MESHES = ((1, 1, 2), (1, 2, 1), (1, 2, 2), (2, 1, 2))
+#: (pod, data, model); pod 1 is a ("data", "model") mesh; on (1, 1, 4)
+#: the GQA blocks' 2 KV heads do not divide: context-parallel
+MESHES = ((1, 1, 2), (1, 2, 1), (1, 2, 2), (2, 1, 2), (1, 1, 4))
 LIVE_SHAPES = (ShapeConfig("train_32", "train", 32, 4),
                ShapeConfig("prefill_32", "prefill", 32, 4))
 #: the MoE configs' capacity factor in the live cells: nothing drops
@@ -341,40 +345,6 @@ def test_depth_by_repeat_on_a_mesh_equals_the_unrolled_count(arch, layers,
 
 
 # ------------------------------------------- the reference's compiled cells
-def _whole_heads_gap(cfg, shape, D: int, M: int):
-    """(matmul FLOPs, argument bytes) that the port's rank has beyond the
-    reference's device where a GQA block's heads do not divide over the
-    model axis of M ranks: the port runs the block whole on every model
-    rank (``sharding.split_dim``), the reference splits its projections'
-    columns and the attention's rows M ways. Over the rank's B/D rows:
-    the projections P and the attention's QK^T and PV products Q of a
-    forward, each layer's, are computed (1 - 1/M) more (4 passes in a
-    train step: the forward, the remat recompute and the backward's
-    two), and a train step's reference computes Q once more, which is
-    1/M of it on a device (``_train_gap``); the block's leaves are held
-    whole, (1 - 1/M) of their bytes more (the parameters, and a train
-    step's two float32 moments), and a decode step's K/V caches, which
-    the reference cuts on the sequence (``cache_specs``)."""
-    B, S = shape.global_batch // D, shape.seq_len
-    T = B * (1 if shape.kind == "decode" else S)
-    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.head_dim
-    rows = 1 if shape.kind == "decode" else S
-    P = 2 * T * d * (H + 2 * KV) * hd + 2 * T * H * hd * d
-    Q = 2 * (2 * B * H * rows * S * hd)
-    L = cfg.num_layers
-    leaves = (2 * d * H * hd + 2 * d * KV * hd + H * hd + 2 * KV * hd) * 2
-    if shape.kind == "train":
-        flops = 4 * L * (P + Q) * (M - 1) // M - L * Q // M
-        nbytes = 5 * L * leaves * (M - 1) // M
-    else:
-        flops = L * (P + Q) * (M - 1) // M
-        nbytes = L * leaves * (M - 1) // M
-        if shape.kind == "decode":
-            nbytes += L * 2 * B * S * KV * hd * 2 * (M - 1) // M
-    return flops, nbytes
-
-
 def _train_gap(cfg, shape, D: int, M: int) -> int:
     """The matmul FLOPs a train step of the reference has beyond the
     port's (``tests/test_torch_dryrun.py``'s ``_train_gap``): its remat
@@ -497,12 +467,16 @@ def test_the_gaps_are_the_stated_numbers():
     assert _train_gap(mamba, SHAPES["train_4k"], 2, 2) == 2 ** 29
     assert _conv_tail_gap(mamba, SHAPES["decode_32k"], 2, 2) == \
         (32_768, 24_580)
-    assert _whole_heads_gap(cfg, SHAPES["prefill_32k"], 1, 4) == \
-        (26_465_588_477_952, 74_496)
-    assert _whole_heads_gap(cfg, SHAPES["decode_32k"], 1, 4) == \
-        (3_230_662_656, 1_610_687_232)
-    assert _whole_heads_gap(cfg, SHAPES["train_4k"], 1, 4) == \
-        (12_403_865_550_848, 372_480)
+    # the dense smoke's 2 KV heads over 4 ranks: context-parallel, every
+    # attention leaf cut, and the train step's gap the only one left
+    # (whole blocks on every model rank cost 2.6e13, 3.2e9 and 1.2e13
+    # matmul FLOPs a rank more in the prefill, decode and train cells)
+    ctx = sharding.make_context({"data": 1, "model": 4})
+    plan = TP.plan(cfg, ctx)
+    assert (plan.attn, plan.cp) == (False, True)
+    assert sum("/attn/" in n for n in TP.layout(cfg, ctx)) == \
+        7 * cfg.num_layers
+    assert _train_gap(cfg, SHAPES["train_4k"], 1, 4) == 1_099_511_627_776
 
 
 def _cell_id(c):
@@ -514,8 +488,8 @@ def _cell_id(c):
 def test_the_count_against_the_references_compiled_cell(worlds, cell):
     """The rank at the origin against the reference's device 0, dot FLOPs
     and argument bytes. GQA heads that divide over the model axis (4/2
-    over 2): equal, but for the train step's ``_train_gap``; that do not
-    (over 4): off by ``_whole_heads_gap``. ``routed_ep``'s MoE: as the
+    over 2) and that do not (over 4, context-parallel): equal, but for
+    the train step's ``_train_gap``. ``routed_ep``'s MoE: as the
     dense. MLA with MTP: off by ``_mla_gap`` in a prefill or decode step;
     its train step's arguments equal, its FLOPs those of the reference
     less ``_train_gap``, plus at most ``_mla_train_bound``. Mamba2: equal
@@ -538,8 +512,6 @@ def test_the_count_against_the_references_compiled_cell(worlds, cell):
             if sh.kind == "decode" else (0, 0)
         if sh.kind == "train":
             gap = -_train_gap(cfg, sh, D, M)
-    elif cfg.num_heads % M or cfg.num_kv_heads % M:
-        gap, nbytes_gap = _whole_heads_gap(cfg, sh, D, M)
     else:
         gap, nbytes_gap = (-_train_gap(cfg, sh, D, M)
                            if sh.kind == "train" else 0), 0
@@ -586,9 +558,9 @@ def test_the_references_collectives_are_its_partitioners(worlds):
 # -------------------------------------------------- the multi-pod mesh
 def test_a_full_width_multi_pod_cell():
     """``qwen2-7b`` x ``decode_32k`` on the 2 x 16 x 16 mesh: 4 rows a
-    rank, its FFN and vocabulary 1/16, its 28/4 heads whole (they do not
-    divide over 16), every FSDP leaf 1/16 over ``data``; the whole KV
-    cache of its rows."""
+    rank, its FFN, vocabulary and attention leaves 1/16 (its 4 KV heads
+    do not divide over 16: context-parallel), every FSDP leaf 1/16 over
+    ``data``; 1/16 of its rows' KV cache, cut on the sequence."""
     rec = dryrun_lib.run_cell("qwen2-7b", "decode_32k", multi_pod=True)
     assert rec["status"] == "ok", rec.get("error")
     assert rec["mesh"] == {"pod": 2, "data": 16, "model": 16}
@@ -598,7 +570,8 @@ def test_a_full_width_multi_pod_cell():
     B = 128 // 32
     params = tree.flatten_with_names(model.init(ShapesOnly(), cfg))
     caches = cfg.num_layers * 2 * B * 32768 * cfg.num_kv_heads * \
-        cfg.head_dim * 2
+        cfg.head_dim * 2 // 16
+    assert TP.plan(cfg, ctx).cp
     assert rec["memory"]["argument_bytes"] == \
         _layout_bytes(cfg, ctx, params) + caches + B * 4 + 4
     assert rec["roofline"]["collective_s"] > 0

@@ -18,8 +18,10 @@ block); rank ``(d, m)`` is held to the reference's rows of data shard
 shards at ``(d, m)``. Inputs come from numpy seeds; the reference's
 parameters and states reach the port through ``models.convert``.
 
-Configs: ``qwen2-7b-smoke`` (4 heads over 2 KV heads: split at M 2, whole
-attention at M 4, where the reference partitions the q rows instead), an
+Configs: ``qwen2-7b-smoke`` (4 heads over 2 KV heads: split at M 2,
+context-parallel at M 4 as the reference partitions it: every attention
+leaf cut, the q rows split over the ranks, ``dense-1x4`` and
+``dense-1x4-seq``), an
 8-head/4-KV variant of it (split at M 4), ``deepseek-moe-16b-smoke``
 (attention and shared experts split, experts through ``routed_ep``),
 ``deepseek-v3-671b-smoke`` (MLA and MTP) and ``mamba2-370m-smoke`` on a
@@ -119,7 +121,8 @@ TRAIN = {
     "dense-2x2-microbatch": (DENSE, {}, 2, 2, {}, {"microbatch": 2}),
     "dense-1x2-seq": (DENSE, {}, 1, 2, SEQ, {}),
     "dense-2x2-seq": (DENSE, {}, 2, 2, SEQ, {}),
-    # KV 2 over 4: whole attention on the sequence-split residual
+    # KV 2 over 4: context-parallel attention on the sequence-split
+    # residual
     "dense-1x4-seq": (DENSE, {}, 1, 4, SEQ, {}),
     "dense-1x2-notp": (DENSE, {}, 1, 2, NO_TP, {}),
     "dense-2x2-notp": (DENSE, {}, 2, 2, NO_TP, {}),
@@ -724,13 +727,17 @@ def test_fsdp_dim_follows_the_rules_and_divisibility():
 def test_split_dim_follows_the_rules_and_the_heads():
     """``split_dim`` reads the model-axis entry of the reference's rule,
     guarded by divisibility, for the leaves of the blocks it names; an
-    attention block splits only when its query and KV heads both
-    divide."""
+    MLA or Mamba2 block splits only when its heads divide, a GQA block
+    wherever the guard keeps its entry (KV heads that do not divide run
+    context-parallel)."""
     cases = [
         (("wq", "attn", (64, 64), 2, (4, 2)), 1),
         (("bk", "attn", (32,), 2, (4, 2)), 0),
         (("wo", "attn", (64, 64), 2, (4, 2)), 0),
-        (("wq", "attn", (64, 64), 4, (4, 2)), None),    # KV 2 over 4
+        (("wq", "attn", (64, 64), 4), 1),                # KV 2 over 4
+        (("wk", "attn", (64, 32), 4), 1),
+        (("wo", "attn", (64, 64), 16), 0),               # 4 heads over 16
+        (("wk", "attn", (64, 32), 64), None),            # 32 over 64
         (("w1", "ffn", (64, 128), 4), 1),
         (("w2", "ffn", (128, 64), 4), 0),
         (("w2", "ffn", (6, 64), 4), None),               # 6 over 4
@@ -769,7 +776,8 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
     ``engine.generate``'s greedy ids equal the reference's in float32:
     the same on every rank. The KV cache holds each rank's KV heads where
     the heads split; at (1, 4) the smoke's 2 KV heads do not divide, and
-    its attention stays whole with the same values. On a data axis of two
+    its attention runs context-parallel (every leaf cut, the q rows split;
+    a cache of 19 rows does not divide over 4: whole). On a data axis of two
     ranks each rank holds its FSDP block of the d_model rows and gathers
     each layer in prefill and decode."""
     ref, per_rank, _, _ = runs
@@ -779,8 +787,8 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
     want, want_ids = ref[f"serve|{case}|logits"], ref[f"serve|{case}|ids"]
     tol = TOL32 if dtype == "float32" else TOL_BF16
     cfg = dataclasses.replace(get_config(arch), **over)
-    heads = cfg.num_kv_heads % M == 0 and cfg.num_heads % M == 0 \
-        and not hints.get("no_tp")
+    tp = M if not hints.get("no_tp") else 1
+    heads = cfg.num_kv_heads % tp == 0
     for r in got:
         rows = r[f"serve|{case}|rows"]
         w = want[rows]
@@ -793,12 +801,12 @@ def test_serving_matches_the_references_sharded_calls(runs, case):
             _check_family_layout(ref, r, case, cfg, D, M)
             continue
         shapes = _sub(r, f"serve|{case}|shape|")
-        kv = cfg.num_kv_heads // (M if heads else 1)
+        kv = cfg.num_kv_heads // (tp if heads else 1)
         assert tuple(r[f"serve|{case}|kv"])[2] == kv
         hd = cfg.head_dim
         # the data axis cuts wq's d_model rows (FSDP)
         assert tuple(shapes["layers/[0]/attn/wq"]) == (
-            cfg.d_model // D, cfg.num_heads * hd // (M if heads else 1))
+            cfg.d_model // D, cfg.num_heads * hd // tp)
         vp = cfg.padded_vocab_size // (1 if hints.get("no_tp") else M)
         assert tuple(shapes["embed"]) == (vp, cfg.d_model)
         assert tuple(shapes["unembed"]) == (cfg.d_model // D, vp)
